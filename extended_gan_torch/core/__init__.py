@@ -1,0 +1,5 @@
+"""Device selection."""
+
+from .device import resolve_device
+
+__all__ = ["resolve_device"]
