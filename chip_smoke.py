@@ -8,9 +8,12 @@ Phases, each fatal on failure (non-zero exit, no result line):
 1. build   - compile every kernel in ``extended_gan_torch/ops/csrc/`` with
              nvcc (one process per source, all at once) into build/kernels/.
 2. kernels - hold each kernel against its plain PyTorch version on the card
-             at the served shapes, all outputs at atol = rtol = 1e-5 (f32;
-             only the summation order over P differs), and time both with
-             CUDA events (median of 20 timed groups after warm-up).
+             and time both with CUDA events (median of 20 timed groups
+             after warm-up): K1 at the served shapes, all outputs at
+             atol = rtol = 1e-5 (f32; only the summation order over P
+             differs); K3 at the 18 DSC shapes of a final_smaatunet batch-32
+             forward and at the tiled TPU kernel's shape, at the
+             roundoff-scaled tolerance stated at DSC_TOL_UNITS.
 3. serve   - the served path as a user runs it: ``python -m
              extended_gan_torch.serve export`` of final_temp_conv (80x80) with
              --init-seed 0, ``ModelServer`` on the card behind the HTTP server
@@ -21,7 +24,16 @@ Phases, each fatal on failure (non-zero exit, no result line):
 4. forward - device time of one batch-32 forward of each served model, with
              the kernel and with the plain attention, and a profile of the
              80x80 forward (kernel time by name).
-5. report  - the ``kernels`` JSON line, the card's name and power limit, and
+5. train   - ``python -m extended_gan_torch.gat generate_experiment`` of
+             final_smaatunet (SmaAt-UNet, 20x20, K3 18 launches a forward)
+             and final_temp_conv (GAT3D, 80x80, K1 2 a forward), one epoch
+             on the synthetic fallback, outputs in a temporary directory:
+             finite losses and metrics, history.json and model.pt written
+             there, launches = per-forward count x forwards (eval included;
+             backwards launch nothing). Then, in process at batch 32, one
+             step's gradients and three train steps with the kernels
+             against the plain versions (exact f32), and ms per train step.
+6. report  - the ``kernels`` JSON line, the card's name and power limit, and
              the last line ``{"ok": true, "device": {...}}``.
 """
 
@@ -155,6 +167,132 @@ def phase_kernels():
     return rows, worst
 
 
+# K3's tolerance, per output element: 4 * sqrt(9 + CK) units of f32
+# roundoff (2^-24) times the sum of the absolute values of the terms that
+# element adds up (the plain version run on |x|, |dw|, |dwb|, |pw|, |pwb|).
+# An output sums 9 taps and then up to 2,048 products in another order than
+# the plain version, so their roundoff differs by about sqrt(terms) units of
+# the terms' scale; an indexing fault is off by the terms themselves.
+DSC_TOL_UNITS = 4 * 2.0**-24
+# the tiled TPU kernel's shape: _fits_vmem (dsconv.py:277-293) is false here
+DSC_TILED_SHAPE = (8, 80, 80, 128, 256, 64)
+# Training, kernel path against plain path, exact f32, the same weights and
+# batches. The two differ only in the kernels' summation order, which
+# train-mode BatchNorm over few samples amplifies (the SmaAt-UNet), and Adam
+# turns a gradient that is zero up to roundoff into a step of lr either way.
+# So the gradients (and the SGD updates) are held to 10x what roundoff alone
+# does to them, measured in the same run by perturbing the plain path's
+# input by one part in 1e7, or to 1e-4 of the largest entry if that is more.
+TRAIN_LR = 1e-3
+TRAIN_LOSS_TOL = 1e-4  # per-step losses, relative
+TRAIN_GRAD_FLOOR, TRAIN_SENS_FACTOR = 1e-4, 10
+ADAM_NEAR, ADAM_NEAR_SHARE = 1e-5, 0.99  # GAT3D, Adam: share of entries
+
+
+def smaatunet_dsc_shapes(batch=32, hw=20, vertices=6):
+    """(N, H, W, C, CK, Cout) of every DSC launch of one final_smaatunet
+    forward, read off the port's model by forward pre-hooks (plain path)."""
+    import torch
+
+    from extended_gan_torch.models.registry import build_model
+    from extended_gan_torch.models.smaat_unet import DepthwiseSeparableConv
+
+    model = build_model("unet", image_width=hw, image_height=hw,
+                        n_vertices=vertices, mapping_type="linear",
+                        use_pallas=False)
+    shapes = []
+
+    def record(mod, args):
+        n, c, h, w = args[0].shape
+        shapes.append((n, h, w, c, mod.depthwise_weight.shape[0],
+                       mod.pointwise_weight.shape[0]))
+
+    hooks = [m.register_forward_pre_hook(record) for m in model.modules()
+             if isinstance(m, DepthwiseSeparableConv)]
+    with torch.no_grad():
+        model(torch.rand(batch, hw, hw, 4, vertices, device="cuda"))
+    for h in hooks:
+        h.remove()
+    return shapes
+
+
+def dsc_bound(n, h, w, c, ck, cout):
+    """(bound_ms, bound_by): each input read once, the output written once;
+    2 * N*H*W * CK * (9 + Cout) f32 operations."""
+    nbytes = 4 * (n * h * w * (c + cout) + 10 * ck + ck * cout + cout)
+    flops = 2 * n * h * w * ck * (9 + cout)
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / F32_FLOP_PER_S
+    return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops \
+        else "operations"
+
+
+def phase_dsconv():
+    """K3 against reference_dsc at the 18 DSC shapes of a final_smaatunet
+    batch-32 forward and at the tiled TPU kernel's shape; times the kernel,
+    the plain version and, as a yardstick only, cuDNN's pair of convs."""
+    import math
+
+    import torch
+    import torch.nn.functional as F
+
+    from extended_gan_torch.ops import dsconv as k3
+
+    dev = torch.device("cuda")
+    shapes = smaatunet_dsc_shapes()
+    check(len(shapes) == 18, f"{len(shapes)} DSC launches a forward, not 18")
+    rows, worst = [], 0.0
+    for i, shape in enumerate(shapes + [DSC_TILED_SHAPE]):
+        n, h, w, c, ck, cout = shape
+        gen = torch.Generator(device=dev).manual_seed(i)
+        x = torch.randn(n, h, w, c, device=dev, generator=gen)
+        dw = torch.randn(3, 3, ck, device=dev, generator=gen) / 3
+        dwb = torch.randn(ck, device=dev, generator=gen)
+        pw = torch.randn(ck, cout, device=dev, generator=gen) / math.sqrt(ck)
+        pwb = torch.randn(cout, device=dev, generator=gen)
+        args = (x, dw, dwb, pw, pwb)
+        with torch.no_grad():
+            got = k3.fused_dsconv(*args)
+            want = k3.reference_dsc(*args)
+            scale = k3.reference_dsc(*(t.abs() for t in args))
+        torch.cuda.synchronize()
+        err = (got - want).abs()
+        tol = DSC_TOL_UNITS * math.sqrt(9 + ck) * scale
+        where = "tiled-variant shape" if shape == DSC_TILED_SHAPE \
+            else f"final_smaatunet launch {i}"
+        check(got.shape == want.shape, f"K3 shape {got.shape} at {shape}")
+        check(bool((err <= tol).all()),
+              f"K3 disagrees with reference_dsc at {where} {shape}: max abs "
+              f"err {err.max().item():.3e}, worst err/tol "
+              f"{(err / tol).max().item():.3f}")
+        worst = max(worst, err.max().item())
+        xc = x.permute(0, 3, 1, 2)  # NCHW view, channels-last memory
+        wd = dw.permute(2, 0, 1)[:, None].contiguous()  # (CK, 1, 3, 3)
+        wp = pw.t()[:, :, None, None].contiguous()  # (Cout, CK, 1, 1)
+        with torch.no_grad():
+            kms = time_ms(lambda: k3.fused_dsconv(*args))
+            pms = time_ms(lambda: k3.reference_dsc(*args))
+            cms = time_ms(lambda: F.conv2d(
+                F.conv2d(xc, wd, dwb, padding=1, groups=c), wp, pwb))
+        bound, by = dsc_bound(*shape)
+        rows.append(dict(shape=shape, where=where, max_abs_err=err.max().item(),
+                         kernel_ms=kms, plain_ms=pms, cudnn_pair_ms=cms,
+                         bound_ms=bound, bound_by=by,
+                         gflop=2 * n * h * w * ck * (9 + cout) / 1e9))
+        print(f"[kernel] dsconv_fwd {where} N={n} {h}x{w} C={c} CK={ck} "
+              f"Cout={cout}: max_abs_err={err.max().item():.3e} "
+              f"(worst err/tol {(err / tol).max().item():.3f}) "
+              f"kernel={kms:.4f} ms plain={pms:.4f} ms bound={bound:.4f} ms "
+              f"({by}) cuDNN pair={cms:.4f} ms")
+    main = [r for r in rows if r["where"] != "tiled-variant shape"]
+    print(f"[kernel] dsconv_fwd over one final_smaatunet b=32 forward (18 "
+          f"launches): kernel {sum(r['kernel_ms'] for r in main):.4f} ms, "
+          f"plain {sum(r['plain_ms'] for r in main):.4f} ms, bound "
+          f"{sum(r['bound_ms'] for r in main):.4f} ms, cuDNN pair "
+          f"{sum(r['cudnn_pair_ms'] for r in main):.4f} ms, "
+          f"{sum(r['gflop'] for r in main):.2f} GFLOP")
+    return rows, worst
+
+
 def _post(url, x):
     import numpy as np
 
@@ -282,17 +420,27 @@ def phase_forward(models, batch=32):
     served, _ = models["final_temp_conv"]
     model = served.model
     x = torch.rand(batch, *served.window_shape, device="cuda")
+    with torch.inference_mode():
+        profile_window(lambda: model(x), f"final_temp_conv b={batch}",
+                       "forward")
+
+
+def profile_window(fn, label, unit, n=5, top=10):
+    """Profile ``n`` calls of ``fn`` after one warm-up: device busy time a
+    call, its share of the wall-clock window, and the top kernels by
+    device time."""
+    import torch
+
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
-    with torch.inference_mode():
-        model(x)
+    fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fn()
         torch.cuda.synchronize()
-        with torch.profiler.profile(activities=acts) as prof:
-            t0 = time.perf_counter()
-            for _ in range(5):
-                model(x)
-            torch.cuda.synchronize()
-            wall_us = (time.perf_counter() - t0) * 1e6
+        wall_us = (time.perf_counter() - t0) * 1e6
 
     def dev_us(e):
         return getattr(e, "self_device_time_total",
@@ -305,12 +453,244 @@ def phase_forward(models, batch=32):
     if not busy:
         print("[profile] the profiler recorded no device time: not measured")
         return
-    print(f"[profile] final_temp_conv b={batch}, 5 forwards: device busy "
-          f"{busy / 5 / 1e3:.4f} ms a forward, {100 * busy / wall_us:.1f}% of "
-          f"{wall_us / 5 / 1e3:.4f} ms wall")
-    for e in sorted(events, key=dev_us, reverse=True)[:10]:
+    print(f"[profile] {label}, {n} {unit}s: device busy "
+          f"{busy / n / 1e3:.4f} ms a {unit}, {100 * busy / wall_us:.1f}% of "
+          f"{wall_us / n / 1e3:.4f} ms wall, "
+          f"{sum(e.count for e in events) // n} kernels a {unit}")
+    for e in sorted(events, key=dev_us, reverse=True)[:top]:
         print(f"[profile]   {100 * dev_us(e) / busy:5.1f}%  "
-              f"{dev_us(e) / 5 / 1e3:.4f} ms  x{e.count // 5}  {e.key[:90]}")
+              f"{dev_us(e) / n / 1e3:.4f} ms  x{e.count // n}  {e.key[:90]}")
+
+
+def _finite(values):
+    import math
+
+    return all(math.isfinite(v) for v in values)
+
+
+def compare_train_steps(model_type, mapping_type, hw, opt_name, kernel,
+                        per_forward, batch=32, steps=3):
+    """One step's gradients and three train steps with the kernel and with
+    the plain version, from the same weights on the same batches (exact
+    f32: TF32 off), then the step time of each path and a profile of the
+    kernel path's step."""
+    import numpy as np
+    import torch
+
+    from extended_gan_torch.models.registry import build_model
+    from extended_gan_torch.train.gat_trainer import (
+        make_gat_train_step,
+        to_device_batch,
+    )
+    from extended_gan_torch.train.optim import make_optimizer
+
+    dev = torch.device("cuda")
+    kw = dict(image_width=hw, image_height=hw, n_vertices=6,
+              mapping_type=mapping_type)
+    fused = build_model(model_type, generator=torch.Generator().manual_seed(0),
+                        **kw)
+    plain = build_model(model_type, use_pallas=False, **kw)
+    plain.load_state_dict(fused.state_dict())
+    init = {k: v.clone() for k, v in fused.state_dict().items()}
+    pairs = [(m, make_optimizer(opt_name, m.parameters(), TRAIN_LR,
+                                weight_decay=0.01)) for m in (fused, plain)]
+    step_fns = [make_gat_train_step(m, o) for m, o in pairs]
+    rng = np.random.default_rng(0)
+    batches = [to_device_batch(rng.random((batch, hw, hw, 4, 6), np.float32),
+                               rng.random((batch, hw, hw, 4, 6), np.float32),
+                               dev) for _ in range(steps)]
+    with torch.backends.cudnn.flags(enabled=True, allow_tf32=False):
+        # one step's gradients, before any update: the kernel path, the
+        # plain path, and the plain path on the input perturbed by one part
+        # in 1e7 (about one f32 rounding), which measures how far roundoff
+        # alone moves them
+        grads = []
+        noise = 1 + 1e-7 * torch.randn(
+            batches[0][0].shape,
+            generator=torch.Generator().manual_seed(1)).to(batches[0][0].device)
+        for model, x in ((fused, batches[0][0]), (plain, batches[0][0]),
+                         (plain, batches[0][0] * noise)):
+            model.train().zero_grad()
+            y_hat = model(x)
+            ((y_hat - batches[0][1]) ** 2).mean().backward()
+            grads.append({n: p.grad.clone() for n, p in model.named_parameters()})
+            model.zero_grad()
+        for model in (fused, plain):  # undo the BN statistics' updates
+            model.load_state_dict(init)
+        launches0 = kernel.launch_count
+        losses = [[float(fn(*b)[0]) for fn in step_fns] for b in batches]
+        launched = kernel.launch_count - launches0
+    check(launched == per_forward * steps,
+          f"{model_type}: {launched} launches for {steps} kernel-path steps, "
+          f"expected {per_forward} a step")
+    # one step's gradients: the worst gap of any tensor, in units of the
+    # model's largest gradient entry (the per-tensor worst is printed too:
+    # train-mode BatchNorm amplifies roundoff in small tensors)
+    largest = max(g.abs().max().item() for g in grads[1].values())
+    gaps = {n: ((g - grads[1][n]).abs().max().item(),
+                grads[1][n].abs().max().item()) for n, g in grads[0].items()}
+    grad_err = max(d for d, _ in gaps.values()) / largest
+    sens = max((g - grads[1][n]).abs().max().item()
+               for n, g in grads[2].items()) / largest
+    worst_name = max(gaps, key=lambda n: gaps[n][0] / max(gaps[n][1], 1e-30))
+    tensor_err = gaps[worst_name][0] / max(gaps[worst_name][1], 1e-30)
+    grad_tol = max(TRAIN_GRAD_FLOOR, TRAIN_SENS_FACTOR * sens)
+    check(grad_err <= grad_tol,
+          f"{model_type}: one step's gradients, kernel path against plain, "
+          f"differ by {grad_err:.3e} of the largest entry (limit "
+          f"{grad_tol:.3e}; roundoff alone moves them {sens:.3e})")
+    loss_err = max(abs(a - b) / abs(b) for a, b in losses)
+    check(_finite(v for pair in losses for v in pair), f"losses {losses}")
+    check(loss_err <= TRAIN_LOSS_TOL,
+          f"{model_type}: per-step losses {losses} differ by {loss_err:.3e}")
+    got, want = fused.state_dict(), plain.state_dict()
+    near = total = 0
+    param_err = 0.0
+    largest_update = max((w - init[n]).abs().max().item()
+                         for n, w in want.items()
+                         if not n.endswith("num_batches_tracked"))
+    for name, w in want.items():
+        if name.endswith("num_batches_tracked"):
+            continue
+        diff = (got[name] - w).abs()
+        if opt_name == "sgd":
+            param_err = max(param_err, diff.max().item() / largest_update)
+        else:
+            check(diff.max().item() <= 2 * TRAIN_LR * steps,
+                  f"{model_type}: {name} parted by {diff.max().item():.3e}")
+            near += int((diff <= ADAM_NEAR).sum())
+            total += diff.numel()
+    if opt_name == "sgd":
+        check(param_err <= grad_tol,
+              f"{model_type}: after {steps} SGD steps the parameters differ "
+              f"by {param_err:.3e} of the largest update (limit "
+              f"{grad_tol:.3e})")
+    else:
+        check(near >= ADAM_NEAR_SHARE * total,
+              f"{model_type}: {near} of {total} entries within {ADAM_NEAR}")
+
+    def step_ms(model, opt, n=8):
+        fn = make_gat_train_step(model, opt)
+        for b in batches[:2]:
+            fn(*b)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for i in range(n):
+            fn(*batches[i % steps])
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3 / n
+
+    with torch.backends.cudnn.flags(enabled=True, allow_tf32=False):
+        kernel_ms = step_ms(*pairs[0])
+        plain_ms = step_ms(*pairs[1])
+    # torch's default math: cuDNN convolutions in TF32
+    with torch.backends.cudnn.flags(enabled=True, allow_tf32=True):
+        tf32_ms = step_ms(*pairs[0])
+    with torch.backends.cudnn.flags(enabled=True, allow_tf32=False):
+        fn = make_gat_train_step(*pairs[0])
+        profile_window(lambda: fn(*batches[0]),
+                       f"{model_type} {hw}x{hw} b={batch} kernel path, exact "
+                       "f32", "train step", n=3)
+    print(f"[train] {model_type} {hw}x{hw} b={batch}, {opt_name}: losses "
+          f"kernel vs plain {losses}, worst rel {loss_err:.3e}; one step's "
+          f"gradients within {grad_err:.3e} of the largest entry, roundoff "
+          f"alone {sens:.3e} (worst tensor {worst_name}: {tensor_err:.3e} of "
+          f"its own largest); "
+          + (f"parameters within {param_err:.3e} of the largest update"
+             if opt_name == "sgd" else
+             f"{near}/{total} entries within {ADAM_NEAR}")
+          + f"; ms per train step (host clock, synchronised): kernel "
+          f"{kernel_ms:.3f}, plain {plain_ms:.3f} (exact f32), kernel with "
+          f"cuDNN TF32 {tf32_ms:.3f}")
+
+
+def train_experiment(name, kernel, per_forward, model_cls, max_batches=3):
+    """``python -m extended_gan_torch.gat generate_experiment`` as a user runs
+    it (one epoch, synthetic fallback, outputs in a temporary directory),
+    with the kernels' counts set to 0 just before and read just after."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    from extended_gan_torch.gat.__main__ import main as cli
+    from extended_gan_torch.ops import dsconv as k3
+    from extended_gan_torch.ops import gat_attention as k1
+
+    out = tempfile.mkdtemp(prefix=f"smoke_{name}_")
+    exp_dir = os.path.join(REPO, "convolutional_gat", "experiments", name)
+    exp_files = sorted(os.listdir(exp_dir))
+    forwards = [0]
+
+    def count(module, args, output):
+        if type(module) is model_cls:
+            forwards[0] += 1
+
+    hook = torch.nn.modules.module.register_module_forward_hook(count)
+    try:
+        k1.launch_count = k3.launch_count = 0  # the main path starts here
+        t0 = time.perf_counter()
+        model, history = cli(["generate_experiment", "--exp_folder_name", name,
+                              "--output-path", out, "--epochs", "1",
+                              "--max-batches", str(max_batches)])
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        launches = {"gat_attention_fwd": k1.launch_count,
+                    "dsconv_fwd": k3.launch_count}
+    finally:
+        hook.remove()
+    try:
+        check(next(model.parameters()).device.type == "cuda",
+              f"{name}: the model is not on the card")
+        # the epoch's train loss sums every step's squared error: it is
+        # finite exactly when every step's loss was
+        check(len(history["train_loss"]) == 1
+              and _finite(history["train_loss"]),
+              f"{name}: train loss {history['train_loss']}")
+        check(all(_finite(history[k]) for k in history if k.startswith("val")),
+              f"{name}: val metrics {history}")
+        check(all(bool(p.isfinite().all()) for p in model.parameters()),
+              f"{name}: non-finite parameters after training")
+        for f in ("history.json", "model.pt"):
+            check(os.path.isfile(os.path.join(out, f)),
+                  f"{name}: {f} was not written to --output-path")
+        check(sorted(os.listdir(exp_dir)) == exp_files,
+              f"{name}: the run wrote into the experiment directory")
+        for k, n in launches.items():
+            expect = per_forward * forwards[0] if k == kernel else 0
+            check(n == expect, f"{name}: {n} {k} launches for {forwards[0]} "
+                               f"forwards, expected {expect}")
+    finally:
+        shutil.rmtree(out, ignore_errors=True)
+    print(f"[train] {name} via the CLI: {forwards[0]} forwards (train steps "
+          f"and eval), {launches[kernel]} {kernel} launches "
+          f"({per_forward} a forward), train loss "
+          f"{history['train_loss'][0]:.6f}, val_loss "
+          f"{history['val_loss'][0]:.6f}, {secs:.2f} s with start-up")
+    return launches[kernel]
+
+
+def phase_train():
+    import torch
+
+    from extended_gan_torch.models.gat.gat3d import Model as GatModel
+    from extended_gan_torch.models.unet_model import UnetModel
+    from extended_gan_torch.ops import dsconv as k3
+    from extended_gan_torch.ops import gat_attention as k1
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    launches = {
+        "dsconv_fwd": train_experiment("final_smaatunet", "dsconv_fwd", 18,
+                                       UnetModel),
+        "gat_attention_fwd": train_experiment("final_temp_conv",
+                                              "gat_attention_fwd", 2, GatModel),
+    }
+    # the UNet compared under SGD: Adam's sign-like step would turn its
+    # BatchNorm-amplified roundoff into whole steps of lr
+    compare_train_steps("unet", "linear", 20, "sgd", k3, 18)
+    compare_train_steps("temporal", "conv", 80, "adam", k1, 2)
+    return launches
 
 
 def card_line():
@@ -340,20 +720,28 @@ def main() -> int:
     try:
         phase_build()
         rows, worst = phase_kernels()
+        dsc_rows, dsc_worst = phase_dsconv()
         launches, models = phase_serve()
         phase_forward(models)
+        train_launches = phase_train()
         card = card_line()
     except SmokeFailure as e:
         print(f"chip_smoke: FAIL: {e}", file=sys.stderr)
         return 1
     main_row = next(r for r in rows
                     if (r["heads"], r["batch"], r["P"]) == (3, 32, 38400))
+    # K3's largest final_smaatunet launch by work: up4's first DSC
+    dsc_main = max((r for r in dsc_rows if r["where"] != "tiled-variant shape"),
+                   key=lambda r: r["gflop"])
     kernels = [{
         "name": "gat_attention_fwd",
         "route": "cuda",
         "source": "extended_gan_torch/ops/csrc/gat_attention.cu",
         "replaces": "extended_gan_tpu/ops/pallas/gat_attention.py:62",
-        "launches": launches,
+        "launches": launches + train_launches["gat_attention_fwd"],
+        "launches_by_path": {
+            "serve": launches,
+            "train final_temp_conv": train_launches["gat_attention_fwd"]},
         "max_abs_err": worst,
         "ms": main_row["kernel_ms"],
         "kernel_ms": main_row["kernel_ms"],
@@ -362,6 +750,24 @@ def main() -> int:
         "bound_by": main_row["bound_by"],
         "library_ms": None,
         "shape": "heads=3 B=32 M=4 P=38400 (80x80 hidden layer, batch 32)",
+    }, {
+        "name": "dsconv_fwd",
+        "route": "cuda",
+        "source": "extended_gan_torch/ops/csrc/dsconv.cu",
+        "replaces": "extended_gan_tpu/ops/pallas/dsconv.py:66",
+        "launches": train_launches["dsconv_fwd"],
+        "launches_by_path": {
+            "train final_smaatunet": train_launches["dsconv_fwd"]},
+        "max_abs_err": dsc_worst,
+        "ms": dsc_main["kernel_ms"],
+        "kernel_ms": dsc_main["kernel_ms"],
+        "plain_ms": dsc_main["plain_ms"],
+        "bound_ms": dsc_main["bound_ms"],
+        "bound_by": dsc_main["bound_by"],
+        "library_ms": None,
+        "cudnn_pair_ms": dsc_main["cudnn_pair_ms"],
+        "shape": "N=%d %dx%d C=%d CK=%d Cout=%d (final_smaatunet b=32, "
+                 "up4 dsc0)" % dsc_main["shape"],
     }]
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -14,10 +14,14 @@ source for its design and bound.
 - :func:`fused_gat_attention` launches the kernel for CUDA tensors and runs
   the plain version for CPU tensors; there is no fallback from one to the
   other. It takes a leading head axis so one launch covers every head of a
-  multi-head block, as the vmapped ``pallas_call`` does in JAX.
+  multi-head block, as the vmapped ``pallas_call`` does in JAX. Its gradient
+  is the analytic backward of the JAX ``_bwd`` (``:170-198``) in plain torch,
+  fed by the forward's ``att0``, ``att`` and ``pos`` residuals, on either
+  device: the JAX backward is plain JAX, not a Pallas kernel.
 - :func:`attend_temporal` is the (B, H, W, T, V) layout wrapper.
 
-``launch_count`` counts kernel launches (CPU calls do not count).
+``launch_count`` counts kernel launches (CPU calls and backwards do not
+count).
 """
 
 from __future__ import annotations
@@ -58,11 +62,61 @@ def fused_gat_attention(m, a, adj_norm, alpha, group_size):
     if a.shape != (nh, 2 * g) or adj_norm.shape != (nh, mm, mm):
         raise ValueError(f"a {tuple(a.shape)} / adj_norm "
                          f"{tuple(adj_norm.shape)} do not fit m {tuple(m.shape)}")
-    if m.device.type == "cpu":
-        w1 = a[:, :g].repeat_interleave(group_size, dim=1)[:, None, None, :]
-        w2 = a[:, g:].repeat_interleave(group_size, dim=1)[:, None, None, :]
-        return reference_impl(m, w1, w2, adj_norm[:, None], alpha, group_size)
-    return _launch(m, a, adj_norm, float(alpha), group_size)
+    return _FusedGatAttention.apply(m, a, adj_norm, float(alpha), group_size)
+
+
+def _group_rows(a, group_size):
+    """(NH, 2G) -> w1, w2 as (NH, 1, 1, P) group-repeated rows."""
+    g = a.shape[1] // 2
+    w1 = a[:, :g].repeat_interleave(group_size, dim=1)[:, None, None, :]
+    w2 = a[:, g:].repeat_interleave(group_size, dim=1)[:, None, None, :]
+    return w1, w2
+
+
+class _FusedGatAttention(torch.autograd.Function):
+    """Forward: the kernel (CUDA) or the plain version (CPU). Backward: the
+    JAX ``_bwd`` cotangents from the saved residuals, no forward recompute.
+    ``att0``, ``att`` and ``pos`` are residuals, not differentiable."""
+
+    @staticmethod
+    def forward(ctx, m, a, adj_norm, alpha, group_size):
+        if m.device.type == "cpu":
+            w1, w2 = _group_rows(a, group_size)
+            outs = reference_impl(m, w1, w2, adj_norm[:, None], alpha,
+                                  group_size)
+        else:
+            outs = _launch(m, a, adj_norm, alpha, group_size)
+        ctx.save_for_backward(m, a, adj_norm, *outs)
+        ctx.alpha, ctx.group_size = alpha, group_size
+        ctx.mark_non_differentiable(*outs[1:])
+        return outs
+
+    @staticmethod
+    def backward(ctx, g, *_residual_grads):
+        m, a, adj, out, att0, att, pos = ctx.saved_tensors
+        gs, nh = ctx.group_size, m.shape[0]
+        # elu'(x) = 1 for x > 0 else exp(x) = elu(x) + 1; elu keeps the sign
+        d0 = g * torch.where(out > 0, 1.0, out + 1.0)
+        # out0 = att @ m
+        d_att = d0 @ m.transpose(-1, -2)
+        d_m = att.transpose(-1, -2) @ d0
+        # att = adj_norm @ att0
+        d_adj = torch.einsum("nbij,nbkj->nik", d_att, att0)
+        d_att0 = adj.transpose(-1, -2)[:, None] @ d_att
+        # softmax rows (the max shift does not change the gradient)
+        d_e = att0 * (d_att0 - (d_att0 * att0).sum(-1, keepdim=True))
+        d_e = torch.where(pos > 0, d_e, ctx.alpha * d_e)  # leaky_relu'
+        # e[i, j] = s1_i + s2_j, s = (m @ w) / group_size
+        d_s1 = d_e.sum(-1, keepdim=True) / gs  # (NH, B, M, 1)
+        d_s2 = d_e.sum(-2)[..., None] / gs
+        w1, w2 = _group_rows(a, gs)
+        d_m = d_m + d_s1 * w1 + d_s2 * w2
+        # w = repeat(a, group_size): a's gradient sums its group
+        d_w1 = (d_s1 * m).sum(dim=(1, 2))  # (NH, P)
+        d_w2 = (d_s2 * m).sum(dim=(1, 2))
+        d_a = torch.cat([d_w1.view(nh, -1, gs).sum(-1),
+                         d_w2.view(nh, -1, gs).sum(-1)], dim=1)
+        return d_m, d_a, d_adj, None, None
 
 
 def _launch(m, a, adj_norm, alpha, group_size):
@@ -76,11 +130,6 @@ def _launch(m, a, adj_norm, alpha, group_size):
             raise ValueError(f"{name} must be contiguous")
     if not 1 <= mm <= _MAX_M:
         raise ValueError(f"the kernel takes 1 <= M <= {_MAX_M}, got M={mm}")
-    if torch.is_grad_enabled() and any(
-            t.requires_grad for t in (m, a, adj_norm)):
-        raise NotImplementedError(
-            "the CUDA kernel has no backward yet (ROADMAP: training slice, "
-            "K1 backward); run it under torch.no_grad()/inference_mode()")
     out = torch.empty_like(m)
     att0, att, pos = (m.new_empty((nh, b, mm, mm)) for _ in range(3))
     fn = _kernel()

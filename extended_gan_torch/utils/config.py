@@ -12,6 +12,7 @@ from __future__ import annotations
 
 import ast
 import dataclasses
+import json
 import os
 from typing import Any
 
@@ -143,3 +144,9 @@ def load_experiment_config(exp_dir: str) -> ExperimentConfig:
     if extra:
         print(f"[config] ignoring unknown keys: {sorted(extra)}")
     return cfg
+
+
+def dump_config(cfg: ExperimentConfig):
+    """Print the settings a run uses, as UPPER_CASE config keys."""
+    print(json.dumps({k.upper(): v for k, v in cfg.to_dict().items()},
+                     indent=4, default=str))

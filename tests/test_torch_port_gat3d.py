@@ -145,7 +145,7 @@ def test_layers_match_jax():
 
 
 @pytest.mark.parametrize("model_type,mapping_type,error", [
-    ("unet", "conv", NotImplementedError),
+    ("temporal4h", "conv", NotImplementedError),
     ("baseline", "linear", NotImplementedError),
     ("temporal", "smaat_unet", NotImplementedError),
     ("temporal", "bogus", ValueError),
