@@ -14,6 +14,15 @@ Phases, each fatal on failure (non-zero exit, no result line):
              differs); K3 at the 18 DSC shapes of a final_smaatunet batch-32
              forward and at the tiled TPU kernel's shape, at the
              roundoff-scaled tolerance stated at DSC_TOL_UNITS.
+   mapping - K2 (``ops/gat_mapping.py``, forward and backward kernels)
+             against the plain three-conv composition (cuDNN, TF32 off):
+             the forward at final_temp_conv's hidden (3 heads) and output
+             (1 head) blocks at batch 32, serve batch 1 and
+             local_temporal_conv (20x20) batch 32; the backward (dx and the
+             six weight and bias gradients) at both 80x80 batch-32 blocks,
+             twice, bit-identical, at the tolerance stated at K2_TOL_UNITS.
+             Times of the kernels, of the composition exact and with TF32,
+             and their operation bounds.
 3. serve   - the served path as a user runs it: ``python -m
              extended_gan_torch.serve export`` of final_temp_conv (80x80) with
              --init-seed 0, ``ModelServer`` on the card behind the HTTP server
@@ -33,7 +42,15 @@ Phases, each fatal on failure (non-zero exit, no result line):
              backwards launch nothing). Then, in process at batch 32, one
              step's gradients and three train steps with the kernels
              against the plain versions (exact f32), and ms per train step.
-6. report  - the ``kernels`` JSON line, the card's name and power limit, and
+             K2's launch count is 0 in every CLI and serve run: its switch
+             ``use_pallas_mapping`` is off unless a constructor turns it on.
+6. mapping model - final_temp_conv's ``Model(..., use_pallas_mapping=True)``
+             against ``False`` from the same weights, batch 32: forward
+             device time and agreement, 2 K2 forward launches a forward and
+             2 backward launches a backward, three Adam steps kernel path
+             against plain path, ms per train step, a profile of the
+             switched step.
+7. report  - the ``kernels`` JSON line, the card's name and power limit, and
              the last line ``{"ok": true, "device": {...}}``.
 """
 
@@ -187,6 +204,21 @@ TRAIN_LR = 1e-3
 TRAIN_LOSS_TOL = 1e-4  # per-step losses, relative
 TRAIN_GRAD_FLOOR, TRAIN_SENS_FACTOR = 1e-4, 10
 ADAM_NEAR, ADAM_NEAR_SHARE = 1e-5, 0.99  # GAT3D, Adam: share of entries
+# K2's tolerance, per output element: K2_TOL_UNITS * sqrt(terms) times the
+# sum of the absolute values of the terms the element adds up, bounded by
+# the plain version (and its autograd) run on |inputs| and |cotangent|. A
+# forward output sums 9 * F = 666 products in its last layer, a weight
+# gradient one per pixel of every image, dx 9 * F a head; two summation
+# orders part by about sqrt(terms) roundoff units of that scale.
+K2_TOL_UNITS = 8 * 2.0**-24
+K2_F, K2_C = 74, 4  # GAT3D's conv hidden width and T
+# (where, (NH, B, V, H)): the forward's shapes; the backward runs the first
+# two, the hidden block without dx (it reads the model input), the output
+# block with it
+K2_SHAPES = [("final_temp_conv hidden block", (3, 32, 6, 80)),
+             ("final_temp_conv output block", (1, 32, 6, 80)),
+             ("serve batch 1 hidden block", (3, 1, 6, 80)),
+             ("local_temporal_conv hidden block", (3, 32, 6, 20))]
 
 
 def smaatunet_dsc_shapes(batch=32, hw=20, vertices=6):
@@ -293,6 +325,164 @@ def phase_dsconv():
     return rows, worst
 
 
+def k2_inputs(nh, b, v, h, seed, gate_safe=False):
+    """x (B, H, W, T, V) and stacked weights of ``nh`` heads, on the card.
+    ``gate_safe``: every value on a grid that keeps each pre-activation at
+    least 2^-11 from 0 (x in quarters, weights in eighths and sixteenths,
+    biases half a grid step off it). The backward check takes these: a
+    pre-activation within roundoff of 0 takes its ReLU gate one way in the
+    kernel and the other in cuDNN, and a gradient through a flipped gate
+    differs by a whole term, not by roundoff."""
+    import torch
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    f, c = K2_F, K2_C
+    if gate_safe:
+        def q(den, *s):
+            return torch.randint(-4, 5, s, device="cuda",
+                                 generator=gen).float() / den
+        x = torch.randint(0, 4, (b, h, h, c, v), device="cuda",
+                          generator=gen).float() / 4
+        return (x, q(8, nh, f, c, 3, 3), q(32, nh, f) + 2.0**-6,
+                q(16, nh, f, f, 1, 1), q(32, nh, f) + 2.0**-11,
+                q(16, nh, c, f, 3, 3), q(32, nh, c))
+
+    def r(scale, *s):
+        return scale * torch.randn(*s, device="cuda", generator=gen)
+    x = torch.rand(b, h, h, c, v, device="cuda", generator=gen)
+    return (x, r((9 * c) ** -0.5, nh, f, c, 3, 3), r(0.1, nh, f),
+            r(f ** -0.5, nh, f, f, 1, 1), r(0.1, nh, f),
+            r((9 * f) ** -0.5, nh, c, f, 3, 3), r(0.1, nh, c))
+
+
+def k2_bound(nh, b, v, h, backward=False, need_dx=False):
+    """(bound_ms, bound_by, gflop). Operations: the forward's 9*T*F + F*F +
+    9*F*T multiply-adds a pixel and head; the backward recomputes h1 and h2
+    and adds dh2, dW3, dW2, dh1, dW1 (and dx when asked), as the TPU
+    kernel does. Bytes: x, out (or g, and dx), weights and gradients, once."""
+    f, c = K2_F, K2_C
+    pixels = b * v * h * h
+    per_head = 9 * c * f + 2 * f + f * f + 9 * f * c + c
+    if backward:  # h1, h2; dh2, dW3; dW2, dh1; dW1; dx
+        macs = (9 * c * f + f * f + 9 * f * c * 2 + f * f * 2 + 9 * c * f
+                + 9 * f * c * need_dx)
+        nbytes = 4 * (pixels * c * (1 + nh + need_dx) + 2 * nh * per_head)
+    else:
+        macs = 9 * c * f + f * f + 9 * f * c
+        nbytes = 4 * (pixels * c * (1 + nh) + nh * per_head)
+    flops = 2 * macs * nh * pixels
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / F32_FLOP_PER_S
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations", flops / 1e9)
+
+
+def _k2_check(got, want, scale, terms, label):
+    import math
+
+    err = (got - want).abs()
+    tol = K2_TOL_UNITS * math.sqrt(terms) * scale
+    ratio = (err / tol).max().item()
+    check(got.shape == want.shape, f"K2 {label}: shape {tuple(got.shape)} "
+                                   f"!= {tuple(want.shape)}")
+    check(bool((err <= tol).all()), f"K2 {label} disagrees with the plain "
+          f"version: max abs err {err.max().item():.3e}, worst err/tol "
+          f"{ratio:.3e}")
+    return err.max().item(), ratio
+
+
+def phase_mapping():
+    """K2's forward and backward kernels against reference_bottleneck and
+    its autograd; times of both and of the plain composition (cuDNN)."""
+    import torch
+
+    from extended_gan_torch.ops import gat_mapping as k2
+
+    def exact():
+        return torch.backends.cudnn.flags(enabled=True, allow_tf32=False)
+
+    def tf32():
+        return torch.backends.cudnn.flags(enabled=True, allow_tf32=True)
+    big = dict(groups=10, warmup=2, per_group=2, sleep_cycles=20_000_000)
+    fwd_rows, bwd_rows = [], []
+    for i, (where, shape) in enumerate(K2_SHAPES):
+        args = k2_inputs(*shape, seed=i)
+        with torch.no_grad():
+            with exact():
+                got = k2.fused_conv_bottleneck(*args)
+                want = k2.reference_bottleneck(*args)
+                scale = k2.reference_bottleneck(*(t.abs() for t in args))
+            torch.cuda.synchronize()
+            err, ratio = _k2_check(got, want, scale, 9 * K2_F,
+                                   f"forward at {where}")
+            kms = time_ms(lambda: k2.fused_conv_bottleneck(*args), **big)
+            with exact():
+                pms = time_ms(lambda: k2.reference_bottleneck(*args), **big)
+            with tf32():
+                tms = time_ms(lambda: k2.reference_bottleneck(*args), **big)
+        bound, by, gflop = k2_bound(*shape)
+        fwd_rows.append(dict(where=where, shape=shape, max_abs_err=err,
+                             kernel_ms=kms, plain_ms=pms, cudnn_tf32_ms=tms,
+                             bound_ms=bound, bound_by=by, gflop=gflop))
+        print(f"[kernel] gat_mapping_fwd {where} (NH, B, V, H) = {shape}: "
+              f"max_abs_err={err:.3e} (worst err/tol {ratio:.3e}) kernel="
+              f"{kms:.4f} ms plain (cuDNN exact)={pms:.4f} ms cuDNN TF32="
+              f"{tms:.4f} ms bound={bound:.4f} ms ({by}, {gflop:.2f} GFLOP)")
+    names = ["dx", "dw1", "db1", "dw2", "db2", "dw3", "db3"]
+    for i, (where, shape) in enumerate(K2_SHAPES[:2]):
+        nh, b, v, h = shape
+        need_dx = nh == 1  # the output block's input needs a gradient
+        args = k2_inputs(*shape, seed=10 + i, gate_safe=True)
+        cot = torch.randn(nh, b, h, h, K2_C, v, device="cuda",
+                          generator=torch.Generator(device="cuda")
+                          .manual_seed(20 + i))
+
+        def grads(fn, inputs, g):
+            inputs = [t.clone().requires_grad_(j > 0 or need_dx)
+                      for j, t in enumerate(inputs)]
+            wrt = inputs if need_dx else inputs[1:]
+            return torch.autograd.grad(fn(*inputs), wrt, g)
+        got = grads(k2.fused_conv_bottleneck, args, cot)
+        again = grads(k2.fused_conv_bottleneck, args, cot)
+        with exact():
+            want = grads(k2.reference_bottleneck, args, cot)
+            scale = grads(k2.reference_bottleneck, [t.abs() for t in args],
+                          cot.abs())
+        torch.cuda.synchronize()
+        err = ratio = 0.0
+        for name, g_, a_, w_, s_ in zip(names if need_dx else names[1:], got,
+                                        again, want, scale):
+            check(torch.equal(g_, a_), f"K2 backward at {where}: {name} "
+                                       "differs between two runs")
+            terms = 9 * K2_F * nh if name == "dx" else b * v * h * h
+            e, r = _k2_check(g_, w_, scale=s_, terms=terms,
+                             label=f"backward {name} at {where}")
+            err, ratio = max(err, e), max(ratio, r)
+        kms = time_ms(lambda: k2._launch_bwd(*args, cot, need_dx=need_dx),
+                      **big)
+        inputs = [t.clone().requires_grad_(j > 0 or need_dx)
+                  for j, t in enumerate(args)]
+        wrt = inputs if need_dx else inputs[1:]
+        times = []
+        for flags in (exact, tf32):
+            with flags():
+                out = k2.reference_bottleneck(*inputs)
+                times.append(time_ms(lambda: torch.autograd.grad(
+                    out, wrt, cot, retain_graph=True), **big))
+            del out
+        bound, by, gflop = k2_bound(*shape, backward=True, need_dx=need_dx)
+        bwd_rows.append(dict(where=where, shape=shape, need_dx=need_dx,
+                             max_abs_err=err, kernel_ms=kms,
+                             plain_ms=times[0], cudnn_tf32_ms=times[1],
+                             bound_ms=bound, bound_by=by, gflop=gflop))
+        print(f"[kernel] gat_mapping_bwd {where} (NH, B, V, H) = {shape}, "
+              f"dx {'on' if need_dx else 'off'}: max_abs_err={err:.3e} "
+              f"(worst err/tol {ratio:.3e}), two runs bit-identical; kernel="
+              f"{kms:.4f} ms plain backward (cuDNN exact)={times[0]:.4f} ms "
+              f"cuDNN TF32={times[1]:.4f} ms bound={bound:.4f} ms ({by}, "
+              f"{gflop:.2f} GFLOP)")
+    return fwd_rows, bwd_rows
+
+
 def _post(url, x):
     import numpy as np
 
@@ -377,12 +567,14 @@ def phase_serve():
     import torch
 
     from extended_gan_torch.ops import gat_attention as k1
+    from extended_gan_torch.ops import gat_mapping as k2
 
     # The replies are compared with a plain forward at 1e-5: both must run
     # in exact f32, and cuDNN convolutions default to TF32.
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
-    k1.launch_count = 0  # the main path starts here
+    # the main path starts here
+    k1.launch_count = k2.fwd_launch_count = k2.bwd_launch_count = 0
     forwards, models = 0, {}
     for name, batches in (("final_temp_conv", (1, 5, 32)),
                           ("local_temporal_conv", (32,))):
@@ -393,6 +585,9 @@ def phase_serve():
     launches = k1.launch_count
     check(launches == 2 * forwards,
           f"{launches} K1 launches for {forwards} forwards")
+    check(k2.fwd_launch_count == k2.bwd_launch_count == 0,
+          f"the served models launched K2 ({k2.fwd_launch_count} forward, "
+          f"{k2.bwd_launch_count} backward): its switch is off by default")
     print(f"[serve] {forwards} forwards, {launches} K1 launches")
     return launches, models
 
@@ -468,16 +663,33 @@ def _finite(values):
     return all(math.isfinite(v) for v in values)
 
 
-def compare_train_steps(model_type, mapping_type, hw, opt_name, kernel,
-                        per_forward, batch=32, steps=3):
-    """One step's gradients and three train steps with the kernel and with
-    the plain version, from the same weights on the same batches (exact
-    f32: TF32 off), then the step time of each path and a profile of the
-    kernel path's step."""
-    import numpy as np
+def model_pair(model_type, mapping_type, hw):
+    """The registry's model with its kernels, and its plain twin with the
+    same weights."""
     import torch
 
     from extended_gan_torch.models.registry import build_model
+
+    kw = dict(image_width=hw, image_height=hw, n_vertices=6,
+              mapping_type=mapping_type)
+    fused = build_model(model_type, generator=torch.Generator().manual_seed(0),
+                        **kw)
+    plain = build_model(model_type, use_pallas=False, **kw)
+    plain.load_state_dict(fused.state_dict())
+    return fused, plain
+
+
+def compare_train_steps(model_type, fused, plain, hw, opt_name, counts,
+                        per_step, batch=32, steps=3):
+    """One step's gradients and three train steps with the kernels and
+    with the plain versions, from the same weights on the same batches
+    (exact f32: TF32 off), then the step time of each path and a profile of
+    the kernel path's step. ``counts()`` gives the launch counts of the
+    kernels under test and ``per_step`` what one train step adds to each.
+    Returns the kernel path's launches and the step times."""
+    import numpy as np
+    import torch
+
     from extended_gan_torch.train.gat_trainer import (
         make_gat_train_step,
         to_device_batch,
@@ -485,12 +697,6 @@ def compare_train_steps(model_type, mapping_type, hw, opt_name, kernel,
     from extended_gan_torch.train.optim import make_optimizer
 
     dev = torch.device("cuda")
-    kw = dict(image_width=hw, image_height=hw, n_vertices=6,
-              mapping_type=mapping_type)
-    fused = build_model(model_type, generator=torch.Generator().manual_seed(0),
-                        **kw)
-    plain = build_model(model_type, use_pallas=False, **kw)
-    plain.load_state_dict(fused.state_dict())
     init = {k: v.clone() for k, v in fused.state_dict().items()}
     pairs = [(m, make_optimizer(opt_name, m.parameters(), TRAIN_LR,
                                 weight_decay=0.01)) for m in (fused, plain)]
@@ -517,12 +723,12 @@ def compare_train_steps(model_type, mapping_type, hw, opt_name, kernel,
             model.zero_grad()
         for model in (fused, plain):  # undo the BN statistics' updates
             model.load_state_dict(init)
-        launches0 = kernel.launch_count
+        launches0 = counts()
         losses = [[float(fn(*b)[0]) for fn in step_fns] for b in batches]
-        launched = kernel.launch_count - launches0
-    check(launched == per_forward * steps,
-          f"{model_type}: {launched} launches for {steps} kernel-path steps, "
-          f"expected {per_forward} a step")
+        launched = {k: n - launches0[k] for k, n in counts().items()}
+    check(launched == {k: n * steps for k, n in per_step.items()},
+          f"{model_type}: launches {launched} for {steps} kernel-path steps, "
+          f"expected {per_step} a step")
     # one step's gradients: the worst gap of any tensor, in units of the
     # model's largest gradient entry (the per-tensor worst is printed too:
     # train-mode BatchNorm amplifies roundoff in small tensors)
@@ -586,6 +792,7 @@ def compare_train_steps(model_type, mapping_type, hw, opt_name, kernel,
     # torch's default math: cuDNN convolutions in TF32
     with torch.backends.cudnn.flags(enabled=True, allow_tf32=True):
         tf32_ms = step_ms(*pairs[0])
+        plain_tf32_ms = step_ms(*pairs[1])
     with torch.backends.cudnn.flags(enabled=True, allow_tf32=False):
         fn = make_gat_train_step(*pairs[0])
         profile_window(lambda: fn(*batches[0]),
@@ -600,8 +807,10 @@ def compare_train_steps(model_type, mapping_type, hw, opt_name, kernel,
              if opt_name == "sgd" else
              f"{near}/{total} entries within {ADAM_NEAR}")
           + f"; ms per train step (host clock, synchronised): kernel "
-          f"{kernel_ms:.3f}, plain {plain_ms:.3f} (exact f32), kernel with "
-          f"cuDNN TF32 {tf32_ms:.3f}")
+          f"{kernel_ms:.3f}, plain {plain_ms:.3f} (exact f32), with cuDNN "
+          f"TF32: kernel {tf32_ms:.3f}, plain {plain_tf32_ms:.3f}")
+    return dict(launched=launched, kernel_ms=kernel_ms, plain_ms=plain_ms,
+                tf32_ms=tf32_ms, plain_tf32_ms=plain_tf32_ms)
 
 
 def train_experiment(name, kernel, per_forward, model_cls, max_batches=3):
@@ -616,6 +825,7 @@ def train_experiment(name, kernel, per_forward, model_cls, max_batches=3):
     from extended_gan_torch.gat.__main__ import main as cli
     from extended_gan_torch.ops import dsconv as k3
     from extended_gan_torch.ops import gat_attention as k1
+    from extended_gan_torch.ops import gat_mapping as k2
 
     out = tempfile.mkdtemp(prefix=f"smoke_{name}_")
     exp_dir = os.path.join(REPO, "convolutional_gat", "experiments", name)
@@ -628,7 +838,9 @@ def train_experiment(name, kernel, per_forward, model_cls, max_batches=3):
 
     hook = torch.nn.modules.module.register_module_forward_hook(count)
     try:
-        k1.launch_count = k3.launch_count = 0  # the main path starts here
+        # the main path starts here
+        k1.launch_count = k3.launch_count = 0
+        k2.fwd_launch_count = k2.bwd_launch_count = 0
         t0 = time.perf_counter()
         model, history = cli(["generate_experiment", "--exp_folder_name", name,
                               "--output-path", out, "--epochs", "1",
@@ -636,7 +848,9 @@ def train_experiment(name, kernel, per_forward, model_cls, max_batches=3):
         torch.cuda.synchronize()
         secs = time.perf_counter() - t0
         launches = {"gat_attention_fwd": k1.launch_count,
-                    "dsconv_fwd": k3.launch_count}
+                    "dsconv_fwd": k3.launch_count,
+                    "gat_mapping_fwd": k2.fwd_launch_count,
+                    "gat_mapping_bwd": k2.bwd_launch_count}
     finally:
         hook.remove()
     try:
@@ -688,9 +902,70 @@ def phase_train():
     }
     # the UNet compared under SGD: Adam's sign-like step would turn its
     # BatchNorm-amplified roundoff into whole steps of lr
-    compare_train_steps("unet", "linear", 20, "sgd", k3, 18)
-    compare_train_steps("temporal", "conv", 80, "adam", k1, 2)
+    compare_train_steps("unet", *model_pair("unet", "linear", 20), 20, "sgd",
+                        lambda: {"dsconv_fwd": k3.launch_count},
+                        {"dsconv_fwd": 18})
+    compare_train_steps("temporal", *model_pair("temporal", "conv", 80), 80,
+                        "adam", lambda: {"gat_attention_fwd": k1.launch_count},
+                        {"gat_attention_fwd": 2})
     return launches
+
+
+def phase_mapping_model(batch=32, hw=80):
+    """final_temp_conv's Model with use_pallas_mapping=True against False
+    (K1 on in both), from the same weights: one batch-32 forward (launches,
+    agreement, device time), then three Adam steps, one step's gradients,
+    ms per train step and a profile of the switched step."""
+    import torch
+
+    from extended_gan_torch.models.gat.gat3d import Model as GatModel
+    from extended_gan_torch.ops import gat_mapping as k2
+
+    kw = dict(attention_type="temporal", mapping_type="conv", use_pallas=True)
+    switched = GatModel(hw, hw, 6, use_pallas_mapping=True,
+                        generator=torch.Generator().manual_seed(0), **kw)
+    unswitched = GatModel(hw, hw, 6, **kw)
+    unswitched.load_state_dict(switched.state_dict())
+    switched, unswitched = switched.cuda().eval(), unswitched.cuda().eval()
+    x = torch.rand(batch, hw, hw, 4, 6, device="cuda",
+                   generator=torch.Generator(device="cuda").manual_seed(0))
+
+    def counts():
+        return {"gat_mapping_fwd": k2.fwd_launch_count,
+                "gat_mapping_bwd": k2.bwd_launch_count}
+    slow = dict(per_group=2, sleep_cycles=20_000_000)
+    with torch.inference_mode(), torch.backends.cudnn.flags(
+            enabled=True, allow_tf32=False):
+        k2.fwd_launch_count = k2.bwd_launch_count = 0  # the main path starts
+        y = switched(x)
+        forward_launches = counts()
+        want = unswitched(x)
+        torch.cuda.synchronize()
+        check(forward_launches == {"gat_mapping_fwd": 2, "gat_mapping_bwd": 0},
+              f"one switched forward launched {forward_launches}, expected "
+              "2 gat_mapping_fwd")
+        err = (y - want).abs().max().item()
+        check(err <= TOL, f"switched forward differs from the unswitched one "
+                          f"by {err:.3e}")
+        on_ms = time_ms(lambda: switched(x), **slow)
+        off_ms = time_ms(lambda: unswitched(x), **slow)
+    with torch.inference_mode(), torch.backends.cudnn.flags(
+            enabled=True, allow_tf32=True):
+        off_tf32_ms = time_ms(lambda: unswitched(x), **slow)
+    print(f"[forward] final_temp_conv b={batch}, use_pallas_mapping=True: "
+          f"{on_ms:.4f} ms, False: {off_ms:.4f} ms exact, {off_tf32_ms:.4f} "
+          f"ms with cuDNN TF32 (device time, CUDA events); max |switched - "
+          f"unswitched| = {err:.3e}; {forward_launches} a forward")
+    with torch.inference_mode():
+        profile_window(lambda: switched(x), f"final_temp_conv b={batch} "
+                       "use_pallas_mapping=True", "forward")
+    train = compare_train_steps(
+        "temporal use_pallas_mapping=True", switched, unswitched, hw, "adam",
+        counts, {"gat_mapping_fwd": 2, "gat_mapping_bwd": 2}, batch=batch)
+    return dict(forward_launches=forward_launches,
+                train_launches=train["launched"], forward_ms=on_ms,
+                forward_plain_ms=off_ms, forward_plain_tf32_ms=off_tf32_ms,
+                train=train)
 
 
 def card_line():
@@ -721,9 +996,11 @@ def main() -> int:
         phase_build()
         rows, worst = phase_kernels()
         dsc_rows, dsc_worst = phase_dsconv()
+        k2_fwd_rows, k2_bwd_rows = phase_mapping()
         launches, models = phase_serve()
         phase_forward(models)
         train_launches = phase_train()
+        k2_model = phase_mapping_model()
         card = card_line()
     except SmokeFailure as e:
         print(f"chip_smoke: FAIL: {e}", file=sys.stderr)
@@ -769,6 +1046,35 @@ def main() -> int:
         "shape": "N=%d %dx%d C=%d CK=%d Cout=%d (final_smaatunet b=32, "
                  "up4 dsc0)" % dsc_main["shape"],
     }]
+    # K2 at final_temp_conv's hidden block, batch 32: the largest launch
+    for name, line, rows in (("gat_mapping_fwd", 107, k2_fwd_rows),
+                             ("gat_mapping_bwd", 127, k2_bwd_rows)):
+        main_k2 = rows[0]
+        by_path = {"forward b=32, use_pallas_mapping=True":
+                   k2_model["forward_launches"][name],
+                   "train final_temp_conv b=32, 3 Adam steps":
+                   k2_model["train_launches"][name],
+                   "serve and CLI train runs (switch off)": 0}
+        kernels.append({
+            "name": name,
+            "route": "cuda",
+            "source": "extended_gan_torch/ops/csrc/gat_mapping.cu",
+            "replaces": f"extended_gan_tpu/ops/pallas/gat_mapping.py:{line}",
+            "launches": sum(by_path.values()),
+            "launches_by_path": by_path,
+            "max_abs_err": max(r["max_abs_err"] for r in rows),
+            "ms": main_k2["kernel_ms"],
+            "kernel_ms": main_k2["kernel_ms"],
+            "plain_ms": main_k2["plain_ms"],
+            "bound_ms": main_k2["bound_ms"],
+            "bound_by": main_k2["bound_by"],
+            "library_ms": None,
+            "cudnn_ms": main_k2["plain_ms"],
+            "cudnn_tf32_ms": main_k2["cudnn_tf32_ms"],
+            "shape": "NH={} B={} V={} {}x{} (final_temp_conv hidden block, "
+                     "batch 32)".format(*main_k2["shape"],
+                                        main_k2["shape"][3]),
+        })
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

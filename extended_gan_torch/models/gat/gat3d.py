@@ -12,9 +12,13 @@ is one grouped convolution over all heads, and the temporal attention is
 one kernel launch over all heads (two launches per ``Model`` forward).
 
 The conv mapping's convolutions are cuDNN's, as the JAX package leaves
-them to XLA; the fused attention is the CUDA kernel of
-``ops/gat_attention.py`` when ``use_pallas`` is on (the name follows the
-JAX package's switch).
+them to XLA, unless ``use_pallas_mapping`` is on: then the whole
+3x3 -> 1x1 -> 3x3 bottleneck of a block is one launch of the CUDA kernel of
+``ops/gat_mapping.py`` (K2), under the JAX package's condition
+``mapping_type == "conv" and use_pallas_mapping and h == w``. As in the JAX
+package it is a constructor switch only: no registry, CLI or config passes
+it. The fused attention is the CUDA kernel of ``ops/gat_attention.py`` when
+``use_pallas`` is on (the names follow the JAX package's switches).
 """
 
 from __future__ import annotations
@@ -24,6 +28,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ...ops.gat_attention import attend_temporal
+from ...ops.gat_mapping import fused_conv_bottleneck, reference_bottleneck
 from .layers import (
     adjacency_b_init,
     lecun_normal_,
@@ -34,10 +39,9 @@ from .layers import (
 
 
 class _StackedConv2d(nn.Module):
-    """``nheads`` independent SAME convolutions run as one grouped conv.
-
-    weight (NH, O, I, k, k) and bias (NH, O): flax's vmapped ``nn.Conv``
-    parameters with HWIO turned into torch's OIHW."""
+    """Parameters of ``nheads`` independent SAME convolutions: weight
+    (NH, O, I, k, k) and bias (NH, O), flax's vmapped ``nn.Conv`` parameters
+    with HWIO turned into torch's OIHW. ``_Mapping`` runs them."""
 
     def __init__(self, nheads, in_ch, out_ch, k, generator=None):
         super().__init__()
@@ -45,22 +49,16 @@ class _StackedConv2d(nn.Module):
         self.bias = nn.Parameter(torch.zeros(nheads, out_ch))
         lecun_normal_(self.weight, in_ch * k * k, generator)
 
-    def forward(self, x):  # (N, NH * I, H, W) -> (N, NH * O, H, W)
-        nh, o, i, k, _ = self.weight.shape
-        return F.conv2d(x, self.weight.reshape(nh * o, i, k, k),
-                        self.bias.reshape(nh * o), padding=k // 2, groups=nh)
-
 
 class _Mapping(nn.Module):
     """Per-node feature map on the T (frame-channel) axis, for ``nheads``
     heads at once: (B, H, W, T, V) -> (NH, B, H, W, T', V)."""
 
     def __init__(self, nfeat, nhid, mapping_type="linear", nheads=1,
-                 conv_hidden=74, generator=None):
+                 conv_hidden=74, generator=None, use_pallas_mapping=False):
         super().__init__()
         self.mapping_type = mapping_type
-        self.nheads = nheads
-        self.nhid = nhid
+        self.use_pallas_mapping = use_pallas_mapping
         if mapping_type == "linear":
             self.W = nn.Parameter(torch.empty(nheads, nfeat, nhid))
             self.b = nn.Parameter(torch.zeros(nheads, nhid))
@@ -83,17 +81,12 @@ class _Mapping(nn.Module):
         if self.mapping_type == "linear":
             out = torch.einsum("bhwtv,nto->nbhwov", x, self.W)
             return out + self.b[:, None, None, None, :, None]
-        b, h, w, t, v = x.shape
-        # fold V into the batch: (B, H, W, T, V) -> (B*V, T, H, W), one copy
-        # of the frame channels per head for the grouped convs
-        xb = x.permute(0, 4, 3, 1, 2).reshape(b * v, t, h, w)
-        if self.nheads > 1:
-            xb = xb.repeat(1, self.nheads, 1, 1)
-        y = F.relu(self.conv1(xb))
-        y = F.relu(self.conv2(y))
-        y = self.conv3(y)  # (B*V, NH*T', H, W)
-        y = y.view(b, v, self.nheads, self.nhid, h, w)
-        return y.permute(2, 0, 4, 5, 3, 1)
+        params = (self.conv1.weight, self.conv1.bias, self.conv2.weight,
+                  self.conv2.bias, self.conv3.weight, self.conv3.bias)
+        if self.use_pallas_mapping and x.shape[1] == x.shape[2]:
+            # one launch for every head, reading x in its own layout
+            return fused_conv_bottleneck(x.contiguous(), *params)
+        return reference_bottleneck(x, *params)
 
 
 class GAT3DHead(nn.Module):
@@ -103,7 +96,7 @@ class GAT3DHead(nn.Module):
 
     def __init__(self, nfeat, nhid, n_vertices, alpha=0.2, type_="temporal",
                  mapping_type="linear", use_pallas=False, nheads=1,
-                 generator=None):
+                 generator=None, use_pallas_mapping=False):
         super().__init__()
         if type_ not in ("temporal", "spatial", "multi_stream"):
             raise ValueError(f"unknown type_ {type_!r}")
@@ -111,7 +104,8 @@ class GAT3DHead(nn.Module):
         self.type_ = type_
         self.use_pallas = use_pallas
         self.mapping = _Mapping(nfeat, nhid, mapping_type, nheads,
-                                generator=generator)
+                                generator=generator,
+                                use_pallas_mapping=use_pallas_mapping)
         axes = {"temporal": ["temporal"], "spatial": ["spatial"],
                 "multi_stream": ["temporal", "spatial"]}[type_]
         # temporal graph: nodes T', features V; spatial: nodes V, features T'
@@ -158,10 +152,11 @@ class GATMultiHead3D(nn.Module):
 
     def __init__(self, nfeat, nhid, n_vertices, alpha=0.2, nheads=1,
                  type_="temporal", mapping_type="linear", use_pallas=False,
-                 generator=None):
+                 generator=None, use_pallas_mapping=False):
         super().__init__()
         self.heads = GAT3DHead(nfeat, nhid, n_vertices, alpha, type_,
-                               mapping_type, use_pallas, nheads, generator)
+                               mapping_type, use_pallas, nheads, generator,
+                               use_pallas_mapping=use_pallas_mapping)
 
     def forward(self, x):
         return self.heads(x).mean(dim=0)
@@ -173,14 +168,16 @@ class Model(nn.Module):
 
     def __init__(self, image_width, image_height, n_vertices,
                  attention_type="temporal", mapping_type="linear",
-                 time_steps=4, use_pallas=False, generator=None):
+                 time_steps=4, use_pallas=False, generator=None,
+                 use_pallas_mapping=False):
         super().__init__()
         self.image_width, self.image_height = image_width, image_height
         self.mapping_type = mapping_type
         common = dict(nfeat=time_steps, nhid=time_steps, n_vertices=n_vertices,
                       alpha=0.2, type_=attention_type,
                       mapping_type=mapping_type, use_pallas=use_pallas,
-                      generator=generator)
+                      generator=generator,
+                      use_pallas_mapping=use_pallas_mapping)
         self.hidden_layer = GATMultiHead3D(nheads=3, **common)
         self.output_layer = GATMultiHead3D(nheads=1, **common)
 

@@ -16,6 +16,7 @@ from extended_gan_torch.models.gat.layers import normalized_adjacency
 from extended_gan_torch.models.registry import build_model
 from extended_gan_torch.ops import dsconv as k3
 from extended_gan_torch.ops import gat_attention as k1
+from extended_gan_torch.ops import gat_mapping as k2
 
 pytestmark = pytest.mark.cuda
 
@@ -187,3 +188,177 @@ def test_model_forward_launches_twice_and_matches_plain(cuda_device):
         want = plain(x)
     assert k1.launch_count == before + 2
     torch.testing.assert_close(y, want, rtol=1e-5, atol=1e-5)
+
+
+# K2 shapes (NH, B, V, H): the final_temp_conv hidden and output blocks at
+# batch 32, serving batch 1, and local_temporal_conv (20x20) at batch 32
+K2_SHAPES = [(3, 32, 6, 80), (1, 32, 6, 80), (3, 1, 6, 80), (3, 32, 6, 20)]
+# Tolerance per output: K2_TOL_UNITS * sqrt(terms) times the sum of the
+# absolute values of the terms the output adds up, bounded by the plain
+# version (and its autograd) run on |inputs| and |cotangent|: an output of
+# the forward sums 9 * F products in its last layer, a weight gradient one
+# per pixel of every image, so the two orders of summation part by about
+# sqrt(terms) roundoff units of that scale.
+K2_TOL_UNITS = 8 * 2.0**-24
+
+
+def _k2_inputs(nh, b, v, h, device, seed, f=74, c=4):
+    gen = torch.Generator(device=device).manual_seed(seed)
+    r = lambda *s, scale=1.0: scale * torch.randn(  # noqa: E731
+        *s, device=device, generator=gen)
+    x = torch.rand(b, h, h, c, v, device=device, generator=gen)
+    return (x, r(nh, f, c, 3, 3, scale=(9 * c) ** -0.5), r(nh, f, scale=0.1),
+            r(nh, f, f, 1, 1, scale=f ** -0.5), r(nh, f, scale=0.1),
+            r(nh, c, f, 3, 3, scale=(9 * f) ** -0.5), r(nh, c, scale=0.1))
+
+
+def _k2_gate_safe_inputs(nh, b, v, h, device, seed, f=74, c=4):
+    """Inputs on a grid that keeps every pre-activation at least 2^-11 from
+    0: x in quarters, weights in eighths and sixteenths, biases half a grid
+    step off it. A pre-activation within roundoff of 0 would take its ReLU
+    gate one way in the kernel and the other in the plain version, and a
+    gradient through a flipped gate differs by a whole term, not by
+    roundoff."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    q = lambda den, *s: torch.randint(  # noqa: E731
+        -4, 5, s, device=device, generator=gen).float() / den
+    x = torch.randint(0, 4, (b, h, h, c, v), device=device,
+                      generator=gen).float() / 4
+    return (x, q(8, nh, f, c, 3, 3), q(32, nh, f) + 2.0**-6,
+            q(16, nh, f, f, 1, 1), q(32, nh, f) + 2.0**-11,
+            q(16, nh, c, f, 3, 3), q(32, nh, c))
+
+
+def _within(got, want, scale, terms, name):
+    tol = K2_TOL_UNITS * terms ** 0.5 * scale
+    err = (got - want).abs()
+    assert bool((err <= tol).all()), (
+        f"{name}: max abs err {err.max().item():.3e}, worst err/tol "
+        f"{(err / tol).max().item():.3f}")
+
+
+@pytest.mark.parametrize("shape", K2_SHAPES)
+def test_k2_forward_matches_plain(cuda_device, shape):
+    args = _k2_inputs(*shape, cuda_device, sum(shape))
+    before = k2.fwd_launch_count
+    with torch.no_grad(), torch.backends.cudnn.flags(enabled=True,
+                                                     allow_tf32=False):
+        got = k2.fused_conv_bottleneck(*args)
+        want = k2.reference_bottleneck(*args)
+        scale = k2.reference_bottleneck(*(t.abs() for t in args))
+    assert k2.fwd_launch_count == before + 1
+    assert got.shape == want.shape and got.is_contiguous()
+    _within(got, want, scale, 9 * 74, "out")
+
+
+def _k2_grads(fn, args, cot, need_dx):
+    inputs = [t.clone().requires_grad_(i > 0 or need_dx)
+              for i, t in enumerate(args)]
+    out = fn(*inputs)
+    return torch.autograd.grad(out, inputs if need_dx else inputs[1:], cot)
+
+
+@pytest.mark.parametrize("shape,need_dx", [
+    ((3, 32, 6, 80), False), ((1, 32, 6, 80), True),
+    ((3, 2, 3, 13), True),  # heads summed into dx; ragged 10x10 tiles
+])
+def test_k2_backward_matches_plain_and_repeats_bit_for_bit(cuda_device, shape,
+                                                           need_dx):
+    nh, b, v, h = shape
+    args = _k2_gate_safe_inputs(*shape, cuda_device, 7 + h)
+    cot = torch.randn(nh, b, h, h, 4, v, device=cuda_device,
+                      generator=torch.Generator(device=cuda_device).manual_seed(1))
+    before = k2.bwd_launch_count
+    got = _k2_grads(k2.fused_conv_bottleneck, args, cot, need_dx)
+    again = _k2_grads(k2.fused_conv_bottleneck, args, cot, need_dx)
+    assert k2.bwd_launch_count == before + 2
+    with torch.backends.cudnn.flags(enabled=True, allow_tf32=False):
+        want = _k2_grads(k2.reference_bottleneck, args, cot, need_dx)
+        scale = _k2_grads(k2.reference_bottleneck, [t.abs() for t in args],
+                          cot.abs(), need_dx)
+    names = (["dx"] if need_dx else []) + ["dw1", "db1", "dw2", "db2", "dw3",
+                                           "db3"]
+    pixels = b * v * h * h
+    for name, g_, a_, w_, s_ in zip(names, got, again, want, scale):
+        assert torch.equal(g_, a_), f"{name} differs between two runs"
+        terms = 9 * 74 * nh if name == "dx" else pixels
+        _within(g_, w_, s_, terms, name)
+
+
+def test_k2_refuses_what_it_cannot_take(cuda_device):
+    x, *ws = _k2_inputs(1, 2, 3, 10, cuda_device, 5)
+    with pytest.raises(ValueError, match="contiguous"):
+        k2.fused_conv_bottleneck(x.transpose(1, 2), *ws)
+    with pytest.raises(TypeError, match="float32"):
+        k2.fused_conv_bottleneck(x.double(), *ws)
+    with pytest.raises(TypeError, match="float32"):
+        k2.fused_conv_bottleneck(x, ws[0].half(), *ws[1:])
+    with pytest.raises(ValueError, match="does not fit"):
+        k2.fused_conv_bottleneck(x, *ws[:2], ws[2][:, :, :70], *ws[3:])
+
+
+def _gat_pair(hw, device, seed=0):
+    from extended_gan_torch.models.gat.gat3d import Model
+
+    kw = dict(attention_type="temporal", mapping_type="conv", use_pallas=True)
+    fused = Model(hw, hw, 6, use_pallas_mapping=True,
+                  generator=torch.Generator().manual_seed(seed), **kw)
+    plain = Model(hw, hw, 6, **kw)
+    plain.load_state_dict(fused.state_dict())
+    return fused.to(device), plain.to(device)
+
+
+def test_k2_model_launches_two_a_forward_and_two_a_backward(cuda_device):
+    fused, plain = _gat_pair(20, cuda_device)
+    x = torch.rand(4, 20, 20, 4, 6, device=cuda_device)
+    before = (k2.fwd_launch_count, k2.bwd_launch_count)
+    with torch.backends.cudnn.flags(enabled=True, allow_tf32=False):
+        y = fused(x)
+        assert (k2.fwd_launch_count, k2.bwd_launch_count) == (
+            before[0] + 2, before[1])
+        y.square().mean().backward()
+        assert (k2.fwd_launch_count, k2.bwd_launch_count) == (
+            before[0] + 2, before[1] + 2)
+        torch.testing.assert_close(y.detach(), plain(x).detach(), rtol=1e-5,
+                                   atol=1e-5)
+
+
+def test_k2_model_train_steps_match_the_plain_path(cuda_device):
+    """One step's gradients, then three Adam steps, switch on against off,
+    at 80x80 and batch 16. A ReLU gate that roundoff flips (a pre-activation
+    within roundoff of 0) moves a weight gradient by one pixel's term, a
+    share of the largest entry that shrinks with the number of pixels: at
+    20x20 and batch 8 one flip exceeded the 1e-4 this test allows."""
+    from extended_gan_torch.train.gat_trainer import make_gat_train_step
+
+    fused, plain = _gat_pair(80, cuda_device, seed=3)
+    rng = np.random.default_rng(0)
+    batches = [[torch.from_numpy(rng.random((16, 80, 80, 4, 6), np.float32))
+                .to(cuda_device) for _ in range(2)] for _ in range(3)]
+    mask = torch.ones(16, device=cuda_device)
+    x0, y0 = batches[0]
+    # about one f32 rounding of the input: how far roundoff alone (and the
+    # ReLU gates it flips) moves the plain path's gradients
+    noise = 1 + 1e-7 * torch.randn(
+        x0.shape, generator=torch.Generator().manual_seed(1)).to(cuda_device)
+    with torch.backends.cudnn.flags(enabled=True, allow_tf32=False):
+        grads = []
+        for model, x in ((fused, x0), (plain, x0), (plain, x0 * noise)):
+            model.train().zero_grad()
+            ((model(x) - y0) ** 2).mean().backward()
+            grads.append([p.grad.clone() for p in model.parameters()])
+        largest = max(g.abs().max().item() for g in grads[1])
+        gap, sens = (max((g_ - w_).abs().max().item()
+                         for g_, w_ in zip(grads[i], grads[1])) / largest
+                     for i in (0, 2))
+        # chip_smoke.py's rule: 10x what roundoff alone does, or 1e-4
+        assert gap <= max(1e-4, 10 * sens), (gap, sens)
+        steps = [make_gat_train_step(m, torch.optim.Adam(m.parameters(), 1e-3))
+                 for m in (fused, plain)]
+        for x, y in batches:
+            losses = [float(step(x, y, mask)[0]) for step in steps]
+            assert abs(losses[0] - losses[1]) <= 1e-5 * abs(losses[1])
+    # Adam moves every entry by about lr a step whatever its gradient's
+    # size, and one whose gradient is zero up to roundoff either way
+    for p, q in zip(fused.parameters(), plain.parameters()):
+        assert (p - q).abs().max().item() <= 2 * 1e-3 * 3

@@ -56,6 +56,7 @@ from extended_gan_torch.models.registry import build_model
 from extended_gan_torch.models.smaat_unet import SmaAt_UNet
 from extended_gan_torch.ops import dsconv as k3
 from extended_gan_torch.ops import gat_attention as k1
+from extended_gan_torch.ops import gat_mapping as k2
 from extended_gan_torch.train import gat_trainer, optim
 from extended_gan_torch.train.gat_driver import train
 
@@ -277,7 +278,9 @@ def test_cli_trains_on_the_cpu_and_writes_outside_the_repo(tmp_path, capsys):
     assert sorted(state) == sorted(model.state_dict())
     last = capsys.readouterr().out.strip().splitlines()[-1]
     assert json.loads(last) == {"kernel_launches": {
-        "gat_attention_fwd": k1.launch_count, "dsconv_fwd": k3.launch_count}}
+        "gat_attention_fwd": k1.launch_count, "dsconv_fwd": k3.launch_count,
+        "gat_mapping_fwd": k2.fwd_launch_count,
+        "gat_mapping_bwd": k2.bwd_launch_count}}
 
 
 def test_generate_experiment_reads_the_jax_configs(tmp_path):
