@@ -19,10 +19,11 @@ Phases, each fatal on failure (non-zero exit, no result line):
              the forward at final_temp_conv's hidden (3 heads) and output
              (1 head) blocks at batch 32, serve batch 1 and
              local_temporal_conv (20x20) batch 32; the backward (dx and the
-             six weight and bias gradients) at both 80x80 batch-32 blocks,
-             twice, bit-identical, at the tolerance stated at K2_TOL_UNITS.
-             Times of the kernels, of the composition exact and with TF32,
-             and their operation bounds.
+             six weight and bias gradients) at both 80x80 batch-32 blocks;
+             each twice, bit-identical, at the tolerance stated at
+             K2_TOL_UNITS. Times of the kernels, of the composition exact
+             and with TF32, their operation bounds, the forward's share of
+             the f32 peak and its build (registers, spills, shared bytes).
 3. serve   - the served path as a user runs it: ``python -m
              extended_gan_torch.serve export`` of final_temp_conv (80x80) with
              --init-seed 0, ``ModelServer`` on the card behind the HTTP server
@@ -105,7 +106,23 @@ def time_ms(fn, *, groups=25, warmup=5, per_group=10, sleep_cycles=5_000_000):
     return statistics.median(times)
 
 
+def ptxas_entries(log):
+    """{mangled kernel name: (registers, spill bytes stored + loaded,
+    static shared bytes)} from nvcc's -Xptxas=-v output."""
+    entries = {}
+    for chunk in log.split("Compiling entry function '")[1:]:
+        name = chunk.split("'", 1)[0]
+        regs = re.search(r"Used (\d+) registers", chunk)
+        spills = re.findall(r"(\d+) bytes spill (?:stores|loads)", chunk)
+        smem = re.search(r"(\d+) bytes smem", chunk)
+        entries[name] = (int(regs.group(1)) if regs else None,
+                         sum(int(n) for n in spills),
+                         int(smem.group(1)) if smem else 0)
+    return entries
+
+
 def phase_build():
+    """Builds every kernel source; returns each source's nvcc log."""
     from extended_gan_torch.ops import build
 
     t0 = time.perf_counter()
@@ -123,6 +140,7 @@ def phase_build():
     print(f"[build] {len(report)} kernel source(s) compiled, "
           f"{len(build.sources()) - len(report)} already up to date, in "
           f"{secs:.2f} s into {build.BUILD_DIR}")
+    return {name: info["log"] for name, info in report.items()}
 
 
 def phase_kernels():
@@ -390,12 +408,27 @@ def _k2_check(got, want, scale, terms, label):
     return err.max().item(), ratio
 
 
-def phase_mapping():
+def phase_mapping(build_logs):
     """K2's forward and backward kernels against reference_bottleneck and
-    its autograd; times of both and of the plain composition (cuDNN)."""
+    its autograd, each run twice and held to bit-identical results; times
+    of both and of the plain composition (cuDNN), and the forward's share
+    of the f32 peak and its build (registers, spills, shared memory)."""
     import torch
 
     from extended_gan_torch.ops import gat_mapping as k2
+
+    smem = k2._lib().gat_mapping_smem_bytes(K2_C, K2_F, K2_C, 0)
+    entries = ptxas_entries(build_logs.get("gat_mapping", ""))
+    fwd_builds = {n: e for n, e in entries.items()
+                  if "gat_mapping_fwd_kernel" in n}
+    if not fwd_builds:
+        print("[kernel] gat_mapping_fwd build: no ptxas report (library "
+              "built before this run)")
+    for name, (regs, spills, static) in sorted(fwd_builds.items()):
+        print(f"[kernel] gat_mapping_fwd build {name}: {regs} registers a "
+              f"thread, {spills} bytes spilled, {static} bytes static shared "
+              f"memory; {smem} bytes dynamic shared memory a block at "
+              f"Cin = Cout = {K2_C}, F = {K2_F}")
 
     def exact():
         return torch.backends.cudnn.flags(enabled=True, allow_tf32=False)
@@ -409,9 +442,12 @@ def phase_mapping():
         with torch.no_grad():
             with exact():
                 got = k2.fused_conv_bottleneck(*args)
+                again = k2.fused_conv_bottleneck(*args)
                 want = k2.reference_bottleneck(*args)
                 scale = k2.reference_bottleneck(*(t.abs() for t in args))
             torch.cuda.synchronize()
+            check(torch.equal(got, again), f"K2 forward at {where}: two runs "
+                                           "differ")
             err, ratio = _k2_check(got, want, scale, 9 * K2_F,
                                    f"forward at {where}")
             kms = time_ms(lambda: k2.fused_conv_bottleneck(*args), **big)
@@ -420,13 +456,16 @@ def phase_mapping():
             with tf32():
                 tms = time_ms(lambda: k2.reference_bottleneck(*args), **big)
         bound, by, gflop = k2_bound(*shape)
+        peak = 100 * gflop * 1e9 / (kms * 1e-3) / F32_FLOP_PER_S
         fwd_rows.append(dict(where=where, shape=shape, max_abs_err=err,
                              kernel_ms=kms, plain_ms=pms, cudnn_tf32_ms=tms,
-                             bound_ms=bound, bound_by=by, gflop=gflop))
+                             bound_ms=bound, bound_by=by, gflop=gflop,
+                             f32_peak_pct=peak))
         print(f"[kernel] gat_mapping_fwd {where} (NH, B, V, H) = {shape}: "
-              f"max_abs_err={err:.3e} (worst err/tol {ratio:.3e}) kernel="
-              f"{kms:.4f} ms plain (cuDNN exact)={pms:.4f} ms cuDNN TF32="
-              f"{tms:.4f} ms bound={bound:.4f} ms ({by}, {gflop:.2f} GFLOP)")
+              f"max_abs_err={err:.3e} (worst err/tol {ratio:.3e}), two runs "
+              f"bit-identical; kernel={kms:.4f} ms plain (cuDNN exact)="
+              f"{pms:.4f} ms cuDNN TF32={tms:.4f} ms bound={bound:.4f} ms "
+              f"({by}, {gflop:.2f} GFLOP), {peak:.1f}% of the f32 peak")
     names = ["dx", "dw1", "db1", "dw2", "db2", "dw3", "db3"]
     for i, (where, shape) in enumerate(K2_SHAPES[:2]):
         nh, b, v, h = shape
@@ -620,10 +659,12 @@ def phase_forward(models, batch=32):
                        "forward")
 
 
-def profile_window(fn, label, unit, n=5, top=10):
+def profile_window(fn, label, unit, n=5, top=10, counter=None):
     """Profile ``n`` calls of ``fn`` after one warm-up: device busy time a
     call, its share of the wall-clock window, and the top kernels by
-    device time."""
+    device time. ``counter``, a (kernel name, count function) pair: the
+    kernel's launches as the profiler records them beside the wrapper's
+    launch counter over the same window."""
     import torch
 
     acts = [torch.profiler.ProfilerActivity.CPU,
@@ -631,11 +672,13 @@ def profile_window(fn, label, unit, n=5, top=10):
     fn()
     torch.cuda.synchronize()
     with torch.profiler.profile(activities=acts) as prof:
+        counted = counter[1]() if counter else 0
         t0 = time.perf_counter()
         for _ in range(n):
             fn()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
+        counted = counter[1]() - counted if counter else 0
 
     def dev_us(e):
         return getattr(e, "self_device_time_total",
@@ -655,6 +698,13 @@ def profile_window(fn, label, unit, n=5, top=10):
     for e in sorted(events, key=dev_us, reverse=True)[:top]:
         print(f"[profile]   {100 * dev_us(e) / busy:5.1f}%  "
               f"{dev_us(e) / n / 1e3:.4f} ms  x{e.count // n}  {e.key[:90]}")
+    if counter:
+        recorded = [e for e in events if counter[0] in e.key]
+        print(f"[profile] {counter[0]}: the profiler records "
+              f"{sum(e.count for e in recorded)} launches over {n} {unit}s "
+              f"({len(recorded)} keys, "
+              f"{sum(dev_us(e) for e in recorded) / n / 1e3:.4f} ms a {unit}),"
+              f" the launch counter counts {counted}")
 
 
 def _finite(values):
@@ -958,7 +1008,9 @@ def phase_mapping_model(batch=32, hw=80):
           f"unswitched| = {err:.3e}; {forward_launches} a forward")
     with torch.inference_mode():
         profile_window(lambda: switched(x), f"final_temp_conv b={batch} "
-                       "use_pallas_mapping=True", "forward")
+                       "use_pallas_mapping=True", "forward",
+                       counter=("gat_mapping_fwd_kernel",
+                                lambda: k2.fwd_launch_count))
     train = compare_train_steps(
         "temporal use_pallas_mapping=True", switched, unswitched, hw, "adam",
         counts, {"gat_mapping_fwd": 2, "gat_mapping_bwd": 2}, batch=batch)
@@ -993,10 +1045,10 @@ def main() -> int:
         return 1
     sys.path.insert(0, REPO)
     try:
-        phase_build()
+        build_logs = phase_build()
         rows, worst = phase_kernels()
         dsc_rows, dsc_worst = phase_dsconv()
-        k2_fwd_rows, k2_bwd_rows = phase_mapping()
+        k2_fwd_rows, k2_bwd_rows = phase_mapping(build_logs)
         launches, models = phase_serve()
         phase_forward(models)
         train_launches = phase_train()
@@ -1069,6 +1121,7 @@ def main() -> int:
             "bound_ms": main_k2["bound_ms"],
             "bound_by": main_k2["bound_by"],
             "library_ms": None,
+            "f32_peak_pct": 100 * main_k2["bound_ms"] / main_k2["kernel_ms"],
             "cudnn_ms": main_k2["plain_ms"],
             "cudnn_tf32_ms": main_k2["cudnn_tf32_ms"],
             "shape": "NH={} B={} V={} {}x{} (final_temp_conv hidden block, "

@@ -18,24 +18,72 @@
 //
 // Bound: operations. The forward does 2 * (9*Cin*F + F*F + 9*F*Cout) flops a
 // pixel and head (21,608 at Cin = Cout = 4, F = 74) against 32 bytes of x and
-// out, far above the card's flop:byte balance. Exact f32 is the contract (the
-// TPU kernel runs Precision.HIGHEST), so every product is an f32 FMA on the
-// CUDA cores; the tensor cores' TF32 would not match the plain version.
+// out, far above the card's flop:byte balance: at GAT3D's hidden block (3
+// heads, 80x80, batch 32, V = 6) the bound is 1.1889 ms at the H100 SXM's
+// 67 TFLOP/s f32 (its 700 W rating). Exact f32 is the contract (the TPU
+// kernel runs Precision.HIGHEST), so every product is an f32 FMA on the CUDA
+// cores; the tensor cores' TF32 would not match the plain version.
 //
-// Design. The TPU kernel keeps a whole image's 74-wide intermediates in VMEM;
-// one 80x80 intermediate is 1.9 MB here, against 227 KB of shared memory a
-// block. So each image is cut into 10x10 output tiles. A tile needs h1 and h2
-// on its 12x12 neighbourhood (Q) and x on 14x14 (X); h1 and h2 stay in shared
-// memory (channel-major, odd pitch: a warp reading consecutive pixels of one
-// channel, or one pixel of consecutive channels, hits distinct banks), and the
-// halo costs 44% more work in the first two layers. SAME padding of the
-// intermediates: h1 and h2 are zeroed at every Q pixel outside the image, as
-// the TPU kernel masks them, which also zeroes their ReLU gates there.
+// Forward. The TPU kernel keeps a whole image's 74-wide intermediates in
+// VMEM; one 80x80 intermediate is 1.9 MB here, against 227 KB of shared
+// memory a block. So each image is cut into 16x16 output tiles (kFT): h1 and
+// h2 are computed on the 18x18 neighbourhood (Q, 324 pixels) and x is staged
+// on 20x20, a halo of 324 / 256 = 1.27x the work of the first two layers.
+// One buffer of Fp x 324 floats (Fp = F padded to 80 at F = 74; 104 KB)
+// holds h1, then h2 over it: layer 2 keeps its results in registers until
+// every thread has read h1. With the weights and two x windows a block takes
+// 164 KB: one block of 384 threads an SM.
 //
-// One block per SM and head-slice: grid (G, NH); the block loads its head's
-// weights into shared memory once and walks the jobs (image, tile) blockIdx.x,
-// blockIdx.x + G, ... in order. The conv layers give each thread one pixel and
-// four output channels (one 16-byte weight load per four FMAs).
+// Register tiles. In layers 1 and 2 a thread owns 4 (or 3) pixels x 20
+// channels; each step of the sum (a tap and input channel, or an input
+// channel of h1) loads 4 scalars of x or h1, from pixels 96 apart so that a
+// warp's lanes read consecutive words, and five 16-byte weight vectors that
+// the whole warp shares (a broadcast), for 80 FMAs, where the first kernel
+// issued 2 loads for 4. An SM issues FMAs from four sub-partitions, one warp
+// instruction a clock each, and a sub-partition holds warps w, w + 4, ...:
+// 324 pixels x 80 channels do not split evenly over 128-thread multiples,
+// so each sub-partition gets two warps of 4-pixel tiles and one of 3 (352
+// pixel slots for 324 pixels), the same work on every sub-partition. Layer 3
+// (1,024 outputs a tile, 666 products each) splits the sum over F in 8
+// parts by lane: a warp's 32 lanes are 4 adjacent columns x 8 parts, each
+// lane owns a column of 8 output pixels x all Cout channels and, per
+// (channel, kx), loads 10 h2 values and one 16-byte W3 vector a tap for 96
+// FMAs. The h pitch of 324 words is 4 modulo 32, so those lanes read 32
+// distinct banks. Warp shuffles add the 8 parts as a reduce-scatter (28
+// shuffles, in a fixed order) that leaves lane `part` with output row
+// `part`: no second pass through shared memory. Every output is written
+// once, by one lane, with no atomics.
+//
+// Overlapped loads. Layer 3 runs on warps 0-7 (two a sub-partition); warps
+// 8-11 meanwhile copy the next job's x window with cp.async (4-byte copies,
+// zero-filled outside the image) into the second of two buffers, so the
+// copy never waits in a job's path. x is read in GAT3D's (B, H, W, Cin, V)
+// layout at stride V and staged channel-major. One block per SM and
+// head-slice: grid (G, NH); the block loads its head's weights into shared
+// memory once and walks the jobs (image, tile) blockIdx.x, blockIdx.x + G,
+// ... in order.
+//
+// What is left (python -m extended_gan_torch.ops.k2_probe times each phase
+// with clock64 and each layer's loop by removing it): the layer 1 and 2
+// loops issue FMAs at about 70% of the pipe's rate. A register-only stream
+// of this tile's FMAs runs at 93% of the f32 peak when each pixel value
+// stays put across 20 FMAs and at 72% when each weight does, because an FMA
+// whose two fresh operands share a register bank takes a second cycle; the
+// weights arrive in aligned register quads, and ptxas pairs many of them
+// with accumulators of the same bank. Layer 3's loop runs at about 97%.
+// The computed work is 1.3x the bound's (halo, the 352 pixel slots for 324,
+// F padded to 80); the h2 store and the wait for the window take 4% of a
+// job's clocks. 20x20 images take four 16x16 tiles (2.6x the image's work).
+// F is at most 80; at Cout > 4 (CG = 2) the build spills. All on an NVIDIA
+// H100 80GB HBM3, 700 W.
+//
+// Backward (10x10 output tiles, kT): h1 and h2 on its 12x12 neighbourhood in
+// shared memory (channel-major, odd pitch: a warp reading consecutive pixels
+// of one channel, or one pixel of consecutive channels, hits distinct banks),
+// and x and g on 14x14. SAME padding of the intermediates, in both kernels:
+// h1 and h2 are zeroed at every Q pixel outside the image, as the TPU kernel
+// masks them, which also zeroes their ReLU gates there. The backward's conv
+// layers give each thread one pixel and four output channels.
 //
 // Backward, per job: recompute h1, h2 on Q; dW3 += h2 x g over the tile; dh2
 // from g on Q (when dx is wanted, else on the tile) gated by h2 > 0, in place
@@ -49,12 +97,12 @@
 // the same x is written per head and summed over heads, in order, by a third.
 // No float atomics: the results are bit-identical from run to run.
 //
-// Known limits: one 512-thread block an SM (the backward holds ~210 KB of
-// shared memory), every product reads an operand from shared memory, and the
-// dW sums of a tile are dot products over its 100 pixels by few threads.
-// Larger register tiles, a tensor-core path for a TF32 option and overlapping
-// the next job's loads are the next steps.
+// Known limits of the backward: one 512-thread block an SM (it holds ~210 KB
+// of shared memory), every product reads an operand from shared memory, and
+// the dW sums of a tile are dot products over its 100 pixels by few threads.
+// Its layer code is the next to move to the forward's register tiles.
 
+#include <cuda_pipeline.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -210,75 +258,329 @@ __device__ void layer2(const float* h1, const float* w2t, const float* b2s,
   }
 }
 
-__global__ void __launch_bounds__(kThreads, 1)
+// The forward's geometry: see the note at the top.
+constexpr int kFT = 16;                // output tile side
+constexpr int kFQ = kFT + 2;           // h1 / h2 neighbourhood side
+constexpr int kFX = kFT + 4;           // x window side
+constexpr int kFNQ = kFQ * kFQ;        // 324: also h's channel pitch, 4 mod 32
+constexpr int kFNX = kFX * kFX;
+constexpr int kWPS = 3;                // warps on each of an SM's 4 sub-partitions
+constexpr int kFwdThreads = 128 * kWPS;
+constexpr int kCh = 20;                // channels of a layer 1-2 tile
+constexpr int kPG = 32 * kWPS;         // pixel groups: pixels pg + kPG * jj
+constexpr int kPx = 4;                 // pixels of a tile in "big" warps
+constexpr int kBig = 2;                // big warps a sub-partition; the rest kPx - 1
+constexpr int kFAlign = 40;            // F padding: kCh- and kParts-divisible
+constexpr int kMaxFwdF = 4 * kCh;      // 4 channel groups, one a sub-partition
+constexpr int kParts = 8;              // layer 3's F split, by lane
+constexpr int kRows = 8;               // layer 3: output rows of a lane
+constexpr int kStrips = kFT / kRows * kFT;  // layer 3's columns of kRows pixels
+constexpr int kL3Threads = kStrips * kParts;  // layer 3's lanes: warps 0-7
+static_assert(kFNQ % 32 == 4, "layer 3's lanes read distinct banks");
+static_assert(kPG * (kPx - 1) < kFNQ && kFNQ <= kPG * (kPx - 1) + 32 * kBig,
+              "big and small warps cover Q");
+static_assert(kFAlign % kCh == 0 && kFAlign % kParts == 0, "F padding");
+static_assert(kL3Threads == 256 && kFT % kRows == 0 && kRows == kParts &&
+              kParts == 8, "layer 3: lane `part` writes row `part`");
+static_assert(kFwdThreads > kL3Threads, "the other warps copy the next window");
+
+__device__ __forceinline__ void fwd_decode(const Dims& d, int j, int& b, int& v,
+                                           int& ty0, int& tx0) {
+  const int n = j / d.tiles, t = j % d.tiles;
+  b = n / d.V;
+  v = n % d.V;
+  ty0 = (t / d.tiles_x) * kFT;
+  tx0 = (t % d.tiles_x) * kFT;
+}
+
+// Starts the copy of job j's x window, channel-major (dst[c * kFNX + r]),
+// whose corner is image pixel (ty0 - 2, tx0 - 2), by threads t of n; zero
+// outside the image. Commits one cp.async group.
+__device__ void fwd_load_window(const float* __restrict__ x, const Dims& d,
+                                int j, float* dst, int t, int n) {
+  int b, v, ty0, tx0;
+  fwd_decode(d, j, b, v, ty0, tx0);
+  for (int i = t; i < d.Cin * kFNX; i += n) {
+    const int c = i / kFNX, r = i % kFNX;
+    const int y = ty0 - 2 + r / kFX, xx = tx0 - 2 + r % kFX;
+    const bool in = inside(d, y, xx);
+    __pipeline_memcpy_async(dst + i, in ? x + at(d, d.Cin, b, y, xx, c, v) : x,
+                            4, in ? 0 : 4);
+  }
+  __pipeline_commit();
+}
+
+// A thread's layer 1 or 2 tile: channels kCh cg .. kCh cg + kCh - 1 of the Q
+// pixels pg + kPG * jj, jj < NP (kPx in big warps, kPx - 1 in the others,
+// whose last row of accumulators idles).
+struct FwdTile {
+  float acc[kPx][kCh];
+
+  // acc[jj][k] += a[jj] * w[k]: each a[jj] feeds kCh FMAs in a row
+  template <int NP>
+  __device__ __forceinline__ void fma(const float (&a)[kPx], const float (&w)[kCh]) {
+#pragma unroll
+    for (int jj = 0; jj < NP; ++jj)
+#pragma unroll
+      for (int k = 0; k < kCh; ++k) acc[jj][k] = fmaf(a[jj], w[k], acc[jj][k]);
+  }
+
+  // every accumulator at its channel's bias
+  __device__ __forceinline__ void init(const float* bias, int cg) {
+#pragma unroll
+    for (int g = 0; g < kCh / 4; ++g) {
+      const float4 bv = ld4(bias + kCh * cg + 4 * g);
+#pragma unroll
+      for (int jj = 0; jj < kPx; ++jj) {
+        acc[jj][4 * g] = bv.x;
+        acc[jj][4 * g + 1] = bv.y;
+        acc[jj][4 * g + 2] = bv.z;
+        acc[jj][4 * g + 3] = bv.w;
+      }
+    }
+  }
+
+  // h[f * kFNQ + q] = relu(acc), or 0 where Q pixel q lies outside the
+  // image (Q's corner is image pixel (y0, x0))
+  template <int NP>
+  __device__ __forceinline__ void store(float* h, const Dims& d, int cg, int pg,
+                                        int y0, int x0) const {
+#pragma unroll
+    for (int jj = 0; jj < NP; ++jj) {
+      const int q = pg + kPG * jj;
+      if (q >= kFNQ) continue;  // past Q: slots of the last pixel group only
+      const bool in = inside(d, y0 + q / kFQ, x0 + q % kFQ);
+#pragma unroll
+      for (int k = 0; k < kCh; ++k)
+        h[(kCh * cg + k) * kFNQ + q] = in ? fmaxf(acc[jj][k], 0.f) : 0.f;
+    }
+  }
+};
+
+// The kCh weights at w (16-byte aligned).
+__device__ __forceinline__ void fwd_weights(float (&wv)[kCh], const float* w) {
+#pragma unroll
+  for (int g = 0; g < kCh / 4; ++g) {
+    const float4 v = ld4(w + 4 * g);
+    wv[4 * g] = v.x;
+    wv[4 * g + 1] = v.y;
+    wv[4 * g + 2] = v.z;
+    wv[4 * g + 3] = v.w;
+  }
+}
+
+// h1 = relu(conv3x3(x) + b1) at the tile's pixels, an implicit product with
+// K = 9 Cin over the x window xw; xo[jj] is pixel jj's offset in it.
+template <int NP>
+__device__ __forceinline__ void fwd_layer1(FwdTile& tile, const float* xw,
+                                           const float* wc, const int (&xo)[kPx],
+                                           int Cin, int Fp) {
+  for (int c = 0; c < Cin; ++c) {
+    const float* xc = xw + c * kFNX;
+    const float* w = wc + c * 9 * Fp;
+#pragma unroll
+    for (int tap = 0; tap < 9; ++tap) {
+      const int off = (tap / 3) * kFX + tap % 3;
+      float wv[kCh], a[kPx];
+      fwd_weights(wv, w + tap * Fp);
+#pragma unroll
+      for (int jj = 0; jj < NP; ++jj) a[jj] = xc[xo[jj] + off];
+      tile.fma<NP>(a, wv);
+    }
+  }
+}
+
+// h2 = relu(W2 h1 + b2) at the tile's pixels, Q pixels q[jj] of h1 in hs.
+template <int NP>
+__device__ __forceinline__ void fwd_layer2(FwdTile& tile, const float* hs,
+                                           const int (&q)[kPx], const float* wg,
+                                           int F, int Fp) {
+#pragma unroll 2
+  for (int k = 0; k < F; ++k) {
+    float wv[kCh], a[kPx];
+    fwd_weights(wv, wg + k * Fp);
+#pragma unroll
+    for (int jj = 0; jj < NP; ++jj) a[jj] = hs[k * kFNQ + q[jj]];
+    tile.fma<NP>(a, wv);
+  }
+}
+
+// One level of layer 3's reduce-scatter: rows 2n and 2n + 1 of `in` pair up;
+// this lane keeps the one whose index has bit `bit` and adds the partner
+// lane's (lane ^ lanes) copy of it, sending the other: out[n] = kept sum.
+template <int N, int C>
+__device__ __forceinline__ void fwd_halve(const float (&in)[2 * N][C],
+                                          float (&out)[N][C], int bit, int lanes) {
+#pragma unroll
+  for (int n = 0; n < N; ++n)
+#pragma unroll
+    for (int k = 0; k < C; ++k) {
+      const float lo = in[2 * n][k], hi = in[2 * n + 1][k];
+      const float send = bit ? lo : hi;
+      out[n][k] = (bit ? hi : lo) + __shfl_xor_sync(0xffffffffu, send, lanes);
+    }
+}
+
+// CG groups of 4 output channels (Cout <= 4 * CG).
+template <int CG>
+__global__ void __launch_bounds__(kFwdThreads, 1)
 gat_mapping_fwd_kernel(const float* __restrict__ x, const float* __restrict__ w1,
                        const float* __restrict__ b1, const float* __restrict__ w2,
                        const float* __restrict__ b2, const float* __restrict__ w3,
                        const float* __restrict__ b3, float* __restrict__ out,
                        Dims d) {
   extern __shared__ float4 smem4[];
-  const int F = d.F, Fp = d.Fp, Cout = d.Cout, head = blockIdx.y;
-  float* w1s = reinterpret_cast<float*>(smem4);  // Cin * 9 * Fp
-  float* w2t = w1s + d.Cin * 9 * Fp;             // F * Fp
-  float* b1s = w2t + F * Fp;                     // Fp
+  constexpr int Cp = 4 * CG;
+  const int F = d.F, Fp = (d.F + kFAlign - 1) / kFAlign * kFAlign;
+  const int Cin = d.Cin, Cout = d.Cout;
+  const int head = blockIdx.y;
+  float* w1s = reinterpret_cast<float*>(smem4);  // [(c*9 + tap) * Fp + f]
+  float* w2s = w1s + Cin * 9 * Fp;               // [k * Fp + f]
+  float* b1s = w2s + F * Fp;                     // Fp
   float* b2s = b1s + Fp;                         // Fp
-  float* w3f = b2s + Fp;                         // [(f*9 + tap) * Cout + co]
-  float* b3s = w3f + F * 9 * Cout;               // Cout
-  float* xs = b3s + Cout;                        // Cin * kXP
-  float* h1 = xs + d.Cin * kXP;                  // F * kQP
-  float* h2 = h1 + F * kQP;                      // F * kQP
-  float* red = h2 + F * kQP;                     // kSplit * Cout * kTT
+  float* w3s = b2s + Fp;                         // [(f*9 + tap) * Cp + co]
+  float* b3s = w3s + Fp * 9 * Cp;                // Cp
+  float* xs = b3s + Cp;                          // 2 windows of Cin * kFNX
+  float* hs = xs + 2 * Cin * kFNX;               // Fp * kFNQ: h1, then h2
 
-  load_w1_w2(w1, b1, w2, b2, d, head, w1s, w2t, b1s, b2s);
-  const float* w3h = w3 + (int64_t)head * Cout * F * 9;
-  for (int i = threadIdx.x; i < F * 9 * Cout; i += blockDim.x) {
-    const int co = i % Cout, ft = i / Cout;  // ft = f * 9 + tap
-    w3f[i] = __ldg(w3h + co * F * 9 + ft);
+  if (blockIdx.x < d.jobs)
+    fwd_load_window(x, d, blockIdx.x, xs, threadIdx.x, kFwdThreads);
+  const float* w1h = w1 + (int64_t)head * F * Cin * 9;
+  for (int i = threadIdx.x; i < Cin * 9 * Fp; i += blockDim.x) {
+    const int f = i % Fp, ct = i / Fp;
+    w1s[i] = f < F ? __ldg(w1h + f * Cin * 9 + ct) : 0.f;
   }
-  for (int i = threadIdx.x; i < Cout; i += blockDim.x)
-    b3s[i] = __ldg(b3 + (int64_t)head * Cout + i);
+  const float* w2h = w2 + (int64_t)head * F * F;
+  for (int i = threadIdx.x; i < F * Fp; i += blockDim.x) {
+    const int f = i % Fp, k = i / Fp;
+    w2s[i] = f < F ? __ldg(w2h + f * F + k) : 0.f;
+  }
+  for (int i = threadIdx.x; i < Fp; i += blockDim.x) {
+    b1s[i] = i < F ? __ldg(b1 + (int64_t)head * F + i) : 0.f;
+    b2s[i] = i < F ? __ldg(b2 + (int64_t)head * F + i) : 0.f;
+  }
+  const float* w3h = w3 + (int64_t)head * Cout * F * 9;
+  for (int i = threadIdx.x; i < Fp * 9 * Cp; i += blockDim.x) {
+    const int co = i % Cp, ft = i / Cp;  // ft = f * 9 + tap
+    w3s[i] = co < Cout && ft < F * 9 ? __ldg(w3h + co * F * 9 + ft) : 0.f;
+  }
+  for (int i = threadIdx.x; i < Cp; i += blockDim.x)
+    b3s[i] = i < Cout ? __ldg(b3 + (int64_t)head * Cout + i) : 0.f;
   float* outh = out + (int64_t)head * d.B * d.H * d.W * Cout * d.V;
 
-  for (int j = blockIdx.x; j < d.jobs; j += gridDim.x) {
+  // layers 1 and 2: warp w owns channel group cg = w % 4 of pixel groups
+  // 32 (w / 4) .. + 31, on sub-partition w % 4, which then carries kBig
+  // warps of kPx pixels a lane and the rest of kPx - 1; groups past Fp idle
+  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+  const int cg = warp % 4, pg = 32 * (warp / 4) + lane;
+  const bool l12 = cg < Fp / kCh, big = warp / 4 < kBig;
+  // layer 3: lane = 4 * part + column; warp w owns output rows
+  // kRows (w / (kFT/4)) .. + kRows - 1 of columns 4 (w % (kFT/4)) .. + 3
+  const int part = lane / 4;
+  const int r0 = kRows * (warp / (kFT / 4));
+  const int col = 4 * (warp % (kFT / 4)) + lane % 4;
+  int q[kPx], xo[kPx];  // Q pixel pg + kPG * jj (slots past Q read its last
+                        // pixel), and its offset in the x window
+#pragma unroll
+  for (int jj = 0; jj < kPx; ++jj) {
+    q[jj] = min(pg + kPG * jj, kFNQ - 1);
+    xo[jj] = (q[jj] / kFQ) * kFX + q[jj] % kFQ;
+  }
+
+  int buf = 0;
+  for (int j = blockIdx.x; j < d.jobs; j += gridDim.x, buf ^= 1) {
+    __pipeline_wait_prior(0);  // this job's window is in
+    __syncthreads();           // ... for every thread; layer 3 is done with hs
     int b, v, ty0, tx0;
-    decode(d, j, b, v, ty0, tx0);
-    __syncthreads();  // the weights are in; the last job is done with xs, red
-    load_window(x, d, d.Cin, b, v, ty0 - 2, tx0 - 2, xs);
-    __syncthreads();
-    layer1(xs, w1s, b1s, d, ty0 - 1, tx0 - 1, h1);
-    __syncthreads();
-    layer2(h1, w2t, b2s, d, ty0 - 1, tx0 - 1, h2);
-    __syncthreads();
-    // conv3 on the tile, F split in kSplit parts summed below in order
-    for (int i = threadIdx.x; i < kSplit * kTT; i += blockDim.x) {
-      const int s = i / kTT, p = i % kTT, py = p / kT, px = p % kT;
-      float acc[kMaxC];
-#pragma unroll
-      for (int co = 0; co < kMaxC; ++co) acc[co] = 0.f;
-      for (int f = s * F / kSplit; f < (s + 1) * F / kSplit; ++f) {
-        const float* hf = h2 + f * kQP + py * kQ + px;
-#pragma unroll
-        for (int tap = 0; tap < 9; ++tap) {
-          const float a = hf[(tap / 3) * kQ + tap % 3];
-          const float* wt = w3f + (f * 9 + tap) * Cout;
-#pragma unroll
-          for (int co = 0; co < kMaxC; ++co)
-            if (co < Cout) acc[co] = fmaf(a, wt[co], acc[co]);
-        }
+    fwd_decode(d, j, b, v, ty0, tx0);
+    FwdTile tile;
+
+    // h1 = relu(conv3x3(x) + b1) on Q
+    if (l12) {
+      tile.init(b1s, cg);
+      const float* xw = xs + buf * Cin * kFNX;
+      if (big) {
+        fwd_layer1<kPx>(tile, xw, w1s + kCh * cg, xo, Cin, Fp);
+        tile.store<kPx>(hs, d, cg, pg, ty0 - 1, tx0 - 1);
+      } else {
+        fwd_layer1<kPx - 1>(tile, xw, w1s + kCh * cg, xo, Cin, Fp);
+        tile.store<kPx - 1>(hs, d, cg, pg, ty0 - 1, tx0 - 1);
       }
-#pragma unroll
-      for (int co = 0; co < kMaxC; ++co)
-        if (co < Cout) red[(s * Cout + co) * kTT + p] = acc[co];
     }
     __syncthreads();
-    for (int i = threadIdx.x; i < Cout * kTT; i += blockDim.x) {
-      const int co = i / kTT, p = i % kTT;
-      const int y = ty0 + p / kT, xx = tx0 + p % kT;
-      if (y >= d.H || xx >= d.W) continue;
-      float o = b3s[co];
+
+    // h2 = relu(W2 h1 + b2) on Q, kept in registers until all of h1 is read
+    if (l12) {
+      tile.init(b2s, cg);
+      if (big)
+        fwd_layer2<kPx>(tile, hs, q, w2s + kCh * cg, F, Fp);
+      else
+        fwd_layer2<kPx - 1>(tile, hs, q, w2s + kCh * cg, F, Fp);
+    }
+    __syncthreads();
+    if (l12) {
+      if (big)
+        tile.store<kPx>(hs, d, cg, pg, ty0 - 1, tx0 - 1);
+      else
+        tile.store<kPx - 1>(hs, d, cg, pg, ty0 - 1, tx0 - 1);
+    }
+    __syncthreads();
+
+    // out = conv3x3(h2) + b3 on the tile: this lane's part of the sum over
+    // channels f = kParts * i + part, for output rows r0 .. r0 + kRows - 1
+    // at col, in warps 0-7: two on each sub-partition. Warps 8 and up copy
+    // the next job's window meanwhile into the other buffer, whose last
+    // reader (layer 1) is past three barriers.
+    if (threadIdx.x >= kL3Threads) {
+      if (j + (int)gridDim.x < d.jobs)
+        fwd_load_window(x, d, j + gridDim.x, xs + (buf ^ 1) * Cin * kFNX,
+                        threadIdx.x - kL3Threads, kFwdThreads - kL3Threads);
+    } else {
+      float o[kRows][Cp];
 #pragma unroll
-      for (int s = 0; s < kSplit; ++s) o += red[(s * Cout + co) * kTT + p];
-      outh[at(d, Cout, b, y, xx, co, v)] = o;
+      for (int r = 0; r < kRows; ++r)
+#pragma unroll
+        for (int k = 0; k < Cp; ++k) o[r][k] = 0.f;
+      for (int i = 0; i < Fp / kParts; ++i) {
+        const int f = kParts * i + part;
+        const float* hf = hs + f * kFNQ + r0 * kFQ + col;
+        const float* wf = w3s + f * 9 * Cp;
+#pragma unroll
+        for (int kx = 0; kx < 3; ++kx) {
+          float hv[kRows + 2];
+#pragma unroll
+          for (int rr = 0; rr < kRows + 2; ++rr) hv[rr] = hf[rr * kFQ + kx];
+#pragma unroll
+          for (int ky = 0; ky < 3; ++ky)
+#pragma unroll
+            for (int g = 0; g < CG; ++g) {
+              const float4 wv = ld4(wf + (ky * 3 + kx) * Cp + 4 * g);
+#pragma unroll
+              for (int r = 0; r < kRows; ++r) {
+                const float a = hv[r + ky];
+                o[r][4 * g] = fmaf(a, wv.x, o[r][4 * g]);
+                o[r][4 * g + 1] = fmaf(a, wv.y, o[r][4 * g + 1]);
+                o[r][4 * g + 2] = fmaf(a, wv.z, o[r][4 * g + 2]);
+                o[r][4 * g + 3] = fmaf(a, wv.w, o[r][4 * g + 3]);
+              }
+            }
+        }
+      }
+      // the parts' sum, reduce-scattered: at each level (lanes 4, 8, 16
+      // apart) a lane keeps the half of its rows whose bit matches its part
+      // and adds its partner's copy of them, so it ends with row `part`
+      // summed over the 8 parts, in a fixed order (28 shuffles, not 96)
+      float o4[kRows / 2][Cp], o2[kRows / 4][Cp], row[1][Cp];
+      fwd_halve<kRows / 2>(o, o4, part & 1, 4);
+      fwd_halve<kRows / 4>(o4, o2, part >> 1 & 1, 8);
+      fwd_halve<1>(o2, row, part >> 2, 16);
+      // lane `part` writes output row r0 + part
+      const int y = ty0 + r0 + part, xx = tx0 + col;
+      if (y < d.H && xx < d.W) {
+#pragma unroll
+        for (int k = 0; k < Cp; ++k)
+          if (k < Cout) outh[at(d, Cout, b, y, xx, k, v)] = row[0][k] + b3s[k];
+      }
     }
   }
 }
@@ -571,9 +873,9 @@ __global__ void sum_heads_kernel(const float* __restrict__ src, int NH,
 }
 
 int64_t fwd_smem_bytes(int Cin, int F, int Cout) {
-  const int Fp = pad4(F);
-  return 4 * ((int64_t)Cin * 9 * Fp + F * Fp + 2 * Fp + F * 9 * Cout + Cout +
-              Cin * kXP + 2 * F * kQP + kSplit * Cout * kTT);
+  const int Fp = (F + kFAlign - 1) / kFAlign * kFAlign, Cp = pad4(Cout);
+  return 4 * ((int64_t)Cin * 9 * Fp + F * Fp + 2 * Fp + Fp * 9 * Cp + Cp +
+              2 * Cin * kFNX + Fp * kFNQ);
 }
 
 int64_t bwd_smem_bytes(int Cin, int F, int Cout) {
@@ -581,6 +883,17 @@ int64_t bwd_smem_bytes(int Cin, int F, int Cout) {
   return 4 * ((int64_t)Cin * 9 * Fp + 2 * F * Fp + 2 * Fp + Cout * 9 * Fp +
               (Cin + Cout) * kXP + 2 * F * kQP + grad_floats(Cin, F, Cout) +
               kSplit * Cin * kTT);
+}
+
+// The forward's jobs: (image, kFT x kFT tile) pairs. False if too many.
+bool fwd_tiles(Dims& d) {
+  const int64_t tiles_x = (d.W + kFT - 1) / kFT, tiles_y = (d.H + kFT - 1) / kFT;
+  const int64_t jobs = (int64_t)d.B * d.V * tiles_x * tiles_y;
+  if (jobs > 0x7fffffff) return false;
+  d.tiles_x = (int)tiles_x;
+  d.tiles = (int)(tiles_x * tiles_y);
+  d.jobs = (int)jobs;
+  return true;
 }
 
 // Fills d; returns 0, or cudaErrorInvalidValue for shapes the kernels refuse.
@@ -600,7 +913,8 @@ int make_dims(int NH, int B, int V, int H, int W, int Cin, int F, int Cout,
 }  // namespace
 
 // Shared memory a block of the forward (backward = 0) or backward (1) kernel
-// needs at these widths; the kernels refuse more than 232,448 bytes.
+// needs at these widths; the kernels refuse more than 232,448 bytes, and the
+// forward a hidden width F above 80.
 extern "C" long long gat_mapping_smem_bytes(int Cin, int F, int Cout,
                                             int backward) {
   return backward ? bwd_smem_bytes(Cin, F, Cout) : fwd_smem_bytes(Cin, F, Cout);
@@ -617,13 +931,15 @@ extern "C" int gat_mapping_fwd(const void* x, const void* w1, const void* b1,
                                int blocks, void* stream) {
   Dims d;
   if (int rc = make_dims(NH, B, V, H, W, Cin, F, Cout, blocks, d)) return rc;
+  if (F > kMaxFwdF || !fwd_tiles(d)) return (int)cudaErrorInvalidValue;
   const int64_t smem = fwd_smem_bytes(Cin, F, Cout);
   if (smem > kSmemLimit) return (int)cudaErrorInvalidValue;
+  auto kernel = Cout <= 4 ? gat_mapping_fwd_kernel<1> : gat_mapping_fwd_kernel<2>;
   cudaError_t err = cudaFuncSetAttribute(
-      gat_mapping_fwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((unsigned)blocks, (unsigned)NH);
-  gat_mapping_fwd_kernel<<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+  kernel<<<grid, kFwdThreads, smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(x), static_cast<const float*>(w1),
       static_cast<const float*>(b1), static_cast<const float*>(w2),
       static_cast<const float*>(b2), static_cast<const float*>(w3),

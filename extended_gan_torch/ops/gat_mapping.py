@@ -44,6 +44,7 @@ import torch.nn.functional as F
 fwd_launch_count = 0
 bwd_launch_count = 0
 _MAX_C = 8  # Cin and Cout the kernels take (kMaxC)
+_MAX_F_FWD = 80  # hidden width the forward kernel takes (kMaxFwdF)
 _SMEM_LIMIT = 232448  # shared memory one block can have on Hopper
 
 
@@ -140,6 +141,9 @@ def _widths(cin, f, cout, backward):
     if not (1 <= cin <= _MAX_C and 1 <= cout <= _MAX_C):
         raise ValueError(f"the kernels take 1 to {_MAX_C} input and output "
                          f"channels, got Cin={cin}, Cout={cout}")
+    if not backward and f > _MAX_F_FWD:
+        raise ValueError(f"the forward kernel takes a hidden width of at most "
+                         f"{_MAX_F_FWD}, got F={f}")
     smem = _lib().gat_mapping_smem_bytes(cin, f, cout, int(backward))
     if smem > _SMEM_LIMIT:
         raise ValueError(f"hidden width F={f} needs {smem} bytes of shared "

@@ -237,17 +237,23 @@ def _within(got, want, scale, terms, name):
         f"{(err / tol).max().item():.3f}")
 
 
-@pytest.mark.parametrize("shape", K2_SHAPES)
+@pytest.mark.parametrize("shape", K2_SHAPES + [
+    (3, 2, 3, 17),  # a side the forward's 16x16 tile does not divide
+    (2, 2, 3, 5),   # a side smaller than one tile
+    (3, 2, 3, 13),  # the backward test's ragged shape
+])
 def test_k2_forward_matches_plain(cuda_device, shape):
     args = _k2_inputs(*shape, cuda_device, sum(shape))
     before = k2.fwd_launch_count
     with torch.no_grad(), torch.backends.cudnn.flags(enabled=True,
                                                      allow_tf32=False):
         got = k2.fused_conv_bottleneck(*args)
+        again = k2.fused_conv_bottleneck(*args)
         want = k2.reference_bottleneck(*args)
         scale = k2.reference_bottleneck(*(t.abs() for t in args))
-    assert k2.fwd_launch_count == before + 1
+    assert k2.fwd_launch_count == before + 2
     assert got.shape == want.shape and got.is_contiguous()
+    assert torch.equal(got, again), "two runs differ"
     _within(got, want, scale, 9 * 74, "out")
 
 
@@ -295,6 +301,9 @@ def test_k2_refuses_what_it_cannot_take(cuda_device):
         k2.fused_conv_bottleneck(x, ws[0].half(), *ws[1:])
     with pytest.raises(ValueError, match="does not fit"):
         k2.fused_conv_bottleneck(x, *ws[:2], ws[2][:, :, :70], *ws[3:])
+    wide = _k2_inputs(1, 2, 3, 10, cuda_device, 6, f=81)
+    with pytest.raises(ValueError, match="hidden width of at most 80"):
+        k2.fused_conv_bottleneck(*wide)
 
 
 def _gat_pair(hw, device, seed=0):
