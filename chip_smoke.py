@@ -22,7 +22,7 @@ Phases, each fatal on failure (non-zero exit, no result line):
              six weight and bias gradients) at both 80x80 batch-32 blocks;
              each twice, bit-identical, at the tolerance stated at
              K2_TOL_UNITS. Times of the kernels, of the composition exact
-             and with TF32, their operation bounds, the forward's share of
+             and with TF32, their operation bounds, each kernel's share of
              the f32 peak and its build (registers, spills, shared bytes).
 3. serve   - the served path as a user runs it: ``python -m
              extended_gan_torch.serve export`` of final_temp_conv (80x80) with
@@ -411,24 +411,25 @@ def _k2_check(got, want, scale, terms, label):
 def phase_mapping(build_logs):
     """K2's forward and backward kernels against reference_bottleneck and
     its autograd, each run twice and held to bit-identical results; times
-    of both and of the plain composition (cuDNN), and the forward's share
+    of both and of the plain composition (cuDNN), and each kernel's share
     of the f32 peak and its build (registers, spills, shared memory)."""
     import torch
 
     from extended_gan_torch.ops import gat_mapping as k2
 
-    smem = k2._lib().gat_mapping_smem_bytes(K2_C, K2_F, K2_C, 0)
     entries = ptxas_entries(build_logs.get("gat_mapping", ""))
-    fwd_builds = {n: e for n, e in entries.items()
-                  if "gat_mapping_fwd_kernel" in n}
-    if not fwd_builds:
-        print("[kernel] gat_mapping_fwd build: no ptxas report (library "
-              "built before this run)")
-    for name, (regs, spills, static) in sorted(fwd_builds.items()):
-        print(f"[kernel] gat_mapping_fwd build {name}: {regs} registers a "
-              f"thread, {spills} bytes spilled, {static} bytes static shared "
-              f"memory; {smem} bytes dynamic shared memory a block at "
-              f"Cin = Cout = {K2_C}, F = {K2_F}")
+    for kind, backward in (("fwd", 0), ("bwd", 1)):
+        smem = k2._lib().gat_mapping_smem_bytes(K2_C, K2_F, K2_C, backward)
+        builds = {n: e for n, e in entries.items()
+                  if f"gat_mapping_{kind}_kernel" in n}
+        if not builds:
+            print(f"[kernel] gat_mapping_{kind} build: no ptxas report "
+                  "(library built before this run)")
+        for name, (regs, spills, static) in sorted(builds.items()):
+            print(f"[kernel] gat_mapping_{kind} build {name}: {regs} "
+                  f"registers a thread, {spills} bytes spilled, {static} "
+                  f"bytes static shared memory; {smem} bytes dynamic shared "
+                  f"memory a block at Cin = Cout = {K2_C}, F = {K2_F}")
 
     def exact():
         return torch.backends.cudnn.flags(enabled=True, allow_tf32=False)
@@ -509,16 +510,18 @@ def phase_mapping(build_logs):
                     out, wrt, cot, retain_graph=True), **big))
             del out
         bound, by, gflop = k2_bound(*shape, backward=True, need_dx=need_dx)
+        peak = 100 * gflop * 1e9 / (kms * 1e-3) / F32_FLOP_PER_S
         bwd_rows.append(dict(where=where, shape=shape, need_dx=need_dx,
                              max_abs_err=err, kernel_ms=kms,
                              plain_ms=times[0], cudnn_tf32_ms=times[1],
-                             bound_ms=bound, bound_by=by, gflop=gflop))
+                             bound_ms=bound, bound_by=by, gflop=gflop,
+                             f32_peak_pct=peak))
         print(f"[kernel] gat_mapping_bwd {where} (NH, B, V, H) = {shape}, "
               f"dx {'on' if need_dx else 'off'}: max_abs_err={err:.3e} "
               f"(worst err/tol {ratio:.3e}), two runs bit-identical; kernel="
               f"{kms:.4f} ms plain backward (cuDNN exact)={times[0]:.4f} ms "
               f"cuDNN TF32={times[1]:.4f} ms bound={bound:.4f} ms ({by}, "
-              f"{gflop:.2f} GFLOP)")
+              f"{gflop:.2f} GFLOP), {peak:.1f}% of the f32 peak")
     return fwd_rows, bwd_rows
 
 
@@ -1121,7 +1124,7 @@ def main() -> int:
             "bound_ms": main_k2["bound_ms"],
             "bound_by": main_k2["bound_by"],
             "library_ms": None,
-            "f32_peak_pct": 100 * main_k2["bound_ms"] / main_k2["kernel_ms"],
+            "f32_peak_pct": main_k2["f32_peak_pct"],
             "cudnn_ms": main_k2["plain_ms"],
             "cudnn_tf32_ms": main_k2["cudnn_tf32_ms"],
             "shape": "NH={} B={} V={} {}x{} (final_temp_conv hidden block, "

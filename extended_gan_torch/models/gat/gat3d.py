@@ -72,8 +72,8 @@ class _Mapping(nn.Module):
             self.conv3 = _StackedConv2d(nheads, conv_hidden, nhid, 3, generator)
         elif mapping_type == "smaat_unet":
             raise NotImplementedError(
-                "the smaat_unet mapping is not ported yet (ROADMAP: "
-                "SmaAt-UNet and K3)")
+                "the smaat_unet mapping is not ported yet (ROADMAP queue 1 "
+                "item 1, the rest of the conv-GAT family)")
         else:
             raise ValueError(f"unknown mapping_type {mapping_type!r}")
 

@@ -77,33 +77,40 @@
 // F is at most 80; at Cout > 4 (CG = 2) the build spills. All on an NVIDIA
 // H100 80GB HBM3, 700 W.
 //
-// Backward (10x10 output tiles, kT): h1 and h2 on its 12x12 neighbourhood in
-// shared memory (channel-major, odd pitch: a warp reading consecutive pixels
-// of one channel, or one pixel of consecutive channels, hits distinct banks),
-// and x and g on 14x14. SAME padding of the intermediates, in both kernels:
-// h1 and h2 are zeroed at every Q pixel outside the image, as the TPU kernel
-// masks them, which also zeroes their ReLU gates there. The backward's conv
-// layers give each thread one pixel and four output channels.
+// Backward (10x10 output tiles, kT): h1 and h2 on its 12x12 neighbourhood Q
+// in shared memory (channel-major, odd pitch 145: a warp reading consecutive
+// pixels of one channel, or one pixel of consecutive channels, hits distinct
+// banks), and x and g on 14x14. SAME padding of the intermediates, in both
+// kernels: h1 and h2 are zeroed at every Q pixel outside the image, as the
+// TPU kernel masks them, which also zeroes their ReLU gates there.
 //
-// Backward, per job: recompute h1, h2 on Q; dW3 += h2 x g over the tile; dh2
-// from g on Q (when dx is wanted, else on the tile) gated by h2 > 0, in place
-// of h2; dW2 += da2 x h1 over the tile (4x4 register tiles); dh1 from da2
-// gated by h1 > 0, in place of h1; dW1 += da1 x x over the tile; then dx on the
-// tile from da1 on Q. The TPU kernel sums the weight gradients across its
-// sequential grid cells; CUDA blocks run concurrently, so each block keeps its
-// own sums in shared memory over its fixed list of jobs, writes them once as a
-// partial (G partials a head, 10,956 floats each), and a second kernel adds
-// the G partials of each entry in a fixed order. dx of several heads that read
-// the same x is written per head and summed over heads, in order, by a third.
-// No float atomics: the results are bit-identical from run to run.
+// Backward, per job, each phase between two barriers: h1, then h2, on Q;
+// dW3 += g x h2 over the tile and db3; da2 from g on Q, gated by h2 > 0,
+// over h2; dW2 += da2 x h1 over the tile and db2; da1 from da2 on Q, gated
+// by h1 > 0, over h1; dW1 += da1 x x over the tile and db1, and dx on the
+// tile beside it when it is wanted. The channel products (h1, h2, da2, da1)
+// run on register tiles of 6 Q pixels x 8 channels (warps 0-7), dW2 on
+// 8 x 8 tiles of (f, k), dW3 and dW1 on 4 channels x 4 x 3 taps, each with
+// the tile's pixel sum split over 4 lanes and added back by shuffles in a
+// fixed order; dx gives each warp a tile row and each lane a share of F,
+// added by shuffles. The TPU kernel sums the weight gradients across its
+// sequential grid cells; CUDA blocks run concurrently, so each block keeps
+// its own sums in shared memory over its fixed list of jobs, writes them
+// once as a partial (G partials a head, 10,956 floats each), and a second
+// kernel adds the G partials of each entry in a fixed order. dx of several
+// heads that read the same x is written per head and summed over heads, in
+// order, by a third. No float atomics: the results are bit-identical from
+// run to run.
 //
-// Known limits of the backward: one 512-thread block an SM (it holds ~210 KB
-// of shared memory), every product reads an operand from shared memory, and
-// the dW sums of a tile are dot products over its 100 pixels by few threads.
-// Its layer code is the next to move to the forward's register tiles.
+// What bounds the backward: one 512-thread block an SM (it holds ~203 KB of
+// shared memory, so 128 registers a thread), and every product reads both
+// operands from shared memory, whose data path returns 128 bytes a clock:
+// a tile feeds 3 to 6 FMAs per 4-byte value a lane loads. python -m
+// extended_gan_torch.ops.k2_probe times each phase.
 
 #include <cuda_pipeline.h>
 #include <cuda_runtime.h>
+#include <limits.h>
 #include <stdint.h>
 
 namespace {
@@ -114,7 +121,6 @@ constexpr int kX = kT + 4;        // x / g window side
 constexpr int kTT = kT * kT;
 constexpr int kQP = kQ * kQ + 1;  // channel pitches, odd
 constexpr int kXP = kX * kX + 1;
-constexpr int kSplit = 4;         // F split of the Cout- and Cin-wide outputs
 constexpr int kThreads = 512;
 constexpr int kMaxC = 8;          // Cin, Cout at most
 constexpr int kSmemLimit = 232448;
@@ -131,13 +137,6 @@ __host__ __device__ inline int grad_floats(int Cin, int F, int Cout) {
 
 __device__ __forceinline__ float4 ld4(const float* p) {
   return *reinterpret_cast<const float4*>(p);
-}
-
-__device__ __forceinline__ void fma4(float4& acc, float a, float4 w) {
-  acc.x = fmaf(a, w.x, acc.x);
-  acc.y = fmaf(a, w.y, acc.y);
-  acc.z = fmaf(a, w.z, acc.z);
-  acc.w = fmaf(a, w.w, acc.w);
 }
 
 // Element (b, y, x, c, v) of a (B, H, W, C, V) tensor.
@@ -173,31 +172,6 @@ __device__ __forceinline__ bool inside(const Dims& d, int y, int x) {
   return y >= 0 && y < d.H && x >= 0 && x < d.W;
 }
 
-// Channels 4g .. 4g+3 of pixel q: relu(acc), or 0 outside the image.
-__device__ __forceinline__ void store_relu4(float* dst, int g, int q, int F,
-                                            bool in_image, float4 acc) {
-  const float v[4] = {acc.x, acc.y, acc.z, acc.w};
-#pragma unroll
-  for (int j = 0; j < 4; ++j) {
-    const int f = 4 * g + j;
-    if (f < F) dst[f * kQP + q] = in_image ? fmaxf(v[j], 0.f) : 0.f;
-  }
-}
-
-// In place: buf = (buf > 0) ? acc : 0, the ReLU's gradient gate.
-__device__ __forceinline__ void gate4(float* buf, int g, int q, int F,
-                                      float4 acc) {
-  const float v[4] = {acc.x, acc.y, acc.z, acc.w};
-#pragma unroll
-  for (int j = 0; j < 4; ++j) {
-    const int f = 4 * g + j;
-    if (f < F) {
-      float* p = buf + f * kQP + q;
-      *p = *p > 0.f ? v[j] : 0.f;
-    }
-  }
-}
-
 // Shared-memory copies of one head's W1 as [(c*9 + tap) * Fp + f], W2 as
 // [k * Fp + f] and the biases b1, b2 (zero-padded to Fp).
 __device__ void load_w1_w2(const float* __restrict__ w1,
@@ -220,41 +194,6 @@ __device__ void load_w1_w2(const float* __restrict__ w1,
   for (int i = threadIdx.x; i < Fp; i += blockDim.x) {
     b1s[i] = i < F ? __ldg(b1 + (int64_t)head * F + i) : 0.f;
     b2s[i] = i < F ? __ldg(b2 + (int64_t)head * F + i) : 0.f;
-  }
-}
-
-// h1 = relu(conv3x3(x) + b1) on Q, whose corner is image pixel (y0, x0).
-__device__ void layer1(const float* xs, const float* w1s, const float* b1s,
-                       const Dims& d, int y0, int x0, float* h1) {
-  const int groups = d.Fp / 4;
-  for (int i = threadIdx.x; i < groups * kQ * kQ; i += blockDim.x) {
-    const int g = i / (kQ * kQ), q = i % (kQ * kQ);
-    const int qy = q / kQ, qx = q % kQ;
-    float4 acc = ld4(b1s + 4 * g);
-    for (int c = 0; c < d.Cin; ++c) {
-      const float* xc = xs + c * kXP + qy * kX + qx;
-      const float* wc = w1s + c * 9 * d.Fp + 4 * g;
-#pragma unroll
-      for (int ky = 0; ky < 3; ++ky)
-#pragma unroll
-        for (int kx = 0; kx < 3; ++kx)
-          fma4(acc, xc[ky * kX + kx], ld4(wc + (ky * 3 + kx) * d.Fp));
-    }
-    store_relu4(h1, g, q, d.F, inside(d, y0 + qy, x0 + qx), acc);
-  }
-}
-
-// h2 = relu(W2 h1 + b2) on Q.
-__device__ void layer2(const float* h1, const float* w2t, const float* b2s,
-                       const Dims& d, int y0, int x0, float* h2) {
-  const int groups = d.Fp / 4;
-  for (int i = threadIdx.x; i < groups * kQ * kQ; i += blockDim.x) {
-    const int g = i / (kQ * kQ), q = i % (kQ * kQ);
-    float4 acc = ld4(b2s + 4 * g);
-    const float* wg = w2t + 4 * g;
-#pragma unroll 4
-    for (int k = 0; k < d.F; ++k) fma4(acc, h1[k * kQP + q], ld4(wg + k * d.Fp));
-    store_relu4(h2, g, q, d.F, inside(d, y0 + q / kQ, x0 + q % kQ), acc);
   }
 }
 
@@ -585,6 +524,466 @@ gat_mapping_fwd_kernel(const float* __restrict__ x, const float* __restrict__ w1
   }
 }
 
+// The backward's phases are __noinline__ functions: each gets the whole
+// register budget (128 a thread at 512 threads) for its own tiles. Inlined
+// into the job loop, the loop's live state beside the largest tile (dW2's
+// 64 accumulators and 16 operands) made ptxas spill.
+//
+// The backward's channel products (layers 1 and 2, da2, da1) on register
+// tiles: thread t of warps 0-7 owns kPT Q pixels x kCT channels, pixels
+// pl + kPL * jj of channels kCT * cg .. kCT * cg + 7 (cg = t / kPL, pl =
+// t % kPL). A step of the sum loads kPT pixel values (consecutive pixels
+// across the lanes) and two 16-byte weight vectors that the lanes of a
+// channel group share, for 48 FMAs.
+constexpr int kPT = 6;                 // pixels of a product tile
+constexpr int kCT = 8;                 // channels of a product tile
+constexpr int kPL = kQ * kQ / kPT;     // 24 pixel lanes a channel group
+constexpr int kCG = 10;                // channel groups a pass (80 channels)
+constexpr int kProdThreads = kCG * kPL;  // 240: warps 0-7 (7 half)
+constexpr int kSideWarp = 8;           // warps 8-15 run dW3
+static_assert(kPL * kPT == kQ * kQ && kPL % kQ == 0, "the tiles cover Q");
+static_assert(kProdThreads <= 32 * kSideWarp, "products fit warps 0-7");
+
+struct ProdTile {
+  float a[kPT][kCT];
+  int pl;        // pixels pl + kPL * jj (offsets 28 jj in a kX-wide window)
+  int cg = -1;   // channel group, in each pass of kCG groups; -1 idles.
+                 // Fp = 76 at F = 74 takes one pass, whose group 9
+                 // computes four channels of padding from weight vectors
+                 // that run into the next row
+
+  __device__ explicit ProdTile(int t) : pl(t % kPL) {
+    if (t < kProdThreads) cg = t / kPL;
+  }
+
+  __device__ __forceinline__ void init(const float* bias) {
+#pragma unroll
+    for (int k = 0; k < kCT; ++k) {
+      const float b = bias ? bias[k] : 0.f;
+#pragma unroll
+      for (int jj = 0; jj < kPT; ++jj) a[jj][k] = b;
+    }
+  }
+
+  // a[jj][k] += v[jj] * w[k], w 16-byte aligned
+  __device__ __forceinline__ void fma(const float (&v)[kPT], const float* w) {
+    const float4 w0 = ld4(w), w1 = ld4(w + 4);
+    const float wv[kCT] = {w0.x, w0.y, w0.z, w0.w, w1.x, w1.y, w1.z, w1.w};
+#pragma unroll
+    for (int jj = 0; jj < kPT; ++jj)
+#pragma unroll
+      for (int k = 0; k < kCT; ++k) a[jj][k] = fmaf(v[jj], wv[k], a[jj][k]);
+  }
+
+  // v[jj] = src[jj * step]: the tile's pixels at one tap
+  template <int kStep>
+  __device__ __forceinline__ static void gather(float (&v)[kPT],
+                                                const float* src) {
+#pragma unroll
+    for (int jj = 0; jj < kPT; ++jj) v[jj] = src[jj * kStep];
+  }
+
+  // a += conv3x3(x; W1) at the pixels, channels of group c0
+  __device__ void layer1(const float* xs, const float* w1s, const Dims& d,
+                         int c0) {
+    // Q pixel pl's window corner
+    const float* xp = xs + (pl / kQ) * kX + pl % kQ;
+    for (int c = 0; c < d.Cin; ++c) {
+      const float* xc = xp + c * kXP;
+      const float* wc = w1s + c * 9 * d.Fp + kCT * c0;
+#pragma unroll
+      for (int tap = 0; tap < 9; ++tap) {
+        float v[kPT];
+        gather<kPL / kQ * kX>(v, xc + (tap / 3) * kX + tap % 3);
+        fma(v, wc + tap * d.Fp);
+      }
+    }
+  }
+
+  // a += sum_i W[i, .] in[i, .] (w: [i * Fp + channel]): layer 2 (in h1,
+  // w2t) and da1 (in da2, w2b)
+  __device__ void product(const float* in, const float* w, const Dims& d,
+                          int c0) {
+    const float* wc = w + kCT * c0;
+    const float* ip = in + pl;
+#pragma unroll 2
+    for (int i = 0; i < d.F; ++i) {
+      float v[kPT];
+      gather<kPL>(v, ip + i * kQP);
+      fma(v, wc + i * d.Fp);
+    }
+  }
+
+  // a += sum_{co, tap} g[co, q - (ky-1, kx-1)] W3[co, ., tap] (w3b)
+  __device__ void da2(const float* gs, const float* w3b, const Dims& d,
+                      int c0) {
+    const float* gp = gs + (pl / kQ + 2) * kX + pl % kQ + 2;
+    for (int co = 0; co < d.Cout; ++co) {
+      const float* gc = gp + co * kXP;
+      const float* wc = w3b + co * 9 * d.Fp + kCT * c0;
+#pragma unroll
+      for (int tap = 0; tap < 9; ++tap) {
+        float v[kPT];
+        gather<kPL / kQ * kX>(v, gc - (tap / 3) * kX - tap % 3);
+        fma(v, wc + tap * d.Fp);
+      }
+    }
+  }
+
+  // What the tile writes at h (channels of group c0, Q's corner at image
+  // pixel (y0, x0)): kRelu, relu(a), or 0 at Q pixels outside the image;
+  // kGate, (h > 0) ? a : 0 in place
+  enum Mode { kRelu, kGate };
+  template <Mode kMode>
+  __device__ void store(float* h, const Dims& d, int c0, int y0, int x0) const {
+#pragma unroll
+    for (int jj = 0; jj < kPT; ++jj) {
+      const int q = pl + kPL * jj;
+      const bool in = inside(d, y0 + q / kQ, x0 + q % kQ);
+#pragma unroll
+      for (int k = 0; k < kCT; ++k) {
+        const int f = kCT * c0 + k;
+        if (f >= d.F) continue;
+        float* p = h + f * kQP + q;
+        if (kMode == kRelu)
+          *p = in ? fmaxf(a[jj][k], 0.f) : 0.f;
+        else
+          *p = *p > 0.f ? a[jj][k] : 0.f;
+      }
+    }
+  }
+};
+
+// h1 = relu(conv3x3(x) + b1) (kLayer 1) or h2 = relu(W2 h1 + b2) (kLayer 2)
+// on Q, whose corner is image pixel (y0, x0), by warps 0-7
+template <int kLayer>
+__device__ __noinline__ void bwd_layer(const float* in, const float* w,
+                                       const float* bias, const Dims& d, int y0,
+                                       int x0, float* out) {
+  ProdTile t(threadIdx.x);
+  for (int c0 = t.cg; c0 >= 0 && kCT * c0 < d.Fp; c0 += kCG) {
+    t.init(bias + kCT * c0);
+    if (kLayer == 1)
+      t.layer1(in, w, d, c0);
+    else
+      t.product(in, w, d, c0);
+    t.store<ProdTile::kRelu>(out, d, c0, y0, x0);
+  }
+}
+
+// da1 = (h1 > 0) * W2^T da2 in place of h1 on Q, by warps 0-7
+__device__ __noinline__ void bwd_da1(const float* da2, const float* w2b,
+                                     const Dims& d, float* h1) {
+  ProdTile t(threadIdx.x);
+  for (int c0 = t.cg; c0 >= 0 && kCT * c0 < d.Fp; c0 += kCG) {
+    t.init(nullptr);
+    t.product(da2, w2b, d, c0);
+    t.store<ProdTile::kGate>(h1, d, c0, 0, 0);
+  }
+}
+
+// dW3[co, f, ky, kx] += sum_p g[co, p] h2[f, p + (ky-1, kx-1)] over the
+// tile's 100 pixels, by warps 8-15: a unit (channels 4 fg .. 4 fg + 3, one
+// ky) is held by 4 lanes of a warp (8 units a warp), which sum 25 pixels
+// each (part s = lane / 8 from pixel 25 s) into 4 channels x 4 co x 3 kx,
+// loading 12 h2 and 4 g values a pixel for 48 FMAs, and add their parts by
+// a reduce-scatter in a fixed order; lane s then writes co = 2 bit0 + bit1.
+// Output channels go four at a time (Cout <= kMaxC).
+__device__ __noinline__ void bwd_dw3(const float* h2, const float* gs,
+                                     const Dims& d, float* dw3) {
+  const int F = d.F, Cout = d.Cout, units = d.Fp / 4 * 3;
+  const int w = threadIdx.x / 32 - kSideWarp, lane = threadIdx.x % 32;
+  const int s = lane / 8, bit0 = (lane >> 3) & 1, bit1 = (lane >> 4) & 1;
+  const int stride = 8 * (kThreads / 32 - kSideWarp);
+  for (int u = 8 * w + lane % 8; u - lane % 8 < units; u += stride)
+    for (int co0 = 0; co0 < Cout; co0 += 4) {
+      const int fg = min(u, units - 1) / 3, ky = min(u, units - 1) % 3;
+      // rows 4 fg .. 4 fg + 3 (those from F to Fp read the buffer that
+      // follows, for sums that are dropped)
+      const float* hb = h2 + 4 * fg * kQP + ky * kQ;
+      float acc[16][3];  // [jj * 4 + co][kx]
+#pragma unroll
+      for (int r = 0; r < 16; ++r) acc[r][0] = acc[r][1] = acc[r][2] = 0.f;
+      for (int m = 0; m < kTT / 4; ++m) {
+        const int p = kTT / 4 * s + m, py = p / kT, px = p % kT;
+        float gv[4];
+#pragma unroll
+        for (int co = 0; co < 4; ++co)
+          gv[co] = co0 + co < Cout
+                       ? gs[(co0 + co) * kXP + (py + 2) * kX + px + 2]
+                       : 0.f;
+#pragma unroll
+        for (int jj = 0; jj < 4; ++jj) {
+          const float* e = hb + jj * kQP + py * kQ + px;
+          const float e0 = e[0], e1 = e[1], e2 = e[2];
+#pragma unroll
+          for (int co = 0; co < 4; ++co) {
+            acc[jj * 4 + co][0] = fmaf(gv[co], e0, acc[jj * 4 + co][0]);
+            acc[jj * 4 + co][1] = fmaf(gv[co], e1, acc[jj * 4 + co][1]);
+            acc[jj * 4 + co][2] = fmaf(gv[co], e2, acc[jj * 4 + co][2]);
+          }
+        }
+      }
+      float h8[8][3], h4[4][3];
+      fwd_halve<8>(acc, h8, bit1, 16);
+      fwd_halve<4>(h8, h4, bit0, 8);
+      // row 4 n + 2 bit0 + bit1 of acc: channel 4 fg + n, co0 + 2 bit0 + bit1
+      const int co = co0 + 2 * bit0 + bit1;
+      if (u >= units || co >= Cout) continue;
+#pragma unroll
+      for (int n = 0; n < 4; ++n) {
+        const int f = 4 * fg + n;
+        if (f < F)
+#pragma unroll
+          for (int kx = 0; kx < 3; ++kx)
+            dw3[((co * F + f) * 3 + ky) * 3 + kx] += h4[n][kx];
+      }
+    }
+}
+
+// dW3 and db3 from h2 and g (warps 8-15, and the threads of warp 7 past
+// the product tiles), then da2 = (h2 > 0) * sum_{co, tap} g[co, q - (ky-1,
+// kx-1)] W3[co, f, tap] on Q over h2 (warps 0-7). Holding da2 in registers
+// while dW3 reads h2 would overlap the two, but its 48 accumulators live
+// across the barrier made the kernel spill.
+__device__ __noinline__ void bwd_dw3_da2(float* h2, const float* gs,
+                                         const float* w3b, const Dims& d,
+                                         float* dw3, float* db3) {
+  if (threadIdx.x / 32 >= kSideWarp) {
+    bwd_dw3(h2, gs, d, dw3);
+  } else if (threadIdx.x >= kProdThreads &&
+             threadIdx.x - kProdThreads < d.Cout) {
+    const int co = threadIdx.x - kProdThreads;
+    float s = 0.f;
+    for (int p = 0; p < kTT; ++p)
+      s += gs[co * kXP + (p / kT + 2) * kX + p % kT + 2];
+    db3[co] += s;
+  }
+  __syncthreads();  // dW3 is done with h2
+  ProdTile t(threadIdx.x);
+  for (int c0 = t.cg; c0 >= 0 && kCT * c0 < d.Fp; c0 += kCG) {
+    t.init(nullptr);
+    t.da2(gs, w3b, d, c0);
+    t.store<ProdTile::kGate>(h2, d, c0, 0, 0);
+  }
+}
+
+// dW2[f, k] += sum_p da2[f, p] h1[k, p] over the tile's 100 pixels, on 8 x 8
+// register tiles f = f0 + fg + 10 jj, k = k0 + kg + 10 ll (fg, kg < 10, f0
+// and k0 stepping by 80): a warp holds 8 tiles, each over 4 lanes that sum
+// 25 pixels apiece (part s = lane / 8 from pixel 25 s), and adds the parts
+// by a reduce-scatter of 48 shuffles in a fixed order. Warps 0-9 hold 2 fg
+// x 4 kg (kg < 8), warps 10-12 4 fg x kg 8, 9: with the pixel blocks 25
+// apart, a load's 16 or 32 addresses fall in distinct banks. The rows are
+// 10 apart at every F, so a load's offset is an immediate; rows at F and
+// past it, whose sums are dropped, read the buffers that follow (and the
+// slack bwd_smem_bytes adds at small F). Warps 13-15 sum db2. Each (f, k)
+// is written by one lane.
+constexpr int kW2Stride = 10;
+__device__ __noinline__ void bwd_dw2(const float* da2, const float* h1,
+                                     const Dims& d, float* dw2, float* db2) {
+  const int F = d.F;
+  const int w = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int s = lane / 8, tl = lane % 8;
+  if (w >= 13) {
+    for (int f = threadIdx.x - 13 * 32; f < F; f += (kThreads / 32 - 13) * 32) {
+      float sum = 0.f;
+      for (int p = 0; p < kTT; ++p)
+        sum += da2[f * kQP + (p / kT + 1) * kQ + p % kT + 1];
+      db2[f] += sum;
+    }
+    return;
+  }
+  const int fg = w < 10 ? 2 * (w % 5) + tl / 4 : 4 * (w - 10) + tl / 2;
+  const int kg = w < 10 ? 4 * (w / 5) + tl % 4 : 8 + tl % 2;
+  // lanes past the 10 x 10 tiles (in warp 12) compute on row 0 and write
+  // nothing: the shuffles need every lane of the warp
+  const bool valid = fg < kW2Stride && kg < kW2Stride;
+  const int bit0 = (lane >> 3) & 1, bit1 = (lane >> 4) & 1;
+  for (int f0 = 0; f0 < F; f0 += 8 * kW2Stride)
+    for (int k0 = 0; k0 < F; k0 += 8 * kW2Stride) {
+      const float* ar = da2 + (valid ? f0 + fg : 0) * kQP;
+      const float* br = h1 + (valid ? k0 + kg : 0) * kQP;
+      float acc[8][8];
+#pragma unroll
+      for (int jj = 0; jj < 8; ++jj)
+#pragma unroll
+        for (int ll = 0; ll < 8; ++ll) acc[jj][ll] = 0.f;
+#pragma unroll 1  // a pipelined next pixel's 16 loads would spill
+      for (int m = 0; m < kTT / 4; ++m) {
+        const int p = kTT / 4 * s + m, q = (p / kT + 1) * kQ + p % kT + 1;
+        float av[8], bv[8];
+#pragma unroll
+        for (int jj = 0; jj < 8; ++jj) {
+          av[jj] = ar[jj * kW2Stride * kQP + q];
+          bv[jj] = br[jj * kW2Stride * kQP + q];
+        }
+#pragma unroll
+        for (int jj = 0; jj < 8; ++jj)
+#pragma unroll
+          for (int ll = 0; ll < 8; ++ll)
+            acc[jj][ll] = fmaf(av[jj], bv[ll], acc[jj][ll]);
+      }
+      // the 4 parts, reduce-scattered by fwd_halve: lanes 16 apart, then 8
+      // apart, leave this lane rows jj = 4 n + 2 bit0 + bit1 summed
+      float h4[4][8], h2[2][8];
+      fwd_halve<4>(acc, h4, bit1, 16);
+      fwd_halve<2>(h4, h2, bit0, 8);
+      if (!valid) continue;
+#pragma unroll
+      for (int n = 0; n < 2; ++n) {
+        const int f = f0 + fg + kW2Stride * (4 * n + 2 * bit0 + bit1);
+#pragma unroll
+        for (int ll = 0; ll < 8; ++ll) {
+          const int k = k0 + kg + kW2Stride * ll;
+          if (f < F && k < F) dw2[f * F + k] += h2[n][ll];
+        }
+      }
+    }
+}
+
+// Shared-memory floats past the backward's buffers that dW2's rows can
+// reach: its tiles span 80 rows from a multiple of 80, past h2's F rows.
+__host__ __device__ inline int dw2_slack(int Cin, int F, int Cout) {
+  const int rows = (F + 8 * kW2Stride - 1) / (8 * kW2Stride) * 8 * kW2Stride;
+  const int over = (rows - F) * kQP - grad_floats(Cin, F, Cout);
+  return over > 0 ? over : 0;
+}
+
+// dW1[f, c, ky, kx] += sum_p da1[f, p] x[c, p + (ky-1, kx-1)] over the
+// tile's 100 pixels, and db1, by warps w0 .. w0 + nw - 1, units u_begin
+// up to u_end (or the last) in turn: as dW3, a unit
+// (channels fg + S jj, S = Fp / 4, jj < 4: strided, so that a load's
+// addresses fall in distinct banks; one ky) is held by 4 lanes of a warp
+// that sum 25 pixels each (from pixel 25 s) into 4 channels x 4 c x 3 kx
+// (4 da1 and 12 x values a pixel for 48 FMAs) and reduce-scatter their
+// parts; units of ky = 0 also sum da1 alone for db1. Rows of Fp past F read
+// h2, for sums that are dropped. Input channels go four at a time.
+__device__ __noinline__ void bwd_dw1(const float* da1, const float* xs,
+                                     const Dims& d, float* dw1, float* db1,
+                                     int w0, int nw, int u_begin, int u_end) {
+  const int F = d.F, Cin = d.Cin, S = d.Fp / 4, units = min(S * 3, u_end);
+  const int w = threadIdx.x / 32 - w0, lane = threadIdx.x % 32;
+  const int s = lane / 8, bit0 = (lane >> 3) & 1, bit1 = (lane >> 4) & 1;
+  for (int u = u_begin + 8 * w + lane % 8; u - lane % 8 < units; u += 8 * nw)
+    for (int c0 = 0; c0 < Cin; c0 += 4) {
+      const int fg = min(u, units - 1) / 3, ky = min(u, units - 1) % 3;
+      const float* ab = da1 + fg * kQP;
+      float acc[16][3];  // [jj * 4 + c][kx]
+      float db[4][1];
+#pragma unroll
+      for (int r = 0; r < 16; ++r) acc[r][0] = acc[r][1] = acc[r][2] = 0.f;
+#pragma unroll
+      for (int jj = 0; jj < 4; ++jj) db[jj][0] = 0.f;
+      for (int m = 0; m < kTT / 4; ++m) {
+        const int p = kTT / 4 * s + m, py = p / kT, px = p % kT;
+        float av[4], xv[4][3];
+#pragma unroll
+        for (int jj = 0; jj < 4; ++jj)
+          av[jj] = ab[jj * S * kQP + (py + 1) * kQ + px + 1];
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+          const float* xr = xs + (c0 + c) * kXP + (py + 1 + ky) * kX + px + 1;
+#pragma unroll
+          for (int kx = 0; kx < 3; ++kx)
+            xv[c][kx] = c0 + c < Cin ? xr[kx] : 0.f;
+        }
+#pragma unroll
+        for (int jj = 0; jj < 4; ++jj) {
+          db[jj][0] += av[jj];
+#pragma unroll
+          for (int c = 0; c < 4; ++c)
+#pragma unroll
+            for (int kx = 0; kx < 3; ++kx)
+              acc[jj * 4 + c][kx] =
+                  fmaf(av[jj], xv[c][kx], acc[jj * 4 + c][kx]);
+        }
+      }
+      // rows 4 n + 2 bit0 + bit1 of acc: channel fg + S n, c0 + 2 bit0 +
+      // bit1; db row 2 bit0 + bit1: channel fg + S (2 bit0 + bit1)
+      float h8[8][3], h4[4][3], d2[2][1], d1[1][1];
+      fwd_halve<8>(acc, h8, bit1, 16);
+      fwd_halve<4>(h8, h4, bit0, 8);
+      fwd_halve<2>(db, d2, bit1, 16);
+      fwd_halve<1>(d2, d1, bit0, 8);
+      if (u >= units) continue;
+      const int c = c0 + 2 * bit0 + bit1;
+      if (c0 == 0 && ky == 0 && fg + S * (2 * bit0 + bit1) < F)
+        db1[fg + S * (2 * bit0 + bit1)] += d1[0][0];
+      if (c >= Cin) continue;
+#pragma unroll
+      for (int n = 0; n < 4; ++n) {
+        const int f = fg + S * n;
+        if (f < F)
+#pragma unroll
+          for (int kx = 0; kx < 3; ++kx)
+            dw1[((f * Cin + c) * 3 + ky) * 3 + kx] += h4[n][kx];
+      }
+    }
+}
+
+// dx[c, p] = sum_{f, tap} da1[f, p - (ky-1, kx-1)] W1[f, c, tap] on the
+// tile, written to dxh (image b, v; corner (ty0, tx0)) by warps 0-9: warp
+// py owns tile row py; lane l sums the channels f = l, l + 32, ... (rows
+// 145 words apart: distinct banks), loading a 12-wide Q row of da1 a ky and
+// W1's 36 weights of f for 360 FMAs, and the 32 lanes' sums are added by
+// a reduce-scatter (5 values a lane) and a butterfly, in a fixed order;
+// each output is written once. Input channels go four at a time.
+constexpr int kDxWarps = kT;
+__device__ __noinline__ void bwd_dx(const float* da1, const float* w1s,
+                                    const Dims& d, float* dxh, int b, int v,
+                                    int ty0, int tx0) {
+  const int F = d.F, Fp = d.Fp, Cin = d.Cin;
+  const int py = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int b2 = (lane >> 2) & 1, b3 = (lane >> 3) & 1, b4 = (lane >> 4) & 1;
+  for (int c0 = 0; c0 < Cin; c0 += 4) {
+    float o[4 * kT][1];  // [px * 4 + c]
+#pragma unroll
+    for (int r = 0; r < 4 * kT; ++r) o[r][0] = 0.f;
+    for (int f = lane; f - lane < F; f += 32) {
+      const bool fv = f < F;
+#pragma unroll
+      for (int ky = 0; ky < 3; ++ky) {
+        // Q row py + 2 - ky holds the da1 that tile row py reads at ky
+        const float* ur = da1 + f * kQP + (py + 2 - ky) * kQ;
+        float u[kQ];
+#pragma unroll
+        for (int cx = 0; cx < kQ; ++cx) u[cx] = fv ? ur[cx] : 0.f;
+#pragma unroll
+        for (int kx = 0; kx < 3; ++kx)
+#pragma unroll
+          for (int c = 0; c < 4; ++c) {
+            const float wv = fv && c0 + c < Cin
+                                 ? w1s[((c0 + c) * 9 + ky * 3 + kx) * Fp + f]
+                                 : 0.f;
+#pragma unroll
+            for (int px = 0; px < kT; ++px)
+              o[px * 4 + c][0] = fmaf(u[px + 2 - kx], wv, o[px * 4 + c][0]);
+          }
+      }
+    }
+    // lane keeps rows 8 n + 4 b2 + 2 b3 + b4, then sums them over its quad
+    float o20[2 * kT][1], o10[kT][1], o5[kT / 2][1];
+    fwd_halve<2 * kT>(o, o20, b4, 16);
+    fwd_halve<kT>(o20, o10, b3, 8);
+    fwd_halve<kT / 2>(o10, o5, b2, 4);
+#pragma unroll
+    for (int n = 0; n < kT / 2; ++n) {
+      o5[n][0] += __shfl_xor_sync(0xffffffffu, o5[n][0], 2);
+      o5[n][0] += __shfl_xor_sync(0xffffffffu, o5[n][0], 1);
+    }
+    const int y = ty0 + py;
+    if ((lane & 3) || y >= d.H) continue;
+#pragma unroll
+    for (int n = 0; n < kT / 2; ++n) {
+      const int r = 8 * n + 4 * b2 + 2 * b3 + b4, px = r / 4, c = c0 + r % 4;
+      if (c < Cin && tx0 + px < d.W)
+        dxh[at(d, Cin, b, y, tx0 + px, c, v)] = o5[n][0];
+    }
+  }
+}
+static_assert(kDxWarps <= kThreads / 32 && 4 * kT % 8 == 0, "dx's warps");
+
 __global__ void __launch_bounds__(kThreads, 1)
 gat_mapping_bwd_kernel(const float* __restrict__ x, const float* __restrict__ g,
                        const float* __restrict__ w1, const float* __restrict__ b1,
@@ -607,7 +1006,6 @@ gat_mapping_bwd_kernel(const float* __restrict__ x, const float* __restrict__ g,
   float* h1 = gs + Cout * kXP;                   // F * kQP: h1, then da1
   float* h2 = h1 + F * kQP;                      // F * kQP: h2, then da2
   float* acc = h2 + F * kQP;                     // E: this block's sums
-  float* red = acc + E;                          // kSplit * Cin * kTT
 
   load_w1_w2(w1, b1, w2, b2, d, head, w1s, w2t, b1s, b2s);
   const float* w2h = w2 + (int64_t)head * F * F;
@@ -624,10 +1022,7 @@ gat_mapping_bwd_kernel(const float* __restrict__ x, const float* __restrict__ g,
   const int64_t image_floats = (int64_t)d.B * d.H * d.W * d.V;
   const float* gh = g + (int64_t)head * image_floats * Cout;
   float* dxh = dx + (need_dx && d.NH > 1 ? (int64_t)head * image_floats * Cin : 0);
-  // the pixels where da2 and da1 are needed: Q for dx, else the tile
-  const int rn = need_dx ? kQ : kT, roff = need_dx ? 0 : 1;
-  const int groups = Fp / 4;
-
+  const int warp = threadIdx.x / 32;
   for (int j = blockIdx.x; j < d.jobs; j += gridDim.x) {
     int b, v, ty0, tx0;
     decode(d, j, b, v, ty0, tx0);
@@ -635,198 +1030,36 @@ gat_mapping_bwd_kernel(const float* __restrict__ x, const float* __restrict__ g,
     load_window(x, d, Cin, b, v, ty0 - 2, tx0 - 2, xs);
     load_window(gh, d, Cout, b, v, ty0 - 2, tx0 - 2, gs);
     __syncthreads();
-    layer1(xs, w1s, b1s, d, ty0 - 1, tx0 - 1, h1);
+    // h1 = relu(conv3x3(x) + b1), h2 = relu(W2 h1 + b2) on Q, whose corner
+    // is image pixel (ty0 - 1, tx0 - 1)
+    bwd_layer<1>(xs, w1s, b1s, d, ty0 - 1, tx0 - 1, h1);
     __syncthreads();
-    layer2(h1, w2t, b2s, d, ty0 - 1, tx0 - 1, h2);
+    bwd_layer<2>(h1, w2t, b2s, d, ty0 - 1, tx0 - 1, h2);
     __syncthreads();
-
-    // dW3[co, f, ky, kx] += sum_p g[co, p] h2[f, p + (ky-1, kx-1)]; db3
-    for (int i = threadIdx.x; i < F * 3 + Cout; i += blockDim.x) {
-      if (i < F * 3) {
-        const int f = i / 3, ky = i % 3;
-        float s[kMaxC][3];
-#pragma unroll
-        for (int co = 0; co < kMaxC; ++co) s[co][0] = s[co][1] = s[co][2] = 0.f;
-        for (int py = 0; py < kT; ++py) {
-          for (int px = 0; px < kT; ++px) {
-            const float* hr = h2 + f * kQP + (py + ky) * kQ + px;
-            const float e0 = hr[0], e1 = hr[1], e2 = hr[2];
-            const float* gp = gs + (py + 2) * kX + px + 2;
-#pragma unroll
-            for (int co = 0; co < kMaxC; ++co) {
-              if (co < Cout) {
-                const float gv = gp[co * kXP];
-                s[co][0] = fmaf(gv, e0, s[co][0]);
-                s[co][1] = fmaf(gv, e1, s[co][1]);
-                s[co][2] = fmaf(gv, e2, s[co][2]);
-              }
-            }
-          }
-        }
-#pragma unroll
-        for (int co = 0; co < kMaxC; ++co)
-          if (co < Cout)
-#pragma unroll
-            for (int kx = 0; kx < 3; ++kx)
-              acc[o_dw3 + ((co * F + f) * 3 + ky) * 3 + kx] += s[co][kx];
-      } else {
-        const int co = i - F * 3;
-        float s = 0.f;
-        for (int p = 0; p < kTT; ++p)
-          s += gs[co * kXP + (p / kT + 2) * kX + p % kT + 2];
-        acc[o_db3 + co] += s;
-      }
-    }
+    // dW3 += g x h2 over the tile, db3; then da2 on Q, in place of h2
+    bwd_dw3_da2(h2, gs, w3b, d, acc + o_dw3, acc + o_db3);
+    __syncthreads();
+    bwd_dw2(h2, h1, d, acc + o_dw2, acc + o_db2);
+    __syncthreads();
+    // da1 = (h1 > 0) * sum_f da2[f, q] W2[f, k] on Q, in place of h1
+    bwd_da1(h2, w2b, d, h1);
     __syncthreads();
 
-    // da2 = (h2 > 0) * sum_{co, tap} g[co, p - (ky-1, kx-1)] W3[co, f, tap]
-    for (int i = threadIdx.x; i < groups * rn * rn; i += blockDim.x) {
-      const int gr = i / (rn * rn), r = i % (rn * rn);
-      const int qy = r / rn + roff, qx = r % rn + roff;
-      float4 a4 = make_float4(0.f, 0.f, 0.f, 0.f);
-      for (int co = 0; co < Cout; ++co) {
-        const float* gc = gs + co * kXP + (qy + 2) * kX + qx + 2;
-        const float* wc = w3b + co * 9 * Fp + 4 * gr;
-#pragma unroll
-        for (int ky = 0; ky < 3; ++ky)
-#pragma unroll
-          for (int kx = 0; kx < 3; ++kx)
-            fma4(a4, gc[-ky * kX - kx], ld4(wc + (ky * 3 + kx) * Fp));
-      }
-      gate4(h2, gr, qy * kQ + qx, F, a4);
-    }
-    __syncthreads();
-
-    // dW2[f, k] += sum_p da2[f, p] h1[k, p] in 4x4 register tiles; db2
-    for (int i = threadIdx.x; i < groups * groups + F; i += blockDim.x) {
-      if (i < groups * groups) {
-        const int fg = i / groups, kg = i % groups;
-        const float* ar[4];
-        const float* br[4];
-#pragma unroll
-        for (int jj = 0; jj < 4; ++jj) {
-          ar[jj] = h2 + min(4 * fg + jj, F - 1) * kQP;
-          br[jj] = h1 + min(4 * kg + jj, F - 1) * kQP;
-        }
-        float s[4][4];
-#pragma unroll
-        for (int jj = 0; jj < 4; ++jj)
-#pragma unroll
-          for (int ll = 0; ll < 4; ++ll) s[jj][ll] = 0.f;
-        for (int p = 0; p < kTT; ++p) {
-          const int q = (p / kT + 1) * kQ + p % kT + 1;
-          float av[4], bv[4];
-#pragma unroll
-          for (int jj = 0; jj < 4; ++jj) {
-            av[jj] = ar[jj][q];
-            bv[jj] = br[jj][q];
-          }
-#pragma unroll
-          for (int jj = 0; jj < 4; ++jj)
-#pragma unroll
-            for (int ll = 0; ll < 4; ++ll) s[jj][ll] = fmaf(av[jj], bv[ll], s[jj][ll]);
-        }
-#pragma unroll
-        for (int jj = 0; jj < 4; ++jj)
-#pragma unroll
-          for (int ll = 0; ll < 4; ++ll) {
-            const int f = 4 * fg + jj, k = 4 * kg + ll;
-            if (f < F && k < F) acc[o_dw2 + f * F + k] += s[jj][ll];
-          }
-      } else {
-        const int f = i - groups * groups;
-        float s = 0.f;
-        for (int p = 0; p < kTT; ++p)
-          s += h2[f * kQP + (p / kT + 1) * kQ + p % kT + 1];
-        acc[o_db2 + f] += s;
-      }
-    }
-    __syncthreads();
-
-    // da1 = (h1 > 0) * sum_f da2[f, p] W2[f, k]
-    for (int i = threadIdx.x; i < groups * rn * rn; i += blockDim.x) {
-      const int gr = i / (rn * rn), r = i % (rn * rn);
-      const int q = (r / rn + roff) * kQ + r % rn + roff;
-      float4 a4 = make_float4(0.f, 0.f, 0.f, 0.f);
-      const float* wg = w2b + 4 * gr;
-#pragma unroll 4
-      for (int f = 0; f < F; ++f) fma4(a4, h2[f * kQP + q], ld4(wg + f * Fp));
-      gate4(h1, gr, q, F, a4);
-    }
-    __syncthreads();
-
-    // dW1[f, c, ky, kx] += sum_p da1[f, p] x[c, p + (ky-1, kx-1)]; db1
-    for (int i = threadIdx.x; i < groups * Cin * 3 + F; i += blockDim.x) {
-      if (i < groups * Cin * 3) {
-        const int fg = i / (Cin * 3), r = i % (Cin * 3), c = r / 3, ky = r % 3;
-        const float* ar[4];
-#pragma unroll
-        for (int jj = 0; jj < 4; ++jj) ar[jj] = h1 + min(4 * fg + jj, F - 1) * kQP;
-        float s[4][3];
-#pragma unroll
-        for (int jj = 0; jj < 4; ++jj) s[jj][0] = s[jj][1] = s[jj][2] = 0.f;
-        for (int py = 0; py < kT; ++py) {
-          for (int px = 0; px < kT; ++px) {
-            const int q = (py + 1) * kQ + px + 1;
-            const float* xr = xs + c * kXP + (py + 1 + ky) * kX + px + 1;
-            const float x0 = xr[0], x1 = xr[1], x2 = xr[2];
-#pragma unroll
-            for (int jj = 0; jj < 4; ++jj) {
-              const float a = ar[jj][q];
-              s[jj][0] = fmaf(a, x0, s[jj][0]);
-              s[jj][1] = fmaf(a, x1, s[jj][1]);
-              s[jj][2] = fmaf(a, x2, s[jj][2]);
-            }
-          }
-        }
-#pragma unroll
-        for (int jj = 0; jj < 4; ++jj) {
-          const int f = 4 * fg + jj;
-          if (f < F)
-#pragma unroll
-            for (int kx = 0; kx < 3; ++kx)
-              acc[((f * Cin + c) * 3 + ky) * 3 + kx] += s[jj][kx];
-        }
-      } else {
-        const int f = i - groups * Cin * 3;
-        float s = 0.f;
-        for (int p = 0; p < kTT; ++p)
-          s += h1[f * kQP + (p / kT + 1) * kQ + p % kT + 1];
-        acc[o_db1 + f] += s;
-      }
-    }
-
-    if (!need_dx) continue;
-    // dx[c, p] = sum_{f, tap} da1[f, p - (ky-1, kx-1)] W1[f, c, tap], F split
-    // in kSplit parts summed below in order
-    for (int i = threadIdx.x; i < kSplit * kTT; i += blockDim.x) {
-      const int s = i / kTT, p = i % kTT, py = p / kT, px = p % kT;
-      float a[kMaxC];
-#pragma unroll
-      for (int c = 0; c < kMaxC; ++c) a[c] = 0.f;
-      for (int f = s * F / kSplit; f < (s + 1) * F / kSplit; ++f) {
-        const float* hf = h1 + f * kQP + (py + 2) * kQ + px + 2;
-#pragma unroll
-        for (int tap = 0; tap < 9; ++tap) {
-          const float dv = hf[-(tap / 3) * kQ - tap % 3];
-#pragma unroll
-          for (int c = 0; c < kMaxC; ++c)
-            if (c < Cin) a[c] = fmaf(dv, w1s[(c * 9 + tap) * Fp + f], a[c]);
-        }
-      }
-#pragma unroll
-      for (int c = 0; c < kMaxC; ++c)
-        if (c < Cin) red[(s * Cin + c) * kTT + p] = a[c];
-    }
-    __syncthreads();
-    for (int i = threadIdx.x; i < Cin * kTT; i += blockDim.x) {
-      const int c = i / kTT, p = i % kTT;
-      const int y = ty0 + p / kT, xx = tx0 + p % kT;
-      if (y >= d.H || xx >= d.W) continue;
-      float o = 0.f;
-#pragma unroll
-      for (int s = 0; s < kSplit; ++s) o += red[(s * Cin + c) * kTT + p];
-      dxh[at(d, Cin, b, y, xx, c, v)] = o;
+    // dW1 += da1 x x over the tile and db1; beside them, when dx is wanted,
+    // dx[c, p] = sum_{f, tap} da1[f, p - (ky-1, kx-1)] W1[f, c, tap]
+    // (dW1's first units on the warps past dx's, the rest on dx's last two
+    // warps after their rows: 57 units at F = 74)
+    constexpr int kDw1Side = kThreads / 32 - kDxWarps;
+    constexpr int kSideUnits = 8 * kDw1Side;
+    if (!need_dx) {
+      bwd_dw1(h1, xs, d, acc, acc + o_db1, 0, kThreads / 32, 0, INT_MAX);
+    } else if (warp >= kDxWarps) {
+      bwd_dw1(h1, xs, d, acc, acc + o_db1, kDxWarps, kDw1Side, 0, kSideUnits);
+    } else {
+      bwd_dx(h1, w1s, d, dxh, b, v, ty0, tx0);
+      if (warp >= kDxWarps - 2)
+        bwd_dw1(h1, xs, d, acc, acc + o_db1, kDxWarps - 2, 2, kSideUnits,
+                INT_MAX);
     }
   }
   __syncthreads();
@@ -882,7 +1115,7 @@ int64_t bwd_smem_bytes(int Cin, int F, int Cout) {
   const int Fp = pad4(F);
   return 4 * ((int64_t)Cin * 9 * Fp + 2 * F * Fp + 2 * Fp + Cout * 9 * Fp +
               (Cin + Cout) * kXP + 2 * F * kQP + grad_floats(Cin, F, Cout) +
-              kSplit * Cin * kTT);
+              dw2_slack(Cin, F, Cout));
 }
 
 // The forward's jobs: (image, kFT x kFT tile) pairs. False if too many.

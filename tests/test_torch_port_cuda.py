@@ -264,14 +264,19 @@ def _k2_grads(fn, args, cot, need_dx):
     return torch.autograd.grad(out, inputs if need_dx else inputs[1:], cot)
 
 
-@pytest.mark.parametrize("shape,need_dx", [
-    ((3, 32, 6, 80), False), ((1, 32, 6, 80), True),
-    ((3, 2, 3, 13), True),  # heads summed into dx; ragged 10x10 tiles
+@pytest.mark.parametrize("shape,need_dx,f", [
+    ((3, 32, 6, 80), False, 74), ((1, 32, 6, 80), True, 74),
+    ((3, 2, 3, 13), True, 74),  # heads summed into dx; ragged 10x10 tiles
+    ((3, 2, 3, 20), False, 74),  # local_temporal_conv's side
+    ((1, 2, 3, 7), True, 74),   # a side smaller than one tile
+    # a hidden width that the backward's 8-channel register tiles and its
+    # 8 x 8 dW2 tiles do not divide
+    ((2, 2, 3, 13), True, 37),
 ])
 def test_k2_backward_matches_plain_and_repeats_bit_for_bit(cuda_device, shape,
-                                                           need_dx):
+                                                           need_dx, f):
     nh, b, v, h = shape
-    args = _k2_gate_safe_inputs(*shape, cuda_device, 7 + h)
+    args = _k2_gate_safe_inputs(*shape, cuda_device, 7 + h, f=f)
     cot = torch.randn(nh, b, h, h, 4, v, device=cuda_device,
                       generator=torch.Generator(device=cuda_device).manual_seed(1))
     before = k2.bwd_launch_count
@@ -287,7 +292,7 @@ def test_k2_backward_matches_plain_and_repeats_bit_for_bit(cuda_device, shape,
     pixels = b * v * h * h
     for name, g_, a_, w_, s_ in zip(names, got, again, want, scale):
         assert torch.equal(g_, a_), f"{name} differs between two runs"
-        terms = 9 * 74 * nh if name == "dx" else pixels
+        terms = 9 * f * nh if name == "dx" else pixels
         _within(g_, w_, s_, terms, name)
 
 
