@@ -11,9 +11,17 @@ Phases, each fatal on failure (non-zero exit, no result line):
              and time both with CUDA events (median of 20 timed groups
              after warm-up): K1 at the served shapes, all outputs at
              atol = rtol = 1e-5 (f32; only the summation order over P
-             differs); K3 at the 18 DSC shapes of a final_smaatunet batch-32
-             forward and at the tiled TPU kernel's shape, at the
-             roundoff-scaled tolerance stated at DSC_TOL_UNITS.
+             differs); K3's forward at the 18 DSC shapes of a
+             final_smaatunet batch-32 forward and at the tiled TPU kernel's
+             shape, at its split plan and with CK unsplit,
+             and its backward (the kernel and two matrix products) at the
+             18 shapes, each twice, bit-identical, with the plain depthwise
+             disabled, at the roundoff-scaled tolerances stated at
+             DSC_TOL_UNITS and DSC_BWD_TOL_UNITS (the backward against
+             float64, with two planted faults to show the limit sees
+             them); times of the kernels, the plain versions, cuDNN's pair
+             of convs and its autograd (exact f32 and TF32), and the
+             library's convolution_backward of the depthwise conv.
    mapping - K2 (``ops/gat_mapping.py``, forward and backward kernels)
              against the plain three-conv composition (cuDNN, TF32 off):
              the forward at final_temp_conv's hidden (3 heads) and output
@@ -39,10 +47,12 @@ Phases, each fatal on failure (non-zero exit, no result line):
              and final_temp_conv (GAT3D, 80x80, K1 2 a forward), one epoch
              on the synthetic fallback, outputs in a temporary directory:
              finite losses and metrics, history.json and model.pt written
-             there, launches = per-forward count x forwards (eval included;
-             backwards launch nothing). Then, in process at batch 32, one
-             step's gradients and three train steps with the kernels
-             against the plain versions (exact f32), and ms per train step.
+             there, launches = per-forward count x forwards (eval
+             included) + per-step count x train steps (K3's backward 18 a
+             step). Then, in process at batch 32, one step's gradients and
+             three train steps with the kernels against the plain versions
+             (exact f32), and ms per train step (the UNet in 5 alternating
+             rounds, kernel path against plain, both profiled).
              K2's launch count is 0 in every CLI and serve run: its switch
              ``use_pallas_mapping`` is off unless a constructor turns it on.
 6. mapping model - final_temp_conv's ``Model(..., use_pallas_mapping=True)``
@@ -209,8 +219,21 @@ def phase_kernels():
 # the plain version, so their roundoff differs by about sqrt(terms) units of
 # the terms' scale; an indexing fault is off by the terms themselves.
 DSC_TOL_UNITS = 4 * 2.0**-24
+# K3's backward, per gradient entry, against the plain autograd in
+# float64: DSC_BWD_TOL_UNITS times the entry's scale, the plain autograd
+# run on |inputs| and |g| (the sum of the absolute values of the terms the
+# entry adds up). No sqrt(terms) factor: the scale already grows with the
+# terms, and on terms of either sign the roundoff of an f32 sum stays
+# within a few units of it (sequential sums about 0.6 units rms, the
+# kernel's blocked sums far less), while a dropped share of the terms or
+# an operand rounded to TF32 moves the entry by more.
+DSC_BWD_TOL_UNITS = 8 * 2.0**-24
 # the tiled TPU kernel's shape: _fits_vmem (dsconv.py:277-293) is false here
 DSC_TILED_SHAPE = (8, 80, 80, 128, 256, 64)
+# the 18 DSCs of final_smaatunet in forward order
+DSC_NAMES = [f"{block} dsc{i}" for block in ("inc", "down1", "down2", "down3",
+                                             "down4", "up1", "up2", "up3",
+                                             "up4") for i in (0, 1)]
 # Training, kernel path against plain path, exact f32, the same weights and
 # batches. The two differ only in the kernels' summation order, which
 # train-mode BatchNorm over few samples amplifies (the SmaAt-UNet), and Adam
@@ -239,108 +262,318 @@ K2_SHAPES = [("final_temp_conv hidden block", (3, 32, 6, 80)),
              ("local_temporal_conv hidden block", (3, 32, 6, 20))]
 
 
-def smaatunet_dsc_shapes(batch=32, hw=20, vertices=6):
-    """(N, H, W, C, CK, Cout) of every DSC launch of one final_smaatunet
-    forward, read off the port's model by forward pre-hooks (plain path)."""
-    import torch
-
-    from extended_gan_torch.models.registry import build_model
-    from extended_gan_torch.models.smaat_unet import DepthwiseSeparableConv
-
-    model = build_model("unet", image_width=hw, image_height=hw,
-                        n_vertices=vertices, mapping_type="linear",
-                        use_pallas=False)
-    shapes = []
-
-    def record(mod, args):
-        n, c, h, w = args[0].shape
-        shapes.append((n, h, w, c, mod.depthwise_weight.shape[0],
-                       mod.pointwise_weight.shape[0]))
-
-    hooks = [m.register_forward_pre_hook(record) for m in model.modules()
-             if isinstance(m, DepthwiseSeparableConv)]
-    with torch.no_grad():
-        model(torch.rand(batch, hw, hw, 4, vertices, device="cuda"))
-    for h in hooks:
-        h.remove()
-    return shapes
+def _bound(nbytes, flops):
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / F32_FLOP_PER_S
+    return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops \
+        else "operations"
 
 
 def dsc_bound(n, h, w, c, ck, cout):
     """(bound_ms, bound_by): each input read once, the output written once;
     2 * N*H*W * CK * (9 + Cout) f32 operations."""
     nbytes = 4 * (n * h * w * (c + cout) + 10 * ck + ck * cout + cout)
-    flops = 2 * n * h * w * ck * (9 + cout)
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / F32_FLOP_PER_S
-    return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops \
-        else "operations"
+    return _bound(nbytes, 2 * n * h * w * ck * (9 + cout))
+
+
+def dsc_bwd_bounds(n, h, w, c, ck, cout, need_dx):
+    """((bound_ms, bound_by) of the backward kernel, of the whole backward).
+    The kernel reads gd, x and dw and writes dx and ddw, ddwb: 9 FMAs a gd
+    entry for ddw and 9 for dx. The whole backward adds gd = g pw^T and dpw
+    = d^T g (2 * M * CK * Cout operations each) and dpwb; its bytes are g,
+    x, d, gd twice (written, then read), dx and the weights and their
+    gradients."""
+    m = n * h * w
+    kernel = _bound(4 * (m * ck + m * c * (1 + need_dx) + 19 * ck),
+                    2 * m * ck * 9 * (1 + need_dx))
+    whole = _bound(4 * (m * cout + m * c * (1 + need_dx) + 3 * m * ck
+                        + 2 * (10 * ck + ck * cout + cout)),
+                   2 * m * ck * (9 * (1 + need_dx) + 2 * cout) + m * cout)
+    return kernel, whole
+
+
+def dsc_inputs(shape, seed):
+    import math
+
+    import torch
+
+    n, h, w, c, ck, cout = shape
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    return (torch.randn(n, h, w, c, device="cuda", generator=gen),
+            torch.randn(3, 3, ck, device="cuda", generator=gen) / 3,
+            torch.randn(ck, device="cuda", generator=gen),
+            torch.randn(ck, cout, device="cuda", generator=gen)
+            / math.sqrt(ck),
+            torch.randn(cout, device="cuda", generator=gen))
+
+
+def _no_plain_depthwise(*args):
+    raise SmokeFailure("the K3 path ran the plain depthwise (reference_dsc)")
 
 
 def phase_dsconv():
-    """K3 against reference_dsc at the 18 DSC shapes of a final_smaatunet
-    batch-32 forward and at the tiled TPU kernel's shape; times the kernel,
-    the plain version and, as a yardstick only, cuDNN's pair of convs."""
+    """K3 against reference_dsc and its autograd at the 18 DSC shapes of a
+    final_smaatunet batch-32 forward and, forward only, at the tiled TPU
+    kernel's shape. Each check runs twice and must be bit-identical; the
+    K3 path runs with the plain depthwise replaced by a function that
+    fails. The forward runs at its split plan and with CK unsplit; times
+    of both, of the backward kernel,
+    its two matrix products and the whole backward, of the plain versions
+    and, as a yardstick only, of cuDNN's pair of convs and its autograd
+    (exact f32, as the kernels are)."""
     import math
 
     import torch
     import torch.nn.functional as F
 
+    from extended_gan_torch.models.smaat_unet import dsc_shapes
     from extended_gan_torch.ops import dsconv as k3
 
-    dev = torch.device("cuda")
-    shapes = smaatunet_dsc_shapes()
+    shapes = dsc_shapes()  # final_smaatunet's 18 at batch 32
     check(len(shapes) == 18, f"{len(shapes)} DSC launches a forward, not 18")
-    rows, worst = [], 0.0
+    rows, worst, bwd_worst = [], 0.0, 0.0
+    plain_depthwise = k3._depthwise
     for i, shape in enumerate(shapes + [DSC_TILED_SHAPE]):
         n, h, w, c, ck, cout = shape
-        gen = torch.Generator(device=dev).manual_seed(i)
-        x = torch.randn(n, h, w, c, device=dev, generator=gen)
-        dw = torch.randn(3, 3, ck, device=dev, generator=gen) / 3
-        dwb = torch.randn(ck, device=dev, generator=gen)
-        pw = torch.randn(ck, cout, device=dev, generator=gen) / math.sqrt(ck)
-        pwb = torch.randn(cout, device=dev, generator=gen)
-        args = (x, dw, dwb, pw, pwb)
+        where = DSC_NAMES[i] if i < 18 else "tiled-variant shape"
+        args = dsc_inputs(shape, i)
+        x, dw, dwb, pw, pwb = args
+        ks = k3._split_plan(*shape)
+        unsplit = -(-ck // 32) * 32
         with torch.no_grad():
-            got = k3.fused_dsconv(*args)
             want = k3.reference_dsc(*args)
             scale = k3.reference_dsc(*(t.abs() for t in args))
+            tol = DSC_TOL_UNITS * math.sqrt(9 + ck) * scale
+            k3._depthwise = _no_plain_depthwise
+            try:
+                outs = {p: [k3._launch(*args, ks=p)[0] for _ in range(2)]
+                        for p in (ks, unsplit)}
+                fused = k3.fused_dsconv(*args)
+            finally:
+                k3._depthwise = plain_depthwise
         torch.cuda.synchronize()
-        err = (got - want).abs()
-        tol = DSC_TOL_UNITS * math.sqrt(9 + ck) * scale
-        where = "tiled-variant shape" if shape == DSC_TILED_SHAPE \
-            else f"final_smaatunet launch {i}"
-        check(got.shape == want.shape, f"K3 shape {got.shape} at {shape}")
-        check(bool((err <= tol).all()),
-              f"K3 disagrees with reference_dsc at {where} {shape}: max abs "
-              f"err {err.max().item():.3e}, worst err/tol "
-              f"{(err / tol).max().item():.3f}")
-        worst = max(worst, err.max().item())
+        check(torch.equal(fused, outs[ks][0]),
+              f"K3 at {where}: fused_dsconv and its plan differ")
+        ratio = err_max = 0.0
+        for plan, (got, again) in outs.items():  # plan: channels a slice
+            check(got.shape == want.shape, f"K3 shape {got.shape} at {shape}")
+            check(torch.equal(got, again), f"K3 forward at {where}, slices "
+                                           f"of {plan}: two runs differ")
+            err = (got - want).abs()
+            check(bool((err <= tol).all()),
+                  f"K3 disagrees with reference_dsc at {where} {shape}, "
+                  f"slices of {plan}: max abs err {err.max().item():.3e}, worst "
+                  f"err/tol {(err / tol).max().item():.3f}")
+            err_max = max(err_max, err.max().item())
+            ratio = max(ratio, (err / tol).max().item())
+        worst = max(worst, err_max)
         xc = x.permute(0, 3, 1, 2)  # NCHW view, channels-last memory
         wd = dw.permute(2, 0, 1)[:, None].contiguous()  # (CK, 1, 3, 3)
         wp = pw.t()[:, :, None, None].contiguous()  # (Cout, CK, 1, 1)
-        with torch.no_grad():
-            kms = time_ms(lambda: k3.fused_dsconv(*args))
+
+        def pair(xc, wd, dwb, wp, pwb):
+            return F.conv2d(F.conv2d(xc, wd, dwb, padding=1, groups=c), wp,
+                            pwb)
+        with torch.no_grad(), torch.backends.cudnn.flags(enabled=True,
+                                                         allow_tf32=False):
+            kms = time_ms(lambda: k3._launch(*args, ks=ks))
+            dms = time_ms(lambda: k3._launch(*args, ks=ks, keep_d=True))
+            unsplit_ms = time_ms(lambda: k3._launch(*args, ks=unsplit))
             pms = time_ms(lambda: k3.reference_dsc(*args))
-            cms = time_ms(lambda: F.conv2d(
-                F.conv2d(xc, wd, dwb, padding=1, groups=c), wp, pwb))
+            cms = time_ms(lambda: pair(xc, wd, dwb, wp, pwb))
+        with torch.no_grad(), torch.backends.cudnn.flags(enabled=True,
+                                                         allow_tf32=True):
+            cms_tf32 = time_ms(lambda: pair(xc, wd, dwb, wp, pwb))
         bound, by = dsc_bound(*shape)
-        rows.append(dict(shape=shape, where=where, max_abs_err=err.max().item(),
-                         kernel_ms=kms, plain_ms=pms, cudnn_pair_ms=cms,
-                         bound_ms=bound, bound_by=by,
-                         gflop=2 * n * h * w * ck * (9 + cout) / 1e9))
+        row = dict(shape=shape, where=where, slices=-(-ck // ks),
+                   max_abs_err=err_max, kernel_ms=kms, with_d_ms=dms,
+                   unsplit_ms=unsplit_ms, plain_ms=pms,
+                   cudnn_pair_ms=cms, cudnn_pair_tf32_ms=cms_tf32,
+                   bound_ms=bound, bound_by=by,
+                   gflop=2 * n * h * w * ck * (9 + cout) / 1e9)
         print(f"[kernel] dsconv_fwd {where} N={n} {h}x{w} C={c} CK={ck} "
-              f"Cout={cout}: max_abs_err={err.max().item():.3e} "
-              f"(worst err/tol {(err / tol).max().item():.3f}) "
-              f"kernel={kms:.4f} ms plain={pms:.4f} ms bound={bound:.4f} ms "
-              f"({by}) cuDNN pair={cms:.4f} ms")
-    main = [r for r in rows if r["where"] != "tiled-variant shape"]
+              f"Cout={cout}, S={row['slices']}: worst err/tol {ratio:.3f} "
+              f"(these slices and CK unsplit), two runs bit-identical; "
+              f"kernel={kms:.4f} ms (writing d {dms:.4f}) unsplit="
+              f"{unsplit_ms:.4f} ms plain={pms:.4f} ms "
+              f"bound={bound:.4f} ms ({by}) cuDNN pair={cms:.4f} ms (TF32 "
+              f"{cms_tf32:.4f})")
+        if i < 18:
+            row.update(_dsconv_backward(k3, where, shape, args, pair,
+                                        (xc, wd, dwb, wp, pwb), i))
+            bwd_worst = max(bwd_worst, row["bwd_max_abs_err"])
+        rows.append(row)
+    main = rows[:18]
+
+    def total(key):
+        return sum(r[key] for r in main)
     print(f"[kernel] dsconv_fwd over one final_smaatunet b=32 forward (18 "
-          f"launches): kernel {sum(r['kernel_ms'] for r in main):.4f} ms, "
-          f"plain {sum(r['plain_ms'] for r in main):.4f} ms, bound "
-          f"{sum(r['bound_ms'] for r in main):.4f} ms, cuDNN pair "
-          f"{sum(r['cudnn_pair_ms'] for r in main):.4f} ms, "
-          f"{sum(r['gflop'] for r in main):.2f} GFLOP")
-    return rows, worst
+          f"launches): kernel {total('kernel_ms'):.4f} ms (writing d "
+          f"{total('with_d_ms'):.4f}), CK unsplit "
+          f"{total('unsplit_ms'):.4f} ms, plain "
+          f"{total('plain_ms'):.4f} ms, bound {total('bound_ms'):.4f} ms, "
+          f"cuDNN pair {total('cudnn_pair_ms'):.4f} ms (TF32 "
+          f"{total('cudnn_pair_tf32_ms'):.4f}), {total('gflop'):.2f} GFLOP")
+    print(f"[kernel] dsconv_bwd over one final_smaatunet b=32 backward (18 "
+          f"launches, 17 with dx): kernel {total('bwd_kernel_ms'):.4f} ms "
+          f"(bound {total('bwd_kernel_bound_ms'):.4f}), two matrix products "
+          f"and the bias sum {total('bwd_matmul_ms'):.4f} ms, whole K3 "
+          f"backward {total('bwd_ms'):.4f} ms (bound "
+          f"{total('bwd_bound_ms'):.4f}), library convolution_backward "
+          f"{total('bwd_library_ms'):.4f} ms, plain autograd "
+          f"{total('bwd_plain_ms'):.4f} ms, cuDNN pair autograd "
+          f"{total('bwd_cudnn_pair_ms'):.4f} ms (TF32 "
+          f"{total('bwd_cudnn_pair_tf32_ms'):.4f})")
+    ratios = {k: max(r["bwd_ratios"].get(k, 0.0) for r in main)
+              for k in main[1]["bwd_ratios"]}
+    print("[kernel] dsconv_bwd against float64 over the 18: worst err/tol "
+          + ", ".join(f"{k} {v:.3e}" for k, v in ratios.items())
+          + "; planted faults, least err/tol over the 18: one block's "
+          f"partial dropped {min(r['bwd_fault_dropped'] for r in main):.3e}, "
+          f"gd in TF32 {min(r['bwd_fault_tf32'] for r in main):.3e}")
+    return rows, worst, bwd_worst
+
+
+def _dsconv_backward(k3, where, shape, args, pair, pair_args, seed):
+    """K3's backward at one final_smaatunet shape: the first DSC's input
+    needs no gradient (no dx), the others' do. Each gradient is held to the
+    plain autograd in float64 at DSC_BWD_TOL_UNITS times its scale; two
+    faults planted in ddw and ddwb (one block's partial dropped, gd made in
+    TF32) show what that limit can see."""
+    import torch
+
+    n, h, w, c, ck, cout = shape
+    need_dx = seed > 0
+    g = torch.randn(n, h, w, cout, device="cuda",
+                    generator=torch.Generator(device="cuda")
+                    .manual_seed(100 + seed))
+
+    def grads(fn, inputs, cot):
+        inputs = [t.clone().requires_grad_(j > 0 or need_dx)
+                  for j, t in enumerate(inputs)]
+        wrt = inputs if need_dx else inputs[1:]
+        return torch.autograd.grad(fn(*inputs), wrt, cot)
+    plain_depthwise = k3._depthwise
+    k3._depthwise = _no_plain_depthwise
+    launches = k3.bwd_launch_count
+    try:
+        got = grads(k3.fused_dsconv, args, g)
+        again = grads(k3.fused_dsconv, args, g)
+    finally:
+        k3._depthwise = plain_depthwise
+    check(k3.bwd_launch_count - launches == 2,
+          f"K3 backward at {where}: {k3.bwd_launch_count - launches} "
+          "dsconv_bwd launches for 2 backwards")
+    args64 = [t.double() for t in args]
+    want = grads(k3.reference_dsc, args64, g.double())
+    scale = grads(k3.reference_dsc, [t.abs() for t in args64],
+                  g.double().abs())
+    torch.cuda.synchronize()
+    names = ["dx", "ddw", "ddwb", "dpw", "dpwb"][0 if need_dx else 1:]
+    want, scale = dict(zip(names, want)), dict(zip(names, scale))
+
+    def err_tol(name, value):
+        """(max abs err, worst err/limit) of ``value`` against the float64
+        plain gradient ``name``."""
+        e = (value.double() - want[name]).abs()
+        r = torch.where(e == 0, 0.0, e / (DSC_BWD_TOL_UNITS * scale[name]))
+        return e.max().item(), r.max().item()
+    err, ratios = 0.0, {}
+    for name, g_, a_ in zip(names, got, again):
+        check(torch.equal(g_, a_), f"K3 backward at {where}: {name} differs "
+                                   "between two runs")
+        e, r = err_tol(name, g_)
+        check(r <= 1, f"K3 backward {name} at {where} {shape} disagrees with "
+                      f"the plain autograd: max abs err {e:.3e}, worst "
+                      f"err/tol {r:.3e}")
+        err, ratios[name] = max(err, e), r
+    got = dict(zip(names, got))
+    # planted faults in ddw and ddwb: the middle pixel run's partial
+    # dropped (its share of the sums, taken off in float64), and gd = g pw^T
+    # made in TF32 before the kernel
+    x, dw, dwb, pw, pwb = args
+    cc, ppw, blocks = k3._bwd_plan(n, h, w, c, ck)
+    run = k3._BWD_WARPS * ppw * (32 // (cc * (ck // c)))
+    g2 = g.view(-1, cout)
+    keep = torch.zeros(n * h * w, 1, dtype=torch.float64, device="cuda")
+    keep[blocks // 2 * run:(blocks // 2 + 1) * run] = 1
+    gd64 = (g2.double() @ pw.double().t()) * keep
+    _, bdw, bdwb = k3.reference_depthwise_backward(
+        gd64.view(n, h, w, ck), args64[0], args64[1], need_dx=False)
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        gd_tf32 = (g2 @ pw.t()).view(n, h, w, ck)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = False
+    _, tdw, tdwb = k3._launch_bwd(gd_tf32, x, dw, need_dx=False)
+    dropped = max(err_tol("ddw", got["ddw"] - bdw)[1],
+                  err_tol("ddwb", got["ddwb"] - bdwb)[1])
+    tf32 = max(err_tol("ddw", tdw)[1], err_tol("ddwb", tdwb)[1])
+    check(dropped > 1, f"K3 backward at {where}: with one block's partial "
+                       f"dropped, ddw and ddwb stay within the limit "
+                       f"(worst err/tol {dropped:.3e})")
+    # times: the kernel alone, the two products and the bias sum, the whole
+    # K3 backward, the plain autograd, cuDNN's pair's autograd (exact f32
+    # and TF32), and the one library call that computes what the kernel
+    # does: convolution_backward of the depthwise conv from gd
+    with torch.no_grad():
+        d = k3._launch(*args, keep_d=True)[1]
+        gd = (g2 @ pw.t()).view(n, h, w, ck)
+        kms = time_ms(lambda: k3._launch_bwd(gd, x, dw, need_dx=need_dx))
+        mms = time_ms(lambda: (g2 @ pw.t(), d.view(-1, ck).t() @ g2,
+                               g2.sum(0)))
+
+        def library():
+            return torch.ops.aten.convolution_backward(
+                gd.permute(0, 3, 1, 2), x.permute(0, 3, 1, 2), pair_args[1],
+                [ck], [1, 1], [1, 1], [1, 1], False, [0, 0], c,
+                [need_dx, True, True])
+        with torch.backends.cudnn.flags(enabled=True, allow_tf32=False):
+            lib = library()
+            lms = time_ms(library)
+    lib_ratio = max(err_tol("ddw", lib[1].view(ck, 9).t().view(3, 3, ck))[1],
+                    err_tol("ddwb", lib[2])[1],
+                    err_tol("dx", lib[0].permute(0, 2, 3, 1))[1]
+                    if need_dx else 0.0)
+    times = []
+    for fn, fn_args, tf32_conv in ((k3.fused_dsconv, args, False),
+                                   (k3.reference_dsc, args, False),
+                                   (pair, pair_args, False),
+                                   (pair, pair_args, True)):
+        inputs = [t.clone().requires_grad_(j > 0 or need_dx)
+                  for j, t in enumerate(fn_args)]
+        wrt = inputs if need_dx else inputs[1:]
+        cot = g if fn is not pair else g.permute(0, 3, 1, 2)
+        with torch.backends.cudnn.flags(enabled=True, allow_tf32=tf32_conv):
+            out = fn(*inputs)
+            times.append(time_ms(lambda: torch.autograd.grad(
+                out, wrt, cot, retain_graph=True)))
+        if fn is k3.fused_dsconv and where == "up4 dsc0":
+            # what one K3 backward launches: two products, the bias sum,
+            # the kernel and its partials' sum
+            profile_window(lambda: torch.autograd.grad(
+                out, wrt, cot, retain_graph=True), f"K3 backward at {where}",
+                "backward", top=6)
+        del out
+    (kb, kby), (wb, wby) = dsc_bwd_bounds(*shape, need_dx)
+    print(f"[kernel] dsconv_bwd {where}, dx {'on' if need_dx else 'off'}: "
+          f"max_abs_err={err:.3e} against float64, worst err/tol "
+          + ", ".join(f"{k} {v:.3e}" for k, v in ratios.items())
+          + f"; planted faults: one block's partial dropped {dropped:.3e}, "
+          f"gd in TF32 {tf32:.3e}; two runs bit-identical, no plain "
+          f"depthwise; kernel={kms:.4f} ms (bound {kb:.4f}, {kby}) "
+          f"library convolution_backward={lms:.4f} ms (err/tol "
+          f"{lib_ratio:.3e}) matmuls={mms:.4f} ms whole K3 "
+          f"backward={times[0]:.4f} ms (bound {wb:.4f}, {wby}) plain "
+          f"autograd={times[1]:.4f} ms cuDNN pair autograd={times[2]:.4f} ms "
+          f"(TF32 {times[3]:.4f})")
+    return dict(need_dx=need_dx, bwd_max_abs_err=err,
+                bwd_ratio=max(ratios.values()), bwd_ratios=ratios,
+                bwd_fault_dropped=dropped, bwd_fault_tf32=tf32,
+                bwd_kernel_ms=kms, bwd_library_ms=lms, bwd_matmul_ms=mms,
+                bwd_ms=times[0], bwd_plain_ms=times[1],
+                bwd_cudnn_pair_ms=times[2], bwd_cudnn_pair_tf32_ms=times[3],
+                bwd_kernel_bound_ms=kb, bwd_kernel_bound_by=kby,
+                bwd_bound_ms=wb, bwd_bound_by=wby)
 
 
 def k2_inputs(nh, b, v, h, seed, gate_safe=False):
@@ -667,7 +900,9 @@ def profile_window(fn, label, unit, n=5, top=10, counter=None):
     call, its share of the wall-clock window, and the top kernels by
     device time. ``counter``, a (kernel name, count function) pair: the
     kernel's launches as the profiler records them beside the wrapper's
-    launch counter over the same window."""
+    launch counter over the same window. Returns the busy and wall ms a
+    call and the kernels a call, or None when no device time was
+    recorded."""
     import torch
 
     acts = [torch.profiler.ProfilerActivity.CPU,
@@ -693,7 +928,7 @@ def profile_window(fn, label, unit, n=5, top=10, counter=None):
     busy = sum(dev_us(e) for e in events)
     if not busy:
         print("[profile] the profiler recorded no device time: not measured")
-        return
+        return None
     print(f"[profile] {label}, {n} {unit}s: device busy "
           f"{busy / n / 1e3:.4f} ms a {unit}, {100 * busy / wall_us:.1f}% of "
           f"{wall_us / n / 1e3:.4f} ms wall, "
@@ -708,6 +943,34 @@ def profile_window(fn, label, unit, n=5, top=10, counter=None):
               f"({len(recorded)} keys, "
               f"{sum(dev_us(e) for e in recorded) / n / 1e3:.4f} ms a {unit}),"
               f" the launch counter counts {counted}")
+    return dict(busy_ms=busy / n / 1e3, wall_ms=wall_us / n / 1e3,
+                kernels=sum(e.count for e in events) // n)
+
+
+def host_state():
+    """What the host's clock reads in a train step depends on: the load
+    average, the CPUs this process may use, their mean clock, and the host
+    time of one small kernel launch (2,000 launches, not waited for)."""
+    import torch
+
+    mhz = []
+    try:
+        with open("/proc/cpuinfo") as f:
+            mhz = [float(line.split(":")[1]) for line in f
+                   if line.startswith("cpu MHz")]
+    except OSError:
+        pass
+    a = torch.zeros(8, device="cuda")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(2000):
+        a.add_(1)
+    launch_us = (time.perf_counter() - t0) / 2000 * 1e6
+    torch.cuda.synchronize()
+    return (f"load {' '.join(f'{v:.2f}' for v in os.getloadavg())}, "
+            f"{len(os.sched_getaffinity(0))} CPUs, "
+            + (f"{statistics.mean(mhz):.0f} MHz mean, " if mhz else "")
+            + f"{launch_us:.2f} us a launch")
 
 
 def _finite(values):
@@ -733,13 +996,16 @@ def model_pair(model_type, mapping_type, hw):
 
 
 def compare_train_steps(model_type, fused, plain, hw, opt_name, counts,
-                        per_step, batch=32, steps=3):
+                        per_step, batch=32, steps=3, rounds=1):
     """One step's gradients and three train steps with the kernels and
     with the plain versions, from the same weights on the same batches
     (exact f32: TF32 off), then the step time of each path and a profile of
     the kernel path's step. ``counts()`` gives the launch counts of the
     kernels under test and ``per_step`` what one train step adds to each.
-    Returns the kernel path's launches and the step times."""
+    ``rounds`` > 1: that many alternating rounds of kernel and plain steps
+    (exact f32), each printed, their medians kept, and the plain path's
+    step profiled too. Returns the kernel path's launches and the step
+    times."""
     import numpy as np
     import torch
 
@@ -840,17 +1106,32 @@ def compare_train_steps(model_type, fused, plain, hw, opt_name, counts,
         return (time.perf_counter() - t0) * 1e3 / n
 
     with torch.backends.cudnn.flags(enabled=True, allow_tf32=False):
-        kernel_ms = step_ms(*pairs[0])
-        plain_ms = step_ms(*pairs[1])
+        timed, hosts = [], []
+        for _ in range(rounds):
+            hosts.append(host_state() if rounds > 1 else None)
+            timed.append((step_ms(*pairs[0]), step_ms(*pairs[1])))
+    kernel_ms = statistics.median(k for k, _ in timed)
+    plain_ms = statistics.median(p for _, p in timed)
+    if rounds > 1:
+        for r, ((k, p), host) in enumerate(zip(timed, hosts)):
+            print(f"[train] {model_type} round {r + 1} of {rounds}: kernel "
+                  f"{k:.3f} ms, plain {p:.3f} ms a train step (exact f32); "
+                  f"host before it: {host}")
+        print(f"[train] {model_type} median of {rounds} rounds: kernel "
+              f"{kernel_ms:.3f} ms, plain {plain_ms:.3f} ms a train step")
     # torch's default math: cuDNN convolutions in TF32
     with torch.backends.cudnn.flags(enabled=True, allow_tf32=True):
         tf32_ms = step_ms(*pairs[0])
         plain_tf32_ms = step_ms(*pairs[1])
+    profiles = {}
     with torch.backends.cudnn.flags(enabled=True, allow_tf32=False):
-        fn = make_gat_train_step(*pairs[0])
-        profile_window(lambda: fn(*batches[0]),
-                       f"{model_type} {hw}x{hw} b={batch} kernel path, exact "
-                       "f32", "train step", n=3)
+        for path, pair in (("kernel", pairs[0]), ("plain", pairs[1])):
+            if path == "plain" and rounds == 1:
+                break
+            fn = make_gat_train_step(*pair)
+            profiles[path] = profile_window(
+                lambda: fn(*batches[0]), f"{model_type} {hw}x{hw} b={batch} "
+                f"{path} path, exact f32", "train step", n=3)
     print(f"[train] {model_type} {hw}x{hw} b={batch}, {opt_name}: losses "
           f"kernel vs plain {losses}, worst rel {loss_err:.3e}; one step's "
           f"gradients within {grad_err:.3e} of the largest entry, roundoff "
@@ -863,13 +1144,17 @@ def compare_train_steps(model_type, fused, plain, hw, opt_name, counts,
           f"{kernel_ms:.3f}, plain {plain_ms:.3f} (exact f32), with cuDNN "
           f"TF32: kernel {tf32_ms:.3f}, plain {plain_tf32_ms:.3f}")
     return dict(launched=launched, kernel_ms=kernel_ms, plain_ms=plain_ms,
-                tf32_ms=tf32_ms, plain_tf32_ms=plain_tf32_ms)
+                tf32_ms=tf32_ms, plain_tf32_ms=plain_tf32_ms, rounds=timed,
+                profiles=profiles)
 
 
-def train_experiment(name, kernel, per_forward, model_cls, max_batches=3):
+def train_experiment(name, per_forward, per_step, model_cls, max_batches=3):
     """``python -m extended_gan_torch.gat generate_experiment`` as a user runs
     it (one epoch, synthetic fallback, outputs in a temporary directory),
-    with the kernels' counts set to 0 just before and read just after."""
+    with the kernels' counts set to 0 just before and read just after: each
+    kernel launches ``per_forward[kernel]`` times a forward (train steps
+    and eval) and ``per_step[kernel]`` a train step (train-mode forward),
+    every other kernel none."""
     import shutil
     import tempfile
 
@@ -883,16 +1168,17 @@ def train_experiment(name, kernel, per_forward, model_cls, max_batches=3):
     out = tempfile.mkdtemp(prefix=f"smoke_{name}_")
     exp_dir = os.path.join(REPO, "convolutional_gat", "experiments", name)
     exp_files = sorted(os.listdir(exp_dir))
-    forwards = [0]
+    forwards = [0, 0]  # all forwards, train-mode forwards
 
     def count(module, args, output):
         if type(module) is model_cls:
             forwards[0] += 1
+            forwards[1] += module.training
 
     hook = torch.nn.modules.module.register_module_forward_hook(count)
     try:
         # the main path starts here
-        k1.launch_count = k3.launch_count = 0
+        k1.launch_count = k3.launch_count = k3.bwd_launch_count = 0
         k2.fwd_launch_count = k2.bwd_launch_count = 0
         t0 = time.perf_counter()
         model, history = cli(["generate_experiment", "--exp_folder_name", name,
@@ -902,6 +1188,7 @@ def train_experiment(name, kernel, per_forward, model_cls, max_batches=3):
         secs = time.perf_counter() - t0
         launches = {"gat_attention_fwd": k1.launch_count,
                     "dsconv_fwd": k3.launch_count,
+                    "dsconv_bwd": k3.bwd_launch_count,
                     "gat_mapping_fwd": k2.fwd_launch_count,
                     "gat_mapping_bwd": k2.bwd_launch_count}
     finally:
@@ -923,18 +1210,43 @@ def train_experiment(name, kernel, per_forward, model_cls, max_batches=3):
                   f"{name}: {f} was not written to --output-path")
         check(sorted(os.listdir(exp_dir)) == exp_files,
               f"{name}: the run wrote into the experiment directory")
+        check(forwards[1] > 0, f"{name}: no train step ran")
         for k, n in launches.items():
-            expect = per_forward * forwards[0] if k == kernel else 0
+            expect = (per_forward.get(k, 0) * forwards[0]
+                      + per_step.get(k, 0) * forwards[1])
             check(n == expect, f"{name}: {n} {k} launches for {forwards[0]} "
-                               f"forwards, expected {expect}")
+                               f"forwards ({forwards[1]} train steps), "
+                               f"expected {expect}")
     finally:
         shutil.rmtree(out, ignore_errors=True)
-    print(f"[train] {name} via the CLI: {forwards[0]} forwards (train steps "
-          f"and eval), {launches[kernel]} {kernel} launches "
-          f"({per_forward} a forward), train loss "
+    ours = {k: n for k, n in launches.items()
+            if k in per_forward or k in per_step}
+    print(f"[train] {name} via the CLI: {forwards[0]} forwards ({forwards[1]} "
+          f"train steps, the rest eval), launches {ours} ({per_forward} a "
+          f"forward, {per_step} a train step), train loss "
           f"{history['train_loss'][0]:.6f}, val_loss "
           f"{history['val_loss'][0]:.6f}, {secs:.2f} s with start-up")
-    return launches[kernel]
+    return ours
+
+
+def unet_dsc_inputs_needing_grad():
+    """For each DSC of a train-mode final_smaatunet forward, in order:
+    whether its input needs a gradient (whether its backward computes dx)."""
+    import torch
+
+    from extended_gan_torch.models.registry import build_model
+    from extended_gan_torch.models.smaat_unet import DepthwiseSeparableConv
+
+    model = build_model("unet", image_width=20, image_height=20,
+                        n_vertices=6, mapping_type="linear").train()
+    seen = []
+    hooks = [m.register_forward_pre_hook(
+        lambda mod, args: seen.append(args[0].requires_grad))
+        for m in model.modules() if isinstance(m, DepthwiseSeparableConv)]
+    model(torch.rand(2, 20, 20, 4, 6, device="cuda"))
+    for h in hooks:
+        h.remove()
+    return seen
 
 
 def phase_train():
@@ -948,16 +1260,25 @@ def phase_train():
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     launches = {
-        "dsconv_fwd": train_experiment("final_smaatunet", "dsconv_fwd", 18,
-                                       UnetModel),
-        "gat_attention_fwd": train_experiment("final_temp_conv",
-                                              "gat_attention_fwd", 2, GatModel),
+        **train_experiment("final_smaatunet", {"dsconv_fwd": 18},
+                           {"dsconv_bwd": 18}, UnetModel),
+        **train_experiment("final_temp_conv", {"gat_attention_fwd": 2}, {},
+                           GatModel),
     }
     # the UNet compared under SGD: Adam's sign-like step would turn its
-    # BatchNorm-amplified roundoff into whole steps of lr
-    compare_train_steps("unet", *model_pair("unet", "linear", 20), 20, "sgd",
-                        lambda: {"dsconv_fwd": k3.launch_count},
-                        {"dsconv_fwd": 18})
+    # BatchNorm-amplified roundoff into whole steps of lr; its step time in
+    # 5 alternating rounds, K3 against the plain DSC
+    with_dx = unet_dsc_inputs_needing_grad()
+    check(with_dx == [False] + [True] * 17,
+          f"UNet train forward: DSC inputs needing a gradient {with_dx}")
+    print("[train] unet: 18 DSCs a train step, 17 of whose inputs need a "
+          "gradient (dsconv_bwd computes dx at 17 of its 18 launches)")
+    unet = compare_train_steps(
+        "unet", *model_pair("unet", "linear", 20), 20, "sgd",
+        lambda: {"dsconv_fwd": k3.launch_count,
+                 "dsconv_bwd": k3.bwd_launch_count},
+        {"dsconv_fwd": 18, "dsconv_bwd": 18}, rounds=5)
+    launches["unet_train_step"] = unet["launched"]
     compare_train_steps("temporal", *model_pair("temporal", "conv", 80), 80,
                         "adam", lambda: {"gat_attention_fwd": k1.launch_count},
                         {"gat_attention_fwd": 2})
@@ -1050,7 +1371,7 @@ def main() -> int:
     try:
         build_logs = phase_build()
         rows, worst = phase_kernels()
-        dsc_rows, dsc_worst = phase_dsconv()
+        dsc_rows, dsc_worst, dsc_bwd_worst = phase_dsconv()
         k2_fwd_rows, k2_bwd_rows = phase_mapping(build_logs)
         launches, models = phase_serve()
         phase_forward(models)
@@ -1089,7 +1410,9 @@ def main() -> int:
         "replaces": "extended_gan_tpu/ops/pallas/dsconv.py:66",
         "launches": train_launches["dsconv_fwd"],
         "launches_by_path": {
-            "train final_smaatunet": train_launches["dsconv_fwd"]},
+            "train final_smaatunet": train_launches["dsconv_fwd"],
+            "unet train steps b=32, kernel path":
+                train_launches["unet_train_step"]["dsconv_fwd"]},
         "max_abs_err": dsc_worst,
         "ms": dsc_main["kernel_ms"],
         "kernel_ms": dsc_main["kernel_ms"],
@@ -1098,6 +1421,37 @@ def main() -> int:
         "bound_by": dsc_main["bound_by"],
         "library_ms": None,
         "cudnn_pair_ms": dsc_main["cudnn_pair_ms"],
+        "cudnn_pair_tf32_ms": dsc_main["cudnn_pair_tf32_ms"],
+        "total_18_ms": sum(r["kernel_ms"] for r in dsc_rows[:18]),
+        "shape": "N=%d %dx%d C=%d CK=%d Cout=%d (final_smaatunet b=32, "
+                 "up4 dsc0)" % dsc_main["shape"],
+    }, {
+        "name": "dsconv_bwd",
+        "route": "cuda",
+        "source": "extended_gan_torch/ops/csrc/dsconv.cu",
+        # the JAX _bwd is jax.vjp of _reference_dsc, not a Pallas kernel
+        "replaces": "extended_gan_tpu/ops/pallas/dsconv.py:324",
+        "launches": train_launches["dsconv_bwd"],
+        "launches_by_path": {
+            "train final_smaatunet": train_launches["dsconv_bwd"],
+            "unet train steps b=32, kernel path":
+                train_launches["unet_train_step"]["dsconv_bwd"]},
+        "max_abs_err": dsc_bwd_worst,
+        "ms": dsc_main["bwd_kernel_ms"],
+        "kernel_ms": dsc_main["bwd_kernel_ms"],
+        "plain_ms": dsc_main["bwd_plain_ms"],
+        "bound_ms": dsc_main["bwd_kernel_bound_ms"],
+        "bound_by": dsc_main["bwd_kernel_bound_by"],
+        # aten.convolution_backward of the depthwise conv from gd (cuDNN,
+        # exact f32): dx, ddw and ddwb in one call
+        "library_ms": dsc_main["bwd_library_ms"],
+        "library_total_18_ms": sum(r["bwd_library_ms"]
+                                   for r in dsc_rows[:18]),
+        "whole_backward_ms": dsc_main["bwd_ms"],
+        "whole_backward_bound_ms": dsc_main["bwd_bound_ms"],
+        "cudnn_pair_backward_ms": dsc_main["bwd_cudnn_pair_ms"],
+        "cudnn_pair_backward_tf32_ms": dsc_main["bwd_cudnn_pair_tf32_ms"],
+        "total_18_ms": sum(r["bwd_kernel_ms"] for r in dsc_rows[:18]),
         "shape": "N=%d %dx%d C=%d CK=%d Cout=%d (final_smaatunet b=32, "
                  "up4 dsc0)" % dsc_main["shape"],
     }]

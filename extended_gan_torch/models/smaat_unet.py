@@ -204,3 +204,29 @@ class SmaAt_UNet(nn.Module):  # noqa: N801 - the JAX package's name
         x = self.up3(x, self.cbam2(x2))
         x = self.up4(x, self.cbam1(x1))
         return self.outc(x)
+
+
+def dsc_shapes(batch=32, hw=20, vertices=6, device="cuda"):
+    """(N, H, W, C, CK, Cout) of every depthwise-separable conv of one
+    forward of the registry's ``unet`` (final_smaatunet's model) on
+    ``batch`` windows of ``hw`` x ``hw``, in order, read off the model by
+    forward pre-hooks."""
+    from .registry import build_model
+
+    model = build_model("unet", image_width=hw, image_height=hw,
+                        n_vertices=vertices, mapping_type="linear",
+                        use_pallas=False, device=device)
+    shapes = []
+
+    def record(mod, args):
+        n, c, h, w = args[0].shape
+        shapes.append((n, h, w, c, mod.depthwise_weight.shape[0],
+                       mod.pointwise_weight.shape[0]))
+
+    hooks = [m.register_forward_pre_hook(record) for m in model.modules()
+             if isinstance(m, DepthwiseSeparableConv)]
+    with torch.no_grad():
+        model(torch.rand(batch, hw, hw, 4, vertices, device=device))
+    for h in hooks:
+        h.remove()
+    return shapes

@@ -7,5 +7,6 @@ def launch_counts() -> dict[str, int]:
     """How many times each CUDA kernel has been launched in this process."""
     return {"gat_attention_fwd": gat_attention.launch_count,
             "dsconv_fwd": dsconv.launch_count,
+            "dsconv_bwd": dsconv.bwd_launch_count,
             "gat_mapping_fwd": gat_mapping.fwd_launch_count,
             "gat_mapping_bwd": gat_mapping.bwd_launch_count}

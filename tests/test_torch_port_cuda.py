@@ -129,21 +129,89 @@ def test_k3_kernel_matches_plain(cuda_device, shape):
     torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
 
 
-def test_k3_gradient_launches_nothing_and_matches_plain(cuda_device):
+def test_k3_gradient_launches_nothing_and_matches_plain(cuda_device,
+                                                        monkeypatch):
+    """The K3 backward launches the backward kernel once (beside two matrix
+    products) and runs no plain forward; its gradients match autograd of
+    the plain version."""
     args = _k3_inputs(K3_SHAPES[0], cuda_device, 3)
     cot = torch.randn(4, 20, 20, 64, device=cuda_device)
-    grads = []
-    for fused in (True, False):
-        inputs = [t.clone().requires_grad_() for t in args]
-        fn = k3.fused_dsconv if fused else k3.reference_dsc
-        out = fn(*inputs)
-        before = k3.launch_count
-        grads.append(torch.autograd.grad((out * cot).sum(), inputs))
-        assert k3.launch_count == before  # the backward is plain torch
-    for name, g_, w_ in zip(("x", "dw", "dwb", "pw", "pwb"), *grads):
+    inputs = [t.clone().requires_grad_() for t in args]
+    plain = torch.autograd.grad((k3.reference_dsc(*inputs) * cot).sum(), inputs)
+
+    def no_plain(*a):
+        raise AssertionError("the K3 path ran the plain depthwise")
+    monkeypatch.setattr(k3, "_depthwise", no_plain)
+    inputs = [t.clone().requires_grad_() for t in args]
+    out = k3.fused_dsconv(*inputs)
+    before = k3.launch_count, k3.bwd_launch_count
+    got = torch.autograd.grad((out * cot).sum(), inputs)
+    assert (k3.launch_count, k3.bwd_launch_count) == (before[0],
+                                                      before[1] + 1)
+    for name, g_, w_ in zip(("x", "dw", "dwb", "pw", "pwb"), got, plain):
         torch.testing.assert_close(g_, w_, rtol=1e-4,
                                    atol=1e-4 * w_.abs().max().item(),
                                    msg=name)
+
+
+# (N, H, W, C, kpl, Cout): a 20x20, a 2x2 and a 1x1 final_smaatunet-like
+# shape at a smaller batch, kpl 1 with a ragged channel group, up4 dsc0 of
+# final_smaatunet at batch 32 (about 30 pixels a lane, as in training), and
+# two shapes whose warps have idle lanes (kpl 3: 30 of 32 lanes; C = 20 at
+# kpl 1: 20 of 32) with a staged run wider than the block's 10 x 512-float
+# floor of shared memory
+K3_BWD_SHAPES = [(8, 20, 20, 64, 2, 64), (48, 2, 2, 256, 2, 512),
+                 (64, 1, 1, 512, 2, 512), (3, 5, 7, 40, 1, 20),
+                 (192, 20, 20, 64, 2, 64), (8, 40, 40, 10, 3, 8),
+                 (8, 40, 40, 20, 1, 16)]
+
+
+@pytest.mark.parametrize("need_dx", [True, False])
+@pytest.mark.parametrize("shape", K3_BWD_SHAPES)
+def test_k3_backward_matches_plain_and_repeats_bit_for_bit(cuda_device, shape,
+                                                          need_dx):
+    n, h, w, c, kpl, cout = shape
+    x, dw, dwb, pw, pwb = _k3_inputs(shape, cuda_device, sum(shape))
+    g = torch.randn(n, h, w, cout, device=cuda_device,
+                    generator=torch.Generator(device=cuda_device)
+                    .manual_seed(5))
+    needs = (need_dx, True, True, True, True)
+    d = k3._launch(x, dw, dwb, pw, pwb, keep_d=True)[1]
+    before = k3.bwd_launch_count
+    got = k3._backward_cuda(x, dw, pw, d, g, needs)
+    again = k3._backward_cuda(x, dw, pw, d, g, needs)
+    assert k3.bwd_launch_count == before + 2
+    want = k3.reference_dsc_backward(x, dw, dwb, pw, g, need_dx=need_dx)
+    torch.cuda.synchronize()
+    assert (got[0] is None) != need_dx
+    for name, g_, a_, w_ in zip(("dx", "ddw", "ddwb", "dpw", "dpwb"), got,
+                                again, want):
+        if g_ is None:
+            continue
+        assert torch.equal(g_, a_), name
+        # f32 sums over up to N*H*W = 76,800 pixels in another order
+        torch.testing.assert_close(g_, w_, rtol=1e-4,
+                                   atol=1e-4 * w_.abs().max().item(),
+                                   msg=name)
+
+
+# channels a slice of CK: unsplit, the plan's, and slices of one and three
+# 32-channel chunks
+@pytest.mark.parametrize("ks", [None, 0, 32, 96])
+@pytest.mark.parametrize("shape", [K3_SHAPES[0], K3_SHAPES[2], K3_SHAPES[3]])
+def test_k3_split_and_unsplit_forwards_match_plain(cuda_device, shape, ks):
+    args = _k3_inputs(shape, cuda_device, 11)
+    ck = args[1].shape[-1]
+    ks = -(-ck // 32) * 32 if ks is None else ks or None
+    with torch.no_grad():
+        got, d = k3._launch(*args, keep_d=True, ks=ks)
+        again, _ = k3._launch(*args, ks=ks)
+        want = k3.reference_dsc(*args)
+        want_d = k3._depthwise(*args[:3])
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(d, want_d, rtol=1e-5, atol=1e-5)
 
 
 def test_k3_refuses_what_it_cannot_take(cuda_device):
