@@ -9,9 +9,16 @@ Phases, each fatal on failure (non-zero exit, no result line):
              nvcc (one process per source, all at once) into build/kernels/.
 2. kernels - hold each kernel against its plain PyTorch version on the card
              and time both with CUDA events (median of 20 timed groups
-             after warm-up): K1 at the served shapes, all outputs at
-             atol = rtol = 1e-5 (f32; only the summation order over P
-             differs); K3's forward at the 18 DSC shapes of a
+             after warm-up): K1's forward at the twelve served shapes
+             (20x20 and 80x80, B = 1, 8, 32, 1 and 3 heads) in the three
+             layouts it takes (fused_gat_attention's (NH, B, M, P), K2's
+             pixel-major output and the cuDNN mapping's view, the last two
+             in place), and its one-block kernel at 200x200, all outputs
+             at atol = rtol = 1e-5 (f32; only the summation order over P
+             differs), each twice, bit-identical; K1's backward kernel at
+             the 80x80 and 20x20 batch-32 blocks against autograd of the
+             plain forward at K1_BWD_TOL, twice, bit-identical, timed
+             beside reference_backward (the plain cotangents); K3's forward at the 18 DSC shapes of a
              final_smaatunet batch-32 forward and at the tiled TPU kernel's
              shape, at its split plan and with CK unsplit,
              and its backward (the kernel and two matrix products) at the
@@ -44,7 +51,8 @@ Phases, each fatal on failure (non-zero exit, no result line):
              80x80 forward (kernel time by name).
 5. train   - ``python -m extended_gan_torch.gat generate_experiment`` of
              final_smaatunet (SmaAt-UNet, 20x20, K3 18 launches a forward)
-             and final_temp_conv (GAT3D, 80x80, K1 2 a forward), one epoch
+             and final_temp_conv (GAT3D, 80x80, K1 2 a forward and its
+             backward 2 a train step), one epoch
              on the synthetic fallback, outputs in a temporary directory:
              finite losses and metrics, history.json and model.pt written
              there, launches = per-forward count x forwards (eval
@@ -58,7 +66,8 @@ Phases, each fatal on failure (non-zero exit, no result line):
 6. mapping model - final_temp_conv's ``Model(..., use_pallas_mapping=True)``
              against ``False`` from the same weights, batch 32: forward
              device time and agreement, 2 K2 forward launches a forward and
-             2 backward launches a backward, three Adam steps kernel path
+             2 backward launches a backward (and 2 of K1's backward), three
+             Adam steps kernel path
              against plain path, ms per train step, a profile of the
              switched step.
 7. report  - the ``kernels`` JSON line, the card's name and power limit, and
@@ -153,63 +162,199 @@ def phase_build():
     return {name: info["log"] for name, info in report.items()}
 
 
-def phase_kernels():
-    """K1 against reference_impl at the served geometry."""
+def _k1_inputs(nh, b, hw, layout, seed, dev, mm=4, groups=6):
+    """K1's m in ``layout``: "api" (NH, B, M, P) contiguous for
+    fused_gat_attention, or (NH, B, S, M, G) for the kernels in place:
+    "pixel" (K2's output) or "cudnn" (the cuDNN mapping's view of memory
+    ordered (B, V, NH, T, H, W)); a (NH, 2G); adj (NH, M, M)."""
     import torch
 
     from extended_gan_torch.models.gat.layers import normalized_adjacency
+
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    if layout == "api":
+        m = torch.randn(nh, b, mm, groups * hw, device=dev, generator=gen)
+    elif layout == "pixel":
+        m = torch.randn(nh, b, hw, mm, groups, device=dev, generator=gen)
+    else:
+        m = torch.randn(b, groups, nh, mm, hw, device=dev,
+                        generator=gen).permute(2, 0, 4, 3, 1)
+    a = torch.randn(nh, 2 * groups, device=dev, generator=gen)
+    adj = normalized_adjacency(
+        torch.rand(nh, mm, mm, device=dev, generator=gen))
+    return m, a, adj
+
+
+def _k1_forward(k1, m, a, adj, layout, hw, alpha=0.2):
+    """K1's forward in ``layout``; out as (NH, B, M, P) beside the
+    residuals."""
+    if layout == "api":
+        return k1.fused_gat_attention(m, a, adj, alpha, hw)
+    out, att0, att, pos = k1._FusedGatAttention.apply(m, a, adj, alpha)
+    return (k1._rows(out), att0, att, pos)
+
+
+def phase_kernels(build_logs):
+    """K1 against reference_impl at the served geometry, forward in its
+    three layouts (each twice, bit-identical), the one-block kernel beyond
+    the clusters' reach, and the backward kernel against autograd of
+    reference_impl at the batch-32 blocks; each K1 kernel's registers,
+    spills and static shared bytes."""
+    import torch
+
     from extended_gan_torch.ops import gat_attention as k1
+
+    for name, (regs, spills, smem) in ptxas_entries(
+            build_logs.get("gat_attention", "")).items():
+        if "<4, 4>" in name or "Li4ELi4E" in name or "sum" in name:
+            print(f"[build] {name}: {regs} registers, {spills} bytes "
+                  f"spilled, {smem} bytes static shared")
 
     dev = torch.device("cuda")
     mm, groups, alpha = 4, 6, 0.2  # M = T = 4 frames, G = V = 6 vertices
     rows, worst = [], 0.0
-    for hw in (400, 6400):  # 20x20 and 80x80: P = 2,400 and 38,400
+    # (H*W, B, heads, layout): the twelve served shapes in the three
+    # layouts, then 200x200, which no cluster holds (the one-block kernel)
+    shapes = [(hw, b, nh, layout) for hw in (400, 6400) for b in (1, 8, 32)
+              for nh in (1, 3) for layout in ("api", "pixel", "cudnn")]
+    shapes.append((40000, 1, 1, "api"))
+    for hw, b, nh, layout in shapes:
         p = groups * hw
-        for b in (1, 8, 32):
-            for nh in (1, 3):
-                gen = torch.Generator(device=dev).manual_seed(1000 * nh + b)
-                m = torch.randn(nh, b, mm, p, device=dev, generator=gen)
-                a = torch.randn(nh, 2 * groups, device=dev, generator=gen)
-                adj = normalized_adjacency(
-                    torch.rand(nh, mm, mm, device=dev, generator=gen))
-                w1 = a[:, :groups].repeat_interleave(hw, 1)[:, None, None, :]
-                w2 = a[:, groups:].repeat_interleave(hw, 1)[:, None, None, :]
-                adj_b = adj[:, None].contiguous()
-                with torch.no_grad():
-                    got = k1.fused_gat_attention(m, a, adj, alpha, hw)
-                    want = k1.reference_impl(m, w1, w2, adj_b, alpha, hw)
-                torch.cuda.synchronize()
-                err = 0.0
-                for name, g_, w_ in zip(("out", "att0", "att", "pos"), got,
-                                        want):
-                    check(g_.shape == w_.shape,
-                          f"{name} shape {g_.shape} != {w_.shape}")
-                    check(torch.allclose(g_, w_, atol=TOL, rtol=TOL),
-                          f"K1 {name} disagrees with reference_impl at "
-                          f"heads={nh} B={b} P={p}: max abs err "
-                          f"{(g_ - w_).abs().max().item():.3e}")
-                    err = max(err, (g_ - w_).abs().max().item())
-                worst = max(worst, err)
-                with torch.no_grad():
-                    kms = time_ms(lambda: k1.fused_gat_attention(
-                        m, a, adj, alpha, hw))
-                    pms = time_ms(lambda: k1.reference_impl(
-                        m, w1, w2, adj_b, alpha, hw))
-                n = nh * b * mm * p
-                nbytes = 4 * (2 * n + nh * 2 * groups + nh * mm * mm
-                              + 3 * nh * b * mm * mm)
-                # pass 1: two FMAs per element; pass 2: M FMAs + the ELU
-                flops = n * (4 + 2 * mm + 1)
-                bound = max(nbytes / HBM_BYTES_PER_S,
-                            flops / F32_FLOP_PER_S) * 1e3
-                rows.append(dict(heads=nh, batch=b, P=p, max_abs_err=err,
-                                 kernel_ms=kms, plain_ms=pms, bound_ms=bound,
-                                 bound_by="bytes" if nbytes / HBM_BYTES_PER_S
-                                 >= flops / F32_FLOP_PER_S else "operations"))
-                print(f"[kernel] gat_attention_fwd heads={nh} B={b:2d} "
-                      f"P={p:5d}: max_abs_err={err:.3e} kernel={kms:.4f} ms "
-                      f"plain={pms:.4f} ms bound={bound:.4f} ms")
-    return rows, worst
+        m, a, adj = _k1_inputs(nh, b, hw, layout, 1000 * nh + b, dev)
+        rows_m = m if layout == "api" else k1._rows(m)
+        w1 = a[:, :groups].repeat_interleave(hw, 1)[:, None, None, :]
+        w2 = a[:, groups:].repeat_interleave(hw, 1)[:, None, None, :]
+        adj_b = adj[:, None].contiguous()
+        plan = k1._cluster_plan(nh, b, hw, mm * groups)
+        check((plan is None) == (hw == 40000),
+              f"K1 plan {plan} at heads={nh} B={b} P={p}")
+        with torch.no_grad():
+            got = _k1_forward(k1, m, a, adj, layout, hw)
+            again = _k1_forward(k1, m, a, adj, layout, hw)
+            want = k1.reference_impl(rows_m, w1, w2, adj_b, alpha, hw)
+        torch.cuda.synchronize()
+        err = 0.0
+        for name, g_, r_, w_ in zip(("out", "att0", "att", "pos"), got,
+                                    again, want):
+            check(g_.shape == w_.shape,
+                  f"{name} shape {g_.shape} != {w_.shape}")
+            check(torch.equal(g_, r_), f"K1 {name} differs between two "
+                  f"runs at heads={nh} B={b} P={p} {layout}")
+            check(torch.allclose(g_, w_, atol=TOL, rtol=TOL),
+                  f"K1 {name} disagrees with reference_impl at "
+                  f"heads={nh} B={b} P={p} {layout}: max abs err "
+                  f"{(g_ - w_).abs().max().item():.3e}")
+            err = max(err, (g_ - w_).abs().max().item())
+        worst = max(worst, err)
+        with torch.no_grad():
+            if layout == "api":
+                kms = time_ms(lambda: k1.fused_gat_attention(m, a, adj, alpha,
+                                                             hw))
+            else:  # in place: no conversion to rows inside the timing
+                kms = time_ms(lambda: k1._FusedGatAttention.apply(m, a, adj,
+                                                                  alpha))
+            pms = time_ms(lambda: k1.reference_impl(
+                rows_m, w1, w2, adj_b, alpha, hw))
+        n = nh * b * mm * p
+        nbytes = 4 * (2 * n + nh * 2 * groups + nh * mm * mm
+                      + 3 * nh * b * mm * mm)
+        # the plane sums and s1, s2: about 1 flop an element; out: M FMAs
+        # and the ELU
+        flops = n * (1 + 2 * mm + 1)
+        bound, by = _bound(nbytes, flops)
+        rows.append(dict(heads=nh, batch=b, P=p, layout=layout,
+                         cluster=plan[0] if plan else None,
+                         max_abs_err=err, kernel_ms=kms, plain_ms=pms,
+                         bound_ms=bound, bound_by=by))
+        print(f"[kernel] gat_attention_fwd heads={nh} B={b:2d} P={p:6d} "
+              f"{layout:5s} " + (f"C={plan[0]:2d}" if plan else "one-block")
+              + f": max_abs_err={err:.3e} kernel={kms:.4f} ms plain="
+              f"{pms:.4f} ms bound={bound:.4f} ms (twice, bit-identical)")
+    return rows, worst, phase_k1_backward(k1)
+
+
+# K1's backward against autograd of reference_impl, the style of the card
+# test test_k1_gradient_through_the_kernel_matches_plain: 1e-4 relative to
+# the largest entry of each gradient (sums over up to B * P products).
+K1_BWD_TOL = 1e-4
+
+
+def phase_k1_backward(k1, alpha=0.2):
+    """gat_attention_bwd at final_temp_conv's and local_temporal_conv's
+    batch-32 blocks (m and the cotangent in the layouts the model's paths
+    hand over), each twice and bit-identical, against autograd of
+    reference_impl; times of the kernel (with its sum over the batch),
+    reference_backward (the plain cotangents) and autograd of
+    reference_impl."""
+    import torch
+
+    dev = torch.device("cuda")
+    mm, groups = 4, 6
+    rows = []
+    # (H*W, heads, m's layout, the cotangent's): the cuDNN mapping's hidden
+    # block (g as the output block's mapping backward hands it over) and
+    # output block (g from the sigmoid, pixel-major), K2's hidden block
+    for hw, nh, layout, glayout in (
+            (6400, 3, "cudnn", "cudnn"), (6400, 1, "cudnn", "pixel"),
+            (6400, 3, "pixel", "pixel"), (400, 3, "cudnn", "cudnn"),
+            (400, 1, "cudnn", "pixel")):
+        b = 32
+        m, a, adj = _k1_inputs(nh, b, hw, layout, 50 + nh, dev)
+        cot = _k1_inputs(nh, b, hw, glayout, 5, dev)[0]
+        with torch.no_grad():
+            out, att0, att, pos = k1._launch_fwd(m, a, adj, alpha)
+        plan = k1._cluster_plan(nh, b, hw, mm * groups, backward=True)
+        before = k1.bwd_launch_count
+        got = k1._launch_bwd(m, cot, a, adj, att0, att, pos, alpha)
+        again = k1._launch_bwd(m, cot, a, adj, att0, att, pos, alpha)
+        check(k1.bwd_launch_count - before == 2, "K1 backward launches")
+        inputs = [t.clone().requires_grad_() for t in (k1._rows(m), a, adj)]
+        w1, w2 = k1._group_rows(inputs[1], hw)
+        plain = k1.reference_impl(inputs[0], w1, w2, inputs[2][:, None],
+                                  alpha, hw)[0]
+        want = torch.autograd.grad(plain, inputs, k1._rows(cot),
+                                   retain_graph=True)
+        torch.cuda.synchronize()
+        err = 0.0
+        for name, g_, r_, w_ in zip(("d_m", "d_a", "d_adj"),
+                                    (k1._rows(got[0]), *got[1:]),
+                                    (k1._rows(again[0]), *again[1:]), want):
+            check(torch.equal(g_, r_), f"K1 backward {name} differs between "
+                  f"two runs at heads={nh} B={b} P={groups * hw}")
+            gap = (g_ - w_).abs().max().item() / w_.abs().max().item()
+            check(gap <= K1_BWD_TOL, f"K1 backward {name} differs from "
+                  f"autograd of reference_impl by {gap:.3e} of its largest "
+                  f"entry at heads={nh} B={b} P={groups * hw}")
+            err = max(err, (g_ - w_).abs().max().item())
+        kms = time_ms(lambda: k1._launch_bwd(m, cot, a, adj, att0, att, pos,
+                                             alpha))
+        rows_m, rows_out, rows_cot = k1._rows(m), k1._rows(out), k1._rows(cot)
+        pms = time_ms(lambda: k1.reference_backward(
+            rows_m, a, adj, rows_out, att0, att, pos, rows_cot, alpha, hw))
+        ams = time_ms(lambda: torch.autograd.grad(
+            plain, inputs, rows_cot, retain_graph=True), per_group=2)
+        n = nh * b * mm * groups * hw
+        # read m and g, write d_m; the residuals and the (NH, M*M + 2G)
+        # sums are small
+        nbytes = 4 * (3 * n + 4 * nh * b * mm * mm + nh * (2 * groups + mm * mm)
+                      + nh * (mm * mm + 2 * groups))
+        # an element: o (M FMAs), d0, d_att (M FMAs), its plane sum, d_m
+        # (M FMAs and two more)
+        flops = n * (6 * mm + 7)
+        bound, by = _bound(nbytes, flops)
+        rows.append(dict(heads=nh, batch=b, P=groups * hw, layout=layout,
+                         g_layout=glayout,
+                         cluster=plan[0], chunk=plan[2], npix=plan[1],
+                         max_abs_err=err, kernel_ms=kms, plain_ms=pms,
+                         autograd_ms=ams, bound_ms=bound, bound_by=by))
+        print(f"[kernel] gat_attention_bwd heads={nh} B={b} P={groups * hw:6d}"
+              f" m {layout} g {glayout}, C={plan[0]} npix={plan[1]} "
+              f"chunk={plan[2]}: "
+              f"max_abs_err={err:.3e} kernel={kms:.4f} ms "
+              f"reference_backward={pms:.4f} ms autograd of reference_impl="
+              f"{ams:.4f} ms bound={bound:.4f} ms ({by}; twice, "
+              f"bit-identical)")
+    return rows
 
 
 # K3's tolerance, per output element: 4 * sqrt(9 + CK) units of f32
@@ -849,7 +994,8 @@ def phase_serve():
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     # the main path starts here
-    k1.launch_count = k2.fwd_launch_count = k2.bwd_launch_count = 0
+    k1.launch_count = k1.bwd_launch_count = 0
+    k2.fwd_launch_count = k2.bwd_launch_count = 0
     forwards, models = 0, {}
     for name, batches in (("final_temp_conv", (1, 5, 32)),
                           ("local_temporal_conv", (32,))):
@@ -860,6 +1006,8 @@ def phase_serve():
     launches = k1.launch_count
     check(launches == 2 * forwards,
           f"{launches} K1 launches for {forwards} forwards")
+    check(k1.bwd_launch_count == 0,
+          f"serving launched K1's backward {k1.bwd_launch_count} times")
     check(k2.fwd_launch_count == k2.bwd_launch_count == 0,
           f"the served models launched K2 ({k2.fwd_launch_count} forward, "
           f"{k2.bwd_launch_count} backward): its switch is off by default")
@@ -1178,7 +1326,8 @@ def train_experiment(name, per_forward, per_step, model_cls, max_batches=3):
     hook = torch.nn.modules.module.register_module_forward_hook(count)
     try:
         # the main path starts here
-        k1.launch_count = k3.launch_count = k3.bwd_launch_count = 0
+        k1.launch_count = k1.bwd_launch_count = 0
+        k3.launch_count = k3.bwd_launch_count = 0
         k2.fwd_launch_count = k2.bwd_launch_count = 0
         t0 = time.perf_counter()
         model, history = cli(["generate_experiment", "--exp_folder_name", name,
@@ -1187,6 +1336,7 @@ def train_experiment(name, per_forward, per_step, model_cls, max_batches=3):
         torch.cuda.synchronize()
         secs = time.perf_counter() - t0
         launches = {"gat_attention_fwd": k1.launch_count,
+                    "gat_attention_bwd": k1.bwd_launch_count,
                     "dsconv_fwd": k3.launch_count,
                     "dsconv_bwd": k3.bwd_launch_count,
                     "gat_mapping_fwd": k2.fwd_launch_count,
@@ -1262,8 +1412,8 @@ def phase_train():
     launches = {
         **train_experiment("final_smaatunet", {"dsconv_fwd": 18},
                            {"dsconv_bwd": 18}, UnetModel),
-        **train_experiment("final_temp_conv", {"gat_attention_fwd": 2}, {},
-                           GatModel),
+        **train_experiment("final_temp_conv", {"gat_attention_fwd": 2},
+                           {"gat_attention_bwd": 2}, GatModel),
     }
     # the UNet compared under SGD: Adam's sign-like step would turn its
     # BatchNorm-amplified roundoff into whole steps of lr; its step time in
@@ -1279,9 +1429,12 @@ def phase_train():
                  "dsconv_bwd": k3.bwd_launch_count},
         {"dsconv_fwd": 18, "dsconv_bwd": 18}, rounds=5)
     launches["unet_train_step"] = unet["launched"]
-    compare_train_steps("temporal", *model_pair("temporal", "conv", 80), 80,
-                        "adam", lambda: {"gat_attention_fwd": k1.launch_count},
-                        {"gat_attention_fwd": 2})
+    gat = compare_train_steps(
+        "temporal", *model_pair("temporal", "conv", 80), 80, "adam",
+        lambda: {"gat_attention_fwd": k1.launch_count,
+                 "gat_attention_bwd": k1.bwd_launch_count},
+        {"gat_attention_fwd": 2, "gat_attention_bwd": 2})
+    launches["gat_train_step"] = gat["launched"]
     return launches
 
 
@@ -1293,6 +1446,7 @@ def phase_mapping_model(batch=32, hw=80):
     import torch
 
     from extended_gan_torch.models.gat.gat3d import Model as GatModel
+    from extended_gan_torch.ops import gat_attention as k1
     from extended_gan_torch.ops import gat_mapping as k2
 
     kw = dict(attention_type="temporal", mapping_type="conv", use_pallas=True)
@@ -1306,16 +1460,19 @@ def phase_mapping_model(batch=32, hw=80):
 
     def counts():
         return {"gat_mapping_fwd": k2.fwd_launch_count,
-                "gat_mapping_bwd": k2.bwd_launch_count}
+                "gat_mapping_bwd": k2.bwd_launch_count,
+                "gat_attention_bwd": k1.bwd_launch_count}
     slow = dict(per_group=2, sleep_cycles=20_000_000)
     with torch.inference_mode(), torch.backends.cudnn.flags(
             enabled=True, allow_tf32=False):
-        k2.fwd_launch_count = k2.bwd_launch_count = 0  # the main path starts
+        # the main path starts
+        k2.fwd_launch_count = k2.bwd_launch_count = k1.bwd_launch_count = 0
         y = switched(x)
         forward_launches = counts()
         want = unswitched(x)
         torch.cuda.synchronize()
-        check(forward_launches == {"gat_mapping_fwd": 2, "gat_mapping_bwd": 0},
+        check(forward_launches == {"gat_mapping_fwd": 2, "gat_mapping_bwd": 0,
+                                   "gat_attention_bwd": 0},
               f"one switched forward launched {forward_launches}, expected "
               "2 gat_mapping_fwd")
         err = (y - want).abs().max().item()
@@ -1337,7 +1494,9 @@ def phase_mapping_model(batch=32, hw=80):
                                 lambda: k2.fwd_launch_count))
     train = compare_train_steps(
         "temporal use_pallas_mapping=True", switched, unswitched, hw, "adam",
-        counts, {"gat_mapping_fwd": 2, "gat_mapping_bwd": 2}, batch=batch)
+        # K1 runs in both models: 2 of its backward launches a step each
+        counts, {"gat_mapping_fwd": 2, "gat_mapping_bwd": 2,
+                 "gat_attention_bwd": 4}, batch=batch)
     return dict(forward_launches=forward_launches,
                 train_launches=train["launched"], forward_ms=on_ms,
                 forward_plain_ms=off_ms, forward_plain_tf32_ms=off_tf32_ms,
@@ -1370,7 +1529,7 @@ def main() -> int:
     sys.path.insert(0, REPO)
     try:
         build_logs = phase_build()
-        rows, worst = phase_kernels()
+        rows, worst, k1_bwd_rows = phase_kernels(build_logs)
         dsc_rows, dsc_worst, dsc_bwd_worst = phase_dsconv()
         k2_fwd_rows, k2_bwd_rows = phase_mapping(build_logs)
         launches, models = phase_serve()
@@ -1381,8 +1540,13 @@ def main() -> int:
     except SmokeFailure as e:
         print(f"chip_smoke: FAIL: {e}", file=sys.stderr)
         return 1
-    main_row = next(r for r in rows
-                    if (r["heads"], r["batch"], r["P"]) == (3, 32, 38400))
+    # K1 at the hidden block, batch 32, in the cuDNN mapping's layout (the
+    # served path's); the other layouts and the one-block kernel beside it
+    k1_main = {r["layout"]: r for r in rows
+               if (r["heads"], r["batch"], r["P"]) == (3, 32, 38400)}
+    main_row = k1_main["cudnn"]
+    one_block = next(r for r in rows if r["cluster"] is None)
+    bwd_main = k1_bwd_rows[0]
     # K3's largest final_smaatunet launch by work: up4's first DSC
     dsc_main = max((r for r in dsc_rows if r["where"] != "tiled-variant shape"),
                    key=lambda r: r["gflop"])
@@ -1402,6 +1566,39 @@ def main() -> int:
         "bound_ms": main_row["bound_ms"],
         "bound_by": main_row["bound_by"],
         "library_ms": None,
+        "cluster": main_row["cluster"],
+        "ms_by_layout": {k: r["kernel_ms"] for k, r in k1_main.items()},
+        "one_block_kernel": {
+            "shape": "heads=1 B=1 M=4 P=240000 (200x200, beyond a cluster)",
+            "ms": one_block["kernel_ms"], "plain_ms": one_block["plain_ms"],
+            "bound_ms": one_block["bound_ms"],
+            "max_abs_err": one_block["max_abs_err"]},
+        "shape": "heads=3 B=32 M=4 P=38400 (80x80 hidden layer, batch 32, "
+                 "m as the cuDNN mapping hands it over)",
+    }, {
+        "name": "gat_attention_bwd",
+        "route": "cuda",
+        "source": "extended_gan_torch/ops/csrc/gat_attention.cu",
+        # the JAX _bwd is plain JAX beside the Pallas forward, not a kernel
+        "replaces": "extended_gan_tpu/ops/pallas/gat_attention.py:170",
+        "launches": (train_launches["gat_attention_bwd"]
+                     + train_launches["gat_train_step"]["gat_attention_bwd"]
+                     + k2_model["train_launches"]["gat_attention_bwd"]),
+        "launches_by_path": {
+            "train final_temp_conv": train_launches["gat_attention_bwd"],
+            "temporal train steps b=32, kernel path":
+                train_launches["gat_train_step"]["gat_attention_bwd"],
+            "train steps b=32, use_pallas_mapping=True":
+                k2_model["train_launches"]["gat_attention_bwd"]},
+        "max_abs_err": max(r["max_abs_err"] for r in k1_bwd_rows),
+        "ms": bwd_main["kernel_ms"],
+        "kernel_ms": bwd_main["kernel_ms"],
+        "plain_ms": bwd_main["plain_ms"],
+        "autograd_of_plain_forward_ms": bwd_main["autograd_ms"],
+        "bound_ms": bwd_main["bound_ms"],
+        "bound_by": bwd_main["bound_by"],
+        "library_ms": None,
+        "cluster": bwd_main["cluster"],
         "shape": "heads=3 B=32 M=4 P=38400 (80x80 hidden layer, batch 32)",
     }, {
         "name": "dsconv_fwd",

@@ -8,6 +8,8 @@ JAX is not installed (the repository's conftest.py imports JAX, hence
   python -m pytest --noconftest -p no:cacheprovider tests/test_torch_port_cuda.py
 """
 
+import functools
+
 import numpy as np
 import pytest
 import torch
@@ -28,30 +30,76 @@ def cuda_device():
     return torch.device("cuda")
 
 
+def _k1_mapped(rng, nh, b, mm, hw, g, layout, device):
+    """m for fused_gat_attention ("api": (NH, B, M, P) contiguous) or
+    mapped (NH, B, H, W, T, V) for attend_temporal: pixel-major
+    contiguous, or the cuDNN mapping's view of memory ordered
+    (B, V, NH, T, H, W)."""
+    side = int(round(hw ** 0.5))
+    if layout == "api":
+        shape = (nh, b, mm, g * hw)
+    elif layout == "pixel":
+        shape = (nh, b, side, side, mm, g)
+    else:
+        shape = (b, g, nh, mm, side, side)
+    x = torch.from_numpy(rng.standard_normal(shape, dtype=np.float32))
+    x = x.to(device)
+    return x.permute(2, 0, 4, 5, 3, 1) if layout == "cudnn" else x
+
+
+def _k1_rows(x, layout, hw):
+    """(NH, B, M, P) of an input or output in ``layout``."""
+    if layout == "api":
+        return x
+    nh, b, _, _, t, v = x.shape
+    return x.permute(0, 1, 4, 5, 2, 3).reshape(nh, b, t, v * hw)
+
+
+@pytest.mark.parametrize("layout", ["api", "pixel", "cudnn"])
 @pytest.mark.parametrize("nh,b,mm,hw", [
     (1, 1, 4, 400), (3, 8, 4, 400), (3, 2, 4, 6400),
-    (1, 3, 4, 25),  # group_size % 4 != 0: the scalar path
+    (1, 3, 4, 25),  # group_size % 4 != 0: scalar copies
     (2, 2, 3, 64), (1, 2, 8, 16),
+    (3, 1, 4, 6400),  # served batch 1 at 80x80
+    (1, 1, 4, 40000),  # 200x200: no cluster holds it, the first kernel
 ])
-def test_kernel_matches_plain(cuda_device, nh, b, mm, hw):
+def test_kernel_matches_plain(cuda_device, nh, b, mm, hw, layout):
     rng = np.random.default_rng(20 + nh * b + mm)
     g = 6
-    m = torch.from_numpy(rng.standard_normal((nh, b, mm, g * hw),
-                                             dtype=np.float32)).to(cuda_device)
+    m = _k1_mapped(rng, nh, b, mm, hw, g, layout, cuda_device)
     a = torch.from_numpy(rng.standard_normal((nh, 2 * g),
                                              dtype=np.float32)).to(cuda_device)
     adj = normalized_adjacency(torch.from_numpy(
         rng.random((nh, mm, mm), dtype=np.float32)).to(cuda_device))
     before = k1.launch_count
     with torch.no_grad():
-        got = k1.fused_gat_attention(m, a, adj, 0.2, hw)
+        if layout == "api":
+            got = k1.fused_gat_attention(m, a, adj, 0.2, hw)
+        else:
+            got = (k1.attend_temporal(m, a, adj, 0.2),)
     assert k1.launch_count == before + 1
+    clustered = k1._cluster_plan(nh, b, hw, mm * g) is not None
+    assert clustered == (hw != 40000)
+    if layout != "api" and clustered:  # taken in place, written alike
+        assert all(p == q for n, p, q in zip(m.shape, m.stride(),
+                                              got[0].stride()) if n > 1)
+    rows = _k1_rows(m, layout, hw)
     w1 = a[:, :g].repeat_interleave(hw, 1)[:, None, None, :]
     w2 = a[:, g:].repeat_interleave(hw, 1)[:, None, None, :]
-    want = k1.reference_impl(m, w1, w2, adj[:, None], 0.2, hw)
+    want = k1.reference_impl(rows, w1, w2, adj[:, None], 0.2, hw)
     torch.cuda.synchronize()
+    got = (_k1_rows(got[0], layout, hw),) + tuple(got[1:])
     for name, g_, w_ in zip(("out", "att0", "att", "pos"), got, want):
         torch.testing.assert_close(g_, w_, rtol=1e-5, atol=1e-5, msg=name)
+
+
+def test_cluster_plan_matches_the_kernels_shared_memory(cuda_device):
+    """The plan's shared-memory sizes are the C entry point's."""
+    lib = k1._lib()
+    for mm, g, pixels, buffers in ((4, 6, 1600, 1), (4, 6, 800, 2),
+                                   (8, 16, 36, 1), (3, 5, 44, 2)):
+        assert lib.gat_attention_cluster_smem_bytes(mm, g, pixels, buffers) \
+            == 4 * (k1._HEADER_FLOATS + buffers * pixels * mm * g)
 
 
 def test_kernel_refuses_what_it_cannot_take(cuda_device):
@@ -84,15 +132,65 @@ def test_k1_gradient_through_the_kernel_matches_plain(cuda_device):
             before = k1.launch_count
             out = k1.fused_gat_attention(*inputs, 0.2, hw)[0]
             assert k1.launch_count == before + 1
+            before = k1.bwd_launch_count
         else:
             w1 = inputs[1][:, :g].repeat_interleave(hw, 1)[:, None, None, :]
             w2 = inputs[1][:, g:].repeat_interleave(hw, 1)[:, None, None, :]
             out = k1.reference_impl(inputs[0], w1, w2, inputs[2][:, None],
                                     0.2, hw)[0]
         grads.append(torch.autograd.grad((out * cot).sum(), inputs))
+        if fused:  # one gat_attention_bwd launch a backward
+            assert k1.bwd_launch_count == before + 1
     torch.cuda.synchronize()
     for name, g_, w_ in zip(("m", "a", "adj_norm"), *grads):
         # sums over up to B * P = 9,600 products per entry
+        torch.testing.assert_close(g_, w_, rtol=1e-4,
+                                   atol=1e-4 * w_.abs().max().item(),
+                                   msg=name)
+
+
+@pytest.mark.parametrize("nh,b,hw,layout,glayout,chunked", [
+    (3, 4, 6400, "pixel", "pixel", False),
+    (1, 4, 6400, "cudnn", "pixel", False),
+    (3, 32, 400, "cudnn", "cudnn", False),
+    (1, 32, 400, "pixel", "cudnn", False),
+    (3, 2, 6400, "cudnn", "cudnn", True),  # slices walked in chunks
+])
+def test_k1_backward_matches_plain_and_repeats_bit_for_bit(
+        cuda_device, monkeypatch, nh, b, hw, layout, glayout, chunked):
+    """gat_attention_bwd against reference_backward from the same
+    residuals, twice, bit-identical; the cotangent in its own layout.
+    Tolerance as the gradient test above: 1e-4 relative to the largest
+    entry (sums over up to B * P products)."""
+    if chunked:  # a shared-memory budget of 64-pixel chunks
+        plan = functools.partial(k1._cluster_plan,
+                                 smem_limit=4 * (k1._HEADER_FLOATS
+                                                 + 2 * 64 * 24))
+        monkeypatch.setattr(k1, "_cluster_plan", plan)
+    rng = np.random.default_rng(70 + nh * b)
+    g = 6
+    x = _k1_mapped(rng, nh, b, 4, hw, g, layout, cuda_device)
+    x = x.reshape(nh, b, hw, 4, g)
+    gt = _k1_mapped(rng, nh, b, 4, hw, g, glayout, cuda_device)
+    gt = gt.reshape(nh, b, hw, 4, g)
+    a = torch.from_numpy(rng.standard_normal((nh, 2 * g),
+                                             dtype=np.float32)).to(cuda_device)
+    adj = normalized_adjacency(torch.from_numpy(
+        rng.random((nh, 4, 4), dtype=np.float32)).to(cuda_device))
+    out, att0, att, pos = k1._launch_fwd(x, a, adj, 0.2)
+    before = k1.bwd_launch_count
+    runs = [k1._launch_bwd(x, gt, a, adj, att0, att, pos, 0.2)
+            for _ in range(2)]
+    assert k1.bwd_launch_count == before + 2
+    _, npix, chunk = k1._cluster_plan(nh, b, hw, 4 * g, backward=True)
+    assert (chunk < npix) == chunked
+    want = k1.reference_backward(k1._rows(x), a, adj, k1._rows(out), att0,
+                                 att, pos, k1._rows(gt), 0.2, hw)
+    torch.cuda.synchronize()
+    for first, again in zip(*runs):
+        assert torch.equal(first, again)
+    got = (k1._rows(runs[0][0]),) + tuple(runs[0][1:])
+    for name, g_, w_ in zip(("d_m", "d_a", "d_adj"), got, want):
         torch.testing.assert_close(g_, w_, rtol=1e-4,
                                    atol=1e-4 * w_.abs().max().item(),
                                    msg=name)

@@ -278,8 +278,9 @@ def test_cli_trains_on_the_cpu_and_writes_outside_the_repo(tmp_path, capsys):
     assert sorted(state) == sorted(model.state_dict())
     last = capsys.readouterr().out.strip().splitlines()[-1]
     assert json.loads(last) == {"kernel_launches": {
-        "gat_attention_fwd": k1.launch_count, "dsconv_fwd": k3.launch_count,
-        "dsconv_bwd": k3.bwd_launch_count,
+        "gat_attention_fwd": k1.launch_count,
+        "gat_attention_bwd": k1.bwd_launch_count,
+        "dsconv_fwd": k3.launch_count, "dsconv_bwd": k3.bwd_launch_count,
         "gat_mapping_fwd": k2.fwd_launch_count,
         "gat_mapping_bwd": k2.bwd_launch_count}}
 
