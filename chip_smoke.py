@@ -70,8 +70,23 @@ Phases, each fatal on failure (non-zero exit, no result line):
              Adam steps kernel path
              against plain path, ms per train step, a profile of the
              switched step.
-7. report  - the ``kernels`` JSON line, the card's name and power limit, and
-             the last line ``{"ok": true, "device": {...}}``.
+7. family  - the rest of the conv-GAT family, at full width from seed 0:
+             final_temp_smaat (GAT3D with the smaat_unet mapping, 20x20,
+             V = 6, b = 32, exact f32) in process against its plain twin:
+             forward agreement and device time, 4 K1 launches a forward
+             (3 + 1 unrolled heads; K3 stays off in the mapping, as in
+             JAX), the mapping's output taken by K1 in place (a profile of
+             attend_temporal on it records K1's kernel alone), a profile
+             of the forward, one step's gradients and three SGD steps
+             (K1 4 + 4 a step), ms per step with Adam; then one epoch
+             through the CLI of final_temp_smaat, final_temp_conv_4heads
+             (80x80), final_temp_linear_1lay, final_gat1d and final_gat2d
+             (K1 4 a forward and 4 a step in the first, 0 in the rest, as
+             in JAX; K2 and K3 0), each with its ms per train step; and
+             final_temp_smaat exported and served over HTTP at batch 32.
+8. report  - the total time, the ``kernels`` JSON line, the card's name and
+             power limit, and the last line ``{"ok": true, "device":
+             {...}}``.
 """
 
 from __future__ import annotations
@@ -916,9 +931,10 @@ def _post(url, x):
         (time.perf_counter() - t0) * 1e3
 
 
-def serve_experiment(experiment, batches, repeats):
+def serve_experiment(experiment, batches, repeats, per_forward=2):
     """Export ``experiment`` with --init-seed 0, serve it on the card over
-    HTTP and check every reply. Returns the number of forwards run."""
+    HTTP and check every reply (K1 launched ``per_forward`` times a
+    forward). Returns the number of forwards run."""
     import numpy as np
     import torch
 
@@ -958,9 +974,10 @@ def serve_experiment(experiment, batches, repeats):
                 y, ms = _post(url + "/predict", x)
                 lat.append(ms)
                 forwards += 1
-            check(k1.launch_count - launches0 == 2 * repeats,
+            check(k1.launch_count - launches0 == per_forward * repeats,
                   f"{experiment} b={b}: {k1.launch_count - launches0} K1 "
-                  f"launches for {repeats} forwards, expected 2 per forward")
+                  f"launches for {repeats} forwards, expected {per_forward} "
+                  "per forward")
             check(y.shape == x.shape, f"reply shape {y.shape} != {x.shape}")
             check(bool(np.isfinite(y).all()), "reply has non-finite values")
             check(float(y.min()) >= 0.0 and float(y.max()) <= 1.0,
@@ -1296,13 +1313,16 @@ def compare_train_steps(model_type, fused, plain, hw, opt_name, counts,
                 profiles=profiles)
 
 
-def train_experiment(name, per_forward, per_step, model_cls, max_batches=3):
+def train_experiment(name, per_forward, per_step, model_cls, max_batches=3,
+                     step_batch=0):
     """``python -m extended_gan_torch.gat generate_experiment`` as a user runs
     it (one epoch, synthetic fallback, outputs in a temporary directory),
     with the kernels' counts set to 0 just before and read just after: each
     kernel launches ``per_forward[kernel]`` times a forward (train steps
     and eval) and ``per_step[kernel]`` a train step (train-mode forward),
-    every other kernel none."""
+    every other kernel none. ``step_batch``: then the ms per train step of
+    the trained model at that batch, with the config's optimizer (Adam),
+    in process."""
     import shutil
     import tempfile
 
@@ -1371,12 +1391,44 @@ def train_experiment(name, per_forward, per_step, model_cls, max_batches=3):
         shutil.rmtree(out, ignore_errors=True)
     ours = {k: n for k, n in launches.items()
             if k in per_forward or k in per_step}
+    step = f", {adam_step_ms(model, step_batch):.3f} ms a train step at b=" \
+        f"{step_batch} (Adam, in process)" if step_batch else ""
     print(f"[train] {name} via the CLI: {forwards[0]} forwards ({forwards[1]} "
-          f"train steps, the rest eval), launches {ours} ({per_forward} a "
-          f"forward, {per_step} a train step), train loss "
+          f"train steps, the rest eval), launches {ours or launches} "
+          f"({per_forward} a forward, {per_step} a train step), train loss "
           f"{history['train_loss'][0]:.6f}, val_loss "
-          f"{history['val_loss'][0]:.6f}, {secs:.2f} s with start-up")
+          f"{history['val_loss'][0]:.6f}, {secs:.2f} s with start-up{step}")
     return ours
+
+
+def adam_step_ms(model, batch, n=8):
+    """Host-clock ms of one train step (Adam, as the configs train) of
+    ``model`` on uniform-noise batches of its geometry, after two warm-up
+    steps, synchronised at the end."""
+    import numpy as np
+    import torch
+
+    from extended_gan_torch.train.gat_trainer import (
+        make_gat_train_step,
+        to_device_batch,
+    )
+    from extended_gan_torch.train.optim import make_optimizer
+
+    rng = np.random.default_rng(0)
+    shape = (batch, model.image_width, model.image_height, 4, 6)
+    data = [to_device_batch(rng.random(shape, np.float32),
+                            rng.random(shape, np.float32),
+                            torch.device("cuda")) for _ in range(2)]
+    fn = make_gat_train_step(model, make_optimizer(
+        "adam", model.parameters(), TRAIN_LR, weight_decay=0.01))
+    for b in data:
+        fn(*b)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(n):
+        fn(*data[i % 2])
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3 / n
 
 
 def unet_dsc_inputs_needing_grad():
@@ -1503,6 +1555,149 @@ def phase_mapping_model(batch=32, hw=80):
                 train=train)
 
 
+def k1_input_is_taken_in_place(model, x):
+    """The smaat mapping's output as the model hands it to K1: its layout,
+    and a profile of ``attend_temporal`` on it, which must record K1's
+    kernel and nothing else (no layout copy in front of it)."""
+    import torch
+
+    from extended_gan_torch.models.gat.layers import normalized_adjacency
+    from extended_gan_torch.ops import gat_attention as k1
+
+    head = model.hidden_layer.head_0
+    seen = []
+    hook = head.mapping.register_forward_hook(
+        lambda mod, args, out: seen.append(out))
+    with torch.inference_mode():
+        model(x)
+    hook.remove()
+    mapped = seen[0]  # (1, B, H, W, T', V)
+    nh, b, h, w, t, v = mapped.shape
+    layout = k1._layout(mapped.reshape(nh, b, h * w, t, v))
+    check(layout == "plane", f"the smaat mapping hands K1 {layout!r} "
+                             f"(strides {mapped.stride()}), not plane-major")
+    calls = 5  # the profiler can miss a session's first kernel (PERF.md)
+    with torch.inference_mode():
+        a = head.a_temporal[..., 0]
+        adj = normalized_adjacency(head.B_temporal)
+        k1.attend_temporal(mapped, a, adj)
+        torch.cuda.synchronize()
+        with torch.profiler.profile(activities=[
+                torch.profiler.ProfilerActivity.CPU,
+                torch.profiler.ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                k1.attend_temporal(mapped, a, adj)
+            torch.cuda.synchronize()
+    kernels = {e.key: e.count for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and getattr(e, "self_device_time_total",
+                           getattr(e, "self_cuda_time_total", 0.0)) > 0}
+    check(len(kernels) == 1 and "gat_attention_cluster_fwd" in next(
+        iter(kernels)), f"{calls} calls of attend_temporal on the smaat "
+        f"mapping's output ran {kernels}, expected K1's cluster kernel alone")
+    print(f"[family] the smaat mapping hands K1 {tuple(mapped.shape)} "
+          f"plane-major (strides {mapped.stride()}); {calls} calls of "
+          f"attend_temporal on it record {sum(kernels.values())} kernels, all "
+          f"{next(iter(kernels))[:60]}: no layout copy")
+
+
+def phase_family(batch=32, hw=20):
+    """The conv-GAT families of the port's tenth slice: final_temp_smaat
+    (GAT3D with the smaat_unet mapping, K1 on) in process against its plain
+    twin, five published configs through the CLI, and final_temp_smaat
+    served over HTTP."""
+    import torch
+
+    from extended_gan_torch.models.gat.baseline import (
+        BaselineModel,
+        BaselineModel2D,
+    )
+    from extended_gan_torch.models.gat.gat3d import Model as GatModel
+    from extended_gan_torch.models.gat.wrappers import _StackedGAT
+    from extended_gan_torch.ops import dsconv as k3
+    from extended_gan_torch.ops import gat_attention as k1
+    from extended_gan_torch.ops import gat_mapping as k2
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    fused, plain = model_pair("temporal", "smaat_unet", hw)
+    x = torch.rand(batch, hw, hw, 4, 6, device="cuda",
+                   generator=torch.Generator(device="cuda").manual_seed(0))
+
+    def counts():
+        return {"gat_attention_fwd": k1.launch_count,
+                "gat_attention_bwd": k1.bwd_launch_count,
+                "dsconv_fwd": k3.launch_count, "dsconv_bwd": k3.bwd_launch_count,
+                "gat_mapping_fwd": k2.fwd_launch_count,
+                "gat_mapping_bwd": k2.bwd_launch_count}
+    slow = dict(per_group=2, sleep_cycles=20_000_000)
+    with torch.inference_mode():
+        # the main path starts
+        k1.launch_count = k1.bwd_launch_count = 0
+        k3.launch_count = k3.bwd_launch_count = 0
+        k2.fwd_launch_count = k2.bwd_launch_count = 0
+        y = fused(x)
+        forward_launches = counts()
+        want = plain(x)
+        torch.cuda.synchronize()
+        check(forward_launches == {**dict.fromkeys(forward_launches, 0),
+                                   "gat_attention_fwd": 4},
+              f"one final_temp_smaat forward launched {forward_launches}, "
+              "expected 4 gat_attention_fwd (3 + 1 unrolled heads) and no K3")
+        err = (y - want).abs().max().item()
+        check(bool(y.isfinite().all()) and err <= TOL,
+              f"final_temp_smaat: K1 path differs from plain by {err:.3e}")
+        fwd_ms = time_ms(lambda: fused(x), **slow)
+        plain_fwd_ms = time_ms(lambda: plain(x), **slow)
+    print(f"[family] final_temp_smaat b={batch} {hw}x{hw}: forward K1 path "
+          f"{fwd_ms:.4f} ms, plain {plain_fwd_ms:.4f} ms (device time, CUDA "
+          f"events, exact f32); max |K1 - plain| = {err:.3e}; "
+          f"{forward_launches['gat_attention_fwd']} K1 launches a forward")
+    k1_input_is_taken_in_place(fused, x)
+    with torch.inference_mode():
+        fwd_profile = profile_window(lambda: fused(x),
+                                     f"final_temp_smaat b={batch}", "forward",
+                                     counter=("gat_attention_cluster_fwd",
+                                              lambda: k1.launch_count))
+    # compared under SGD, as the UNet is: the pre-BatchNorm biases'
+    # gradients are roundoff, which Adam would turn into steps of lr
+    train = compare_train_steps(
+        "temporal smaat_unet", fused, plain, hw, "sgd",
+        lambda: {"gat_attention_fwd": k1.launch_count,
+                 "gat_attention_bwd": k1.bwd_launch_count},
+        {"gat_attention_fwd": 4, "gat_attention_bwd": 4}, batch=batch)
+    adam_ms = adam_step_ms(fused, batch)
+    print(f"[family] final_temp_smaat b={batch}: {adam_ms:.3f} ms a train "
+          "step with Adam (the config's optimizer), K1 path")
+    # the five published configs through the CLI (K1 only where JAX runs its
+    # kernel: the Model families; the wrappers and baselines run none)
+    cli = {
+        "final_temp_smaat": train_experiment(
+            "final_temp_smaat", {"gat_attention_fwd": 4},
+            {"gat_attention_bwd": 4}, GatModel, step_batch=batch),
+        "final_temp_conv_4heads": train_experiment(
+            "final_temp_conv_4heads", {}, {}, _StackedGAT, step_batch=batch),
+        "final_temp_linear_1lay": train_experiment(
+            "final_temp_linear_1lay", {}, {}, _StackedGAT, step_batch=batch),
+        "final_gat1d": train_experiment(
+            "final_gat1d", {}, {}, BaselineModel, step_batch=batch),
+        "final_gat2d": train_experiment(
+            "final_gat2d", {}, {}, BaselineModel2D, step_batch=batch),
+    }
+    # served over HTTP at batch 32
+    k1.launch_count = k1.bwd_launch_count = 0
+    forwards, _, _ = serve_experiment(
+        "convolutional_gat/experiments/final_temp_smaat", (batch,), 10,
+        per_forward=4)
+    served = k1.launch_count
+    check(served == 4 * forwards and k1.bwd_launch_count == 0,
+          f"serving final_temp_smaat: {served} K1 launches for {forwards} "
+          "forwards")
+    return dict(forward_launches=forward_launches, forward_ms=fwd_ms,
+                plain_forward_ms=plain_fwd_ms, forward_profile=fwd_profile,
+                train=train, adam_ms=adam_ms, cli=cli, serve=served)
+
+
 def card_line():
     res = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -1527,6 +1722,7 @@ def main() -> int:
               file=sys.stderr)
         return 1
     sys.path.insert(0, REPO)
+    t0 = time.perf_counter()
     try:
         build_logs = phase_build()
         rows, worst, k1_bwd_rows = phase_kernels(build_logs)
@@ -1536,6 +1732,7 @@ def main() -> int:
         phase_forward(models)
         train_launches = phase_train()
         k2_model = phase_mapping_model()
+        family = phase_family()
         card = card_line()
     except SmokeFailure as e:
         print(f"chip_smoke: FAIL: {e}", file=sys.stderr)
@@ -1547,6 +1744,21 @@ def main() -> int:
     main_row = k1_main["cudnn"]
     one_block = next(r for r in rows if r["cluster"] is None)
     bwd_main = k1_bwd_rows[0]
+    # K1 on the new families' paths: final_temp_smaat's forward, in-process
+    # train steps, CLI run and server
+    k1_family_fwd = {
+        "forward final_temp_smaat b=32":
+            family["forward_launches"]["gat_attention_fwd"],
+        "final_temp_smaat train steps b=32, kernel path":
+            family["train"]["launched"]["gat_attention_fwd"],
+        "train final_temp_smaat":
+            family["cli"]["final_temp_smaat"]["gat_attention_fwd"],
+        "serve final_temp_smaat": family["serve"]}
+    k1_family_bwd = {
+        "final_temp_smaat train steps b=32, kernel path":
+            family["train"]["launched"]["gat_attention_bwd"],
+        "train final_temp_smaat":
+            family["cli"]["final_temp_smaat"]["gat_attention_bwd"]}
     # K3's largest final_smaatunet launch by work: up4's first DSC
     dsc_main = max((r for r in dsc_rows if r["where"] != "tiled-variant shape"),
                    key=lambda r: r["gflop"])
@@ -1555,10 +1767,12 @@ def main() -> int:
         "route": "cuda",
         "source": "extended_gan_torch/ops/csrc/gat_attention.cu",
         "replaces": "extended_gan_tpu/ops/pallas/gat_attention.py:62",
-        "launches": launches + train_launches["gat_attention_fwd"],
+        "launches": (launches + train_launches["gat_attention_fwd"]
+                     + sum(k1_family_fwd.values())),
         "launches_by_path": {
             "serve": launches,
-            "train final_temp_conv": train_launches["gat_attention_fwd"]},
+            "train final_temp_conv": train_launches["gat_attention_fwd"],
+            **k1_family_fwd},
         "max_abs_err": worst,
         "ms": main_row["kernel_ms"],
         "kernel_ms": main_row["kernel_ms"],
@@ -1583,13 +1797,15 @@ def main() -> int:
         "replaces": "extended_gan_tpu/ops/pallas/gat_attention.py:170",
         "launches": (train_launches["gat_attention_bwd"]
                      + train_launches["gat_train_step"]["gat_attention_bwd"]
-                     + k2_model["train_launches"]["gat_attention_bwd"]),
+                     + k2_model["train_launches"]["gat_attention_bwd"]
+                     + sum(k1_family_bwd.values())),
         "launches_by_path": {
             "train final_temp_conv": train_launches["gat_attention_bwd"],
             "temporal train steps b=32, kernel path":
                 train_launches["gat_train_step"]["gat_attention_bwd"],
             "train steps b=32, use_pallas_mapping=True":
-                k2_model["train_launches"]["gat_attention_bwd"]},
+                k2_model["train_launches"]["gat_attention_bwd"],
+            **k1_family_bwd},
         "max_abs_err": max(r["max_abs_err"] for r in k1_bwd_rows),
         "ms": bwd_main["kernel_ms"],
         "kernel_ms": bwd_main["kernel_ms"],
@@ -1682,6 +1898,7 @@ def main() -> int:
                      "batch 32)".format(*main_k2["shape"],
                                         main_k2["shape"][3]),
         })
+    print(f"[smoke] all phases passed in {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

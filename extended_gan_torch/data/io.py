@@ -34,6 +34,20 @@ def load_array(path: str) -> np.ndarray:
     raise ValueError(f"unknown tensor file format: {path}")
 
 
+def array_n_frames(path: str) -> int:
+    """The length of a tensor file's leading axis, read without decoding
+    its data where the format allows (.npy header, memory-mapped .pt)."""
+    if path.endswith(".npy"):
+        return int(np.load(path, mmap_mode="r").shape[0])
+    if path.endswith(".pt"):
+        try:  # zipfile-serialised tensors map without reading their data
+            return int(torch.load(path, map_location="cpu", weights_only=True,
+                                  mmap=True).shape[0])
+        except RuntimeError:  # a legacy, non-zipfile .pt
+            pass
+    return len(load_array(path))
+
+
 def save_array(path: str, arr: np.ndarray):
     if path.endswith(".pt"):
         torch.save(torch.from_numpy(np.ascontiguousarray(arr)), path)

@@ -1,17 +1,23 @@
-"""KNMI file-streaming batch loaders (port of the KNMI path of
+"""File-streaming batch loaders (port of the KNMI and ARAI paths of
 ``extended_gan_tpu/data/streaming.py``).
 
-:class:`KmniLoader` is the JAX package's Python path (``use_native=False``,
-``shuffle_mode="batch"``): file-at-a-time streaming, 8-frame windows split
-into 4 in / 4 out, value/254 then ``** power``, (B, H, W, T, V) batches,
-shuffled only within a batch, from a seeded numpy generator. For the same
-seed it yields the same bytes as the JAX package's loader. Batches stay
-numpy; moving them to the card is the trainer's job, overlapped with
-compute by :class:`Prefetcher`.
+- :class:`KmniLoader` is the JAX package's Python path (``use_native=False``,
+  ``shuffle_mode="batch"``): file-at-a-time streaming, 8-frame windows split
+  into 4 in / 4 out, value/254 then ``** power``, (B, H, W, T, V) batches,
+  shuffled only within a batch, from a seeded numpy generator.
+- :class:`AraiLoader` streams ARAI region blocks, (frames, R, 1, H, W) a
+  file, as stride-1 windows of 2T frames, cropped and laid out (B, H, W, T,
+  R), from a background thread; batches do not span files, and the train
+  split's file order is shuffled from the seed.
+
+For the same seed each yields the same bytes as the JAX package's loader.
+Batches stay numpy; moving them to the card is the trainer's job,
+overlapped with compute by :class:`Prefetcher`.
 """
 
 from __future__ import annotations
 
+import json
 import os
 import queue
 import threading
@@ -19,7 +25,7 @@ from typing import Iterator
 
 import numpy as np
 
-from .io import load_array
+from .io import array_n_frames, load_array
 from .windowing import sliding_windows, truncate_to_multiple
 
 
@@ -81,6 +87,80 @@ class KmniLoader:
         result = result.transpose(0, 1, 4, 5, 2, 3)
         return (np.ascontiguousarray(result[0][idx]),
                 np.ascontiguousarray(result[1][idx]))
+
+    def __iter__(self):
+        return self
+
+
+class AraiLoader:
+    """ARAI region-block streamer -> (B, H, W, T, R) batches, prepared by a
+    producer thread a bounded queue (depth 2) ahead of the consumer.
+    ``len()`` is the exact batch count, from the files' headers."""
+
+    def __init__(self, batch_size: int, folder: str, *, total_length: int,
+                 n_regions: int = 5, time_steps: int = 4,
+                 downsample_size: tuple[int, int] = (256, 256),
+                 shuffle: bool = False, seed: int = 369):
+        self.batch_size = batch_size
+        self.folder = folder
+        self.total_length = total_length
+        self.n_regions = n_regions
+        self.time_steps = time_steps
+        self.downsample_size = downsample_size
+        self.power = 1.0
+        self.normalizing_max = 1.0
+        # numeric block files only, in numeric order
+        self.files = sorted(
+            (f for f in os.listdir(folder) if f.split(".")[0].isdigit()),
+            key=lambda f: int(f.split(".")[0]))
+        if shuffle:
+            rng = np.random.default_rng(seed)
+            self.files = [self.files[i]
+                          for i in rng.permutation(len(self.files))]
+        self._queue: queue.Queue = queue.Queue(maxsize=2)
+        self._thread = threading.Thread(target=self._producer, daemon=True)
+        self._thread.start()
+
+    def __len__(self):
+        if not hasattr(self, "_len"):
+            w = 2 * self.time_steps
+            self._len = sum(
+                -(-max(array_n_frames(os.path.join(self.folder, f)) - w + 1,
+                       0) // self.batch_size)
+                for f in self.files)
+        return self._len
+
+    def _producer(self):
+        try:
+            h, w = self.downsample_size
+            for fname in self.files:
+                data = load_array(os.path.join(self.folder, fname))
+                windows = sliding_windows(data[:, :, :, :h, :w],
+                                          2 * self.time_steps)
+                for i in range(0, len(windows), self.batch_size):
+                    chunk = windows[i:i + self.batch_size]
+                    self._queue.put(
+                        (self._layout(chunk[:, :self.time_steps]),
+                         self._layout(chunk[:, self.time_steps:])))
+        except BaseException as e:  # handed to the consumer, re-raised
+            self._queue.put(e)
+            return
+        finally:
+            self._queue.put(None)
+
+    @staticmethod
+    def _layout(a: np.ndarray) -> np.ndarray:
+        # (b, T, R, 1, H, W) -> (b, H, W, T, R)
+        return np.ascontiguousarray(
+            a.squeeze(3).transpose(0, 3, 4, 1, 2).astype(np.float32))
+
+    def __next__(self):
+        item = self._queue.get()
+        if item is None:
+            raise StopIteration
+        if isinstance(item, BaseException):
+            raise item
+        return item
 
     def __iter__(self):
         return self
@@ -148,20 +228,46 @@ def get_kmni_loaders(train_batch_size: int, test_batch_size: int,
             mk(test_batch_size, "test", seed + 2))
 
 
+def get_arai_loaders(train_batch_size: int, test_batch_size: int,
+                     preprocessed_folder: str, *,
+                     downsample_size: tuple[int, int] = (256, 256),
+                     shuffle: bool = False, seed: int = 369):
+    """(train, val, test) loaders over ``training`` and ``validation`` (val
+    and test both), sized by ``metadata.json``; ``shuffle`` shuffles the
+    train split's file order."""
+    with open(os.path.join(preprocessed_folder, "metadata.json")) as f:
+        metadata = json.load(f)
+
+    def mk(bs, sub, sh):
+        return AraiLoader(bs, os.path.join(preprocessed_folder, sub),
+                          total_length=metadata[sub]["length"],
+                          n_regions=metadata["n_regions"],
+                          downsample_size=downsample_size, shuffle=sh,
+                          seed=seed)
+
+    return (mk(train_batch_size, "training", shuffle),
+            mk(test_batch_size, "validation", False),
+            mk(test_batch_size, "validation", False))
+
+
 def get_loaders(train_batch_size: int, test_batch_size: int,
                 preprocessed_folder: str, *, dataset: str = "kmni",
                 downsample_size: tuple[int, int] = (256, 256),
                 seed: int = 369):
-    """Dataset dispatcher for ``kmni`` and ``synthetic`` (a synthetic KNMI
-    archive, made on first use). Other datasets are not ported yet."""
+    """Dataset dispatcher for ``kmni``, ``arai`` and ``synthetic`` (a
+    synthetic KNMI archive, made on first use). The train split is
+    shuffled, as the JAX driver asks."""
+    if dataset == "arai":
+        return get_arai_loaders(train_batch_size, test_batch_size,
+                                preprocessed_folder,
+                                downsample_size=downsample_size,
+                                shuffle=True, seed=seed)
     if dataset == "synthetic":
         from .synthetic import ensure_synthetic_kmni
 
         preprocessed_folder = ensure_synthetic_kmni(preprocessed_folder or None)
     elif dataset != "kmni":
-        raise NotImplementedError(
-            f"dataset {dataset!r} is not ported yet (ROADMAP: queue 1); the "
-            "port reads 'kmni' and 'synthetic'")
+        raise ValueError(f"unknown dataset {dataset!r}")
     return get_kmni_loaders(train_batch_size, test_batch_size,
                             preprocessed_folder, crop=downsample_size[0],
                             seed=seed)

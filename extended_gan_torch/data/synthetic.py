@@ -1,11 +1,17 @@
-"""Synthetic KNMI radar archives (port of the KNMI part of
+"""Synthetic radar archives (port of the KNMI and ARAI parts of
 ``extended_gan_tpu/data/synthetic.py``).
 
-Advecting smooth rain cells with temporal coherence, written as
-``<dir>/{train,test}/*.pt`` integer-valued (T, V, H, W) videos in [0, 254]:
-the format the KNMI loader reads. For the same arguments the files hold the
-same values as the JAX package's (the random draws are made in the same
-order from the same numpy generator).
+Advecting smooth rain cells with temporal coherence, in the formats the
+loaders read:
+
+- KNMI: ``<dir>/{train,test}/*.pt`` integer-valued (T, V, H, W) videos in
+  [0, 254];
+- ARAI: ``<dir>/{training,validation}/<i>.pt`` float (T, R, 1, H, W) region
+  blocks in [0, 1], and ``<dir>/metadata.json``.
+
+For the same arguments the files hold the same values as the JAX package's
+(the random draws are made in the same order from the same numpy
+generator).
 """
 
 from __future__ import annotations
@@ -55,6 +61,25 @@ def make_kmni_dataset(out_dir: str, *, n_train_files: int = 3,
                        np.rint(video).astype(np.int16))
     with open(os.path.join(out_dir, "train", "metadata.json"), "w") as f:
         json.dump({"max": 254, "min": 0}, f)
+    return out_dir
+
+
+def make_arai_dataset(out_dir: str, *, n_files: int = 2,
+                      frames_per_file: int = 24, n_regions: int = 5,
+                      h: int = 32, w: int = 32, seed: int = 0) -> str:
+    rng = np.random.default_rng(seed)
+    meta = {"n_regions": n_regions}
+    for sub in ("training", "validation"):
+        mkdir(os.path.join(out_dir, sub))
+        for i in range(n_files):
+            block = np.stack([_rain_video(rng, frames_per_file, h, w)
+                              for _ in range(n_regions)],
+                             axis=1)[:, :, None]  # (T, R, 1, H, W)
+            save_array(os.path.join(out_dir, sub, f"{i}.pt"),
+                       block.astype(np.float32))
+        meta[sub] = {"length": n_files * frames_per_file}
+    with open(os.path.join(out_dir, "metadata.json"), "w") as f:
+        json.dump(meta, f)
     return out_dir
 
 

@@ -11,20 +11,26 @@ rename. Nested keys are joined with ``.``, and:
 - a Dense ``kernel`` (in, out) becomes a ``Linear.weight`` (out, in);
 - a BatchNorm's ``scale`` becomes its ``weight``, and its ``batch_stats``
   ``mean`` and ``var`` the ``running_mean`` and ``running_var`` buffers
-  (with a zero ``num_batches_tracked``, which torch keeps beside them).
+  (with a zero ``num_batches_tracked``, which torch keeps beside them);
+- an unrolled GAT3D head ``head_{i}`` (the smaat_unet mapping's) is a
+  stack of one head in the port, so its attention's ``a_*`` and ``B_*``
+  gain a leading head axis of size 1.
 
-Everything else, the head axis included, is kept as it is. Leaves are numpy
-arrays (``jax.device_get`` of a flax tree gives them).
+Everything else, the head axis of a vmapped block included, is kept as it
+is: the baseline layers' ``W``, ``a`` and ``B`` need no renaming. Leaves
+are numpy arrays (``jax.device_get`` of a flax tree gives them).
 """
 
 from __future__ import annotations
 
 from collections.abc import Mapping
 
+import re
+
 import numpy as np
 import torch
 
-
+_UNROLLED_HEAD = re.compile(r"(^|\.)head_\d+\.$")
 _BN_STATS = {"mean": "running_mean", "var": "running_var"}
 
 
@@ -53,6 +59,8 @@ def from_flax_params(params: Mapping, batch_stats: Mapping | None = None
                 key = key[:-len("kernel")] + "weight"
             elif key == "scale":
                 key = "weight"
+            elif key.startswith(("a_", "B_")) and _UNROLLED_HEAD.search(prefix):
+                arr = arr[None]
             state[prefix + key] = torch.from_numpy(np.ascontiguousarray(arr))
 
     walk(params, "", False)

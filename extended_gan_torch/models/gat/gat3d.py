@@ -19,6 +19,12 @@ them to XLA, unless ``use_pallas_mapping`` is on: then the whole
 package it is a constructor switch only: no registry, CLI or config passes
 it. The fused attention is the CUDA kernel of ``ops/gat_attention.py`` when
 ``use_pallas`` is on (the names follow the JAX package's switches).
+
+The smaat_unet mapping is the port's ``SmaAt_UNet(n_channels=T,
+n_classes=T', kernels_per_layer=1, base=16)`` over the B*V images of a
+head, without K3, as the JAX package builds it (``gat3d.py:181-187``). Its
+heads are unrolled (``GATMultiHead3D``); its output, (B*V, T', H, W)
+contiguous, reaches the attention as a plane-major view, with no copy.
 """
 
 from __future__ import annotations
@@ -29,6 +35,7 @@ from torch import nn
 
 from ...ops.gat_attention import attend_temporal
 from ...ops.gat_mapping import fused_conv_bottleneck, reference_bottleneck
+from ..smaat_unet import SmaAt_UNet
 from .layers import (
     adjacency_b_init,
     lecun_normal_,
@@ -71,9 +78,13 @@ class _Mapping(nn.Module):
                                         generator)
             self.conv3 = _StackedConv2d(nheads, conv_hidden, nhid, 3, generator)
         elif mapping_type == "smaat_unet":
-            raise NotImplementedError(
-                "the smaat_unet mapping is not ported yet (ROADMAP queue 1 "
-                "item 1, the rest of the conv-GAT family)")
+            if nheads != 1:
+                raise ValueError("the smaat_unet mapping takes one head a "
+                                 "module (GATMultiHead3D unrolls its heads)")
+            # the JAX package builds it without use_pallas: K3 stays off
+            self.unet = SmaAt_UNet(n_channels=nfeat, n_classes=nhid,
+                                   kernels_per_layer=1, base=16,
+                                   generator=generator)
         else:
             raise ValueError(f"unknown mapping_type {mapping_type!r}")
 
@@ -81,6 +92,13 @@ class _Mapping(nn.Module):
         if self.mapping_type == "linear":
             out = torch.einsum("bhwtv,nto->nbhwov", x, self.W)
             return out + self.b[:, None, None, None, :, None]
+        if self.mapping_type == "smaat_unet":
+            b, h, w, t, v = x.shape
+            # fold V into the batch: (B, H, W, T, V) -> (B*V, T, H, W)
+            xb = x.permute(0, 4, 1, 2, 3).reshape(b * v, h, w, t)
+            y = self.unet(xb.permute(0, 3, 1, 2))  # (B*V, T', H, W)
+            # a view: plane-major, which K1 reads in place
+            return y.view(b, v, -1, h, w).permute(0, 3, 4, 2, 1)[None]
         params = (self.conv1.weight, self.conv1.bias, self.conv2.weight,
                   self.conv2.bias, self.conv3.weight, self.conv3.bias)
         if self.use_pallas_mapping and x.shape[1] == x.shape[2]:
@@ -148,18 +166,32 @@ class GAT3DHead(nn.Module):
 
 
 class GATMultiHead3D(nn.Module):
-    """Head-averaged GAT3D block: (B, H, W, T, V) -> (B, H, W, T', V)."""
+    """Head-averaged GAT3D block: (B, H, W, T, V) -> (B, H, W, T', V).
+
+    The heads are one stacked module ``heads``, except with the smaat_unet
+    mapping, whose BatchNorm the JAX package cannot vmap: there each head
+    is a module ``head_{i}`` of its own (a stack of one), as the flax tree's
+    unrolled heads are, and the block launches K1 once a head."""
 
     def __init__(self, nfeat, nhid, n_vertices, alpha=0.2, nheads=1,
                  type_="temporal", mapping_type="linear", use_pallas=False,
                  generator=None, use_pallas_mapping=False):
         super().__init__()
-        self.heads = GAT3DHead(nfeat, nhid, n_vertices, alpha, type_,
-                               mapping_type, use_pallas, nheads, generator,
-                               use_pallas_mapping=use_pallas_mapping)
+        args = (nfeat, nhid, n_vertices, alpha, type_, mapping_type,
+                use_pallas)
+        kw = dict(generator=generator, use_pallas_mapping=use_pallas_mapping)
+        self.unrolled = mapping_type == "smaat_unet"
+        if not self.unrolled:
+            self.heads = GAT3DHead(*args, nheads, **kw)
+            return
+        for i in range(nheads):
+            self.add_module(f"head_{i}", GAT3DHead(*args, 1, **kw))
 
     def forward(self, x):
-        return self.heads(x).mean(dim=0)
+        if not self.unrolled:
+            return self.heads(x).mean(dim=0)
+        outs = [head(x)[0] for head in self.children()]
+        return sum(outs) / float(len(outs))
 
 
 class Model(nn.Module):

@@ -1,4 +1,4 @@
-"""Graph-attention building blocks (port of ``models/gat/layers.py:31-59``).
+"""Graph-attention layers (port of ``models/gat/layers.py``).
 
 Initialisers are ``torch.nn.init``-style functions that fill a tensor in
 place from an explicit ``torch.Generator``. A parameter of shape
@@ -9,6 +9,12 @@ them for one head.
 
 The adjacency and score functions accept the same leading head axis, and
 normalise each head's adjacency on its own, as ``vmap`` does.
+
+The baseline models' layers (:class:`GraphAttentionLayer`,
+:class:`GraphAttentionLayer2D` and their multi-head concatenations) have no
+head axis: each head is a module ``attention_{i}`` holding ``W``, ``a``
+and ``B`` in the reference's layout, so its ``model.pt`` loads with
+``load_state_dict(strict=True)``.
 """
 
 from __future__ import annotations
@@ -17,6 +23,7 @@ import math
 
 import torch
 import torch.nn.functional as F
+from torch import nn
 
 
 @torch.no_grad()
@@ -65,3 +72,97 @@ def pairwise_scores(Wh: torch.Tensor, a: torch.Tensor, alpha: float):
     s1 = (Wh @ a1)[..., 0]  # (..., M)
     s2 = (Wh @ a2)[..., 0]
     return F.leaky_relu(s1[..., :, None] + s2[..., None, :], alpha)
+
+
+def _attention_params(module, in_features, out_features, n_vertices,
+                      generator):
+    """``W`` (in, out), ``a`` (2E, 1) and ``B`` (V, V): the flax layers'
+    parameters, in the reference's layout (its ``model.pt`` loads as is)."""
+    module.W = nn.Parameter(torch.empty(in_features, out_features))
+    module.a = nn.Parameter(torch.empty(2 * out_features, 1))
+    module.B = nn.Parameter(torch.empty(n_vertices, n_vertices))
+    xavier_gain_1414(module.W, generator)
+    xavier_gain_1414(module.a, generator)
+    adjacency_b_init(module.B, generator)
+
+
+class GraphAttentionLayer(nn.Module):
+    """1-D GAT layer over vertices (port of ``layers.py:62-101``):
+    (N, V, C) or (N, C, T, V), flattened to (N, V, C*T), -> (N, V, E)."""
+
+    def __init__(self, in_features, out_features, n_vertices, alpha=0.2,
+                 generator=None):
+        super().__init__()
+        self.alpha = alpha
+        _attention_params(self, in_features, out_features, n_vertices,
+                          generator)
+
+    def forward(self, h):
+        if h.dim() == 4:
+            n, c, t, v = h.shape
+            h = h.permute(0, 3, 1, 2).reshape(n, v, c * t)
+        Wh = h @ self.W  # (N, V, E)
+        e = pairwise_scores(Wh, self.a[:, 0], self.alpha)  # (N, V, V)
+        attention = normalized_adjacency(self.B) @ torch.softmax(e, dim=-1)
+        return F.elu(attention @ Wh)
+
+
+class GATMultiHead(nn.Module):
+    """``nheads`` :class:`GraphAttentionLayer` heads named ``attention_{i}``,
+    concatenated on the feature axis (port of ``layers.py:104-128``)."""
+
+    def __init__(self, nfeat, nhid, n_vertices, alpha=0.2, nheads=1,
+                 generator=None):
+        super().__init__()
+        self.nheads = nheads
+        for i in range(nheads):
+            self.add_module(f"attention_{i}", GraphAttentionLayer(
+                nfeat, nhid, n_vertices, alpha, generator))
+
+    def forward(self, x):
+        return torch.cat([getattr(self, f"attention_{i}")(x)
+                          for i in range(self.nheads)], dim=-1)
+
+
+class GraphAttentionLayer2D(nn.Module):
+    """2-D GAT layer keeping (C, T) apart (port of ``layers.py:131-174``):
+    (N, C, T, V) -> (N, C, E, V). As in the reference, the softmax runs
+    over the feature axis C, and the adjacency mixes after the attention."""
+
+    def __init__(self, in_features, out_features, n_vertices, alpha=0.2,
+                 generator=None):
+        super().__init__()
+        self.alpha = alpha
+        _attention_params(self, in_features, out_features, n_vertices,
+                          generator)
+
+    def forward(self, h):
+        Wh = h.permute(0, 3, 1, 2) @ self.W  # (N, V, C, E)
+        e_dim = self.W.shape[1]
+        s1 = Wh @ self.a[:e_dim]  # (N, V, C, 1)
+        s2 = Wh @ self.a[e_dim:]
+        e = F.leaky_relu(s1[:, :, None, :, 0] + s2[:, None, :, :, 0],
+                         self.alpha)  # (N, V, V, C)
+        attention = torch.softmax(e, dim=-1)  # over C
+        # h2[n, i, o, c] = sum_j Wh[n, j, c, o] * att[n, i, j, c]
+        h2 = torch.einsum("njco,nijc->nioc", Wh, attention)
+        h3 = torch.einsum("nioc,iv->ncov", h2, normalized_adjacency(self.B))
+        return F.elu(h3)
+
+
+class GATMultiHead2D(nn.Module):
+    """``nheads`` :class:`GraphAttentionLayer2D` heads named
+    ``attention_{i}``, concatenated on the E axis (port of
+    ``layers.py:177-201``)."""
+
+    def __init__(self, nfeat, nhid, n_vertices, alpha=0.2, nheads=1,
+                 generator=None):
+        super().__init__()
+        self.nheads = nheads
+        for i in range(nheads):
+            self.add_module(f"attention_{i}", GraphAttentionLayer2D(
+                nfeat, nhid, n_vertices, alpha, generator))
+
+    def forward(self, x):
+        return torch.cat([getattr(self, f"attention_{i}")(x)
+                          for i in range(self.nheads)], dim=2)

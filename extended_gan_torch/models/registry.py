@@ -1,9 +1,12 @@
 """Model registry (port of ``extended_gan_tpu/models/registry.py``).
 
-Ported so far: the GAT3D ``Model`` families (``temporal``, ``spatial``,
-``multi_stream``) and the SmaAt-UNet ``UnetModel`` (``unet``). Every other
-key of the JAX registry raises ``NotImplementedError`` naming the ROADMAP
-item that ports it.
+Every key of the JAX registry: the GAT3D ``Model`` families (``temporal``,
+``spatial``, ``multi_stream``, with the linear, conv and smaat_unet
+mappings), the SmaAt-UNet ``UnetModel`` (``unet``), the baseline GAT
+models (``baseline``, ``baseline2d``) and the stacked GAT3D wrappers
+(``temporal_1block``, ``temporal4h``, ``temporal2l``, ``spatial_1block``,
+``multi_stream_2block``). Each maps (B, H, W, T, V) -> (B, H, W, T, V) and
+exposes ``mapping_type``.
 """
 
 from __future__ import annotations
@@ -11,20 +14,31 @@ from __future__ import annotations
 import torch
 
 from ..core.device import resolve_device
+from .gat.baseline import BaselineModel, BaselineModel2D
 from .gat.gat3d import Model as GatModel
+from .gat.wrappers import (
+    MultiStreamModel,
+    SpatialModel,
+    TemporalModel,
+    TemporalModel2l,
+    TemporalModel4h,
+)
 from .unet_model import UnetModel
 
-_GAT3D = ("temporal", "spatial", "multi_stream")
-_PORTED = _GAT3D + ("unet",)
-# JAX registry keys not ported yet -> the ROADMAP queue item that ports them
-_NOT_PORTED = {
-    "baseline": "queue 1, the rest of the conv-GAT family",
-    "baseline2d": "queue 1, the rest of the conv-GAT family",
-    "temporal_1block": "queue 1, the rest of the conv-GAT family",
-    "temporal4h": "queue 1, the rest of the conv-GAT family",
-    "temporal2l": "queue 1, the rest of the conv-GAT family",
-    "spatial_1block": "queue 1, the rest of the conv-GAT family",
-    "multi_stream_2block": "queue 1, the rest of the conv-GAT family",
+# key -> (constructor, whether it takes the key as its attention_type,
+# whether it has a fused kernel behind use_pallas)
+model_classes = {
+    "unet": (UnetModel, False, True),
+    "temporal": (GatModel, True, True),
+    "spatial": (GatModel, True, True),
+    "multi_stream": (GatModel, True, True),
+    "baseline": (BaselineModel, False, False),
+    "baseline2d": (BaselineModel2D, False, False),
+    "temporal_1block": (TemporalModel, False, False),
+    "temporal4h": (TemporalModel4h, False, False),
+    "temporal2l": (TemporalModel2l, False, False),
+    "spatial_1block": (SpatialModel, False, False),
+    "multi_stream_2block": (MultiStreamModel, False, False),
 }
 
 
@@ -35,24 +49,22 @@ def build_model(model_type: str, *, image_width: int, image_height: int,
     """Build a model on ``device`` (default: the CUDA card), in eval mode,
     with weights drawn from ``generator``. ``use_pallas=None`` turns the
     fused kernels (K1 in GAT3D, K3 in SmaAt-UNet) on exactly when the model
-    sits on the card."""
-    if model_type in _NOT_PORTED:
-        raise NotImplementedError(
-            f"model_type {model_type!r} is not ported yet (ROADMAP: "
-            f"{_NOT_PORTED[model_type]})")
-    if model_type not in _PORTED:
+    sits on the card; families without a kernel ignore it, with the JAX
+    registry's note when the caller asked for it."""
+    if model_type not in model_classes:
         raise KeyError(f"unknown model_type {model_type!r}; choose from "
-                       f"{sorted(_PORTED + tuple(_NOT_PORTED))}")
+                       f"{sorted(model_classes)}")
+    ctor, takes_attention, has_kernel = model_classes[model_type]
     dev = resolve_device(device)
-    if use_pallas is None:
-        use_pallas = dev.type == "cuda"
-    if model_type == "unet":
-        model = UnetModel(image_width, image_height, n_vertices,
-                          mapping_type=mapping_type, time_steps=time_steps,
-                          use_pallas=use_pallas, generator=generator)
-    else:
-        model = GatModel(image_width, image_height, n_vertices,
-                         attention_type=model_type, mapping_type=mapping_type,
-                         time_steps=time_steps, use_pallas=use_pallas,
-                         generator=generator)
+    kwargs = dict(mapping_type=mapping_type, time_steps=time_steps,
+                  generator=generator)
+    if takes_attention:
+        kwargs["attention_type"] = model_type
+    if has_kernel:
+        kwargs["use_pallas"] = (dev.type == "cuda" if use_pallas is None
+                                else use_pallas)
+    elif use_pallas:
+        name = getattr(ctor, "__name__", model_type)
+        print(f"[registry] {name} has no Pallas path; use_pallas ignored")
+    model = ctor(image_width, image_height, n_vertices, **kwargs)
     return model.to(dev).eval()

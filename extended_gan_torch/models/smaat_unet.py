@@ -203,7 +203,13 @@ class SmaAt_UNet(nn.Module):  # noqa: N801 - the JAX package's name
         x = self.up2(x, self.cbam3(x3))
         x = self.up3(x, self.cbam2(x2))
         x = self.up4(x, self.cbam1(x1))
-        return self.outc(x)
+        # the 1x1 output conv as one product over channels-last x, written
+        # (N, n_classes, H, W) contiguous: a GAT3D head's attention reads
+        # that in place (a cuDNN conv would write channels-last)
+        n, c, h, w = x.shape
+        y = self.outc.weight[:, :, 0, 0] @ x.permute(0, 2, 3, 1).reshape(
+            n, h * w, c).transpose(1, 2)
+        return (y + self.outc.bias[:, None]).view(n, -1, h, w)
 
 
 def dsc_shapes(batch=32, hw=20, vertices=6, device="cuda"):

@@ -144,10 +144,10 @@ def test_layers_match_jax():
         rtol=1e-6, atol=1e-6)
 
 
+# every registry key and mapping of the JAX package is ported
+# (test_torch_port_gat_family.py, test_torch_port_gat_smaat*.py): what is
+# left to refuse is what the JAX package refuses too
 @pytest.mark.parametrize("model_type,mapping_type,error", [
-    ("temporal4h", "conv", NotImplementedError),
-    ("baseline", "linear", NotImplementedError),
-    ("temporal", "smaat_unet", NotImplementedError),
     ("temporal", "bogus", ValueError),
     ("bogus", "conv", KeyError),
 ])
@@ -156,3 +156,14 @@ def test_unported_families_name_their_roadmap_item(model_type, mapping_type,
     with pytest.raises(error, match="ROADMAP|unknown"):
         build_model(model_type, image_width=W, image_height=H, n_vertices=V,
                     mapping_type=mapping_type, device="cpu")
+
+
+def test_conv_gat_raises_as_in_jax():
+    from extended_gan_tpu.models.gat.wrappers import ConvGAT as FlaxConvGAT
+    from extended_gan_torch.models.gat.wrappers import ConvGAT
+
+    x = np.zeros((B, H, W, T, V), np.float32)
+    with pytest.raises(NotImplementedError, match="stub"):
+        FlaxConvGAT().init(jax.random.PRNGKey(0), jnp.asarray(x))
+    with pytest.raises(NotImplementedError, match="stub"):
+        ConvGAT()(torch.from_numpy(x))
