@@ -1086,10 +1086,13 @@ def profile_window(fn, label, unit, n=5, top=10, counter=None):
     def dev_us(e):
         return getattr(e, "self_device_time_total",
                        getattr(e, "self_cuda_time_total", 0.0))
-    # device-side kernel events only: operator rows repeat their kernels' time
+    # device-side kernel events only: operator rows repeat their kernels'
+    # time, and a user annotation's device row (the optimizers' step) spans
+    # kernels counted on their own
     events = [e for e in prof.key_averages()
               if e.device_type == torch.autograd.DeviceType.CUDA
-              and dev_us(e) > 0]
+              and dev_us(e) > 0 and not getattr(e, "is_user_annotation",
+                                                 False)]
     busy = sum(dev_us(e) for e in events)
     if not busy:
         print("[profile] the profiler recorded no device time: not measured")
@@ -1555,10 +1558,49 @@ def phase_mapping_model(batch=32, hw=80):
                 train=train)
 
 
+# The torch operators that move no data: views and allocations. Anything
+# else that ``attend_temporal`` dispatches would be a kernel in front of K1's.
+K1_NO_COPY_OPS = frozenset((
+    "alias", "as_strided", "detach", "empty", "empty_like", "empty_strided",
+    "expand", "new_empty", "new_empty_strided", "permute", "select", "slice",
+    "squeeze", "t", "transpose", "unsqueeze", "view", "_unsafe_view",
+    "reshape"))
+
+
+def _dispatched_ops(fn):
+    """The names of the torch operators that ``fn()`` dispatches, in order;
+    a ``reshape`` that copies (its result shares no storage with its
+    input) as "reshape (copy)". Unlike the profiler's kernel record, which
+    can miss launches (PERF.md §7), this record is exact."""
+    import torch
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    class Record(TorchDispatchMode):
+        def __init__(self):
+            super().__init__()
+            self.ops = []
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            out = func(*args, **(kwargs or {}))
+            name = func.overloadpacket.__name__
+            if name == "reshape" and (
+                    out.untyped_storage().data_ptr()
+                    != args[0].untyped_storage().data_ptr()):
+                name = "reshape (copy)"
+            self.ops.append(name)
+            return out
+
+    with Record() as record:
+        fn()
+    return record.ops
+
+
 def k1_input_is_taken_in_place(model, x):
     """The smaat mapping's output as the model hands it to K1: its layout,
-    and a profile of ``attend_temporal`` on it, which must record K1's
-    kernel and nothing else (no layout copy in front of it)."""
+    the cluster kernel's plan for it, the torch operators that
+    ``attend_temporal`` on it dispatches, which must move no data (no
+    layout copy in front of K1), and a profile of it, which must record no
+    kernel but K1's."""
     import torch
 
     from extended_gan_torch.models.gat.layers import normalized_adjacency
@@ -1576,29 +1618,42 @@ def k1_input_is_taken_in_place(model, x):
     layout = k1._layout(mapped.reshape(nh, b, h * w, t, v))
     check(layout == "plane", f"the smaat mapping hands K1 {layout!r} "
                              f"(strides {mapped.stride()}), not plane-major")
-    calls = 5  # the profiler can miss a session's first kernel (PERF.md)
+    plan = k1._cluster_plan(nh, b, h * w, t * v)
+    check(plan is not None, f"no cluster plan for K1 on {tuple(mapped.shape)}"
+                            ": the one-block kernel would copy it to rows")
+    calls = 20
     with torch.inference_mode():
         a = head.a_temporal[..., 0]
         adj = normalized_adjacency(head.B_temporal)
         k1.attend_temporal(mapped, a, adj)
         torch.cuda.synchronize()
+        before = k1.launch_count
+        ops = _dispatched_ops(lambda: k1.attend_temporal(mapped, a, adj))
+        launched = k1.launch_count - before
         with torch.profiler.profile(activities=[
                 torch.profiler.ProfilerActivity.CPU,
                 torch.profiler.ProfilerActivity.CUDA]) as prof:
             for _ in range(calls):
                 k1.attend_temporal(mapped, a, adj)
             torch.cuda.synchronize()
+    moving = sorted(set(ops) - K1_NO_COPY_OPS)
+    check(launched == 1 and not moving,
+          f"one call of attend_temporal on the smaat mapping's output "
+          f"launched K1 {launched} times and dispatched {moving} beside "
+          f"views and allocations ({ops}), expected one launch and no copy")
     kernels = {e.key: e.count for e in prof.key_averages()
                if e.device_type == torch.autograd.DeviceType.CUDA
                and getattr(e, "self_device_time_total",
                            getattr(e, "self_cuda_time_total", 0.0)) > 0}
-    check(len(kernels) == 1 and "gat_attention_cluster_fwd" in next(
-        iter(kernels)), f"{calls} calls of attend_temporal on the smaat "
-        f"mapping's output ran {kernels}, expected K1's cluster kernel alone")
+    check(all("gat_attention_cluster_fwd" in k for k in kernels),
+          f"{calls} calls of attend_temporal on the smaat mapping's output "
+          f"ran {kernels}, expected K1's cluster kernel alone")
     print(f"[family] the smaat mapping hands K1 {tuple(mapped.shape)} "
-          f"plane-major (strides {mapped.stride()}); {calls} calls of "
-          f"attend_temporal on it record {sum(kernels.values())} kernels, all "
-          f"{next(iter(kernels))[:60]}: no layout copy")
+          f"plane-major (strides {mapped.stride()}); one call of "
+          f"attend_temporal on it dispatches {ops}: one K1 launch (cluster "
+          f"plan {plan}), no layout copy; the profiler records "
+          f"{sum(kernels.values())} of the {calls} launches of {calls} calls, "
+          f"and no other kernel")
 
 
 def phase_family(batch=32, hw=20):
@@ -1698,6 +1753,278 @@ def phase_family(batch=32, hw=20):
                 train=train, adam_ms=adam_ms, cli=cli, serve=served)
 
 
+# The DCGAN phase holds the card's exact-f32 nets (TF32 off) against the
+# same nets in float64 on the CPU. f32 rounds every input and intermediate
+# by up to u = 2**-24 (6e-8), so a result lands a few u times its condition
+# number from float64:
+# - the eval forwards are well conditioned (sums of at most 512 * 16 =
+#   8,192 products, BatchNorm from running statistics, outputs in [0, 1]):
+#   DCGAN_FWD_TOL, absolute, is 170 u; f32 on the CPU lands within one u,
+#   and one operand rounded to TF32 (u = 2**-11) moves them by about 1e-4
+#   (printed beside it);
+# - one step's losses, relative: errG is taken through the discriminators
+#   after their Adam step, which moves each entry by about lr times the sign
+#   of its gradient, so an entry whose gradient is within roundoff of zero
+#   may step either way (on the CPU f32 lands 9e-6 from float64, and one
+#   part in 1e7 of input noise moves float64 4e-6); three steps compound it
+#   (1.6e-4 and 2.1e-4 on the CPU);
+# - gradients and running statistics, per net over its largest entry: the
+#   gradient of train-mode BatchNorm subtracts the batch means of g and of
+#   g * xhat, so these are ill-conditioned (one part in 1e7 of input noise
+#   moves the generator's float64 gradients by 2.2e-3 of the largest): held
+#   to DCGAN_SENS_FACTOR times what that noise moves the float64 step's own
+#   result in this run, and never under DCGAN_FLOOR, 10x the worst gap of
+#   one tensor over its own largest entry that f32 on the CPU shows (FD's
+#   statistics, 4.5e-5, whose third update follows the Adam step).
+DCGAN_FWD_TOL = 1e-5
+DCGAN_LOSS_TOL = 1e-4
+DCGAN_LOSSES_TOL = 2e-3
+DCGAN_SENS_FACTOR, DCGAN_FLOOR = 10, 5e-4
+DCGAN_KEYS = ("train_mse", "pred_mse", "pred_accuracy", "pred_precision",
+              "pred_recall", "frame_disc_accuracy", "temp_disc_accuracy",
+              "train_fd_accuracy", "train_td_accuracy")
+
+
+def _tree_state(root, skip=("build", "__pycache__", ".git")):
+    """{path: (size, mtime)} of every file under ``root``, what the port
+    builds or caches (and the temporary directory, should it lie there)
+    left out."""
+    import tempfile
+
+    tmp = os.path.realpath(tempfile.gettempdir())
+    state = {}
+    for dirpath, dirs, files in os.walk(root):
+        dirs[:] = [d for d in dirs if d not in skip
+                   and os.path.realpath(os.path.join(dirpath, d)) != tmp]
+        for f in files:
+            st = os.stat(os.path.join(dirpath, f))
+            state[os.path.join(dirpath, f)] = (st.st_size, st.st_mtime_ns)
+    return state
+
+
+def dcgan_steps(nets, batches, device, dtype):
+    """The three nets' weights in fresh nets on ``device`` in ``dtype``,
+    dropout off, with Adam as the driver builds it: their eval forwards on
+    the first batch, then one train step's losses, gradients and running
+    statistics, then the losses of a step on each further batch."""
+    import torch
+
+    from extended_gan_torch.models.dcgan import (
+        FrameDiscriminator,
+        Generator,
+        TemporalDiscriminator,
+    )
+    from extended_gan_torch.train.dcgan_driver import DEFAULT_PARAMS
+    from extended_gan_torch.train.dcgan_trainer import make_dcgan_train_step
+
+    nc, ndf = DEFAULT_PARAMS["nc"], DEFAULT_PARAMS["ndf"]
+    copies = (Generator(nc, 0.0), FrameDiscriminator(nc, ndf),
+              TemporalDiscriminator(nc, ndf, 0.0))
+    for c, n in zip(copies, nets):
+        c.load_state_dict(n.state_dict())
+    nets = tuple(c.to(device, dtype) for c in copies)
+    opts = tuple(torch.optim.Adam(n.parameters(), lr=DEFAULT_PARAMS["lr"],
+                                  betas=(DEFAULT_PARAMS["beta1"], 0.999),
+                                  eps=1e-8) for n in nets)
+    step = make_dcgan_train_step(*nets, *opts)
+    data = [tuple(torch.from_numpy(a).to(device, dtype) for a in b)
+            for b in batches]
+    x, y = data[0]
+    with torch.no_grad():
+        for n in nets:
+            n.eval()
+        fwd = [nets[0](x), nets[1](y), nets[2](torch.cat([x, y], 1))]
+    out = dict(fwd=[t.double().cpu() for t in fwd], losses=[])
+    for i, (x, y) in enumerate(data):
+        logs = step(x, y)
+        out["losses"].append([float(logs[k]) for k in ("errFD", "errTD",
+                                                        "errG")])
+        if i == 0:
+            # copies: the next steps update the statistics in place
+            out["grads"] = [[p.grad.to("cpu", torch.float64, copy=True)
+                             for p in n.parameters()] for n in nets]
+            out["stats"] = [[b.to("cpu", torch.float64, copy=True)
+                             for k, b in n.state_dict().items()
+                             if "running" in k] for n in nets]
+    return out
+
+
+def _net_gap(got, want):
+    """max |got - want| over a net's tensors, in units of its largest
+    entry."""
+    largest = max(w.abs().max().item() for w in want)
+    return max((g - w).abs().max().item() for g, w in zip(got, want)) / largest
+
+
+def phase_dcgan(batch=32):
+    """The published DCGAN (nc 4, ndf 64, 64x64, batch 32) as a user trains
+    it: one CLI epoch on the synthetic archive, outputs in a temporary
+    directory; then, in process and from seed 0 with dropout off, the
+    card's exact-f32 forwards, step, gradients and running statistics
+    against float64 on the CPU, and the times of a train and an eval step.
+    No CUDA kernel of the port is on this path (as no Pallas kernel is on
+    the JAX package's): every launch count stays 0."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from extended_gan_torch import ops
+    from extended_gan_torch.data.streaming import get_h5_loaders
+    from extended_gan_torch.data.synthetic import ensure_synthetic_h5
+    from extended_gan_torch.dcgan.__main__ import main as cli
+    from extended_gan_torch.ops import dsconv as k3
+    from extended_gan_torch.ops import gat_attention as k1
+    from extended_gan_torch.ops import gat_mapping as k2
+    from extended_gan_torch.train.dcgan_driver import (
+        DEFAULT_PARAMS,
+        build_dcgan,
+    )
+    from extended_gan_torch.train.dcgan_trainer import (
+        make_dcgan_eval_step,
+        make_dcgan_train_step,
+        to_nchw,
+    )
+
+    t_phase = time.perf_counter()
+    card = card_line()
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    # 1. the CLI, one epoch of 6 batches
+    out = tempfile.mkdtemp(prefix="smoke_dcgan_")
+    before = _tree_state(REPO)
+    try:
+        # the main path starts here
+        k1.launch_count = k1.bwd_launch_count = 0
+        k3.launch_count = k3.bwd_launch_count = 0
+        k2.fwd_launch_count = k2.bwd_launch_count = 0
+        t0 = time.perf_counter()
+        nets, history = cli(["--epochs", "1", "--max-batches", "6",
+                             "--synthetic", "--out-dir", out])
+        torch.cuda.synchronize()
+        cli_s = time.perf_counter() - t0
+        launches = ops.launch_counts()
+        written = sorted(os.listdir(out))
+    finally:
+        shutil.rmtree(out, ignore_errors=True)
+    after = _tree_state(REPO)
+    check(all(next(n.parameters()).device.type == "cuda" for n in nets),
+          "dcgan CLI: the nets are not on the card")
+    results = {k: v[0] for k, v in history.history.items()}
+    check(sorted(results) == sorted(DCGAN_KEYS),
+          f"dcgan CLI: result keys {sorted(results)}")
+    check(_finite(results.values()), f"dcgan CLI: results {results}")
+    check(all(bool(p.isfinite().all()) for n in nets for p in n.parameters()),
+          "dcgan CLI: non-finite parameters after training")
+    check(written == ["history.json"],
+          f"dcgan CLI: wrote {written} into --out-dir")
+    changed = sorted(set(before.items()) ^ set(after.items()))
+    check(not changed, f"dcgan CLI: wrote into the checkout: {changed[:5]}")
+    check(not any(launches.values()),
+          f"dcgan CLI: CUDA kernel launches {launches}, expected none")
+    print(f"[dcgan] python -m extended_gan_torch.dcgan --epochs 1 "
+          f"--max-batches 6 --synthetic (nc 4, ndf 64, 64x64, b=32): "
+          f"{cli_s:.2f} s with start-up, results {json.dumps(results)}; "
+          f"only history.json written, under --out-dir; launches {launches}")
+
+    # 2. agreement: the card's exact f32 against float64 on the CPU
+    nets, _ = build_dcgan(DEFAULT_PARAMS, seed=0, device="cuda", dropout=0.0)
+    folder = ensure_synthetic_h5(None, frames_train=256, frames_test=64,
+                                 h=64, w=64)
+    loader, _ = get_h5_loaders(folder, batch, 64, crop=64, in_seq_len=4,
+                               out_seq_len=4, seed=1)
+    batches = [tuple(to_nchw(a) for a in next(loader)) for _ in range(3)]
+    check(all(len(b[0]) == batch for b in batches), "short batch")
+    noise = np.random.default_rng(99).standard_normal(batches[0][0].shape)
+    perturbed = [((batches[0][0] * (1 + 1e-7 * noise)).astype(np.float32),
+                  batches[0][1])]
+    t0 = time.perf_counter()
+    card_run = dcgan_steps(nets, batches, torch.device("cuda"), torch.float32)
+    ref = dcgan_steps(nets, batches, torch.device("cpu"), torch.float64)
+    moved = dcgan_steps(nets, perturbed, torch.device("cpu"), torch.float64)
+    with torch.backends.cudnn.flags(enabled=True, allow_tf32=True):
+        tf32_fwd = dcgan_steps(nets, batches[:1], torch.device("cuda"),
+                               torch.float32)["fwd"]
+    ref_s = time.perf_counter() - t0
+    fwd_err = max((a - b).abs().max().item()
+                  for a, b in zip(card_run["fwd"], ref["fwd"]))
+    tf32_err = max((a - b).abs().max().item()
+                   for a, b in zip(tf32_fwd, ref["fwd"]))
+    check(fwd_err <= DCGAN_FWD_TOL,
+          f"dcgan eval forwards: card f32 vs CPU float64 {fwd_err:.3e} "
+          f"(limit {DCGAN_FWD_TOL})")
+    got, want = np.array(card_run["losses"]), np.array(ref["losses"])
+    check(np.isfinite(got).all(), f"dcgan losses {got}")
+    rel = np.abs(got - want) / np.abs(want)
+    check(rel[0].max() <= DCGAN_LOSS_TOL,
+          f"dcgan step 1 losses {got[0]} vs float64 {want[0]}: {rel[0]}")
+    check(rel.max() <= DCGAN_LOSSES_TOL,
+          f"dcgan 3 steps' losses {got} vs float64 {want}: {rel}")
+    lines = []
+    for what in ("grads", "stats"):
+        for name, g, w, m in zip(("G", "FD", "TD"), card_run[what], ref[what],
+                                 moved[what]):
+            if not w:
+                continue
+            gap, sens = _net_gap(g, w), _net_gap(m, w)
+            limit = max(DCGAN_FLOOR, DCGAN_SENS_FACTOR * sens)
+            check(gap <= limit, f"dcgan {what} of {name}: card f32 vs CPU "
+                  f"float64 {gap:.3e} of the largest entry (limit "
+                  f"{limit:.3e}; 1e-7 input noise moves float64 {sens:.3e})")
+            lines.append(f"{what} {name} {gap:.3e} (limit {limit:.3e}, "
+                         f"noise {sens:.3e})")
+    print(f"[dcgan] agreement, card exact f32 vs CPU float64, full width "
+          f"from seed 0, dropout off, b={batch} ({ref_s:.1f} s): eval "
+          f"forwards {fwd_err:.3e} (limit {DCGAN_FWD_TOL}; with TF32 "
+          f"{tf32_err:.3e}); step 1 losses {rel[0].max():.3e} relative "
+          f"(limit {DCGAN_LOSS_TOL}), 3 steps {rel.max():.3e} (limit "
+          f"{DCGAN_LOSSES_TOL}); " + "; ".join(lines))
+
+    # 3. times, from seed 0 with the CLI's dropout
+    nets, opts = build_dcgan(DEFAULT_PARAMS, seed=0, device="cuda")
+    step = make_dcgan_train_step(*nets, *opts)
+    eval_step = make_dcgan_eval_step(*nets)
+    data = [tuple(torch.from_numpy(a).cuda() for a in b) for b in batches]
+
+    def step_ms(n=20):
+        for b in data:
+            step(*b)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for i in range(n):
+            step(*data[i % len(data)])
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3 / n
+
+    host = host_state()
+    exact_ms = step_ms()
+    with torch.backends.cudnn.flags(enabled=True, allow_tf32=True):
+        tf32_ms = step_ms()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    step(*data[0])
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    eval_ms = time_ms(lambda: eval_step(*data[0]), per_group=2,
+                      sleep_cycles=20_000_000)
+    prof = profile_window(lambda: step(*data[0]), f"dcgan b={batch} exact "
+                          "f32", "train step", n=5)
+    counted = ops.launch_counts()
+    check(not any(counted.values()),
+          f"dcgan phase: CUDA kernel launches {counted}, expected none")
+    secs = time.perf_counter() - t_phase
+    print(f"[dcgan] {card}: b={batch} train step {exact_ms:.3f} ms exact "
+          f"f32, {tf32_ms:.3f} ms with TF32 (host clock, synchronised, 20 "
+          f"steps; host: {host}); eval step {eval_ms:.4f} ms (device time, "
+          f"CUDA events); peak memory of a step "
+          f"{peak / 2**20:.1f} MiB; CLI epoch {cli_s:.2f} s; the phase took "
+          f"{secs:.1f} s")
+    return dict(cli_s=cli_s, results=results, fwd_err=fwd_err,
+                loss_rel=float(rel.max()), exact_ms=exact_ms, tf32_ms=tf32_ms,
+                eval_ms=eval_ms, peak_bytes=peak, profile=prof, secs=secs)
+
+
 def card_line():
     res = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -1733,6 +2060,7 @@ def main() -> int:
         train_launches = phase_train()
         k2_model = phase_mapping_model()
         family = phase_family()
+        phase_dcgan()
         card = card_line()
     except SmokeFailure as e:
         print(f"chip_smoke: FAIL: {e}", file=sys.stderr)

@@ -8,6 +8,7 @@ caller asks for it (the CPU tests do).
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 
@@ -21,3 +22,12 @@ def resolve_device(device: str | torch.device | None = None) -> torch.device:
     if dev.type not in ("cuda", "cpu"):
         raise ValueError(f"unsupported device {dev}; use 'cuda' or 'cpu'")
     return dev
+
+
+def to_device(a, device: torch.device) -> torch.Tensor:
+    """A numpy array -> a float32 tensor on ``device``; the copy is
+    asynchronous from pinned memory when the device is the card."""
+    t = torch.from_numpy(np.ascontiguousarray(a, np.float32))
+    if device.type == "cuda":
+        return t.pin_memory().to(device, non_blocking=True)
+    return t

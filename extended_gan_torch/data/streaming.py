@@ -1,6 +1,11 @@
-"""File-streaming batch loaders (port of the KNMI and ARAI paths of
+"""File-streaming batch loaders (port of the KNMI, ARAI and h5 paths of
 ``extended_gan_tpu/data/streaming.py``).
 
+- :class:`H5SequenceLoader` streams the DCGAN's frame files, (frames, C, H,
+  W) each: a batch takes the ``batch_size`` windows of in + out frames that
+  start at offsets 0..batch_size-1 of the current buffer, then drops
+  batch_size frames; a buffer too short for one window is replaced by the
+  next file. (x, y) come as (B, in, C, H, W) and (B, out, C, H, W).
 - :class:`KmniLoader` is the JAX package's Python path (``use_native=False``,
   ``shuffle_mode="batch"``): file-at-a-time streaming, 8-frame windows split
   into 4 in / 4 out, value/254 then ``** power``, (B, H, W, T, V) batches,
@@ -10,7 +15,9 @@
   R), from a background thread; batches do not span files, and the train
   split's file order is shuffled from the seed.
 
-For the same seed each yields the same bytes as the JAX package's loader.
+Each shuffles only within a batch (and the file order where it says so),
+from a seeded numpy generator, so for the same seed each yields the same
+bytes as the JAX package's loader.
 Batches stay numpy; moving them to the card is the trainer's job,
 overlapped with compute by :class:`Prefetcher`.
 """
@@ -29,7 +36,74 @@ from .io import array_n_frames, load_array
 from .windowing import sliding_windows, truncate_to_multiple
 
 
-class KmniLoader:
+def _list_files(folder: str, rng: np.random.Generator | None):
+    files = [os.path.join(folder, fn) for fn in sorted(os.listdir(folder))]
+    files = [f for f in files if not f.endswith((".json", ".md"))]
+    if rng is not None:
+        files = [files[i] for i in rng.permutation(len(files))]
+    return tuple(files)
+
+
+class _FileStream:
+    """File-at-a-time streaming from a folder, with the seeded generator
+    that shuffles the file order (when ``shuffle``) and each batch."""
+
+    def __init__(self, folder: str, *, shuffle: bool, seed: int):
+        self.shuffle = shuffle
+        self._rng = np.random.default_rng(seed)
+        self.files = _list_files(folder, self._rng if shuffle else None)
+        self.file_index = 0
+
+    def read_next_file(self) -> np.ndarray:
+        if self.file_index == len(self.files):
+            raise StopIteration
+        data = load_array(self.files[self.file_index])
+        self.file_index += 1
+        return np.asarray(data)
+
+    def perm(self, n: int) -> np.ndarray:
+        return self._rng.permutation(n) if self.shuffle else np.arange(n)
+
+    def __iter__(self):
+        return self
+
+
+class H5SequenceLoader(_FileStream):
+    """The DCGAN's frame streamer (see the module docstring)."""
+
+    def __init__(self, folder: str, batch_size: int, *,
+                 crop: int | None = 64, shuffle: bool = True,
+                 in_seq_len: int = 4, out_seq_len: int = 4, seed: int = 369):
+        super().__init__(folder, shuffle=shuffle, seed=seed)
+        self.batch_size = batch_size
+        self.crop = crop
+        self.in_seq_len = in_seq_len
+        self.tot_seq_len = in_seq_len + out_seq_len
+        self.remainder = self._segmentify(self.read_next_file())
+
+    def _segmentify(self, data: np.ndarray) -> np.ndarray:
+        data = truncate_to_multiple(data, self.tot_seq_len)
+        if self.crop is not None:
+            data = data[:, :, : self.crop, : self.crop]
+        return data
+
+    def __next__(self):
+        data = self.remainder
+        while True:
+            windows = sliding_windows(data, self.tot_seq_len)[
+                : self.batch_size]
+            if len(windows):
+                break
+            # StopIteration comes from read_next_file once the folder is done
+            data = self._segmentify(self.read_next_file())
+        self.remainder = data[self.batch_size:]
+        idx = self.perm(windows.shape[0])
+        x = windows[idx, : self.in_seq_len].astype(np.float32)
+        y = windows[idx, self.in_seq_len:].astype(np.float32)
+        return x, y
+
+
+class KmniLoader(_FileStream):
     """KNMI radar video streamer -> (B, H, W, T=4, V) batches. Exposes
     ``.power`` and ``.normalizing_max`` for the trainer's eval-time
     de-normalisation."""
@@ -37,27 +111,13 @@ class KmniLoader:
     def __init__(self, batch_size: int, folder: str, *, time_steps: int = 4,
                  crop: int | None = None, shuffle: bool = True,
                  power: float = 1.0, seed: int = 369):
+        super().__init__(folder, shuffle=shuffle, seed=seed)
         self.batch_size = batch_size
         self.time_steps = time_steps
         self.crop = crop
-        self.shuffle = shuffle
         self.power = power
         self.normalizing_max = 254.0
-        self._rng = np.random.default_rng(seed)
-        files = [os.path.join(folder, fn) for fn in sorted(os.listdir(folder))]
-        files = [f for f in files if not f.endswith((".json", ".md"))]
-        if shuffle:
-            files = [files[i] for i in self._rng.permutation(len(files))]
-        self.files = tuple(files)
-        self.file_index = 0
-        self.remainder = self._segmentify(self._read_next_file())
-
-    def _read_next_file(self) -> np.ndarray:
-        if self.file_index == len(self.files):
-            raise StopIteration
-        data = load_array(self.files[self.file_index])
-        self.file_index += 1
-        return np.asarray(data)
+        self.remainder = self._segmentify(self.read_next_file())
 
     def _segmentify(self, data: np.ndarray) -> np.ndarray:
         """(frames, V, H, W) -> (2, n, T, V, H, W) input/target windows."""
@@ -78,18 +138,14 @@ class KmniLoader:
         data = self.remainder
         while data.shape[1] == 0:
             # short files yield zero windows: skip them, don't end the epoch
-            data = self._segmentify(self._read_next_file())
+            data = self._segmentify(self.read_next_file())
         self.remainder = data[:, self.batch_size:]
         result = data[:, : self.batch_size]
-        n = result.shape[1]
-        idx = self._rng.permutation(n) if self.shuffle else np.arange(n)
+        idx = self.perm(result.shape[1])
         # (2, b, T, V, H, W) -> (2, b, H, W, T, V)
         result = result.transpose(0, 1, 4, 5, 2, 3)
         return (np.ascontiguousarray(result[0][idx]),
                 np.ascontiguousarray(result[1][idx]))
-
-    def __iter__(self):
-        return self
 
 
 class AraiLoader:
@@ -212,6 +268,21 @@ class Prefetcher:
         if isinstance(item, BaseException):
             raise item
         return item
+
+
+def get_h5_loaders(data_location: str, train_batch_size: int,
+                   test_batch_size: int, *, crop: int | None = 64,
+                   in_seq_len: int = 12, out_seq_len: int = 6,
+                   seed: int = 369):
+    """(train, test) loaders over ``train`` and ``test``, seeded ``seed``
+    and ``seed + 1``."""
+    def mk(sub, bs, s):
+        return H5SequenceLoader(os.path.join(data_location, sub), bs,
+                                crop=crop, in_seq_len=in_seq_len,
+                                out_seq_len=out_seq_len, seed=s)
+
+    return mk("train", train_batch_size, seed), mk("test", test_batch_size,
+                                                   seed + 1)
 
 
 def get_kmni_loaders(train_batch_size: int, test_batch_size: int,

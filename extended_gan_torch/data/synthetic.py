@@ -1,4 +1,4 @@
-"""Synthetic radar archives (port of the KNMI and ARAI parts of
+"""Synthetic radar archives (port of the KNMI, ARAI and h5 parts of
 ``extended_gan_tpu/data/synthetic.py``).
 
 Advecting smooth rain cells with temporal coherence, in the formats the
@@ -7,7 +7,11 @@ loaders read:
 - KNMI: ``<dir>/{train,test}/*.pt`` integer-valued (T, V, H, W) videos in
   [0, 254];
 - ARAI: ``<dir>/{training,validation}/<i>.pt`` float (T, R, 1, H, W) region
-  blocks in [0, 1], and ``<dir>/metadata.json``.
+  blocks in [0, 1], and ``<dir>/metadata.json``;
+- the DCGAN's sequence archive: ``<dir>/train/train.npy`` and
+  ``<dir>/test/test_1.npy``, float (T, 1, H, W) in [0, 1]. The JAX package
+  writes the same arrays as ``.h5``; the port writes ``.npy``, which needs
+  no h5py.
 
 For the same arguments the files hold the same values as the JAX package's
 (the random draws are made in the same order from the same numpy
@@ -18,6 +22,7 @@ from __future__ import annotations
 
 import json
 import os
+import shutil
 import tempfile
 
 import numpy as np
@@ -81,6 +86,42 @@ def make_arai_dataset(out_dir: str, *, n_files: int = 2,
     with open(os.path.join(out_dir, "metadata.json"), "w") as f:
         json.dump(meta, f)
     return out_dir
+
+
+def make_h5_dataset(out_dir: str, *, frames_train: int = 96,
+                    frames_test: int = 48, h: int = 64, w: int = 64,
+                    seed: int = 0) -> str:
+    rng = np.random.default_rng(seed)
+    for sub, name, n in (("train", "train", frames_train),
+                         ("test", "test_1", frames_test)):
+        mkdir(os.path.join(out_dir, sub))
+        save_array(os.path.join(out_dir, sub, f"{name}.npy"),
+                   _rain_video(rng, n, h, w)[:, None].astype(np.float32))
+    return out_dir
+
+
+def ensure_synthetic_h5(folder: str | None = None, **kwargs) -> str:
+    """The DCGAN's archive for ``make_h5_dataset(**kwargs)`` in ``folder``
+    (by default one under the temporary directory named after the
+    arguments), made there if it is missing. It is made beside the folder
+    and renamed into place, so two processes can ask at once."""
+    if folder is None:
+        key = "_".join(f"{k}{v}" for k, v in sorted(kwargs.items()))
+        folder = os.path.join(tempfile.gettempdir(),
+                              "extended_gan_torch_synthetic",
+                              f"h5_{key}" if key else "h5")
+    if not os.path.isdir(os.path.join(folder, "train")):
+        parent = os.path.dirname(os.path.abspath(folder))
+        mkdir(parent)
+        staging = tempfile.mkdtemp(prefix=".h5_", dir=parent)
+        make_h5_dataset(staging, **kwargs)
+        try:
+            os.rename(staging, folder)
+        except OSError:  # another process made it first, or folder exists
+            shutil.rmtree(staging, ignore_errors=True)
+            if not os.path.isdir(os.path.join(folder, "train")):
+                raise
+    return folder
 
 
 def ensure_synthetic_kmni(folder: str | None = None) -> str:

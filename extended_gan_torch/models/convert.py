@@ -1,8 +1,8 @@
 """Carry weights from the JAX package's flax parameter trees to the port.
 
 The port's parameter names and shapes follow the flax tree leaf for leaf
-(``models/gat/gat3d.py``, ``models/smaat_unet.py``), so the conversion is a
-rename. Nested keys are joined with ``.``, and:
+(``models/gat/gat3d.py``, ``models/smaat_unet.py``, ``models/dcgan.py``), so
+the conversion is a rename. Nested keys are joined with ``.``, and:
 
 - a conv ``*kernel`` (HWIO, behind the head axis of a vmapped block) becomes
   a ``*weight`` in torch's OIHW: the depthwise (3, 3, 1, C*kpl) kernel turns

@@ -11,7 +11,7 @@ each CUDA kernel was launched.
 The JAX driver's mesh, tensor/sequence/FSDP/pipeline parallelism, device-
 resident data, megastep, MoE, checkpoints and resume, profiling, bf16 and
 plots are not ported yet: a config that sets one of them to anything but
-its default raises.
+its default raises, naming the ROADMAP item that ports it.
 """
 
 from __future__ import annotations
@@ -28,15 +28,21 @@ from ..ops import launch_counts
 from ..utils.history import save_history_json, update_history
 from .gat_trainer import gat_feed, make_gat_eval_step, make_gat_train_step, test
 from .optim import current_lr, make_optimizer, make_scheduler, scheduler_step
+from .unported import refuse_unported
 
-# experiment-config keys of JAX driver options the port does not have yet,
-# with the value that means "off" (ROADMAP: queue 1, items 8 to 10)
+# experiment-config keys and keywords of JAX driver options the port does
+# not have yet: (the value that means "off", the ROADMAP queue 1 item)
 _NOT_PORTED = {
-    "precision": "f32", "resume": False, "checkpoint_every": 0,
-    "remat": False, "shuffle_mode": "batch", "data_axis": None,
-    "model_axis": 1, "fsdp": False, "fsdp_min_size": 4096, "spatial": False,
-    "megastep": 0, "resident": False, "moe_experts": 0,
-    "moe_aux_weight": 0.01, "pipeline_stages": 0, "pp_microbatches": 0,
+    "megastep": (0, 5), "resident": (False, 5),
+    "precision": ("f32", 6), "resume": (False, 6), "checkpoint_every": (0, 6),
+    "remat": (False, 6),
+    "shuffle_mode": ("batch", 7),
+    "data_axis": (None, 9), "model_axis": (1, 9), "tp_min_channels": (256, 9),
+    "fsdp": (False, 9), "fsdp_min_size": (4096, 9), "spatial": (False, 9),
+    "moe_experts": (0, 9), "moe_aux_weight": (0.01, 9),
+    "pipeline_stages": (0, 9), "pp_microbatches": (0, 9),
+    "conv_impl": ("auto", 10), "profile": (False, 10),
+    "profile_trace_dir": ("", 10),
 }
 
 
@@ -90,14 +96,7 @@ def train(*, model_type: str = "temporal", optimizer: str = "adam",
     keyword arguments, every field of an experiment config among them;
     ``plot`` is accepted and ignored (plots are not ported). ``use_pallas=None`` runs the fused kernels exactly when
     the model sits on the card. Returns ``(model, history)``."""
-    for key, value in options.items():
-        if key not in _NOT_PORTED:
-            raise TypeError(f"train() got an unexpected keyword argument "
-                            f"{key!r}")
-        if value != _NOT_PORTED[key]:
-            raise NotImplementedError(
-                f"{key}={value!r} is not ported yet (ROADMAP: queue 1); the "
-                f"port runs {key}={_NOT_PORTED[key]!r}")
+    refuse_unported(options, _NOT_PORTED)
     dev = resolve_device(device)
     downsample_size = tuple(downsample_size)
     print(f"Using device: {dev}")

@@ -22,6 +22,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..core.device import to_device
 from ..data.streaming import Prefetcher
 from .losses import CRITERIA
 
@@ -99,13 +100,8 @@ def make_gat_eval_step(model):
 def to_device_batch(x, y, device):
     """Numpy (x, y) -> (x, y, mask) float32 tensors on ``device``; the copy
     is asynchronous from pinned memory when the device is the card."""
-    def put(a):
-        t = torch.from_numpy(np.ascontiguousarray(a, np.float32))
-        if device.type == "cuda":
-            return t.pin_memory().to(device, non_blocking=True)
-        return t
-
-    return put(x), put(y), torch.ones(len(x), device=device)
+    return (to_device(x, device), to_device(y, device),
+            torch.ones(len(x), device=device))
 
 
 def gat_feed(loader, device, *, depth=2):

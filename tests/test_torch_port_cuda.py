@@ -542,3 +542,38 @@ def test_k2_model_train_steps_match_the_plain_path(cuda_device):
     # size, and one whose gradient is zero up to roundoff either way
     for p, q in zip(fused.parameters(), plain.parameters()):
         assert (p - q).abs().max().item() <= 2 * 1e-3 * 3
+
+
+def test_dcgan_train_step_on_the_card_matches_the_cpu(cuda_device):
+    """One DCGAN train step (nc 4, ndf 16, 64x64, batch 8, dropout off) on
+    the card, exact f32, against the same step on the CPU from the same
+    weights. The DCGAN path runs no kernel of the port: this holds cuDNN's
+    convolutions and the trainer's device code. Losses within 1e-4
+    relative (the discriminators' Adam step, which moves an entry whose
+    gradient is within roundoff of zero either way, lies before errG); each
+    net's gradients within 2e-2 of its largest entry: train-mode BatchNorm
+    cancels in its gradient (the generator's move by 2e-3 under one part in
+    1e7 of input noise, in float64, at full width)."""
+    from extended_gan_torch.ops import launch_counts
+    from extended_gan_torch.train.dcgan_driver import DEFAULT_PARAMS, build_dcgan
+    from extended_gan_torch.train.dcgan_trainer import make_dcgan_train_step
+
+    params = {**DEFAULT_PARAMS, "ndf": 16}
+    rng = np.random.default_rng(0)
+    x, y = (torch.from_numpy(rng.random((8, 4, 64, 64), np.float32))
+            for _ in range(2))
+    runs = []
+    before = launch_counts()
+    for dev in (torch.device("cpu"), cuda_device):
+        nets, opts = build_dcgan(params, seed=0, device=dev, dropout=0.0)
+        with torch.backends.cudnn.flags(enabled=True, allow_tf32=False):
+            logs = make_dcgan_train_step(*nets, *opts)(x.to(dev), y.to(dev))
+        runs.append(([float(logs[k]) for k in ("errFD", "errTD", "errG")],
+                     [[p.grad.cpu() for p in n.parameters()] for n in nets]))
+    assert launch_counts() == before
+    (cpu_loss, cpu_grads), (card_loss, card_grads) = runs
+    np.testing.assert_allclose(card_loss, cpu_loss, rtol=1e-4)
+    for got, want in zip(card_grads, cpu_grads):
+        largest = max(w.abs().max().item() for w in want)
+        gap = max((g - w).abs().max().item() for g, w in zip(got, want))
+        assert gap <= 2e-2 * largest, (gap, largest)

@@ -57,7 +57,7 @@ from extended_gan_torch.models.smaat_unet import SmaAt_UNet
 from extended_gan_torch.ops import dsconv as k3
 from extended_gan_torch.ops import gat_attention as k1
 from extended_gan_torch.ops import gat_mapping as k2
-from extended_gan_torch.train import gat_trainer, optim
+from extended_gan_torch.train import gat_driver, gat_trainer, optim
 from extended_gan_torch.train.gat_driver import train
 
 LR = 1e-3
@@ -302,3 +302,41 @@ def test_generate_experiment_reads_the_jax_configs(tmp_path):
 def test_unported_driver_options_raise(kwargs, error):
     with pytest.raises(error):
         train(dataset="synthetic", device="cpu", **kwargs)
+
+
+# every option the conv-GAT driver refuses, a value that is not "off", and
+# the ROADMAP queue 1 item that ports it
+GAT_UNPORTED = [
+    ("megastep", 4, 5), ("resident", True, 5),
+    ("precision", "bf16", 6), ("resume", True, 6), ("checkpoint_every", 1, 6),
+    ("remat", True, 6),
+    ("shuffle_mode", "global", 7),
+    ("data_axis", 2, 9), ("model_axis", 2, 9), ("tp_min_channels", 64, 9),
+    ("fsdp", True, 9), ("fsdp_min_size", 1, 9), ("spatial", True, 9),
+    ("moe_experts", 4, 9), ("moe_aux_weight", 0.1, 9),
+    ("pipeline_stages", 2, 9), ("pp_microbatches", 2, 9),
+    ("conv_impl", "chanfirst", 10), ("profile", True, 10),
+    ("profile_trace_dir", "/x", 10),
+]
+
+
+@pytest.mark.parametrize("key,value,item", GAT_UNPORTED)
+def test_unported_driver_options_name_their_item(key, value, item):
+    with pytest.raises(NotImplementedError, match=rf"queue 1 item {item}\)"):
+        train(dataset="synthetic", device="cpu", **{key: value})
+
+
+def test_unported_driver_options_at_their_off_values_train():
+    """The JAX driver's keywords at their off values, the four that once
+    got a TypeError among them, train as if they were not given."""
+    assert sorted(k for k, _, _ in GAT_UNPORTED) == \
+        sorted(gat_driver._NOT_PORTED)
+    offs = {k: off for k, (off, _) in gat_driver._NOT_PORTED.items()}
+    assert {k: offs[k] for k in ("tp_min_channels", "conv_impl", "profile",
+                                 "profile_trace_dir")} == \
+        dict(tp_min_channels=256, conv_impl="auto", profile=False,
+             profile_trace_dir="")
+    model, history = train(model_type="temporal", mapping_type="conv",
+                           dataset="synthetic", downsample_size=(20, 20),
+                           epochs=1, max_batches=1, device="cpu", **offs)
+    assert len(history["val_loss"]) == 1
