@@ -84,7 +84,28 @@ Phases, each fatal on failure (non-zero exit, no result line):
              (K1 4 a forward and 4 a step in the first, 0 in the rest, as
              in JAX; K2 and K3 0), each with its ms per train step; and
              final_temp_smaat exported and served over HTTP at batch 32.
-8. report  - the total time, the ``kernels`` JSON line, the card's name and
+8. dcgan   - the published DCGAN (nc 4, ndf 64, 64x64, b=32) through
+             ``python -m extended_gan_torch.dcgan`` for an epoch of 6
+             batches, checkpointed (--save-epoch 1) into a temporary
+             directory; in process, the card's exact f32 forwards, step,
+             gradients and running statistics against float64 on the CPU;
+             the train and eval steps' times. No kernel of the port.
+9. serve_extras - serving what the port trains: the generator of that
+             checkpoint exported (``python -m extended_gan_torch.serve
+             export --workload dcgan --check``) as f32, w8, w8a8 and a
+             3-step rollout, each served over HTTP at b = 1, 5 and 32
+             (p50) and held against the same artifact on the CPU (1e-5,
+             w8a8 5e-3), its b=32 forward timed; the w8a8 layers' int32
+             accumulators on the card equal to the CPU's float64 product
+             on the same int8 inputs, and the card's int8 activations
+             equal to the CPU's from the same input; w8 within 5e-3 and
+             w8a8 within 3e-2 of f32; final_temp_conv and final_smaatunet
+             exported as w8 from --init-seed 0 and served at b=32 (gap to
+             f32, byte ratio, K1 2 and K3 18 launches a forward, as on the
+             f32 path); ``serve predict`` over final_temp_conv's synthetic
+             test split (17 windows: one batch) and 4 batches of its train
+             split (samples/s, K1 2 launches a batch).
+10. report - the total time, the ``kernels`` JSON line, the card's name and
              power limit, and the last line ``{"ok": true, "device":
              {...}}``.
 """
@@ -95,9 +116,11 @@ import io
 import json
 import os
 import re
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import threading
 import time
 import urllib.request
@@ -1856,17 +1879,15 @@ def _net_gap(got, want):
     return max((g - w).abs().max().item() for g, w in zip(got, want)) / largest
 
 
-def phase_dcgan(batch=32):
+def phase_dcgan(out, batch=32):
     """The published DCGAN (nc 4, ndf 64, 64x64, batch 32) as a user trains
-    it: one CLI epoch on the synthetic archive, outputs in a temporary
-    directory; then, in process and from seed 0 with dropout off, the
+    it: one CLI epoch on the synthetic archive, checkpointed, outputs in the
+    empty temporary directory ``out`` (which the ``serve_extras`` phase
+    exports from); then, in process and from seed 0 with dropout off, the
     card's exact-f32 forwards, step, gradients and running statistics
     against float64 on the CPU, and the times of a train and an eval step.
     No CUDA kernel of the port is on this path (as no Pallas kernel is on
     the JAX package's): every launch count stays 0."""
-    import shutil
-    import tempfile
-
     import numpy as np
     import torch
 
@@ -1891,23 +1912,19 @@ def phase_dcgan(batch=32):
     card = card_line()
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
-    # 1. the CLI, one epoch of 6 batches
-    out = tempfile.mkdtemp(prefix="smoke_dcgan_")
+    # 1. the CLI, one epoch of 6 batches, checkpointed
     before = _tree_state(REPO)
-    try:
-        # the main path starts here
-        k1.launch_count = k1.bwd_launch_count = 0
-        k3.launch_count = k3.bwd_launch_count = 0
-        k2.fwd_launch_count = k2.bwd_launch_count = 0
-        t0 = time.perf_counter()
-        nets, history = cli(["--epochs", "1", "--max-batches", "6",
-                             "--synthetic", "--out-dir", out])
-        torch.cuda.synchronize()
-        cli_s = time.perf_counter() - t0
-        launches = ops.launch_counts()
-        written = sorted(os.listdir(out))
-    finally:
-        shutil.rmtree(out, ignore_errors=True)
+    # the main path starts here
+    k1.launch_count = k1.bwd_launch_count = 0
+    k3.launch_count = k3.bwd_launch_count = 0
+    k2.fwd_launch_count = k2.bwd_launch_count = 0
+    t0 = time.perf_counter()
+    nets, history = cli(["--epochs", "1", "--max-batches", "6",
+                         "--synthetic", "--out-dir", out, "--save-epoch", "1"])
+    torch.cuda.synchronize()
+    cli_s = time.perf_counter() - t0
+    launches = ops.launch_counts()
+    written = sorted(os.listdir(out))
     after = _tree_state(REPO)
     check(all(next(n.parameters()).device.type == "cuda" for n in nets),
           "dcgan CLI: the nets are not on the card")
@@ -1917,16 +1934,17 @@ def phase_dcgan(batch=32):
     check(_finite(results.values()), f"dcgan CLI: results {results}")
     check(all(bool(p.isfinite().all()) for n in nets for p in n.parameters()),
           "dcgan CLI: non-finite parameters after training")
-    check(written == ["history.json"],
+    check(written == ["checkpoints", "history.json"],
           f"dcgan CLI: wrote {written} into --out-dir")
     changed = sorted(set(before.items()) ^ set(after.items()))
     check(not changed, f"dcgan CLI: wrote into the checkout: {changed[:5]}")
     check(not any(launches.values()),
           f"dcgan CLI: CUDA kernel launches {launches}, expected none")
     print(f"[dcgan] python -m extended_gan_torch.dcgan --epochs 1 "
-          f"--max-batches 6 --synthetic (nc 4, ndf 64, 64x64, b=32): "
-          f"{cli_s:.2f} s with start-up, results {json.dumps(results)}; "
-          f"only history.json written, under --out-dir; launches {launches}")
+          f"--max-batches 6 --synthetic --out-dir <tmp> "
+          f"--save-epoch 1 (nc 4, ndf 64, 64x64, b=32): {cli_s:.2f} s with "
+          f"start-up, results {json.dumps(results)}; only history.json and "
+          f"checkpoints/ written, under --out-dir; launches {launches}")
 
     # 2. agreement: the card's exact f32 against float64 on the CPU
     nets, _ = build_dcgan(DEFAULT_PARAMS, seed=0, device="cuda", dropout=0.0)
@@ -2025,6 +2043,305 @@ def phase_dcgan(batch=32):
                 eval_ms=eval_ms, peak_bytes=peak, profile=prof, secs=secs)
 
 
+# card outputs against the same artifact on the CPU (the JAX export's
+# --check tolerances: f32 roundoff, and for w8a8 one flipped int8 bin) and
+# the quantised artifacts against the f32 one (tests/test_export.py's
+# budgets)
+EXTRAS_CPU_TOL = {"f32": 1e-5, "w8": 1e-5, "w8a8": 5e-3, "roll3": 6e-5}
+EXTRAS_F32_BUDGET = {"w8": 5e-3, "w8a8": 3e-2}
+
+
+def http_round(path, batches, repeats, check_reply):
+    """Serve the artifact at ``path`` on the card over HTTP (port 0) and
+    POST ``repeats`` uniform [0, 1) batches of each size; ``check_reply(x,
+    y)`` sees the last reply of each size. Then the same batches through
+    ``ModelServer.predict`` in process, HTTP left out. Returns {batch: p50
+    ms over HTTP}, {batch: p50 ms in process} (host clock)."""
+    import numpy as np
+
+    from extended_gan_torch.serve import make_server
+
+    server = make_server(path, port=0)
+    served = server.RequestHandlerClass.model
+    check(served.device.type == "cuda", f"{path}: server is not on the card")
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    url = f"http://127.0.0.1:{server.server_address[1]}"
+    p50, inproc = {}, {}
+    try:
+        for b in batches:
+            x = np.random.default_rng(b).random(
+                (b, *served.artifact.window_shape), np.float32)
+            lat = []
+            for _ in range(repeats):
+                y, ms = _post(url + "/predict", x)
+                lat.append(ms)
+            check_reply(x, y)
+            p50[b] = statistics.median(lat)
+        with urllib.request.urlopen(url + "/healthz", timeout=30) as r:
+            health = json.loads(r.read())
+        check(health["requests_served"] == repeats * len(batches)
+              and health["platforms"] == ["cuda"], f"healthz: {health}")
+    finally:
+        server.shutdown()
+        server.server_close()
+        thread.join(timeout=30)
+    check(not thread.is_alive(), "the HTTP server did not stop")
+    for b in batches:
+        x = np.random.default_rng(b).random(
+            (b, *served.artifact.window_shape), np.float32)
+        lat = []
+        for _ in range(repeats):
+            t0 = time.perf_counter()
+            served.predict(x)  # ends in a copy to the host
+            lat.append((time.perf_counter() - t0) * 1e3)
+        inproc[b] = statistics.median(lat)
+    return p50, inproc
+
+
+def _reply_check(name, cpu_fn, tol, out_shape):
+    """A reply's shape, finiteness and range, and its gap to the same
+    artifact run on the CPU; the gaps are collected in ``gaps``."""
+    import numpy as np
+    import torch
+
+    gaps = []
+
+    def checker(x, y):
+        check(y.shape == (len(x), *out_shape),
+              f"{name}: reply shape {y.shape}")
+        check(bool(np.isfinite(y).all()), f"{name}: non-finite reply")
+        check(float(y.min()) >= 0.0 and float(y.max()) <= 1.0,
+              f"{name}: reply leaves [0, 1]")
+        with torch.no_grad():
+            want = cpu_fn(torch.from_numpy(x)).numpy()
+        gap = float(np.abs(y - want).max())
+        check(gap <= tol, f"{name} b={len(x)}: card reply vs the artifact on "
+                          f"the CPU {gap:.3e} (limit {tol})")
+        gaps.append(gap)
+
+    return checker, gaps
+
+
+def phase_serve_extras(out, batch=32, repeats=10):
+    """Serving what the port trains, as a user runs it: the DCGAN
+    generator of the ``dcgan`` phase's checkpoint (in ``out``) exported as
+    f32, w8, w8a8 and a 3-step rollout with --check, each served on the card
+    over HTTP at b = 1, 5 and 32 against the same artifact on the CPU, its
+    forward timed at b=32; the w8a8 chain's int32 accumulators against the
+    CPU's plain product on the same int8 inputs, exactly; final_temp_conv
+    and final_smaatunet exported as w8 from seed 0 and served at b=32 with
+    K1 and K3 launched as on the f32 path; and ``serve predict`` over
+    final_temp_conv's synthetic test split and 4 batches of its train
+    split."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from extended_gan_torch import ops
+    from extended_gan_torch.data.streaming import get_loaders
+    from extended_gan_torch.ops import dsconv as k3
+    from extended_gan_torch.ops import gat_attention as k1
+    from extended_gan_torch.ops import gat_mapping as k2
+    from extended_gan_torch.ops import int8_conv
+    from extended_gan_torch.serve import load_exported
+    from extended_gan_torch.serve.__main__ import main as cli
+    from extended_gan_torch.serve.quantize import (
+        quantize_activation,
+        w8a8_layer,
+        w8a8_layers,
+    )
+
+    t_phase = time.perf_counter()
+    card = card_line()
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    art_dir = os.path.join(REPO, "build", "smoke")
+    os.makedirs(art_dir, exist_ok=True)
+    # the main path starts here
+    int8_conv.launch_count = 0
+    k1.launch_count = k1.bwd_launch_count = 0
+    k3.launch_count = k3.bwd_launch_count = 0
+    k2.fwd_launch_count = k2.bwd_launch_count = 0
+
+    # 1. the DCGAN generator: export, serve, time
+    arts, lines = {}, []
+    for name, extra in (("f32", []), ("w8", ["--quantize", "w8"]),
+                        ("w8a8", ["--quantize", "w8a8"]),
+                        ("roll3", ["--rollout", "3"])):
+        path = os.path.join(art_dir, f"dcgan_generator_{name}.pt")
+        t0 = time.perf_counter()
+        info = cli(["export", out, "--workload", "dcgan", "--out", path,
+                    "--check", *extra])
+        arts[name] = dict(path=path, nbytes=info["nbytes"],
+                          export_s=time.perf_counter() - t0,
+                          card=load_exported(path),
+                          cpu=load_exported(path, device="cpu"))
+    check(arts["w8"]["nbytes"] < arts["f32"]["nbytes"],
+          "the w8 artifact is not smaller than the f32 one")
+    check(int8_conv.launch_count == 5 * 2,
+          f"export --check of w8a8: {int8_conv.launch_count} int8 products, "
+          "expected 5 layers x 2 batches")
+    window = (64, 64, 4)
+    x = torch.rand(batch, *window, device="cuda",
+                   generator=torch.Generator(device="cuda").manual_seed(0))
+    for name, a in arts.items():
+        out_shape = (3, *window) if name == "roll3" else window
+        checker, gaps = _reply_check(name, a["cpu"].fn, EXTRAS_CPU_TOL[name],
+                                     out_shape)
+        before = int8_conv.launch_count
+        a["p50"], a["inproc"] = http_round(a["path"], (1, 5, batch), repeats,
+                                           checker)
+        products = int8_conv.launch_count - before
+        want = 5 * 3 * 2 * repeats if name == "w8a8" else 0
+        check(products == want, f"serving {name}: {products} int8 products, "
+                                f"expected {want}")
+        with torch.inference_mode():
+            a["ms"] = time_ms(lambda: a["card"].fn(x), per_group=2,
+                              sleep_cycles=20_000_000)
+        a["gap"] = max(gaps)
+        lines.append(
+            f"{name}: {a['nbytes']} bytes, export --check {a['export_s']:.2f} "
+            f"s, forward b={batch} {a['ms']:.4f} ms, HTTP p50 "
+            + " / ".join(f"{p:.2f}" for p in a["p50"].values())
+            + " ms (in process " + " / ".join(
+                f"{p:.2f}" for p in a["inproc"].values())
+            + f" ms) at b = 1 / 5 / {batch}, card vs CPU {a['gap']:.3e}")
+    int8_products = int8_conv.launch_count
+    print(f"[serve_extras] {card}: DCGAN generator from the dcgan phase's "
+          f"checkpoint, {repeats} requests a batch size, device times by CUDA "
+          "events: " + "; ".join(lines))
+
+    # 2. the w8a8 chain on the card: exact int32 accumulators on the same
+    # int8 inputs, and the same int8 activations from the same f32 input
+    state = torch.load(arts["w8a8"]["path"], map_location="cpu",
+                       weights_only=True)["weights"]
+    on_card, on_cpu = w8a8_layers(state, "cuda"), w8a8_layers(state, "cpu")
+    h, h_cpu, rows = x, x.cpu(), []
+    with torch.inference_mode():
+        for i, (lc, lh) in enumerate(zip(on_card, on_cpu)):
+            xi, acc, h_next = w8a8_layer(h, lc)
+            xi_host = xi.cpu()
+            check(torch.equal(quantize_activation(h.cpu(), lh[1]), xi_host),
+                  f"w8a8 layer {i}: the card's int8 activations differ from "
+                  "the CPU's on the same input")
+            want = int8_conv.reference_int8_conv(xi_host, lh[0])
+            check(acc.dtype == torch.int32 and torch.equal(acc.cpu(), want),
+                  f"w8a8 layer {i}: the card's int32 accumulators differ "
+                  "from the CPU's plain product")
+            xi_cpu, _, h_cpu = w8a8_layer(h_cpu, lh)
+            flips = int((xi_cpu != xi_host).sum())
+            product_ms = time_ms(lambda: int8_conv.int8_conv2d(xi, lc[0]))
+            rows.append(f"layer {i} {tuple(xi.shape)} x {tuple(lc[0].shape)}"
+                        f": |acc| <= {int(acc.abs().max())}, "
+                        f"{flips} of {xi.numel()} int8 inputs a bin apart "
+                        f"from the CPU's own chain, int8 product "
+                        f"{product_ms:.4f} ms")
+            h = h_next
+    print(f"[serve_extras] w8a8 b={batch}: int32 accumulators equal to the "
+          "CPU's float64 product on the card's int8 inputs at every layer; "
+          + "; ".join(rows))
+
+    # 3. the quantised generators against the f32 one, on the card
+    with torch.inference_mode():
+        ref = arts["f32"]["card"].fn(x)
+        for mode, budget in EXTRAS_F32_BUDGET.items():
+            err = float((arts[mode]["card"].fn(x) - ref).abs().max())
+            check(err < budget, f"{mode} generator vs f32: {err:.3e} (limit "
+                                f"{budget})")
+            arts[mode]["vs_f32"] = err
+    print("[serve_extras] against the f32 generator at b=%d: w8 %.3e (limit "
+          "%g), w8a8 %.3e (limit %g)" % (
+              batch, arts["w8"]["vs_f32"], EXTRAS_F32_BUDGET["w8"],
+              arts["w8a8"]["vs_f32"], EXTRAS_F32_BUDGET["w8a8"]))
+
+    # 4. the conv-GAT families as w8, served; K1 and K3 as on the f32 path
+    gat = {}
+    for exp, key, per_forward in (("final_temp_conv", "gat_attention_fwd", 2),
+                                  ("final_smaatunet", "dsconv_fwd", 18)):
+        paths = {}
+        for q in ("f32", "w8"):
+            paths[q] = os.path.join(art_dir, f"{exp}_{q}.pt")
+            info = cli(["export", os.path.join(REPO, "convolutional_gat",
+                                               "experiments", exp),
+                        "--init-seed", "0", "--out", paths[q],
+                        *(["--quantize", "w8"] if q == "w8" else [])])
+            paths[q + "_bytes"] = info["nbytes"]
+        f32 = load_exported(paths["f32"])
+        counts = ops.launch_counts()[key]
+        replies = []
+        p50, inproc = http_round(paths["w8"], (batch,), repeats,
+                                 lambda xx, y: replies.append((xx, y)))
+        w8_launches = ops.launch_counts()[key] - counts
+        xx, y = replies[0]
+        counts = ops.launch_counts()[key]
+        with torch.inference_mode():
+            want = f32.fn(torch.from_numpy(xx).cuda()).cpu().numpy()
+        f32_launches = ops.launch_counts()[key] - counts
+        check(w8_launches == per_forward * 2 * repeats
+              and f32_launches == per_forward,
+              f"{exp}: {key} launched {w8_launches} times in {2 * repeats} "
+              f"w8 forwards and {f32_launches} in one f32 forward, expected "
+              f"{per_forward} a forward")
+        check(bool(np.isfinite(y).all()), f"{exp} w8: non-finite reply")
+        gap = float(np.abs(y - want).max())
+        ratio = paths["w8_bytes"] / paths["f32_bytes"]
+        gat[exp] = dict(p50=p50[batch], gap=gap, ratio=ratio,
+                        launches=w8_launches + f32_launches)
+        print(f"[serve_extras] {exp} w8 from --init-seed 0, b={batch}: HTTP "
+              f"p50 {p50[batch]:.2f} ms (in process {inproc[batch]:.2f} ms), "
+              f"max |w8 - f32| {gap:.3e}, bytes "
+              f"{paths['w8_bytes']} / {paths['f32_bytes']} = {ratio:.4f}; "
+              f"{key} {per_forward} a forward, as on the f32 path")
+
+    # 5. serve predict over final_temp_conv's synthetic test split
+    exp_dir = tempfile.mkdtemp(prefix="smoke_predict_")
+    try:
+        shutil.copy(os.path.join(REPO, "convolutional_gat", "experiments",
+                                 "final_temp_conv", "config.py"), exp_dir)
+        ftc = load_exported(os.path.join(art_dir, "final_temp_conv_f32.pt"))
+        torch.save(ftc.model.state_dict(), os.path.join(exp_dir, "model.pt"))
+        runs = {}
+        for split, index in (("test", 2), ("train", 0)):
+            loader = get_loaders(batch, batch, "", dataset="synthetic",
+                                 downsample_size=(80, 80),
+                                 shuffle=False)[index]
+            n_batches = sum(1 for _, _ in zip(range(4), loader))
+            before = k1.launch_count
+            summary = cli(["predict", exp_dir, "--split", split,
+                           "--batch-size", str(batch), "--max-batches", "4",
+                           "--downsample-size", "80", "80", "--out",
+                           os.path.join(exp_dir, f"{split}.npz")])
+            runs[split] = (summary, n_batches, k1.launch_count - before)
+    finally:
+        shutil.rmtree(exp_dir, ignore_errors=True)
+    predict_launches = 0
+    for split, (summary, n_batches, launched) in runs.items():
+        check(_finite([summary["mse"]]) and summary["samples"] > 0,
+              f"predict {split}: {summary}")
+        check(launched == 2 * n_batches, f"predict {split}: {launched} K1 "
+                                         f"launches for {n_batches} batches")
+        predict_launches += launched
+        print(f"[serve_extras] serve predict final_temp_conv (80x80, "
+              f"synthetic {split} split, b={batch}, --max-batches 4: "
+              f"{n_batches} batches): {summary['samples']} samples, "
+              f"{summary['samples_per_sec']} samples/s (host clock, loader "
+              f"and first calls included), mse {summary['mse']:.6f}, K1 "
+              f"{launched} launches")
+    secs = time.perf_counter() - t_phase
+    print(f"[serve_extras] the phase took {secs:.1f} s")
+    return dict(arts={k: {f: v for f, v in a.items() if f not in ("card",
+                                                                   "cpu")}
+                      for k, a in arts.items()},
+                gat=gat, int8_products=int8_products,
+                k1_launches=gat["final_temp_conv"]["launches"]
+                + predict_launches,
+                k3_launches=gat["final_smaatunet"]["launches"],
+                predict={k: v[0] for k, v in runs.items()}, secs=secs)
+
+
 def card_line():
     res = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -2060,7 +2377,12 @@ def main() -> int:
         train_launches = phase_train()
         k2_model = phase_mapping_model()
         family = phase_family()
-        phase_dcgan()
+        dcgan_out = tempfile.mkdtemp(prefix="smoke_dcgan_")
+        try:
+            phase_dcgan(dcgan_out)
+            extras = phase_serve_extras(dcgan_out)
+        finally:
+            shutil.rmtree(dcgan_out, ignore_errors=True)
         card = card_line()
     except SmokeFailure as e:
         print(f"chip_smoke: FAIL: {e}", file=sys.stderr)
@@ -2081,7 +2403,8 @@ def main() -> int:
             family["train"]["launched"]["gat_attention_fwd"],
         "train final_temp_smaat":
             family["cli"]["final_temp_smaat"]["gat_attention_fwd"],
-        "serve final_temp_smaat": family["serve"]}
+        "serve final_temp_smaat": family["serve"],
+        "serve final_temp_conv w8, and predict": extras["k1_launches"]}
     k1_family_bwd = {
         "final_temp_smaat train steps b=32, kernel path":
             family["train"]["launched"]["gat_attention_bwd"],
@@ -2149,11 +2472,12 @@ def main() -> int:
         "route": "cuda",
         "source": "extended_gan_torch/ops/csrc/dsconv.cu",
         "replaces": "extended_gan_tpu/ops/pallas/dsconv.py:66",
-        "launches": train_launches["dsconv_fwd"],
+        "launches": train_launches["dsconv_fwd"] + extras["k3_launches"],
         "launches_by_path": {
             "train final_smaatunet": train_launches["dsconv_fwd"],
             "unet train steps b=32, kernel path":
-                train_launches["unet_train_step"]["dsconv_fwd"]},
+                train_launches["unet_train_step"]["dsconv_fwd"],
+            "serve final_smaatunet w8": extras["k3_launches"]},
         "max_abs_err": dsc_worst,
         "ms": dsc_main["kernel_ms"],
         "kernel_ms": dsc_main["kernel_ms"],

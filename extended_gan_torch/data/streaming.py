@@ -287,12 +287,12 @@ def get_h5_loaders(data_location: str, train_batch_size: int,
 
 def get_kmni_loaders(train_batch_size: int, test_batch_size: int,
                      data_folder: str, *, crop: int | None = None,
-                     seed: int = 369):
+                     shuffle: bool = True, seed: int = 369):
     """(train, val, test) loaders; val and test both read the test split,
     as the reference does."""
     def mk(bs, sub, s):
         return KmniLoader(bs, os.path.join(data_folder, sub), crop=crop,
-                          seed=s)
+                          shuffle=shuffle, seed=s)
 
     return (mk(train_batch_size, "train", seed),
             mk(test_batch_size, "test", seed + 1),
@@ -324,15 +324,16 @@ def get_arai_loaders(train_batch_size: int, test_batch_size: int,
 def get_loaders(train_batch_size: int, test_batch_size: int,
                 preprocessed_folder: str, *, dataset: str = "kmni",
                 downsample_size: tuple[int, int] = (256, 256),
-                seed: int = 369):
+                shuffle: bool = True, seed: int = 369):
     """Dataset dispatcher for ``kmni``, ``arai`` and ``synthetic`` (a
-    synthetic KNMI archive, made on first use). The train split is
-    shuffled, as the JAX driver asks."""
+    synthetic KNMI archive, made on first use). ``shuffle`` (the JAX
+    driver's default) shuffles within each batch, and the ARAI train
+    split's file order."""
     if dataset == "arai":
         return get_arai_loaders(train_batch_size, test_batch_size,
                                 preprocessed_folder,
                                 downsample_size=downsample_size,
-                                shuffle=True, seed=seed)
+                                shuffle=shuffle, seed=seed)
     if dataset == "synthetic":
         from .synthetic import ensure_synthetic_kmni
 
@@ -341,4 +342,4 @@ def get_loaders(train_batch_size: int, test_batch_size: int,
         raise ValueError(f"unknown dataset {dataset!r}")
     return get_kmni_loaders(train_batch_size, test_batch_size,
                             preprocessed_folder, crop=downsample_size[0],
-                            seed=seed)
+                            shuffle=shuffle, seed=seed)

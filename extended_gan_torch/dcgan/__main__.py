@@ -6,8 +6,9 @@ The flags mirror ``python -m dcgan``'s; those of its options that are not
 ported yet (mesh, FSDP, SP, megastep, resident, resume, bf16, the step
 variants, profiling, multi-host) are absent. ``--device`` picks the device:
 the CUDA card by default, ``cpu`` on request. A missing archive falls back
-to a synthetic one. ``history.json`` goes to ``--out-dir`` (default:
-nowhere).
+to a synthetic one. ``history.json`` and the checkpoints (``checkpoints/``,
+which ``python -m extended_gan_torch.serve export --workload dcgan`` reads)
+go to ``--out-dir`` (default: nowhere).
 """
 
 from __future__ import annotations
@@ -31,10 +32,12 @@ def main(argv=None):
     parser.add_argument("--synthetic", action="store_true",
                         help="force the synthetic dataset")
     parser.add_argument("--out-dir", type=str, default=None,
-                        help="where history.json goes (default: nowhere)")
+                        help="where history.json and checkpoints/ go "
+                             "(default: nowhere)")
     parser.add_argument("--save-epoch", type=int, default=None,
-                        help="write history.json every N epochs (the "
-                             "reference's params['save_epoch'] = 2)")
+                        help="checkpoint and write history.json every N "
+                             "epochs and at the last (the reference's "
+                             "params['save_epoch'] = 2; 0: never)")
     parser.add_argument("--device", default=None,
                         help="default: the CUDA card; 'cpu' to train on the "
                              "CPU")

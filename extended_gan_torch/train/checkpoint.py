@@ -1,0 +1,196 @@
+"""Checkpointing (port of the parts of ``extended_gan_tpu/train/checkpoint.py``
+that serving needs: the save side and ``restore``).
+
+Two tiers, as in the JAX package:
+
+- :func:`save_model` / :func:`load_model`: weights-only snapshots, a
+  ``torch.save`` of ``{"schema", "state_dict"}``. A bare state_dict (the
+  conv-GAT driver's ``model.pt``) reads as schema v1.
+- :class:`CheckpointManager`: the full train state, one ``torch.save`` file
+  a step under its directory, the newest ``max_to_keep`` kept, and a
+  ``schema.json`` sidecar.
+
+Both carry ``SCHEMA_VERSION`` and refuse a version from the future. The
+JAX package writes Orbax directories, which the port cannot read; a GAN
+checkpoint here holds the three nets' state_dicts (BatchNorm running
+statistics included), their three Adam states, ``epoch``, the state of the
+driver's seeded dropout generator and a zeroed v3 ``mid``. Resuming from
+it, mid-epoch snapshots, preemption, precision and the PRNG module are not
+ported yet (ROADMAP queue 1 item 6).
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import re
+from typing import Any
+
+import torch
+
+SCHEMA_VERSION = 3
+_SIDECAR = "schema.json"
+_STEP_FILE = re.compile(r"^step_(\d+)\.pt$")
+
+# checkpoint step numbering: epoch e, b batches in => e * STRIDE + b. The
+# completion of epoch e is the start of epoch e + 1 => (e + 1) * STRIDE,
+# which sorts above any mid-epoch snapshot of epoch e.
+MID_EPOCH_STRIDE = 100_000
+
+
+def ckpt_step(epoch: int, batch: int = 0) -> int:
+    """Step id of a snapshot taken ``batch`` batches into ``epoch``
+    (``batch=0`` is the epoch's start, the previous epoch's end)."""
+    if not 0 <= batch < MID_EPOCH_STRIDE:
+        raise ValueError(f"batch {batch} outside [0, {MID_EPOCH_STRIDE})")
+    return epoch * MID_EPOCH_STRIDE + batch
+
+
+def empty_mid() -> dict:
+    """The v3 ``mid`` subtree, zeroed (an epoch-boundary checkpoint):
+    ``batch`` train batches consumed in the epoch being resumed, and the
+    epoch's partial (numerator, denominator) metric accumulators."""
+    return {
+        "batch": torch.tensor(0, dtype=torch.int64),
+        "mse": torch.zeros(2, dtype=torch.float64),
+        "fd_acc": torch.zeros(2, dtype=torch.float64),
+        "td_acc": torch.zeros(2, dtype=torch.float64),
+    }
+
+
+def _cast_like(template: Any, restored: Any) -> Any:
+    """Cast restored tensors to the template's dtypes where the template
+    has a tensor at the same place (cross-precision restore)."""
+    if isinstance(restored, torch.Tensor):
+        if isinstance(template, torch.Tensor) and \
+                template.dtype != restored.dtype:
+            return restored.to(template.dtype)
+        return restored
+    if isinstance(restored, dict):
+        tmpl = template if isinstance(template, dict) else {}
+        return {k: _cast_like(tmpl.get(k), v) for k, v in restored.items()}
+    if isinstance(restored, (list, tuple)):
+        tmpl = template if isinstance(template, (list, tuple)) and \
+            len(template) == len(restored) else [None] * len(restored)
+        return type(restored)(_cast_like(t, r) for t, r in zip(tmpl,
+                                                               restored))
+    return restored
+
+
+def _check_version(version: int, where: str):
+    if version > SCHEMA_VERSION:
+        raise ValueError(
+            f"{where} was written with checkpoint schema v{version}, but "
+            f"this build only understands <= v{SCHEMA_VERSION}. Upgrade the "
+            "framework to restore it.")
+
+
+def tree_to_cpu(tree: Any) -> Any:
+    """Every tensor of a tree of dicts, lists and tuples as a contiguous CPU
+    copy, so ``torch.save`` writes only its own elements."""
+    if isinstance(tree, torch.Tensor):
+        return tree.detach().cpu().contiguous()
+    if isinstance(tree, dict):
+        return {k: tree_to_cpu(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(tree_to_cpu(v) for v in tree)
+    return tree
+
+
+# --------------------------------------------------------------- model-only
+def save_model(path: str, state_dict: dict):
+    os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+    torch.save({"schema": SCHEMA_VERSION, "state_dict": tree_to_cpu(state_dict)},
+               path)
+
+
+def load_model(path: str, template_state_dict: dict | None = None) -> dict:
+    """The state_dict of a snapshot, cast to the template's dtypes."""
+    raw = torch.load(path, map_location="cpu", weights_only=True)
+    if "schema" in raw and "state_dict" in raw:
+        version, state = int(raw["schema"]), raw["state_dict"]
+    else:  # v1: a bare state_dict
+        version, state = 1, raw
+    _check_version(version, path)
+    return _cast_like(template_state_dict, state)
+
+
+# ------------------------------------------------------------- full state
+class CheckpointManager:
+    """Full-train-state checkpoints (``step_{N}.pt``) with keep-N
+    rotation."""
+
+    def __init__(self, directory: str, *, max_to_keep: int = 3):
+        self._dir = os.path.abspath(directory)
+        self.max_to_keep = max_to_keep
+        os.makedirs(self._dir, exist_ok=True)
+        _check_version(self.sidecar_version(), self._dir)
+
+    def sidecar_version(self) -> int:
+        """Schema version the directory was last written with (1 without a
+        sidecar)."""
+        path = os.path.join(self._dir, _SIDECAR)
+        if not os.path.exists(path):
+            return 1
+        with open(path) as f:
+            return int(json.load(f).get("schema_version", 1))
+
+    def _path(self, step: int) -> str:
+        return os.path.join(self._dir, f"step_{step}.pt")
+
+    def all_steps(self) -> list[int]:
+        return sorted(int(m.group(1)) for m in map(_STEP_FILE.match,
+                                                   os.listdir(self._dir))
+                      if m)
+
+    def latest_step(self) -> int | None:
+        steps = self.all_steps()
+        return steps[-1] if steps else None
+
+    def save(self, step: int, state: Any):
+        tmp = self._path(step) + ".tmp"
+        torch.save(tree_to_cpu(state), tmp)
+        os.replace(tmp, self._path(step))  # a reader never sees half a file
+        with open(os.path.join(self._dir, _SIDECAR), "w") as f:
+            json.dump({"schema_version": SCHEMA_VERSION,
+                       "format": "torch.save"}, f)
+        for old in self.all_steps()[:-self.max_to_keep]:
+            os.remove(self._path(old))
+
+    def restore(self, template: Any, step: int | None = None):
+        """Restore ``step`` (default: the latest), its tensors cast to the
+        template's dtypes; None when the directory holds no step."""
+        step = self.latest_step() if step is None else step
+        if step is None:
+            return None
+        _check_version(self.sidecar_version(), self._dir)
+        restored = torch.load(self._path(step), map_location="cpu",
+                              weights_only=True)
+        return _cast_like(template, restored)
+
+
+def gan_restore_template(mgr: CheckpointManager, states, key_state):
+    """Restore template of a GAN checkpoint directory, matching the schema
+    version it was written with (v3 adds ``mid``)."""
+    template = {"states": states, "epoch": 0, "key": key_state}
+    if mgr.sidecar_version() >= 3:
+        template["mid"] = empty_mid()
+    return template
+
+
+def gan_states(nets, opts) -> dict:
+    """The three nets' state_dicts and their optimizers' states, keyed as
+    the JAX package's ``GANStates``: ``g``, ``fd``, ``td``."""
+    return {name: {"model": net.state_dict(), "optimizer": opt.state_dict()}
+            for name, net, opt in zip(("g", "fd", "td"), nets, opts)}
+
+
+def setup_gan_checkpointing(out_dir: str | None, *, save_epoch: int
+                            ) -> CheckpointManager | None:
+    """The save side of the JAX package's shared dcgan/cyclegan block: a
+    manager over ``<out_dir>/checkpoints`` keeping 2, when ``out_dir`` is
+    set and ``save_epoch`` asks for checkpoints."""
+    if not (out_dir and save_epoch):
+        return None
+    return CheckpointManager(os.path.join(out_dir, "checkpoints"),
+                             max_to_keep=2)

@@ -8,12 +8,14 @@ epoch``) over the archive's ``train`` and ``test`` folders, then per epoch
 the train steps, the eval pass, the results printed as JSON and appended
 to the history. A missing archive falls back to a synthetic one.
 
-Checkpoints are not ported yet (ROADMAP queue 1 item 6): where the JAX
-driver would write one (every ``save_epoch`` epochs and at the last), the
-port writes ``history.json``, and only under ``out_dir``; with no
+Every ``save_epoch`` epochs and at the last, the driver writes a
+checkpoint under ``<out_dir>/checkpoints`` (``train/checkpoint.py``,
+keeping 2, as the JAX driver does: the three nets with their BatchNorm
+statistics, the three Adam states, the epoch, the dropout generator's
+state) and ``history.json``, and only under ``out_dir``; with no
 ``out_dir`` it writes nothing (the JAX driver's default, the repo's own
-``dcgan/``, holds a committed history). The figures and plots are not
-ported. The JAX driver's mesh, tensor/sequence/FSDP parallelism, megastep,
+``dcgan/``, holds a committed history). Resuming from a checkpoint is not
+ported (ROADMAP queue 1 item 6). The figures and plots are not ported. The JAX driver's mesh, tensor/sequence/FSDP parallelism, megastep,
 resident data, bf16, resume, profiling and its step variants (fused_disc,
 fused_prop, packed_g) are not ported yet: a keyword that sets one of them
 raises, naming the ROADMAP item that ports it.
@@ -32,6 +34,12 @@ from ..data.streaming import get_h5_loaders
 from ..data.synthetic import ensure_synthetic_h5
 from ..models.dcgan import FrameDiscriminator, Generator, TemporalDiscriminator
 from ..utils.history import TrainingHistory
+from .checkpoint import (
+    ckpt_step,
+    empty_mid,
+    gan_states,
+    setup_gan_checkpointing,
+)
 from .dcgan_trainer import (
     make_dcgan_eval_step,
     make_dcgan_train_step,
@@ -114,8 +122,8 @@ def train(*, data_location: str | None = None, epochs: int | None = None,
     eval_step = make_dcgan_eval_step(*nets)
     history = TrainingHistory()
     save_epoch = int(params.get("save_epoch") or 0)
-    if save_epoch:
-        print("checkpoints are not ported (ROADMAP queue 1 item 6)")
+    ckpt_mgr = setup_gan_checkpointing(out_dir, save_epoch=save_epoch)
+    dropout_generator = nets[0].ConvBlock_0.dropout_generator
     for epoch in range(1, params["nepochs"] + 1):
         train_loader, test_loader = get_h5_loaders(
             data_location, train_batch_size, test_batch_size,
@@ -129,8 +137,11 @@ def train(*, data_location: str | None = None, epochs: int | None = None,
         results |= test(test_loader, eval_step, dev)
         print(json.dumps(results, indent=4))
         history.append(results)
-        if out_dir and save_epoch and (epoch % save_epoch == 0
-                                       or epoch == params["nepochs"]):
-            os.makedirs(out_dir, exist_ok=True)
+        if ckpt_mgr is not None and (epoch % save_epoch == 0
+                                     or epoch == params["nepochs"]):
+            # an epoch-boundary snapshot is the start of epoch + 1
+            ckpt_mgr.save(ckpt_step(epoch + 1, 0), {
+                "states": gan_states(nets, opts), "epoch": epoch,
+                "key": dropout_generator.get_state(), "mid": empty_mid()})
             history.to_json(os.path.join(out_dir, "history.json"))
     return nets, history

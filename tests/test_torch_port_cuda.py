@@ -577,3 +577,53 @@ def test_dcgan_train_step_on_the_card_matches_the_cpu(cuda_device):
         largest = max(w.abs().max().item() for w in want)
         gap = max((g - w).abs().max().item() for g, w in zip(got, want))
         assert gap <= 2e-2 * largest, (gap, largest)
+
+
+# (Cin, Cout) of the DCGAN generator's five convs at nc = 4
+GEN_LAYERS = [(4, 32), (32, 16), (16, 8), (8, 4), (4, 4)]
+
+
+@pytest.mark.parametrize("cin,cout", GEN_LAYERS)
+def test_int8_conv_on_the_card_equals_its_plain_version(cuda_device, cin,
+                                                        cout):
+    """The w8a8 product at the generator's layer shapes, b=32, 64x64:
+    int8 in, int32 out, exactly the plain version's accumulators (the last
+    two layers' Cout = 4 padded to 8 for ``_int_mm``)."""
+    from extended_gan_torch.ops import int8_conv
+
+    gen = torch.Generator(device=cuda_device).manual_seed(cin * 100 + cout)
+    x = torch.randint(-127, 128, (32, 64, 64, cin), dtype=torch.int8,
+                      device=cuda_device, generator=gen)
+    w = torch.randint(-127, 128, (4, 4, cin, cout), dtype=torch.int8,
+                      device=cuda_device, generator=gen)
+    before = int8_conv.launch_count
+    got = int8_conv.int8_conv2d(x, w)
+    assert int8_conv.launch_count == before + 1
+    assert got.dtype == torch.int32 and got.device.type == "cuda"
+    want = int8_conv.reference_int8_conv(x.cpu(), w.cpu())
+    assert torch.equal(got.cpu(), want)
+
+
+def test_w8_gat3d_forward_launches_k1_as_the_f32_one(cuda_device):
+    """A w8 GAT3D artifact dequantises into the model at load: its forward
+    launches K1 twice, as the f32 forward does, and stays within the
+    weights' rounding of it."""
+    from extended_gan_torch.serve.export import build_forward
+    from extended_gan_torch.serve.quantize import quantize_state_dict_w8
+
+    spec = dict(workload="gat", model_type="temporal", mapping_type="conv",
+                image_width=8, image_height=8, n_vertices=6, time_steps=4)
+    f32 = build_model("temporal", image_width=8, image_height=8,
+                      n_vertices=6, mapping_type="conv", device=cuda_device,
+                      generator=torch.Generator().manual_seed(0))
+    packed, _ = quantize_state_dict_w8(f32.state_dict())
+    w8, _ = build_forward({**spec, "quantize": "w8"}, packed, cuda_device)
+    x = torch.rand(4, 8, 8, 4, 6, device=cuda_device)
+    with torch.inference_mode(), torch.backends.cudnn.flags(
+            enabled=True, allow_tf32=False):
+        before = k1.launch_count
+        want = f32(x)
+        assert k1.launch_count == before + 2
+        got = w8(x)
+        assert k1.launch_count == before + 4
+    assert 0 < (got - want).abs().max().item() < 5e-2

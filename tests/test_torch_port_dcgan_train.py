@@ -13,7 +13,8 @@
   short last batch. ``.h5`` files read where h5py is installed and raise
   the named error where it is not.
 - ``python -m extended_gan_torch.dcgan`` on the CPU: finite results,
-  ``history.json`` under ``--out-dir`` and nowhere else; the JAX driver's
+  ``history.json`` and ``checkpoints/`` under ``--out-dir`` and nowhere
+  else (``tests/test_torch_port_checkpoint.py`` reads them); the JAX driver's
   unported keywords raise, naming their ROADMAP item; without a card the
   default device raises.
 """
@@ -199,7 +200,7 @@ def test_cli_trains_on_the_cpu(tmp_path, monkeypatch):
                for v in history.history.values())
     assert "pred_mse" in history.history and "train_mse" in history.history
     assert sorted(os.listdir(tmp_path)) == ["out"]
-    assert sorted(os.listdir(out)) == ["history.json"]
+    assert sorted(os.listdir(out)) == ["checkpoints", "history.json"]
     saved = TrainingHistory.from_json(str(out / "history.json")).history
     assert saved == history.history
     assert _tree_digest(os.path.join(REPO, "dcgan")) == before

@@ -194,7 +194,7 @@ def test_export_cli_init_seed_defaults_to_config_size(tmp_path):
 
 
 @pytest.mark.parametrize("argv,match", [
-    (["--quantize", "w8"], "ROADMAP"),
+    (["--workload", "cyclegan"], "ROADMAP"),
     (["--rollout", "0"], "rollout"),
     (["--rollout-final"], "rollout-final"),
 ])
