@@ -105,14 +105,44 @@ Phases, each fatal on failure (non-zero exit, no result line):
              f32 path); ``serve predict`` over final_temp_conv's synthetic
              test split (17 windows: one batch) and 4 batches of its train
              split (samples/s, K1 2 launches a batch).
-10. report - the total time, the ``kernels`` JSON line, the card's name and
+10. megastep - K = 8 train steps a CUDA graph and the archive resident on
+             the card: a synthetic KNMI archive at the published geometry
+             (20 train files of 96 frames of 80x80x6, 295 MB resident, 2
+             test files); ``python -m extended_gan_torch.gat train`` of
+             final_temp_conv's model with ``--resident --megastep 8
+             --max-batches 16`` (2 programs, launches by the replay rule);
+             in process, graph against eager over 3 programs (final state
+             and, apart, ``*_nd`` logs, each tensor within MEGA_LIMIT of
+             its scale, cuDNN deterministic on both sides; where the
+             UNet's upsampling adds with atomics, within 10x the eager
+             runs' own drift, and eager runs with a planted fault, a
+             replayed program's first or last optimizer step skipped or
+             its last BatchNorm update missed, must fail that test; each
+             replayed program from the graph's own state before it), ms a
+             step eager against graph, one replay
+             profiled (busy time, kernels, the port's kernels by name equal
+             to the launch counters) and the graph pool's bytes, for
+             final_temp_conv resident (K1 2 + 2 a step in the graph), the
+             same with use_pallas_mapping=True (K2 2 + 2 too),
+             final_smaatunet (K3 18 + 18), final_temp_smaat (K1 4 + 4, K =
+             4 steps a graph) and the published DCGAN resident with
+             dropout 0; with dropout 0.01, two replays from one state
+             differ; ``python -m extended_gan_torch.dcgan --resident
+             --megastep 8`` on a 1,024-frame archive; both CLIs with
+             ``--megastep 8`` streaming (not resident) for one epoch whose
+             tail group is shorter and whose ragged batches are padded
+             (2 graphs captured), against the same epoch with the K steps
+             run eagerly.
+11. report - the total time, the ``kernels`` JSON line, the card's name and
              power limit, and the last line ``{"ok": true, "device":
              {...}}``.
 """
 
 from __future__ import annotations
 
+import contextlib
 import io
+import itertools
 import json
 import os
 import re
@@ -2342,6 +2372,730 @@ def phase_serve_extras(out, batch=32, repeats=10):
                 predict={k: v[0] for k, v in runs.items()}, secs=secs)
 
 
+MEGA_K = 8
+# graph against eager over the same programs: the same kernels in the same
+# order, so the gap should be 0; the limit, relative to each tensor's
+# largest entry
+MEGA_LIMIT = 1e-6
+
+
+def _planted_faults(k):
+    """The faults planted in the first replayed program (its K steps are
+    train steps K + 1 to 2K) to show that the test a graph is held to
+    catches them: (kind, step) for :func:`_planted`."""
+    return {"its first optimizer step skipped": ("step", k + 1),
+            "its last optimizer step skipped": ("step", 2 * k),
+            "its last BatchNorm update missed": ("bn", 2 * k)}
+
+
+# the port's kernels by their profiler names, one main kernel a launch
+KERNEL_NAMES = {
+    "gat_attention_fwd": ("gat_attention_cluster_fwd_kernel",
+                          "gat_attention_fwd_kernel"),
+    "gat_attention_bwd": ("gat_attention_cluster_bwd_kernel",),
+    "dsconv_fwd": ("dsconv_fwd_kernel",),
+    "dsconv_bwd": ("dsconv_bwd_kernel",),
+    "gat_mapping_fwd": ("gat_mapping_fwd_kernel",),
+    "gat_mapping_bwd": ("gat_mapping_bwd_kernel",),
+}
+
+
+def _reset_launches():
+    from extended_gan_torch import ops
+
+    ops.add_launches(ops.launch_counts(), -1)
+
+
+def _train_state(modules, opts):
+    """Every tensor a train step writes: parameters, buffers (BatchNorm's
+    statistics) and the optimizers' state."""
+    import torch
+
+    ts = [t for m in modules
+          for t in itertools.chain(m.parameters(), m.buffers())]
+    return ts + [v for o in opts for st in o.state.values()
+                 for v in st.values() if torch.is_tensor(v)]
+
+
+def _shapes(inputs):
+    return tuple(tuple(x.shape) for x in inputs)
+
+
+def _planted(make, fault, n):
+    """``make()`` with a fault planted in its ``n``-th train step:
+    ``"step"`` skips that step's optimizer step, ``"bn"`` leaves every
+    BatchNorm's running statistics as they were before it."""
+    import torch
+
+    mega, mods, opts = make()
+    bns = [m for mod in mods for m in mod.modules()
+           if isinstance(m, torch.nn.modules.batchnorm._BatchNorm)]
+    for opt in opts:
+        calls = [0]
+
+        def step(*args, _step=opt.step, _calls=calls, **kw):
+            _calls[0] += 1
+            if fault == "bn" and _calls[0] == n - 1:
+                for m in bns:
+                    m.momentum = 0.0
+            if fault == "step" and _calls[0] == n:
+                return None
+            return _step(*args, **kw)
+        opt.step = step
+    return mega, mods, opts
+
+
+def _profile_call(fn, steps):
+    """One call of ``fn`` under the profiler: device busy ms a step, kernels
+    in the call, and how many of each of the port's kernels it recorded."""
+    import torch
+
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+
+    def dev_us(e):
+        return getattr(e, "self_device_time_total",
+                       getattr(e, "self_cuda_time_total", 0.0))
+    events = [e for e in prof.key_averages()
+              if e.device_type == torch.autograd.DeviceType.CUDA
+              and dev_us(e) > 0 and not getattr(e, "is_user_annotation",
+                                                 False)]
+    launches = {k: sum(e.count for e in events
+                       if any(re.search(rf"\b{n}[<(]", e.key) for n in names))
+                for k, names in KERNEL_NAMES.items()}
+    return dict(busy_ms=sum(dev_us(e) for e in events) / 1e3 / steps,
+                wall_ms=wall_ms, kernels=sum(e.count for e in events),
+                launches={k: n for k, n in launches.items() if n})
+
+
+def _graph_kernels(graph):
+    """How many nodes of each of the port's kernels a CUDA graph (captured
+    with ``keep_graph``) holds (its Graphviz dump, each node's body searched
+    for the kernel's name, mangled or not), and one kernel node's text."""
+    import tempfile
+
+    fd, path = tempfile.mkstemp(suffix=".dot")
+    os.close(fd)
+    try:
+        graph.debug_dump(path)
+        with open(path, errors="replace") as f:
+            text = f.read()
+    finally:
+        os.unlink(path)
+    nodes = re.findall(r'"graph_\d+_node_\d+"\s*\[(.*?)\];', text, re.S)
+    counts = {key: sum(any(n in body for n in names) for body in nodes)
+              for key, names in KERNEL_NAMES.items()}
+    sample = next((b for b in nodes if "KERNEL" in b.upper()), text[:400])
+    return {key: c for key, c in counts.items() if c}, len(nodes), sample
+
+
+def _pool_bytes(pool):
+    """Bytes of the allocator's segments in a graph's private pool, or None
+    where the snapshot does not say which pool a segment is in."""
+    import torch
+
+    segs = [s for s in torch.cuda.memory_snapshot() if "segment_pool_id" in s]
+    if not segs:
+        return None
+    return sum(s["total_size"] for s in segs
+               if tuple(s["segment_pool_id"]) == tuple(pool))
+
+
+def graph_against_eager(label, make, programs, card, *, atomics=False,
+                        profile_eager=True):
+    """``make()`` -> (megastep, modules, optimizers), fresh from one seed.
+
+    The same programs through a megastep (the first eager, the second
+    captured and replayed, the rest replayed) and, each replayed program,
+    through K eager steps on a twin from the state the megastep had before
+    it, cuDNN deterministic. After each program the parameters, buffers
+    and optimizer state, and apart from them the program's ``*_nd`` logs,
+    are held by ``utils.compare.held_to_reference`` to MEGA_LIMIT, each
+    tensor in units of its scale. With ``atomics`` (the model has an op
+    that adds with atomics in a run-dependent order, so that two runs
+    drift apart step by step) four more twins give the eager path's own
+    run-to-run drift over the same K steps, the widest of their samples
+    each tensor's and the whole state's, and the graph is held to 10 times
+    that where it is larger;
+    and twins with a fault planted in the first replayed program
+    (:func:`_planted_faults`) must fail that same test. Then, on a fresh
+    copy captured under the default flags (exact f32): the ms a step
+    eager against graph (two programs at a time, in turns: eager, graph,
+    graph, eager), one replay and (with ``profile_eager``) one eager
+    program profiled (busy time, kernels, the port's kernels by name), the
+    port's kernels among the graph's own nodes held equal to the launch
+    counters and the profiler's records to at most them, and the graph
+    pool's bytes."""
+    import torch
+
+    from extended_gan_torch import ops
+    from extended_gan_torch.utils.compare import (
+        drift,
+        held_to_reference,
+        widest,
+    )
+
+    k = programs[0][0].shape[0]
+
+    def nd_logs(logs):
+        return [logs[n] for n in logs if n.endswith("_nd")]
+
+    with torch.backends.cudnn.flags(enabled=True, allow_tf32=False,
+                                    deterministic=True):
+        mega, mods, opts = make()
+        before = ops.launch_counts()
+        after, logs_g = [], []  # the state after each program, its logs
+        for p in programs:
+            logs_g.append(nd_logs(mega(*p)))
+            after.append([t.detach().clone()
+                          for t in _train_state(mods, opts)])
+        torch.cuda.synchronize()
+        launched = {n: c - before[n] for n, c in ops.launch_counts().items()
+                    if c != before[n]}
+        check(mega.captures == 1 and mega.replays == len(programs) - 1,
+              f"{label}: {mega.captures} captures and {mega.replays} "
+              f"replays for {len(programs)} programs")
+        del mega, mods, opts
+
+        def eager_from(maker, n_programs):
+            """Each program from the 2nd on, as K eager steps on a twin
+            from the state the graph's run had before it: (state, logs)
+            after each."""
+            twin, tmods, topts = maker()
+            twin.eager(*programs[0])  # builds the optimizers' state
+            out = []
+            for i in range(1, n_programs):
+                with torch.no_grad():
+                    for t, s in zip(_train_state(tmods, topts),
+                                    after[i - 1]):
+                        t.copy_(s)
+                logs = nd_logs(twin.eager(*programs[i]))
+                out.append(([t.detach().clone()
+                             for t in _train_state(tmods, topts)], logs))
+            return out
+
+        want = eager_from(make, len(programs))
+        # the run-to-run drift: four more twins, every replayed program,
+        # the widest of the eight samples tensor by tensor (state and logs;
+        # fewer let a small tensor's floor read far below its typical size)
+        floors = (None, None)
+        if atomics:
+            runs = [eager_from(make, len(programs)) for _ in range(4)]
+            floors = tuple(widest(drift(run[i][j], want[i][j])
+                                  for run in runs for i in range(len(want)))
+                           for j in (0, 1))
+        verdicts = [[held_to_reference(g, w, f, limit=MEGA_LIMIT)
+                     for g, w, f in zip((after[i + 1], logs_g[i + 1]), wi,
+                                        floors)]
+                    for i, wi in enumerate(want)]
+        planted = {}
+        if atomics:  # in the first replayed program
+            for fault, (kind, n) in _planted_faults(k).items():
+                (bad, _), = eager_from(
+                    lambda kind=kind, n=n: _planted(make, kind, n), 2)
+                planted[fault] = held_to_reference(bad, want[0][0],
+                                                   floors[0],
+                                                   limit=MEGA_LIMIT)
+    check(all(bool(t.isfinite().all()) for t in after[-1]),
+          f"{label}: non-finite state after the graph's steps")
+    check(all(v["ok"] for pair in verdicts for v in pair),
+          f"{label}: graph against eager, each replayed program from the "
+          f"same state: {verdicts} (state, logs; worst: the largest gap "
+          f"over its bound; limit {MEGA_LIMIT:.0e}"
+          + (", or 10x eager against eager" if atomics else "") + ")")
+    for fault, v in planted.items():
+        check(not v["ok"], f"{label}: eager with a planted fault ({fault}) "
+                           f"passes the test the graph is held to: {v}")
+    st = {key: max(pair[0][key] for pair in verdicts)
+          for key in ("gap", "worst", "floor")}
+    lg = {key: max(pair[1][key] for pair in verdicts)
+          for key in ("gap", "worst", "floor")}
+    same = all(v["bitwise"] for pair in verdicts for v in pair)
+    gap, log_gap = st["gap"], lg["gap"]
+    floor_note = ""
+    if atomics:
+        floor_note = (
+            f"; eager against eager, the run-to-run floor: {st['floor']:.3e}"
+            f" (state), {lg['floor']:.3e} (logs), each tensor held to 10x "
+            f"its own and the whole's: the graph at {st['worst']:.3f} "
+            f"(state), {lg['worst']:.3f} (logs) of its bound; planted "
+            "faults at "
+            + ", ".join(f"{v['worst']:.1f} ({f})"
+                        for f, v in planted.items())
+            + " of theirs")
+    del after, want
+    times = {"eager": [], "graph": []}
+    with torch.backends.cudnn.flags(enabled=True, allow_tf32=False):
+        mega, _, _ = make()
+        mega.keep_graphs = True  # for the graph's Graphviz dump
+        torch.cuda.reset_peak_memory_stats()
+        mega(*programs[0])  # eager
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        mega(*programs[1])  # captured and replayed
+        torch.cuda.synchronize()
+        capture_s = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated()
+        for kind in ("eager", "graph", "graph", "eager"):
+            fn = mega.eager if kind == "eager" else mega
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for p in programs[:2]:
+                fn(*p)
+            torch.cuda.synchronize()
+            times[kind].append((time.perf_counter() - t0) * 1e3 / (2 * k))
+        entry = mega.graphs[_shapes(programs[0])]
+        per_replay = dict(entry.launches)
+        before = ops.launch_counts()
+        prof_g = _profile_call(lambda: mega(*programs[0]), k)
+        counted = {n: c - before[n] for n, c in ops.launch_counts().items()
+                   if c != before[n]}
+        # the profiler now and then drops a kernel's record (PERF.md §7: 9
+        # of 10 K2 forwards over 5 eager forwards; in a process that has
+        # profiled for minutes, 15 of 16 K2 forwards, 142 of 144 K3
+        # forwards, 2,403 of 2,418 kernels of 8 eager steps, on an NVIDIA
+        # H100 80GB HBM3 at 700 W): where a session records fewer
+        # launches than the counters, a replay is profiled again, at most
+        # twice. The graph's own node list is held to the counters exactly;
+        # the profiler's most in any session must see every kernel of the
+        # port, and never more than the counters
+        sessions = [prof_g["launches"]]
+        while len(sessions) < 3 and any(
+                max(s.get(n, 0) for s in sessions) < c
+                for n, c in per_replay.items()):
+            sessions.append(
+                _profile_call(lambda: mega(*programs[0]), k)["launches"])
+        recorded = {n: max(s.get(n, 0) for s in sessions)
+                    for n in set().union(*sessions)}
+        prof_e = (_profile_call(lambda: mega.eager(*programs[0]), k)
+                  if profile_eager else None)
+    check(counted == per_replay,
+          f"{label}: a replay moved the launch counters by {counted}, the "
+          f"capture recorded {per_replay}")
+    in_graph, n_nodes, sample = _graph_kernels(entry.graph)
+    check(in_graph == per_replay,
+          f"{label}: the graph holds {in_graph} of the port's kernels in "
+          f"{n_nodes} nodes, the launch counters {per_replay} a replay; a "
+          f"kernel node reads:\n{sample[:600]}")
+    check(set(recorded) == set(per_replay)
+          and all(0 < recorded[n] <= c for n, c in per_replay.items()),
+          f"{label}: the profiler records {sessions} of the port's kernels "
+          f"in {len(sessions)} replays, the launch counters {per_replay} a "
+          "replay")
+    pool = _pool_bytes(mega._pool)
+    eager_ms = statistics.mean(times["eager"])
+    graph_ms = statistics.mean(times["graph"])
+    print(f"[megastep] {label}, K={k}: graph against eager over "
+          f"{len(programs)} programs: state {gap:.3e}, logs {log_gap:.3e} "
+          f"(limit {MEGA_LIMIT:.0e}; bitwise equal: "
+          f"{'yes' if same else 'no'}{floor_note}); ms a step eager "
+          f"{eager_ms:.3f} ({times['eager'][0]:.3f}, {times['eager'][1]:.3f}),"
+          f" graph {graph_ms:.3f} ({times['graph'][0]:.3f}, "
+          f"{times['graph'][1]:.3f}); device busy {prof_g['busy_ms']:.4f} ms "
+          f"a step in a replay ("
+          + (f"{prof_e['busy_ms']:.4f}" if prof_e else "not profiled")
+          + f" eager), {prof_g['kernels']} kernels a replay ("
+          + (f"{prof_e['kernels']}" if prof_e else "not profiled")
+          + f" in {k} eager steps); the port's kernels in the graph "
+          f"({n_nodes} nodes) {in_graph or 'none'} = the launch counters, "
+          f"recorded by the profiler {recorded or 'none'}"
+          + (f" (the most of {len(sessions)} sessions: {sessions})"
+             if len(sessions) > 1 else "") + "; graph "
+          f"pool {'not measured' if pool is None else f'{pool / 2**20:.1f} MiB'}"
+          f", peak allocated {peak / 2**20:.1f} MiB; capture and first "
+          f"replay {capture_s:.2f} s; {card}")
+    return dict(launched=launched, in_graph=in_graph,
+                profiled=recorded, gap=gap, log_gap=log_gap,
+                bitwise=same, floor=st["floor"],
+                worst=st["worst"],
+                planted={f: v["worst"] for f, v in planted.items()},
+                eager_ms=eager_ms,
+                graph_ms=graph_ms, busy_ms=prof_g["busy_ms"],
+                kernels=prof_g["kernels"], per_replay=per_replay,
+                pool_bytes=pool, peak_bytes=peak, capture_s=capture_s)
+
+
+def phase_megastep(tmp, batch=32, hw=80):
+    """K train steps a CUDA graph and the archive resident on the card
+    (``train/megastep.py``, ``data/resident.py``), K = 8, full width:
+
+    - a synthetic KNMI archive at the published geometry (20 train files
+      of 96 frames of 80x80x6, 2 test files), resident on the card;
+    - ``python -m extended_gan_torch.gat train`` of final_temp_conv's model
+      with ``--resident --megastep 8 --max-batches 16`` (2 programs: the
+      first eager, the second captured and replayed; launch counts from
+      the launch rule);
+    - in process, graph against eager (:func:`graph_against_eager`) for
+      final_temp_conv resident (K1 in the graph), the same with
+      ``use_pallas_mapping=True`` (K1 and K2), final_smaatunet and
+      final_temp_smaat (K = 4) from staged batches (K3 18 + 18 a step;
+      K1 4 + 4) and the published DCGAN resident with dropout 0;
+    - ``python -m extended_gan_torch.dcgan --resident --megastep 8
+      --max-batches 16`` on a 1,024-frame archive, and the DCGAN with
+      dropout 0.01: two replays from the same state and inputs draw
+      different masks (the generator advances across replays)."""
+    import torch
+
+    from extended_gan_torch import ops
+    from extended_gan_torch.data.resident import (
+        ResidentVideos,
+        make_dcgan_resident_megastep,
+        make_gat_resident_megastep,
+    )
+    from extended_gan_torch.data.synthetic import (
+        ensure_synthetic_h5,
+        make_kmni_dataset,
+    )
+    from extended_gan_torch.dcgan.__main__ import main as dcgan_cli
+    from extended_gan_torch.gat.__main__ import main as gat_cli
+    from extended_gan_torch.models.gat.gat3d import Model as GatModel
+    from extended_gan_torch.models.registry import build_model
+    from extended_gan_torch.train.dcgan_driver import (
+        DEFAULT_PARAMS,
+        build_dcgan,
+    )
+    from extended_gan_torch.train.gat_trainer import make_gat_megastep
+    from extended_gan_torch.train.optim import make_optimizer
+    from extended_gan_torch.utils.compare import held_to_reference
+
+    t_phase = time.perf_counter()
+    card = card_line()
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    k = MEGA_K
+    t0 = time.perf_counter()
+    knmi = make_kmni_dataset(os.path.join(tmp, "knmi"), n_train_files=20,
+                             n_test_files=2, frames_per_file=96, hw=hw)
+    print(f"[megastep] synthetic KNMI archive, 20 + 2 files of 96 frames of "
+          f"{hw}x{hw}x6: {time.perf_counter() - t0:.1f} s")
+
+    # 1. the CLI: final_temp_conv's model, resident, 2 programs of 8 steps
+    out = io.StringIO()
+    _reset_launches()  # the main path starts here
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        model, history = gat_cli([
+            "train", "--model-type", "temporal", "--mapping-type", "conv",
+            "--dataset", "kmni", "--preprocessed-folder", knmi,
+            "--downsample-size", str(hw), str(hw), "--train-batch-size",
+            str(batch), "--test-batch-size", "64", "--epochs", "1",
+            "--resident", "--megastep", str(k), "--max-batches",
+            str(2 * k)])
+    torch.cuda.synchronize()
+    cli_s = time.perf_counter() - t0
+    cli_launches = ops.launch_counts()
+    text = out.getvalue()
+    resident_line = next((ln for ln in text.splitlines()
+                          if ln.startswith("[resident]")), "")
+    print(f"[megastep] CLI: {resident_line}")
+    check(resident_line and "MB live in device memory" in resident_line,
+          f"the resident CLI printed no [resident] line:\n{text[-2000:]}")
+    check(len(history["train_loss"]) == 1 and _finite(history["train_loss"])
+          and all(_finite(history[n]) for n in history if n.startswith("val")),
+          f"resident CLI: history {history}")
+    check(all(bool(p.isfinite().all()) for p in model.parameters()),
+          "resident CLI: non-finite parameters")
+    val = ResidentVideos.from_kmni(os.path.join(knmi, "test"), "cuda",
+                                   crop=hw)
+    eval_rows = val.eval_programs(k, 64)[0].shape[0] * k
+    steps = 2 * k
+    want = {"gat_attention_fwd": 2 * (steps + eval_rows),
+            "gat_attention_bwd": 2 * steps}
+    got = {n: c for n, c in cli_launches.items() if c}
+    check(got == want, f"resident CLI: launches {got}, expected {want} "
+                       f"({steps} train steps, {eval_rows} eval batches)")
+    print(f"[megastep] python -m extended_gan_torch.gat train --resident "
+          f"--megastep {k} --max-batches {2 * k}: {steps} steps, "
+          f"{eval_rows} eval batches, launches {got}, train loss "
+          f"{history['train_loss'][0]:.6f}, val_loss "
+          f"{history['val_loss'][0]:.6f}, {cli_s:.2f} s")
+
+    # 2. in process: the same archive resident, graph against eager
+    store = ResidentVideos.from_kmni(os.path.join(knmi, "train"), "cuda",
+                                     crop=hw)
+    print(f"[megastep] resident train split: {store.n_windows} windows, "
+          f"{store.nbytes} bytes on the card "
+          f"({tuple(store.video.shape)} float32 + starts)")
+    progs = store.epoch_programs(7, k, batch)
+    gat_progs = [(progs[i],) for i in range(3)]
+    results = {}
+
+    def gat_maker(switched):
+        def make():
+            kw = dict(attention_type="temporal", mapping_type="conv",
+                      use_pallas=True)
+            model = GatModel(hw, hw, 6, use_pallas_mapping=switched,
+                             generator=torch.Generator().manual_seed(0),
+                             **kw).cuda()
+            opt = make_optimizer("adam", model.parameters(), 1e-3,
+                                 weight_decay=0.01, capturable=True)
+            return (make_gat_resident_megastep(model, opt, store), (model,),
+                    (opt,))
+        return make
+
+    _reset_launches()
+    results["final_temp_conv"] = graph_against_eager(
+        f"final_temp_conv resident b={batch}", gat_maker(False), gat_progs,
+        card)
+    _reset_launches()
+    results["final_temp_conv switched"] = graph_against_eager(
+        f"final_temp_conv resident b={batch} use_pallas_mapping=True",
+        gat_maker(True), gat_progs, card)
+    check(results["final_temp_conv"]["per_replay"] == {
+        "gat_attention_fwd": 2 * k, "gat_attention_bwd": 2 * k},
+          f"final_temp_conv replay: {results['final_temp_conv']['per_replay']}")
+    check(results["final_temp_conv switched"]["per_replay"] == {
+        "gat_attention_fwd": 2 * k, "gat_attention_bwd": 2 * k,
+        "gat_mapping_fwd": 2 * k, "gat_mapping_bwd": 2 * k},
+          "final_temp_conv switched replay: "
+          f"{results['final_temp_conv switched']['per_replay']}")
+
+    # final_smaatunet: K3 in the graph, from staged batches
+    uhw = 20
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    unet_progs = [tuple(torch.rand((k, batch, uhw, uhw, 4, 6), device="cuda",
+                                   generator=gen) for _ in range(2))
+                  + (torch.ones((k, batch), device="cuda"),)
+                  for _ in range(3)]
+
+    def unet_maker(optimizer):
+        def make():
+            model = build_model("unet", image_width=uhw, image_height=uhw,
+                                n_vertices=6, mapping_type="linear",
+                                generator=torch.Generator().manual_seed(0))
+            opt = make_optimizer(optimizer, model.parameters(), 1e-3,
+                                 weight_decay=0.01, capturable=True)
+            return make_gat_megastep(model, opt), (model,), (opt,)
+        return make
+
+    # the bilinear upsampling's backward adds with atomics, in an order that
+    # changes from run to run: the graph is held to eager beside the eager
+    # path's own run-to-run gap (Adam turns a gradient that is zero up to
+    # roundoff into a step of +-lr, which each tensor's own gap absorbs)
+    _reset_launches()
+    results["final_smaatunet"] = graph_against_eager(
+        f"final_smaatunet b={batch}", unet_maker("adam"), unet_progs, card,
+        atomics=True)
+    check(results["final_smaatunet"]["per_replay"] == {
+        "dsconv_fwd": 18 * k, "dsconv_bwd": 18 * k},
+          f"final_smaatunet replay: {results['final_smaatunet']['per_replay']}")
+
+    # final_temp_smaat: the most host-bound published path (about 15,000
+    # kernels a step), K1 once a head (4 + 4 a step), UNets in its mapping;
+    # K = 4 and no profile of its eager steps keep the phase short (a
+    # profile of 120,000 kernels takes about a minute)
+    def smaat_maker(optimizer):
+        def make():
+            model = build_model("temporal", image_width=uhw, image_height=uhw,
+                                n_vertices=6, mapping_type="smaat_unet",
+                                generator=torch.Generator().manual_seed(0))
+            opt = make_optimizer(optimizer, model.parameters(), 1e-3,
+                                 weight_decay=0.01, capturable=True)
+            return make_gat_megastep(model, opt), (model,), (opt,)
+        return make
+
+    _reset_launches()
+    results["final_temp_smaat"] = graph_against_eager(
+        f"final_temp_smaat b={batch}", smaat_maker("adam"),
+        [tuple(t[:4] for t in p) for p in unet_progs], card,
+        atomics=True, profile_eager=False)
+    check(results["final_temp_smaat"]["per_replay"] == {
+        "gat_attention_fwd": 16, "gat_attention_bwd": 16},
+          "final_temp_smaat replay: "
+          f"{results['final_temp_smaat']['per_replay']}")
+
+    # the published DCGAN, resident, dropout 0
+    h5 = ensure_synthetic_h5(os.path.join(tmp, "h5"), frames_train=1024,
+                             frames_test=64, h=64, w=64)
+    frames = ResidentVideos.from_h5(os.path.join(h5, "train"), "cuda")
+    dprogs = frames.epoch_programs(5, k, batch)
+    dc_progs = [(dprogs[i],) for i in range(3)]
+
+    def dcgan_maker(dropout):
+        def make():
+            nets, opts = build_dcgan(DEFAULT_PARAMS, seed=0, device="cuda",
+                                     dropout=dropout, capturable=True)
+            gens = (nets[0].ConvBlock_0.dropout_generator,)
+            return (make_dcgan_resident_megastep(*nets, *opts, frames,
+                                                 generators=gens),
+                    nets, opts)
+        return make
+
+    _reset_launches()
+    results["dcgan"] = graph_against_eager(
+        f"DCGAN resident b={batch}, dropout 0", dcgan_maker(0.0), dc_progs,
+        card)
+    check(results["dcgan"]["per_replay"] == {},
+          f"DCGAN replay launched the port's kernels "
+          f"{results['dcgan']['per_replay']}")
+
+    # dropout 0.01: two replays from the same state and inputs
+    mega, nets, opts = dcgan_maker(0.01)()
+    for p in dc_progs[:2]:
+        mega(*p)  # eager, then captured and replayed
+    state = _train_state(nets, opts)
+    saved = [t.clone() for t in state]
+    draws = []
+    for _ in range(2):
+        with torch.no_grad():
+            for t, s in zip(state, saved):
+                t.copy_(s)
+        mega(*dc_progs[2])
+        draws.append([t.clone() for t in state])
+    torch.cuda.synchronize()
+    drop = held_to_reference(draws[0], draws[1])
+    drop_gap, drop_same = drop["gap"], drop["bitwise"]
+    check(not drop_same and drop_gap > 0,
+          "DCGAN dropout 0.01: two replays from the same state drew the same "
+          "masks")
+    print(f"[megastep] DCGAN dropout 0.01: two replays from the same state "
+          f"and inputs differ by {drop_gap:.3e} (the dropout generator "
+          f"advances across replays; with dropout 0 the graph equals eager "
+          f"{'bitwise' if results['dcgan']['bitwise'] else 'within the limit'})")
+
+    # the DCGAN CLI, resident: 2 programs
+    _reset_launches()
+    t0 = time.perf_counter()
+    dc_out = os.path.join(tmp, "dcgan_run")
+    with contextlib.redirect_stdout(out):
+        nets, dc_hist = dcgan_cli([
+            "--data-location", h5, "--epochs", "1", "--resident",
+            "--megastep", str(k), "--max-batches", str(2 * k), "--out-dir",
+            dc_out, "--save-epoch", "1"])
+    torch.cuda.synchronize()
+    dc_s = time.perf_counter() - t0
+    # the checkpoint holds the dropout generator's state after its replays
+    check(sorted(os.listdir(dc_out)) == ["checkpoints", "history.json"]
+          and any(f.startswith("step_") for f in
+                  os.listdir(os.path.join(dc_out, "checkpoints"))),
+          f"resident DCGAN CLI wrote {sorted(os.listdir(dc_out))}")
+    dc_launches = {n: c for n, c in ops.launch_counts().items() if c}
+    dc_line = [ln for ln in out.getvalue().splitlines()
+               if ln.startswith("[resident]")][-1]
+    row = dc_hist.history
+    check(all(_finite(v) for v in row.values()),
+          f"resident DCGAN CLI: {row}")
+    check(not dc_launches, f"resident DCGAN CLI launched {dc_launches}")
+    print(f"[megastep] python -m extended_gan_torch.dcgan --resident "
+          f"--megastep {k} --max-batches {2 * k}, checkpointed: {dc_line}; "
+          f"train_mse "
+          f"{row['train_mse'][0]:.6f}, pred_mse {row['pred_mse'][0]:.6f}, "
+          f"{dc_s:.2f} s")
+    stream = _streaming_megastep(tmp, k, batch, hw)
+    print(f"[megastep] phase {time.perf_counter() - t_phase:.1f} s; {card}")
+    return dict(cli_launches=got, results=results, stream=stream)
+
+
+def _streaming_megastep(tmp, k, batch, hw):
+    """Both CLIs with ``--megastep K``, streaming (not resident), for one
+    epoch: the feed's thread pins and copies the next group while a graph
+    is captured, the epoch's shorter tail group captures a second graph
+    into the same pool, and padded ragged batches go through both. 7 KNMI
+    files give 21 batches (32, 32 and 25 rows a file): groups of 8, 8 and
+    5; a 630-frame archive gives the DCGAN 20 batches (the last of 9 rows):
+    groups of 8, 8 and 4. Each epoch runs again with the megastep's K steps
+    eager, on the card, and the two are held to MEGA_LIMIT (the final
+    weights and BatchNorm statistics), their histories equal, and their
+    launch counts (by the replay rule) equal. Returns the graph runs'
+    launches."""
+    import torch
+
+    from extended_gan_torch import ops
+    from extended_gan_torch.data.synthetic import (
+        ensure_synthetic_h5,
+        make_kmni_dataset,
+    )
+    from extended_gan_torch.dcgan.__main__ import main as dcgan_cli
+    from extended_gan_torch.gat.__main__ import main as gat_cli
+    from extended_gan_torch.utils.compare import held_to_reference
+
+    knmi7 = make_kmni_dataset(os.path.join(tmp, "knmi7"), n_train_files=7,
+                              n_test_files=2, frames_per_file=96, hw=hw)
+    h5s = ensure_synthetic_h5(os.path.join(tmp, "h5s"), frames_train=630,
+                              frames_test=64, h=64, w=64)
+    runs = {
+        "gat": (gat_cli, [
+            "train", "--model-type", "temporal", "--mapping-type", "conv",
+            "--dataset", "kmni", "--preprocessed-folder", knmi7,
+            "--downsample-size", str(hw), str(hw), "--train-batch-size",
+            str(batch), "--test-batch-size", "64", "--epochs", "1",
+            "--megastep", str(k)], (k, 5)),
+        "dcgan": (dcgan_cli, ["--data-location", h5s, "--epochs", "1",
+                              "--megastep", str(k)], (k, 4))}
+    stream = {}
+    for name, (cli, argv, ks) in runs.items():
+        outcome = {}
+        for mode in ("graph", "eager"):
+            _reset_launches()
+            t0 = time.perf_counter()
+            with _megastep_watch(eager=mode == "eager") as captured, \
+                    torch.backends.cudnn.flags(enabled=True, allow_tf32=False,
+                                               deterministic=True), \
+                    contextlib.redirect_stdout(io.StringIO()):
+                trained, hist = cli(argv)
+            torch.cuda.synchronize()
+            mods = trained if isinstance(trained, tuple) else (trained,)
+            outcome[mode] = dict(
+                state=[t.detach().clone() for m in mods
+                       for t in itertools.chain(m.parameters(), m.buffers())],
+                hist=getattr(hist, "history", hist), captured=list(captured),
+                launches={n: c for n, c in ops.launch_counts().items() if c},
+                s=time.perf_counter() - t0)
+        g, e = outcome["graph"], outcome["eager"]
+        verdict = held_to_reference(g["state"], e["state"], limit=MEGA_LIMIT)
+        check([c[0][0] for c in g["captured"]] == list(ks)
+              and all(c[0][1] == batch for c in g["captured"])
+              and not e["captured"],
+              f"streaming {name} --megastep {k}: captured {g['captured']} "
+              f"(eager run {e['captured']}), expected K = {ks}, {batch} rows")
+        check(verdict["ok"] and g["hist"] == e["hist"]
+              and all(_finite(v) for v in g["hist"].values()),
+              f"streaming {name} --megastep {k}: graph against eager "
+              f"{verdict}; history {g['hist']} against {e['hist']}")
+        check(g["launches"] == e["launches"],
+              f"streaming {name}: launches {g['launches']} with graphs (by "
+              f"the replay rule), {e['launches']} eager")
+        stream[name] = g["launches"]
+        print(f"[megastep] python -m extended_gan_torch."
+              f"{'gat train' if name == 'gat' else 'dcgan'} --megastep {k}, "
+              f"streaming, one epoch: graphs captured for "
+              f"{[c[0][:2] for c in g['captured']]} (K, rows); graph against "
+              f"the same groups eager: state gap {verdict['gap']:.3e} "
+              f"(bitwise: {'yes' if verdict['bitwise'] else 'no'}), history "
+              f"equal; launches {g['launches'] or 'none'} (by the replay "
+              f"rule) = eager's; {g['s']:.2f} s with graphs, {e['s']:.2f} s "
+              "eager")
+    return stream
+
+
+@contextlib.contextmanager
+def _megastep_watch(*, eager=False):
+    """Records the input shapes of every graph any megastep captures; with
+    ``eager`` a megastep runs its K steps eagerly instead (on the card
+    too), for comparison."""
+    from extended_gan_torch.train.megastep import Megastep
+
+    captured = []
+    call, capture = Megastep.__call__, Megastep._capture
+
+    def watched(self, inputs):
+        captured.append(_shapes(inputs))
+        return capture(self, inputs)
+    Megastep._capture = watched
+    if eager:
+        Megastep.__call__ = Megastep.eager
+    try:
+        yield captured
+    finally:
+        Megastep.__call__, Megastep._capture = call, capture
+
+
 def card_line():
     res = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -2383,6 +3137,11 @@ def main() -> int:
             extras = phase_serve_extras(dcgan_out)
         finally:
             shutil.rmtree(dcgan_out, ignore_errors=True)
+        mega_tmp = tempfile.mkdtemp(prefix="smoke_megastep_")
+        try:
+            mega = phase_megastep(mega_tmp)
+        finally:
+            shutil.rmtree(mega_tmp, ignore_errors=True)
         card = card_line()
     except SmokeFailure as e:
         print(f"chip_smoke: FAIL: {e}", file=sys.stderr)
@@ -2410,6 +3169,21 @@ def main() -> int:
             family["train"]["launched"]["gat_attention_bwd"],
         "train final_temp_smaat":
             family["cli"]["final_temp_smaat"]["gat_attention_bwd"]}
+    # K1, K2 and K3 inside CUDA graphs: the resident CLI run and the
+    # in-process megasteps (3 programs each: eager, captured, replayed)
+    graphs = mega["results"]
+    for name in ("gat_attention_fwd", "gat_attention_bwd"):
+        (k1_family_fwd if name.endswith("fwd") else k1_family_bwd).update({
+            "train final_temp_conv --resident --megastep 8 (CLI)":
+                mega["cli_launches"][name],
+            "train final_temp_conv --megastep 8, streaming (CLI)":
+                mega["stream"]["gat"][name],
+            "megastep final_temp_conv resident, 3 programs":
+                graphs["final_temp_conv"]["launched"][name],
+            "megastep final_temp_conv resident use_pallas_mapping=True, "
+            "3 programs": graphs["final_temp_conv switched"]["launched"][name],
+            "megastep final_temp_smaat, 3 programs":
+                graphs["final_temp_smaat"]["launched"][name]})
     # K3's largest final_smaatunet launch by work: up4's first DSC
     dsc_main = max((r for r in dsc_rows if r["where"] != "tiled-variant shape"),
                    key=lambda r: r["gflop"])
@@ -2472,12 +3246,15 @@ def main() -> int:
         "route": "cuda",
         "source": "extended_gan_torch/ops/csrc/dsconv.cu",
         "replaces": "extended_gan_tpu/ops/pallas/dsconv.py:66",
-        "launches": train_launches["dsconv_fwd"] + extras["k3_launches"],
+        "launches": (train_launches["dsconv_fwd"] + extras["k3_launches"]
+                     + graphs["final_smaatunet"]["launched"]["dsconv_fwd"]),
         "launches_by_path": {
             "train final_smaatunet": train_launches["dsconv_fwd"],
             "unet train steps b=32, kernel path":
                 train_launches["unet_train_step"]["dsconv_fwd"],
-            "serve final_smaatunet w8": extras["k3_launches"]},
+            "serve final_smaatunet w8": extras["k3_launches"],
+            "megastep final_smaatunet, 3 programs":
+                graphs["final_smaatunet"]["launched"]["dsconv_fwd"]},
         "max_abs_err": dsc_worst,
         "ms": dsc_main["kernel_ms"],
         "kernel_ms": dsc_main["kernel_ms"],
@@ -2496,11 +3273,14 @@ def main() -> int:
         "source": "extended_gan_torch/ops/csrc/dsconv.cu",
         # the JAX _bwd is jax.vjp of _reference_dsc, not a Pallas kernel
         "replaces": "extended_gan_tpu/ops/pallas/dsconv.py:324",
-        "launches": train_launches["dsconv_bwd"],
+        "launches": (train_launches["dsconv_bwd"]
+                     + graphs["final_smaatunet"]["launched"]["dsconv_bwd"]),
         "launches_by_path": {
             "train final_smaatunet": train_launches["dsconv_bwd"],
             "unet train steps b=32, kernel path":
-                train_launches["unet_train_step"]["dsconv_bwd"]},
+                train_launches["unet_train_step"]["dsconv_bwd"],
+            "megastep final_smaatunet, 3 programs":
+                graphs["final_smaatunet"]["launched"]["dsconv_bwd"]},
         "max_abs_err": dsc_bwd_worst,
         "ms": dsc_main["bwd_kernel_ms"],
         "kernel_ms": dsc_main["bwd_kernel_ms"],
@@ -2528,6 +3308,9 @@ def main() -> int:
                    k2_model["forward_launches"][name],
                    "train final_temp_conv b=32, 3 Adam steps":
                    k2_model["train_launches"][name],
+                   "megastep final_temp_conv resident "
+                   "use_pallas_mapping=True, 3 programs":
+                   graphs["final_temp_conv switched"]["launched"][name],
                    "serve and CLI train runs (switch off)": 0}
         kernels.append({
             "name": name,

@@ -3,8 +3,9 @@
   python -m extended_gan_torch.dcgan --epochs 1 --synthetic --out-dir /tmp/run
 
 The flags mirror ``python -m dcgan``'s; those of its options that are not
-ported yet (mesh, FSDP, SP, megastep, resident, resume, bf16, the step
-variants, profiling, multi-host) are absent. ``--device`` picks the device:
+ported yet (mesh, FSDP, SP, resume, bf16, the step variants, profiling,
+multi-host) are absent. ``--megastep K`` runs K adversarial steps a CUDA
+graph and ``--resident`` keeps the frame archive in device memory. ``--device`` picks the device:
 the CUDA card by default, ``cpu`` on request. A missing archive falls back
 to a synthetic one. ``history.json`` and the checkpoints (``checkpoints/``,
 which ``python -m extended_gan_torch.serve export --workload dcgan`` reads)
@@ -29,6 +30,16 @@ def main(argv=None):
     parser.add_argument("--seed", type=int, default=369)
     parser.add_argument("--max-batches", type=int, default=0,
                         help="truncate each epoch (smoke runs)")
+    parser.add_argument("--megastep", type=int, default=0,
+                        help="K>1: capture K adversarial steps into ONE "
+                             "CUDA graph (amortizes per-launch host "
+                             "overhead K-ways)")
+    parser.add_argument("--resident", action="store_true",
+                        help="transfer the decoded training split to "
+                             "device memory ONCE and gather windows "
+                             "on-device; steady-state epochs move only "
+                             "index programs (composes with --megastep as "
+                             "the program length K, default 8)")
     parser.add_argument("--synthetic", action="store_true",
                         help="force the synthetic dataset")
     parser.add_argument("--out-dir", type=str, default=None,
@@ -48,6 +59,7 @@ def main(argv=None):
         test_batch_size=args.test_batch_size, precision=args.precision,
         seed=args.seed, max_batches=args.max_batches,
         synthetic=args.synthetic, out_dir=args.out_dir,
+        megastep=args.megastep, resident=args.resident,
         params=({"save_epoch": args.save_epoch}
                 if args.save_epoch is not None else None),
         device=args.device)

@@ -9,8 +9,9 @@
       --mapping-type conv --dataset synthetic --output-path /tmp/run
 
 The actions and flags mirror ``python -m convolutional_gat``; the flags of
-its options that are not ported yet (mesh, megastep, resident, MoE,
-pipeline, profiling, bf16) are absent. ``--device`` picks the device: the
+its options that are not ported yet (mesh, MoE, pipeline, profiling, bf16)
+are absent. ``--megastep K`` runs K train steps a CUDA graph and
+``--resident`` keeps the decoded archive in device memory. ``--device`` picks the device: the
 CUDA card by default, ``cpu`` on request. A missing KNMI archive falls back
 to a synthetic one.
 """
@@ -42,6 +43,17 @@ def main(argv=None):
                         help="where history.json and model.pt go (default: "
                              "nowhere)")
     parser.add_argument("--max-batches", type=int, default=0)
+    parser.add_argument("--megastep", type=int, default=0,
+                        help="K>1: capture K train steps into ONE CUDA "
+                             "graph (amortizes per-launch host overhead "
+                             "K-ways — config key MEGASTEP)")
+    parser.add_argument("--resident", action="store_true",
+                        help="transfer the decoded training split to "
+                             "device memory ONCE and gather windows "
+                             "on-device; steady-state epochs move only "
+                             "index programs (config key RESIDENT; "
+                             "composes with --megastep as the program "
+                             "length K, default 8)")
     parser.add_argument("--use-pallas", dest="use_pallas", default=None,
                         action="store_true",
                         help="force the fused CUDA kernels on (default: on "
@@ -65,6 +77,7 @@ def main(argv=None):
             preprocessed_folder=args.preprocessed_folder,
             downsample_size=tuple(args.downsample_size),
             max_batches=args.max_batches, use_pallas=args.use_pallas,
+            megastep=args.megastep, resident=args.resident,
             device=args.device)
     if not args.exp_folder_name:
         parser.error("generate_experiment needs --exp_folder_name")
@@ -73,7 +86,8 @@ def main(argv=None):
         device=args.device, train_batch_size=args.train_batch_size,
         test_batch_size=args.test_batch_size, epochs=args.epochs,
         learning_rate=args.learning_rate,
-        max_batches=args.max_batches or None, use_pallas=args.use_pallas)
+        max_batches=args.max_batches or None, use_pallas=args.use_pallas,
+        megastep=args.megastep or None, resident=args.resident or None)
 
 
 if __name__ == "__main__":

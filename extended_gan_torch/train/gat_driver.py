@@ -8,10 +8,17 @@ model's ``state_dict`` as ``model.pt``. A missing KNMI archive falls back
 to the synthetic one. At the end of a run one line reports how many times
 each CUDA kernel was launched.
 
-The JAX driver's mesh, tensor/sequence/FSDP/pipeline parallelism, device-
-resident data, megastep, MoE, checkpoints and resume, profiling, bf16 and
-plots are not ported yet: a config that sets one of them to anything but
-its default raises, naming the ROADMAP item that ports it.
+``megastep=K`` (K > 1) runs K train steps a CUDA graph
+(``train/megastep.py``); ``resident=True`` copies the decoded train and
+validation splits to the device once and gathers each batch there
+(``data/resident.py``), K steps a graph (K = ``megastep``, else 8), so an
+epoch moves only start indices. On the card both use Adam with its step
+count on the device (``capturable``).
+
+The JAX driver's mesh, tensor/sequence/FSDP/pipeline parallelism, MoE,
+checkpoints and resume, profiling, bf16 and plots are not ported yet: a
+config that sets one of them to anything but its default raises, naming
+the ROADMAP item that ports it.
 """
 
 from __future__ import annotations
@@ -22,18 +29,33 @@ import os
 import torch
 
 from ..core.device import resolve_device
+from ..data.resident import (
+    ResidentVideos,
+    epoch_seed,
+    make_gat_resident_eval,
+    make_gat_resident_megastep,
+    program_logs,
+    resident_gat_test,
+)
 from ..data.streaming import get_loaders
+from ..data.synthetic import ensure_synthetic_kmni
 from ..models.registry import build_model
 from ..ops import launch_counts
 from ..utils.history import save_history_json, update_history
-from .gat_trainer import gat_feed, make_gat_eval_step, make_gat_train_step, test
+from .gat_trainer import (
+    gat_megastep_logs,
+    gat_step_logs,
+    make_gat_eval_step,
+    make_gat_megastep,
+    make_gat_train_step,
+    test,
+)
 from .optim import current_lr, make_optimizer, make_scheduler, scheduler_step
 from .unported import refuse_unported
 
 # experiment-config keys and keywords of JAX driver options the port does
 # not have yet: (the value that means "off", the ROADMAP queue 1 item)
 _NOT_PORTED = {
-    "megastep": (0, 5), "resident": (False, 5),
     "precision": ("f32", 6), "resume": (False, 6), "checkpoint_every": (0, 6),
     "remat": (False, 6),
     "shuffle_mode": ("batch", 7),
@@ -46,19 +68,15 @@ _NOT_PORTED = {
 }
 
 
-def train_single_epoch(*, epoch, model, step, eval_step, scheduler, history,
-                       output_path, loader_factory, device, max_batches=0):
-    """One epoch of the reference's loop; returns the validation metrics."""
-    train_loader, val_loader, _ = loader_factory(epoch=epoch)
+def train_single_epoch(*, epoch, model, train_steps, evaluate, scheduler,
+                       history, output_path):
+    """One epoch of the reference's loop: ``train_steps`` yields
+    (running_nd, samples) a train step or a group of them, ``evaluate()``
+    returns the validation metrics, which this returns too."""
     print(f"\nEpoch: {epoch}")
     print(f"LR: {current_lr(scheduler.optimizer)}")
     pending, total = [], 0  # running_nd pairs stay on the card; one fetch
-    for i, (n, batch) in enumerate(gat_feed(train_loader, device)):
-        if max_batches and i >= max_batches:
-            break
-        if n <= 1:
-            continue
-        _, nd = step(*batch)
+    for nd, n in train_steps:
         pending.append(nd)
         total += n
     running = sum(nd[0] for nd in torch.stack(pending).tolist()) \
@@ -67,7 +85,7 @@ def train_single_epoch(*, epoch, model, step, eval_step, scheduler, history,
     print(f"Train loss: {round(float(train_loss), 6)}")
     history["train_loss"].append(float(train_loss))
 
-    result = test(eval_step, val_loader, device)
+    result = evaluate()
     scheduler_step(scheduler, result["val_loss"])
     print(json.dumps(result, indent=4))
     update_history(history, result)
@@ -91,12 +109,16 @@ def train(*, model_type: str = "temporal", optimizer: str = "adam",
           preprocessed_folder: str = "", dataset: str = "kmni",
           test_first: bool = False, reduce_lr_on_plateau: bool = False,
           seed: int = 369, max_batches: int = 0,
-          use_pallas: bool | None = None, device=None, **options):
+          use_pallas: bool | None = None, megastep: int = 0,
+          resident: bool = False, device=None, **options):
     """Train on ``device`` (default: the CUDA card). Takes the JAX driver's
     keyword arguments, every field of an experiment config among them;
     ``plot`` is accepted and ignored (plots are not ported). ``use_pallas=None`` runs the fused kernels exactly when
     the model sits on the card. Returns ``(model, history)``."""
     refuse_unported(options, _NOT_PORTED)
+    if resident and dataset not in ("kmni", "synthetic", "arai"):
+        raise ValueError(f"--resident supports the kmni/synthetic/arai "
+                         f"datasets, not {dataset!r}")
     dev = resolve_device(device)
     downsample_size = tuple(downsample_size)
     print(f"Using device: {dev}")
@@ -122,8 +144,9 @@ def train(*, model_type: str = "temporal", optimizer: str = "adam",
                         mapping_type=mapping_type, time_steps=steps,
                         use_pallas=use_pallas, device=dev,
                         generator=torch.Generator().manual_seed(seed))
+    graphs = dev.type == "cuda" and (megastep > 1 or resident)
     opt = make_optimizer(optimizer, model.parameters(), learning_rate,
-                         weight_decay=weight_decay)
+                         weight_decay=weight_decay, capturable=graphs)
     scheduler = make_scheduler(opt, reduce_lr_on_plateau=reduce_lr_on_plateau,
                                lr_step=lr_step, gamma=gamma)
     print(f"Number of parameters: "
@@ -131,6 +154,43 @@ def train(*, model_type: str = "temporal", optimizer: str = "adam",
     print(f"Using mapping: {model.mapping_type}")
     step = make_gat_train_step(model, opt, criterion=criterion)
     eval_step = make_gat_eval_step(model)
+    if resident:
+        train_store, val_store = _resident_splits(
+            dataset, preprocessed_folder, dev, steps, downsample_size)
+        resident_k = megastep if megastep > 1 else 8
+        train_k = make_gat_resident_megastep(model, opt, train_store,
+                                             time_steps=steps,
+                                             criterion=criterion)
+        eval_k = make_gat_resident_eval(model, val_store, time_steps=steps)
+        mb = (train_store.nbytes + val_store.nbytes) / 1e6
+        print(f"[resident] {train_store.n_windows} train + "
+              f"{val_store.n_windows} val windows / {mb:.0f} MB live in "
+              f"device memory; K={resident_k} steps per CUDA graph, "
+              "index-only transfers")
+    elif megastep > 1:
+        megastep_fn = make_gat_megastep(model, opt, criterion=criterion)
+        print(f"[megastep] {megastep} steps per CUDA graph")
+
+    def epoch_feed(epoch):
+        """(the epoch's train steps as (running_nd, samples), its
+        validation pass)."""
+        if resident:
+            programs = program_logs(
+                train_store, train_k, epoch_seed(seed, epoch), resident_k,
+                train_batch_size, max_batches=max_batches)
+            return (((logs["running_nd"], n) for logs, n in programs),
+                    lambda: resident_gat_test(eval_k, val_store,
+                                              k=resident_k,
+                                              batch_size=test_batch_size))
+        train_loader, val_loader, _ = loader_factory(epoch=epoch)
+        if megastep > 1:
+            steps_ = gat_megastep_logs(train_loader, megastep_fn, dev,
+                                       megastep, train_batch_size,
+                                       max_batches=max_batches)
+        else:
+            steps_ = gat_step_logs(train_loader, step, dev,
+                                   max_batches=max_batches)
+        return steps_, lambda: test(eval_step, val_loader, dev)
 
     history: dict = {"train_loss": []}
     if test_first:
@@ -141,11 +201,25 @@ def train(*, model_type: str = "temporal", optimizer: str = "adam",
         update_history(history, result)
         print(json.dumps(result, indent=4))
     for epoch in range(1, epochs + 1):
-        train_single_epoch(epoch=epoch, model=model, step=step,
-                           eval_step=eval_step,
-                           scheduler=scheduler, history=history,
-                           output_path=output_path,
-                           loader_factory=loader_factory, device=dev,
-                           max_batches=max_batches)
+        train_steps, evaluate = epoch_feed(epoch)
+        train_single_epoch(epoch=epoch, model=model, train_steps=train_steps,
+                           evaluate=evaluate, scheduler=scheduler,
+                           history=history, output_path=output_path)
     print(json.dumps({"kernel_launches": launch_counts()}))
     return model, history
+
+
+def _resident_splits(dataset, folder, device, steps, downsample_size):
+    """The (train, validation) splits resident on ``device``: ARAI's
+    ``training`` and ``validation``, KNMI's (or the synthetic archive's)
+    ``train`` and ``test``."""
+    if dataset == "arai":
+        return tuple(ResidentVideos.from_arai(
+            os.path.join(folder, sub), device, time_steps=steps,
+            downsample_size=downsample_size)
+            for sub in ("training", "validation"))
+    if dataset == "synthetic":
+        folder = ensure_synthetic_kmni(folder or None)
+    return tuple(ResidentVideos.from_kmni(
+        os.path.join(folder, sub), device, time_steps=steps,
+        crop=downsample_size[0]) for sub in ("train", "test"))

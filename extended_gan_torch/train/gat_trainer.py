@@ -12,12 +12,18 @@
   plus the MSE scaled by the loader's ``normalizing_max``.
 
 The JAX package pads every batch to a fixed shape for ``jit`` and masks the
-padding out; PyTorch runs eagerly, so the port feeds each batch as it comes,
-with a mask of ones. Metric sums stay on the card until one fetch at the
+padding out; PyTorch runs eagerly, so the port's single steps take each
+batch as it comes, with a mask of ones. The megastep (K steps a CUDA graph,
+``train/megastep.py``) needs fixed shapes as JAX's does, so
+:func:`gat_megafeed` pads a short batch to the nominal size with zero rows
+and a mask of zeros; train-mode BatchNorm then sees the padded rows, as it
+does in JAX's megastep. Metric sums stay on the card until one fetch at the
 end of a pass.
 """
 
 from __future__ import annotations
+
+import itertools
 
 import numpy as np
 import torch
@@ -25,6 +31,7 @@ import torch
 from ..core.device import to_device
 from ..data.streaming import Prefetcher
 from .losses import CRITERIA
+from .megastep import Megastep
 
 
 def make_gat_train_step(model, optimizer, *, criterion: str = "mse"):
@@ -50,6 +57,19 @@ def make_gat_train_step(model, optimizer, *, criterion: str = "mse"):
         return loss.detach(), torch.stack([err.detach() * n_valid, n_valid])
 
     return step
+
+
+def make_gat_megastep(model, optimizer, *, criterion: str = "mse"):
+    """K train steps a call (``megastep(xs, ys, masks) -> logs``, a leading
+    K axis on each): one CUDA graph on the card, K eager steps on the CPU.
+    Logs: ``loss`` of the last step, ``running_nd`` summed over the K."""
+    step = make_gat_train_step(model, optimizer, criterion=criterion)
+
+    def body(x, y, mask):
+        loss, running_nd = step(x, y, mask)
+        return {"loss": loss, "running_nd": running_nd}
+
+    return Megastep(body, optimizers=(optimizer,))
 
 
 def _eval_metrics(y_hat, y, mask, threshold, normalizing_max, power):
@@ -114,6 +134,77 @@ def gat_feed(loader, device, *, depth=2):
         return (n, None) if n <= 1 else (n, to_device_batch(x, y, device))
 
     return Prefetcher(iter(loader), depth=depth, transfer=prepare)
+
+
+def pad_batch(x, y, batch_size):
+    """(x, y, mask) with ``batch_size`` rows: the missing ones zeros, their
+    mask entries 0 (JAX's ``MeshContext.pad_to_batch_multiple``)."""
+    n = len(x)
+    mask = np.zeros((batch_size,), np.float32)
+    mask[:n] = 1.0
+    if n < batch_size:
+        x, y = (np.concatenate([a, np.zeros((batch_size - n,) + a.shape[1:],
+                                            a.dtype)]) for a in (x, y))
+    return x, y, mask
+
+
+def gat_megafeed(loader, device, k: int, *, batch_size=None, depth=2):
+    """Background feed of K loader batches a yield, for
+    :func:`make_gat_megastep`: ``(consumed, n_samples, k_actual, (xs, ys,
+    masks))``, each with a leading axis of ``k_actual`` (K, or fewer at the
+    epoch's tail), on ``device``. Batches of at most one sample are dropped,
+    as the single steps skip them; ``consumed`` counts them too. Each batch
+    is padded to ``max(batch_size, the group's largest)`` rows by
+    :func:`pad_batch`."""
+
+    def grouped():
+        buf, consumed = [], 0
+        for x, y in loader:
+            consumed += 1
+            if len(x) <= 1:
+                continue
+            buf.append((x, y))
+            if len(buf) == k:
+                yield consumed, buf
+                buf, consumed = [], 0
+        if buf:
+            yield consumed, buf
+
+    def prepare(item):
+        consumed, buf = item
+        rows = max(batch_size or 0, max(len(x) for x, _ in buf))
+        padded = [pad_batch(np.asarray(x, np.float32),
+                            np.asarray(y, np.float32), rows) for x, y in buf]
+        staged = tuple(to_device(np.stack(a), device) for a in zip(*padded))
+        return consumed, sum(len(x) for x, _ in buf), len(buf), staged
+
+    return Prefetcher(grouped(), depth=depth, transfer=prepare)
+
+
+def gat_step_logs(loader, step, device, *, max_batches: int = 0):
+    """Single train steps over the first ``max_batches`` (all: 0) loader
+    batches, those of at most one sample skipped: (running_nd, samples) a
+    step."""
+    for i, (n, batch) in enumerate(gat_feed(loader, device)):
+        if max_batches and i >= max_batches:
+            break
+        if n <= 1:
+            continue
+        _, nd = step(*batch)
+        yield nd, n
+
+
+def gat_megastep_logs(loader, megastep, device, k: int, batch_size: int, *,
+                      max_batches: int = 0):
+    """Groups of K of the first ``max_batches`` (all: 0) loader batches
+    (:func:`gat_megafeed`) through ``megastep``: (running_nd, samples) a
+    group."""
+    batches = iter(loader)
+    if max_batches:
+        batches = itertools.islice(batches, max_batches)
+    for _, n, _, staged in gat_megafeed(batches, device, k,
+                                        batch_size=batch_size):
+        yield megastep(*staged)["running_nd"], n
 
 
 _METRICS = ("loss_num", "denorm_num", "acc", "prec", "rec")

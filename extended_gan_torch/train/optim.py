@@ -20,11 +20,15 @@ from torch.optim.lr_scheduler import ReduceLROnPlateau, StepLR
 
 
 def make_optimizer(name: str, params, learning_rate: float, *,
-                   weight_decay: float = 0.0) -> torch.optim.Optimizer:
-    """``adam`` (betas 0.9, 0.999; eps 1e-8) or ``sgd`` (no momentum)."""
+                   weight_decay: float = 0.0,
+                   capturable: bool = False) -> torch.optim.Optimizer:
+    """``adam`` (betas 0.9, 0.999; eps 1e-8) or ``sgd`` (no momentum).
+    ``capturable``: Adam keeps its step count on the card, so a CUDA graph
+    can capture its step (``train/megastep.py``); SGD needs nothing."""
     if name.lower() == "adam":
         return torch.optim.Adam(params, lr=learning_rate,
-                                weight_decay=weight_decay)
+                                weight_decay=weight_decay,
+                                capturable=capturable)
     if name.lower() == "sgd":
         return torch.optim.SGD(params, lr=learning_rate,
                                weight_decay=weight_decay)

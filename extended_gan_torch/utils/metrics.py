@@ -65,6 +65,14 @@ def rounded_match_nd(a, b):
                         torch.tensor(float(a.shape[0]), device=a.device)])
 
 
+def masked_rounded_match_nd(p, label: float, mask):
+    """:func:`rounded_match_nd` of ``p`` against a constant label over the
+    samples whose ``mask`` entry is 1, the denominator their count; computed
+    on ``p``'s device, with no copy from the host."""
+    matches = (torch.round(p.reshape(-1)) == label).to(mask.dtype)
+    return torch.stack([(matches * mask).sum(), mask.sum()])
+
+
 class IncrementalTuple:
     """(numerator, denominator) ratio accumulator: ``+``, ``+=``,
     ``.item()``, ``.reciprocal()``."""

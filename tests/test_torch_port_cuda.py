@@ -1,4 +1,7 @@
-"""The port's CUDA kernels against their plain PyTorch versions, on a GPU.
+"""The port's CUDA kernels against their plain PyTorch versions, on a GPU,
+and the megastep's CUDA graphs (``train/megastep.py``) against eager steps:
+K1, K2 and K3 captured, the dropout generator across replays, a changed
+learning rate, Adam's step count and the launch counters under replay.
 
 Every test here is marked ``cuda`` and skips without a card: a CUDA kernel
 has no CPU mode. The file imports nothing of JAX, so it also runs where
@@ -627,3 +630,222 @@ def test_w8_gat3d_forward_launches_k1_as_the_f32_one(cuda_device):
         got = w8(x)
         assert k1.launch_count == before + 4
     assert 0 < (got - want).abs().max().item() < 5e-2
+
+
+# ---------------------------------------------------------------- megastep
+
+
+def _params(*modules):
+    return [t.detach().clone() for m in modules
+            for t in list(m.parameters()) + list(m.buffers())]
+
+
+def _gat_megastep(model, lr, optimizer="sgd"):
+    from extended_gan_torch.train.gat_trainer import make_gat_megastep
+    from extended_gan_torch.train.optim import make_optimizer
+
+    opt = make_optimizer(optimizer, model.parameters(), lr,
+                         capturable=True)
+    return make_gat_megastep(model, opt), opt
+
+
+def _batches(device, k, b, hw, n, seed=0):
+    gen = torch.Generator(device=device).manual_seed(seed)
+    return [(torch.rand(k, b, hw, hw, 4, 6, device=device, generator=gen),
+             torch.rand(k, b, hw, hw, 4, 6, device=device, generator=gen),
+             torch.ones(k, b, device=device)) for _ in range(n)]
+
+
+@pytest.mark.parametrize("kernels", ["k1", "k1+k2", "k3"])
+def test_captured_train_steps_equal_eager_steps(cuda_device, kernels):
+    """K = 3 steps a graph (the first group eager, the second captured and
+    replayed, the third replayed); each replayed group against 3 eager
+    steps on a twin from the state the graph had before it, SGD, cuDNN
+    deterministic: K1 (GAT3D), K1 and K2 (use_pallas_mapping=True) bit for
+    bit; K3 (the SmaAt-UNet, whose bilinear upsampling adds its gradient
+    with atomics in a run-dependent order) by
+    ``utils.compare.held_to_reference``: the weights and buffers, and
+    apart from them the logs, each tensor within 1e-6 of its scale or 10x
+    the widest drift of four more twins (its own, or the whole state's); a
+    twin whose last optimizer step is skipped fails that test."""
+    from extended_gan_torch import ops
+    from extended_gan_torch.models.gat.gat3d import Model as GatModel
+    from extended_gan_torch.utils.compare import (
+        drift,
+        held_to_reference,
+        widest,
+    )
+
+    hw = 16 if kernels != "k3" else 20
+
+    def make():
+        if kernels == "k3":
+            return build_model("unet", image_width=hw, image_height=hw,
+                               n_vertices=6, mapping_type="linear",
+                               device=cuda_device,
+                               generator=torch.Generator().manual_seed(0))
+        return GatModel(hw, hw, 6, attention_type="temporal",
+                        mapping_type="conv", use_pallas=True,
+                        use_pallas_mapping=kernels == "k1+k2",
+                        generator=torch.Generator().manual_seed(0)).to(
+                            cuda_device)
+
+    def twin(skip_step=0):
+        """Each replayed group as eager steps from the graph's state before
+        it: (weights and buffers, running_nd) after each."""
+        model = make()
+        eager, opt = _gat_megastep(model, 1e-2)
+        steps, opt_step = [0], opt.step
+
+        def step(*args, **kw):
+            steps[0] += 1
+            return None if steps[0] == skip_step else opt_step(*args, **kw)
+        opt.step = step
+        eager.eager(*data[0])
+        out = []
+        for before, d in zip(after, data[1:]):
+            with torch.no_grad():
+                for t, s in zip(list(model.parameters())
+                                + list(model.buffers()), before):
+                    t.copy_(s)
+            logs = [eager.eager(*d)["running_nd"]]
+            out.append((_params(model), logs))
+        return out
+
+    data = _batches(cuda_device, 3, 4, hw, 3)
+    with torch.backends.cudnn.flags(enabled=True, allow_tf32=False,
+                                    deterministic=True):
+        graph_model = make()
+        mega, _ = _gat_megastep(graph_model, 1e-2)
+        before = ops.launch_counts()
+        after, got = [], []
+        for d in data:
+            got.append([mega(*d)["running_nd"]])
+            after.append(_params(graph_model))
+        counted = {n: c - before[n] for n, c in ops.launch_counts().items()
+                   if c != before[n]}
+        want = twin()
+        floors = (None, None)
+        if kernels == "k3":  # the widest drift of 4 twins, 2 groups each
+            runs = [twin() for _ in range(4)]
+            floors = tuple(widest(drift(run[i][j], want[i][j])
+                                  for run in runs for i in range(2))
+                           for j in (0, 1))
+            skipped = twin(skip_step=6)
+        torch.cuda.synchronize()
+    assert (mega.captures, mega.replays) == (1, 2)
+    (shapes, entry), = mega.graphs.items()
+    assert shapes == tuple(tuple(x.shape) for x in data[0])
+    expect = {"k1": {"gat_attention_fwd": 6, "gat_attention_bwd": 6},
+              "k1+k2": {"gat_attention_fwd": 6, "gat_attention_bwd": 6,
+                        "gat_mapping_fwd": 6, "gat_mapping_bwd": 6},
+              "k3": {"dsconv_fwd": 54, "dsconv_bwd": 54}}[kernels]
+    assert entry.launches == expect
+    # an eager group, a replay right after its capture, a replay
+    assert counted == {n: 3 * c for n, c in expect.items()}
+    for i, (w_state, w_logs) in enumerate(want):
+        g_state, g_logs = after[i + 1], got[i + 1]
+        if kernels == "k3":
+            state = held_to_reference(g_state, w_state, floors[0])
+            log = held_to_reference(g_logs, w_logs, floors[1])
+            assert state["ok"] and log["ok"], (i, state, log)
+        else:
+            assert all(torch.equal(a, b) for a, b in zip(
+                g_state + g_logs, w_state + w_logs)), i
+    if kernels == "k3":
+        fault = held_to_reference(skipped[0][0], want[0][0], floors[0])
+        assert not fault["ok"], fault
+
+
+def test_dropout_generator_advances_across_replays(cuda_device):
+    """Two replays of a DCGAN graph from the same state and inputs draw
+    different channel-dropout masks (so their updates differ); with dropout
+    0 they are equal bit for bit."""
+    from extended_gan_torch.data.resident import (
+        ResidentVideos,
+        make_dcgan_resident_megastep,
+    )
+    from extended_gan_torch.train.dcgan_driver import (
+        DEFAULT_PARAMS,
+        build_dcgan,
+    )
+
+    rng = np.random.default_rng(0)
+    store = ResidentVideos(rng.uniform(0, 1, (40, 64, 64)).astype(np.float32),
+                           np.arange(33), 8, cuda_device)
+    progs = store.epoch_programs(0, 2, 4)
+    outcomes = {}
+    for dropout in (0.0, 0.01):
+        nets, opts = build_dcgan({**DEFAULT_PARAMS, "ndf": 8}, seed=0,
+                                 device=cuda_device, dropout=dropout,
+                                 capturable=True)
+        mega = make_dcgan_resident_megastep(
+            *nets, *opts, store,
+            generators=(nets[0].ConvBlock_0.dropout_generator,))
+        with torch.backends.cudnn.flags(enabled=True, allow_tf32=False,
+                                        deterministic=True):
+            mega(progs[0])
+            mega(progs[1])
+            state = [t for n in nets for t in
+                     list(n.parameters()) + list(n.buffers())] + [
+                v for o in opts for s in o.state.values() for v in s.values()]
+            saved = [t.detach().clone() for t in state]
+            draws = []
+            for _ in range(2):
+                with torch.no_grad():
+                    for t, s in zip(state, saved):
+                        t.copy_(s)
+                mega(progs[2])
+                draws.append(_params(*nets))
+        assert mega.replays == 3
+        outcomes[dropout] = all(torch.equal(a, b) for a, b in zip(*draws))
+    assert outcomes == {0.0: True, 0.01: False}
+
+
+def test_a_changed_learning_rate_reaches_the_graph(cuda_device):
+    """Epoch 2's groups use epoch 2's learning rate: the graph captured at
+    the first rate is dropped, the next group captures anew, and the
+    updates equal eager steps at each rate (GAT3D with K1, SGD)."""
+    from extended_gan_torch.models.gat.gat3d import Model as GatModel
+
+    def make():
+        return GatModel(16, 16, 6, attention_type="temporal",
+                        mapping_type="conv", use_pallas=True,
+                        generator=torch.Generator().manual_seed(0)).to(
+                            cuda_device)
+
+    data = _batches(cuda_device, 2, 4, 16, 5, seed=1)
+    graph_model, eager_model = make(), make()
+    mega, opt = _gat_megastep(graph_model, 1e-2)
+    eager, eager_opt = _gat_megastep(eager_model, 1e-2)
+    with torch.backends.cudnn.flags(enabled=True, allow_tf32=False,
+                                    deterministic=True):
+        for i, d in enumerate(data):
+            if i == 3:  # the scheduler's step between epochs
+                for o in (opt, eager_opt):
+                    o.param_groups[0]["lr"] = 1e-3
+            mega(*d)
+            eager.eager(*d)
+        torch.cuda.synchronize()
+    assert (mega.captures, mega.replays) == (2, 4)
+    for a, b in zip(_params(graph_model), _params(eager_model)):
+        assert torch.equal(a, b)
+
+
+def test_adam_step_count_under_replay(cuda_device):
+    """Every step runs once: after an eager group, a captured one and two
+    replays (with a shorter tail graph) Adam's on-card step count is the
+    number of steps."""
+    from extended_gan_torch.models.gat.gat3d import Model as GatModel
+
+    model = GatModel(16, 16, 6, attention_type="temporal",
+                     mapping_type="conv", use_pallas=True,
+                     generator=torch.Generator().manual_seed(0)).to(
+                         cuda_device)
+    mega, opt = _gat_megastep(model, 1e-3, "adam")
+    for d in _batches(cuda_device, 3, 4, 16, 3) + _batches(cuda_device, 2,
+                                                           4, 16, 2):
+        mega(*d)
+    assert (mega.captures, mega.replays) == (2, 4)
+    steps = {s["step"].item() for s in opt.state.values()}
+    assert steps == {3 * 3 + 2 * 2}

@@ -295,7 +295,7 @@ def test_generate_experiment_reads_the_jax_configs(tmp_path):
 
 
 @pytest.mark.parametrize("kwargs,error", [
-    (dict(megastep=4), NotImplementedError),
+    (dict(resume=True), NotImplementedError),
     (dict(precision="bf16"), NotImplementedError),
     (dict(bogus=1), TypeError),
 ])
@@ -307,7 +307,6 @@ def test_unported_driver_options_raise(kwargs, error):
 # every option the conv-GAT driver refuses, a value that is not "off", and
 # the ROADMAP queue 1 item that ports it
 GAT_UNPORTED = [
-    ("megastep", 4, 5), ("resident", True, 5),
     ("precision", "bf16", 6), ("resume", True, 6), ("checkpoint_every", 1, 6),
     ("remat", True, 6),
     ("shuffle_mode", "global", 7),
