@@ -133,7 +133,28 @@ Phases, each fatal on failure (non-zero exit, no result line):
              tail group is shorter and whose ragged batches are padded
              (2 graphs captured), against the same epoch with the K steps
              run eagerly.
-11. report - the total time, the ``kernels`` JSON line, the card's name and
+11. robustness - state and robustness (``core/precision.py``,
+             ``core/prng.py``, ``train/preempt.py``, the resume half of
+             ``train/checkpoint.py``, remat), at full width: a child process
+             (this script with ``--robustness-child``) runs a driver and
+             gets a real SIGTERM after its Nth step or group; it writes a
+             snapshot and exits 0; this process resumes it and holds it to
+             an uninterrupted run: final_temp_conv's model with K1 and K2
+             (80x80, b=32) streaming and ``--resident --megastep 8``, the
+             published DCGAN (dropout 0.01) through its CLI, streaming and
+             ``--resident --megastep 8``, bit for bit, cuDNN deterministic;
+             final_smaatunet (K3) within ``utils/compare.py``'s bound of two
+             more uninterrupted runs (a skipped optimizer step must fail
+             it); the snapshot's bytes, the time to write it, the signal to
+             the exit. bf16 against float32 on the DCGAN, final_temp_conv
+             (K2 off and on) and final_smaatunet at b=32: ms a step eager
+             and as a K=8 graph, busy time and kernels a step, peak memory,
+             the kernels' launches (equal), 8 steps' losses from one state
+             (ROBUST_LOSS_REL), float32 parameters and moments. remat on
+             final_temp_conv and final_smaatunet: peak memory and ms a step
+             with and without, gradients equal (bitwise for GAT3D), each
+             forward kernel twice a step.
+12. report - the total time, the ``kernels`` JSON line, the card's name and
              power limit, and the last line ``{"ok": true, "device":
              {...}}``.
 """
@@ -144,6 +165,7 @@ import contextlib
 import io
 import itertools
 import json
+import math
 import os
 import re
 import shutil
@@ -3096,6 +3118,660 @@ def _megastep_watch(*, eager=False):
         Megastep.__call__, Megastep._capture = call, capture
 
 
+ROBUST_K = 8
+# bf16 against float32 over 8 train steps from one state (predicted before
+# the first card run): each step's loss within this share of the float32
+# step's, or within ROBUST_LOSS_ABS
+ROBUST_LOSS_REL = 0.05
+ROBUST_LOSS_ABS = 2e-3
+
+
+def robustness_child(spec_json):
+    """One run that a SIGTERM cuts, for :func:`phase_robustness`: the
+    driver as a user runs it, in this process, with cuDNN deterministic.
+    Prints ``[child] step`` after each train step or group of K (before the
+    driver reads its shutdown flag), ``[child] caught <t>`` when the signal
+    lands, ``[child] save <step> <bytes> <ms>`` for each snapshot, its
+    launch counts and ``[child] exit <t>`` (``time.monotonic``, which the
+    parent's clock shares)."""
+    import torch
+
+    sys.path.insert(0, REPO)
+    from extended_gan_torch import ops
+    from extended_gan_torch.train import (
+        checkpoint,
+        dcgan_driver,
+        gat_driver,
+        preempt,
+    )
+
+    spec = json.loads(spec_json)
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+
+    def stepped(items):
+        for item in items:
+            yield item
+            print("[child] step", flush=True)
+
+    real_gat, real_dcgan = (gat_driver.train_single_epoch,
+                            dcgan_driver.train_single_epoch)
+    gat_driver.train_single_epoch = lambda **kw: real_gat(
+        **{**kw, "train_steps": stepped(kw["train_steps"])})
+    dcgan_driver.train_single_epoch = lambda logs, **kw: real_dcgan(
+        stepped(logs), **kw)
+    handler = preempt.GracefulShutdown._handler
+
+    def caught(self, signum, frame):
+        print(f"[child] caught {time.monotonic():.6f}", flush=True)
+        handler(self, signum, frame)
+    preempt.GracefulShutdown._handler = caught
+    save = checkpoint.CheckpointManager.save
+
+    def timed_save(self, step, state):
+        t0 = time.monotonic()
+        save(self, step, state)
+        ms = (time.monotonic() - t0) * 1e3
+        size = os.path.getsize(self._path(step))
+        print(f"[child] save {step} {size} {ms:.3f}", flush=True)
+    checkpoint.CheckpointManager.save = timed_save
+    if spec.get("switched"):
+        gat_driver.build_model = _switched_build_model()
+    if spec["kind"] == "gat":
+        gat_driver.train(**spec["kwargs"])
+    elif spec["kind"] == "experiment":
+        from extended_gan_torch.gat.generate_experiment import (
+            generate_experiment,
+        )
+        generate_experiment(spec["name"], **spec["kwargs"])
+    else:
+        from extended_gan_torch.dcgan.__main__ import main as dcgan_cli
+        dcgan_cli(spec["argv"])
+    torch.cuda.synchronize()
+    print("[child] launches " + json.dumps(ops.launch_counts()), flush=True)
+    print(f"[child] exit {time.monotonic():.6f}", flush=True)
+    return 0
+
+
+def _switched_build_model():
+    """``build_model`` for the conv-GAT driver that turns K2 on: the GAT3D
+    ``Model`` with ``use_pallas_mapping=True`` (a constructor switch only,
+    as in JAX, so no config or CLI flag reaches it)."""
+    from extended_gan_torch.models.gat.gat3d import Model as GatModel
+
+    def build(model_type, *, image_width, image_height, n_vertices,
+              mapping_type, time_steps, use_pallas, device, generator,
+              dtype):
+        return GatModel(image_width, image_height, n_vertices, model_type,
+                        mapping_type, time_steps, use_pallas=True,
+                        generator=generator, use_pallas_mapping=True,
+                        dtype=dtype).to(device).eval()
+    return build
+
+
+class _Child:
+    """A :func:`robustness_child` process, watched from a thread that sends
+    it SIGTERM once it has printed ``stop_after`` steps."""
+
+    def __init__(self, label, spec, stop_after):
+        import signal
+
+        self.label, self.stop_after = label, stop_after
+        self.steps, self.t_signal, self.t_eof = 0, None, None
+        self.caught = self.exited = None
+        self.saves, self.launches, self.tail = [], {}, []
+        self.proc = subprocess.Popen(
+            [sys.executable, "-u", os.path.abspath(__file__),
+             "--robustness-child", json.dumps(spec)], cwd=REPO,
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+
+        def watch():
+            for line in self.proc.stdout:
+                self.tail = (self.tail + [line])[-60:]
+                if line.startswith("[child] step"):
+                    self.steps += 1
+                    if self.steps == stop_after:
+                        self.t_signal = time.monotonic()
+                        self.proc.send_signal(signal.SIGTERM)
+                elif line.startswith("[child] caught "):
+                    self.caught = float(line.split()[2])
+                elif line.startswith("[child] save "):
+                    _, _, step, size, ms = line.split()
+                    self.saves.append((int(step), int(size), float(ms)))
+                elif line.startswith("[child] launches "):
+                    self.launches = json.loads(line.split(" ", 2)[2])
+                elif line.startswith("[child] exit "):
+                    self.exited = float(line.split()[2])
+            self.t_eof = time.monotonic()
+        self.thread = threading.Thread(target=watch, daemon=True)
+        self.thread.start()
+
+    def finish(self, timeout=300):
+        """Waits for the child; fails unless it exited 0 after a SIGTERM
+        and a mid-epoch or epoch-boundary snapshot. Returns its numbers."""
+        try:
+            rc = self.proc.wait(timeout=timeout)
+        except subprocess.TimeoutExpired:
+            self.proc.kill()
+            self.proc.wait()
+            raise SmokeFailure(f"{self.label}: the child outlived {timeout} s")
+        self.thread.join(timeout=30)
+        text = "".join(self.tail)
+        check(rc == 0, f"{self.label}: the child exited {rc}:\n{text}")
+        check(self.t_signal is not None and self.caught is not None,
+              f"{self.label}: the child ended before its step "
+              f"{self.stop_after} or never saw the SIGTERM:\n{text}")
+        check(self.saves and "[preempt] stopped" in text
+              and "WITHOUT a snapshot" not in text,
+              f"{self.label}: no resumable snapshot after the SIGTERM:\n"
+              f"{text}")
+        step, size, ms = self.saves[-1]
+        return dict(steps_seen=self.steps, snapshot_step=step,
+                    snapshot_bytes=size, save_ms=ms,
+                    signal_to_caught_ms=(self.caught - self.t_signal) * 1e3,
+                    signal_to_exit_ms=(self.exited - self.t_signal) * 1e3,
+                    signal_to_process_end_ms=(self.t_eof - self.t_signal)
+                    * 1e3, launches=self.launches)
+
+
+def _checkpoint_tree(out_dir):
+    """(the newest step, its tree) under ``<out_dir>/checkpoints``."""
+    import torch
+
+    from extended_gan_torch.train.checkpoint import CheckpointManager
+
+    mgr = CheckpointManager(os.path.join(out_dir, "checkpoints"))
+    step = mgr.latest_step()
+    return step, torch.load(os.path.join(out_dir, "checkpoints",
+                                         f"step_{step}.pt"),
+                            weights_only=True)
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree, key=str) for x in _leaves(tree[k])]
+    if isinstance(tree, (list, tuple)):
+        return [x for v in tree for x in _leaves(v)]
+    return [tree]
+
+
+def _same_run(ref, run, label):
+    """Fails unless two runs' newest checkpoints (weights, BatchNorm
+    statistics, optimizer and scheduler state, key stream, epoch, mid) and
+    history.json are equal bit for bit."""
+    import torch
+
+    (s_ref, t_ref), (s_run, t_run) = _checkpoint_tree(ref), \
+        _checkpoint_tree(run)
+    a, b = _leaves(t_ref), _leaves(t_run)
+    diff = [i for i, (x, y) in enumerate(zip(a, b))
+            if not (torch.equal(x, y) if torch.is_tensor(x) else x == y)]
+    with open(os.path.join(ref, "history.json")) as f, \
+            open(os.path.join(run, "history.json")) as g:
+        same_hist = json.load(f) == json.load(g)
+    check(s_ref == s_run and len(a) == len(b) and not diff and same_hist,
+          f"{label}: the resumed run differs from the uninterrupted one "
+          f"(steps {s_ref}/{s_run}, {len(diff)} of {len(a)} leaves differ, "
+          f"history equal: {same_hist})")
+    return len(a)
+
+
+def _float_leaves(out_dir):
+    import torch
+
+    _, tree = _checkpoint_tree(out_dir)
+    return [t.double() for t in _leaves(tree)
+            if torch.is_tensor(t) and t.is_floating_point()]
+
+
+def _robust_gat_path(tmp, label, knmi, extra, stop_after, hw=80, batch=32):
+    """final_temp_conv's model with K1 and K2 on, through the conv-GAT
+    driver: the uninterrupted run here, the cut run in a child, the resume
+    here; bitwise."""
+    import torch
+
+    from extended_gan_torch import ops
+    from extended_gan_torch.train import gat_driver
+
+    kw = dict(model_type="temporal", mapping_type="conv", dataset="kmni",
+              preprocessed_folder=knmi, downsample_size=(hw, hw),
+              train_batch_size=batch, test_batch_size=64, epochs=2,
+              checkpoint_every=10, seed=369, **extra)
+    ref, run = os.path.join(tmp, label + "_ref"), os.path.join(tmp, label)
+    child = _Child(label, {"kind": "gat", "switched": True,
+                           "kwargs": {**kw, "output_path": run}}, stop_after)
+    real_build = gat_driver.build_model
+    gat_driver.build_model = _switched_build_model()
+    try:
+        with torch.backends.cudnn.flags(enabled=True, allow_tf32=False,
+                                        deterministic=True), \
+                contextlib.redirect_stdout(io.StringIO()):
+            t0 = time.perf_counter()
+            gat_driver.train(output_path=ref, **kw)
+            torch.cuda.synchronize()
+            ref_s = time.perf_counter() - t0
+            cut = child.finish()
+            before = ops.launch_counts()
+            t0 = time.perf_counter()
+            gat_driver.train(output_path=run, resume=True, **kw)
+            torch.cuda.synchronize()
+            resume_s = time.perf_counter() - t0
+            launched = {n: c - before[n] for n, c in
+                        ops.launch_counts().items() if c != before[n]}
+    finally:
+        gat_driver.build_model = real_build
+    leaves = _same_run(ref, run, label)
+    for name in ("gat_attention_fwd", "gat_attention_bwd", "gat_mapping_fwd",
+                 "gat_mapping_bwd"):
+        check(launched.get(name, 0) > 0 and cut["launches"].get(name, 0) > 0,
+              f"{label}: {name} launched {launched.get(name, 0)} times in "
+              f"the resumed run, {cut['launches'].get(name, 0)} in the cut "
+              "one")
+    return dict(cut, launched=launched, leaves=leaves, ref_s=ref_s,
+                resume_s=resume_s)
+
+
+def _robust_dcgan_path(tmp, label, h5, extra, stop_after):
+    """The published DCGAN through ``python -m extended_gan_torch.dcgan``
+    (dropout 0.01): uninterrupted here, cut in a child, ``--resume`` here;
+    bitwise."""
+    import torch
+
+    from extended_gan_torch.dcgan.__main__ import main as dcgan_cli
+
+    # --save-epoch past the last epoch: a snapshot at the end and at a
+    # SIGTERM only
+    argv = ["--data-location", h5, "--epochs", "2", "--save-epoch", "10",
+            *extra]
+    ref, run = os.path.join(tmp, label + "_ref"), os.path.join(tmp, label)
+    child = _Child(label, {"kind": "dcgan",
+                           "argv": argv + ["--out-dir", run]}, stop_after)
+    with torch.backends.cudnn.flags(enabled=True, allow_tf32=False,
+                                    deterministic=True), \
+            contextlib.redirect_stdout(io.StringIO()):
+        dcgan_cli(argv + ["--out-dir", ref])
+        cut = child.finish()
+        dcgan_cli(argv + ["--out-dir", run, "--resume"])
+        torch.cuda.synchronize()
+    return dict(cut, leaves=_same_run(ref, run, label))
+
+
+def _robust_smaat(tmp, stop_after):
+    """final_smaatunet (K3) through ``generate_experiment``: two
+    uninterrupted runs here (their gap is the run-to-run floor: the
+    upsampling's backward adds with atomics), the cut run in a child, the
+    resume here; held by ``utils.compare.held_to_reference``, with a twin
+    whose one optimizer step is skipped shown to fail it."""
+    import torch
+
+    from extended_gan_torch import ops
+    from extended_gan_torch.gat.generate_experiment import generate_experiment
+    from extended_gan_torch.utils.compare import (
+        drift,
+        held_to_reference,
+        widest,
+    )
+
+    kw = dict(epochs=2, max_batches=8, checkpoint_every=10)
+    outs = {k: os.path.join(tmp, "smaat_" + k)
+            for k in ("ref", "twin", "twin2", "run", "fault")}
+    child = _Child("final_smaatunet", {
+        "kind": "experiment", "name": "final_smaatunet",
+        "kwargs": {**kw, "output_path": outs["run"]}}, stop_after)
+    with contextlib.redirect_stdout(io.StringIO()):
+        for k in ("ref", "twin", "twin2"):
+            generate_experiment("final_smaatunet", output_path=outs[k], **kw)
+        cut = child.finish()
+        before = ops.launch_counts()
+        generate_experiment("final_smaatunet", output_path=outs["run"],
+                            resume=True, **kw)
+        torch.cuda.synchronize()
+        launched = {n: c - before[n] for n, c in
+                    ops.launch_counts().items() if c != before[n]}
+        real_step = torch.optim.Adam.step
+        calls = [0]
+
+        def skip_one(self, *a, **k):
+            calls[0] += 1
+            return None if calls[0] == 5 else real_step(self, *a, **k)
+        torch.optim.Adam.step = skip_one
+        try:
+            generate_experiment("final_smaatunet", output_path=outs["fault"],
+                                **kw)
+        finally:
+            torch.optim.Adam.step = real_step
+    want = _float_leaves(outs["ref"])
+    floor = widest(drift(_float_leaves(outs[k]), want)
+                   for k in ("twin", "twin2"))
+    verdict = held_to_reference(_float_leaves(outs["run"]), want, floor)
+    fault = held_to_reference(_float_leaves(outs["fault"]), want, floor)
+    check(verdict["ok"] and not fault["ok"],
+          f"final_smaatunet: resumed against uninterrupted {verdict}; a "
+          f"skipped optimizer step {fault}")
+    check(launched.get("dsconv_fwd", 0) > 0
+          and launched.get("dsconv_bwd", 0) > 0,
+          f"final_smaatunet: K3 launches in the resumed run {launched}")
+    return dict(cut, launched=launched, verdict=verdict, fault=fault)
+
+
+def _bf16_case(name, batch, hw):
+    """(make(dtype) -> (modules, step(inputs) -> losses, megastep,
+    optimizers), a batch's inputs) for one of the bf16 measurements."""
+    import torch
+
+    from extended_gan_torch.models.gat.gat3d import Model as GatModel
+    from extended_gan_torch.models.registry import build_model
+    from extended_gan_torch.train.dcgan_driver import (
+        DEFAULT_PARAMS,
+        build_dcgan,
+    )
+    from extended_gan_torch.train.dcgan_trainer import (
+        make_dcgan_megastep,
+        make_dcgan_train_step,
+    )
+    from extended_gan_torch.train.gat_trainer import (
+        make_gat_megastep,
+        make_gat_train_step,
+    )
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(7)
+    if name == "DCGAN":
+        inputs = (torch.rand(batch, 4, 64, 64, device=dev, generator=gen),
+                  torch.rand(batch, 4, 64, 64, device=dev, generator=gen),
+                  torch.ones(batch, device=dev))
+
+        def make(dtype, remat=False):
+            nets, opts = build_dcgan(DEFAULT_PARAMS, seed=369, device=dev,
+                                     capturable=True,
+                                     precision="bf16" if dtype
+                                     == torch.bfloat16 else "f32")
+            step = make_dcgan_train_step(*nets, *opts)
+            gens = (nets[0].ConvBlock_0.dropout_generator,)
+
+            def losses(*a):  # one step, its three losses
+                logs = step(*a)
+                return [logs[k] for k in ("errFD", "errTD", "errG")]
+            return (nets, losses,
+                    make_dcgan_megastep(*nets, *opts, generators=gens), opts)
+        return make, inputs
+    v = 6
+    inputs = (torch.rand(batch, hw, hw, 4, v, device=dev, generator=gen),
+              torch.rand(batch, hw, hw, 4, v, device=dev, generator=gen),
+              torch.ones(batch, device=dev))
+
+    def make(dtype, remat=False):
+        g = torch.Generator().manual_seed(369)
+        if name == "final_smaatunet":
+            model = build_model("unet", image_width=hw, image_height=hw,
+                                n_vertices=v, mapping_type="linear",
+                                device=dev, generator=g, dtype=dtype)
+        else:
+            model = GatModel(hw, hw, v, "temporal", "conv", use_pallas=True,
+                             generator=g, dtype=dtype,
+                             use_pallas_mapping=name.endswith("on")).to(dev)
+        opt = torch.optim.Adam(model.parameters(), lr=1e-3,
+                               weight_decay=0.01, capturable=True)
+        step = make_gat_train_step(model, opt, remat=remat)
+        return ((model,), lambda *a: [step(*a)[0]],
+                make_gat_megastep(model, opt, remat=remat), (opt,))
+    return make, inputs
+
+
+def _step_numbers(make, inputs, dtype, *, remat=False, k=ROBUST_K):
+    """Eager ms a step (8 steps after 2), peak MiB of an eager step, the
+    port's kernels launched by one eager step, and ms a step as K = k steps
+    a CUDA graph (after the eager warm-up group and the capture), its busy
+    ms and kernels a step (one replay profiled) and the port's kernels in
+    the graph."""
+    import torch
+
+    from extended_gan_torch import ops
+
+    mods, step, mega, _ = make(dtype, remat)
+    for _ in range(2):
+        step(*inputs)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    before = ops.launch_counts()
+    step(*inputs)
+    torch.cuda.synchronize()
+    per_step = {n: c - before[n] for n, c in ops.launch_counts().items()
+                if c != before[n]}
+    peak = torch.cuda.max_memory_allocated() / 2**20
+    above = peak - base / 2**20
+    t0 = time.perf_counter()
+    for _ in range(8):
+        step(*inputs)
+    torch.cuda.synchronize()
+    out = dict(eager_ms=(time.perf_counter() - t0) * 1e3 / 8,
+               peak_mib=peak, peak_step_mib=above, launches_a_step=per_step)
+    staged = tuple(torch.stack([t] * k) for t in inputs)
+    mega(*staged)  # the warm-up group, eager
+    mega(*staged)  # captured, then replayed
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(3):
+        mega(*staged)
+    torch.cuda.synchronize()
+    out["graph_ms"] = (time.perf_counter() - t0) * 1e3 / (3 * k)
+    prof = _profile_call(lambda: mega(*staged), k)
+    (entry,) = mega.graphs.values()
+    out.update(busy_ms=prof["busy_ms"], kernels_a_step=prof["kernels"] / k,
+               graph_launches=dict(entry.launches), mods=mods)
+    return out
+
+
+def _bf16_losses(make, inputs, n=8):
+    """n train steps in float32 and in bf16 from the same state: (float32
+    losses, bf16 losses, whether every bf16 parameter stayed float32)."""
+    import torch
+
+    runs = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        mods, step, _, opts = make(dtype)
+        runs[dtype] = [float(v) for _ in range(n) for v in step(*inputs)]
+    params_f32 = all(p.dtype == torch.float32 for m in mods
+                     for p in m.parameters()) and all(
+        v.dtype == torch.float32 for o in opts for s in o.state.values()
+        for v in s.values() if torch.is_tensor(v) and v.is_floating_point())
+    return runs[torch.float32], runs[torch.bfloat16], params_f32
+
+
+def _grads(mods):
+    return [p.grad.detach().clone() for m in mods for p in m.parameters()]
+
+
+def _remat_case(make, inputs, name):
+    """One train step with and without remat from one state: gradients
+    bitwise (GAT3D) or held to the plain step's own run-to-run drift (the
+    UNet's upsampling adds with atomics), and the forward kernels launched
+    twice as often with remat."""
+    import torch
+
+    from extended_gan_torch import ops
+    from extended_gan_torch.utils.compare import drift, held_to_reference
+
+    grads, launches = {}, {}
+    for label, remat in (("plain", False), ("plain again", False),
+                         ("remat", True)):
+        mods, step, _, _ = make(torch.float32, remat)
+        before = ops.launch_counts()
+        with torch.backends.cudnn.flags(enabled=True, allow_tf32=False,
+                                        deterministic=True):
+            step(*inputs)
+        torch.cuda.synchronize()
+        launches[label] = {n: c - before[n] for n, c in
+                           ops.launch_counts().items() if c != before[n]}
+        grads[label] = _grads(mods)
+    if name == "final_smaatunet":
+        floor = drift(grads["plain again"], grads["plain"])
+        verdict = held_to_reference(grads["remat"], grads["plain"], floor)
+        ok = verdict["ok"]
+    else:
+        verdict = all(torch.equal(a, b) for a, b in zip(grads["remat"],
+                                                        grads["plain"]))
+        ok = verdict
+    twice = {n: (2 * c if n.endswith("fwd") else c)
+             for n, c in launches["plain"].items()}
+    check(ok and launches["remat"] == twice and twice,
+          f"remat {name}: gradients {verdict}; launches {launches['remat']} "
+          f"with remat, {launches['plain']} without")
+    return verdict, launches["remat"]
+
+
+def phase_robustness(tmp, batch=32):
+    """State and robustness on the card (``core/precision.py``,
+    ``core/prng.py``, ``train/preempt.py``, the resume half of
+    ``train/checkpoint.py``, remat), at full width:
+
+    - preempt and resume: a child process runs the driver and gets a real
+      SIGTERM after its Nth step (or group of K); it writes a snapshot and
+      exits 0; this process resumes and is held to an uninterrupted run:
+      final_temp_conv's model with K1 and K2 (``use_pallas_mapping=True``,
+      80x80, b=32) streaming and ``--resident --megastep 8``, and the
+      published DCGAN through its CLI (dropout 0.01) streaming and
+      ``--resident --megastep 8``, bit for bit (cuDNN deterministic);
+      final_smaatunet (K3) within ``utils/compare.py``'s bound. The
+      snapshot's bytes, the time to write it and the signal to the exit;
+    - bf16 against float32 on the DCGAN, final_temp_conv (K2 off and on)
+      and final_smaatunet at b=32: ms a step eager and as a K=8 graph,
+      busy time and kernels a step, peak memory of a step, the kernels'
+      launch counts (equal), 8 bf16 steps' losses against float32's from
+      the same state (ROBUST_LOSS_REL), parameters float32;
+    - remat on final_temp_conv (K2 off) and final_smaatunet: peak memory
+      and ms a step with and without, gradients equal (bitwise for GAT3D,
+      the drift bound for the UNet), forward kernels twice a step."""
+    import torch
+
+    from extended_gan_torch import ops
+    from extended_gan_torch.data.synthetic import (
+        ensure_synthetic_h5,
+        ensure_synthetic_kmni,
+        make_kmni_dataset,
+    )
+
+    t_phase = time.perf_counter()
+    card = card_line()
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    knmi = make_kmni_dataset(os.path.join(tmp, "knmi"), n_train_files=10,
+                             n_test_files=1, frames_per_file=96, hw=80)
+    h5 = ensure_synthetic_h5(os.path.join(tmp, "h5"), frames_train=1024,
+                             frames_test=64, h=64, w=64)
+    ensure_synthetic_kmni()  # final_smaatunet's fallback, before any child
+    _reset_launches()  # the main path starts here: every launch below
+    # 12 streaming steps an epoch: the SIGTERM after epoch 1 and 4 more;
+    # resident, 3 programs of 8 an epoch: after 4 programs;
+    # final_smaatunet's synthetic archive: 3 steps an epoch, after 4
+    paths = {
+        "gat streaming": lambda: _robust_gat_path(
+            tmp, "gat_stream", knmi, dict(max_batches=12), 16),
+        "gat resident": lambda: _robust_gat_path(
+            tmp, "gat_resident", knmi, dict(max_batches=24, resident=True,
+                                            megastep=ROBUST_K), 4),
+        "dcgan streaming": lambda: _robust_dcgan_path(
+            tmp, "dcgan_stream", h5, ["--max-batches", "12"], 16),
+        "dcgan resident": lambda: _robust_dcgan_path(
+            tmp, "dcgan_resident", h5, ["--max-batches", "24", "--resident",
+                                        "--megastep", str(ROBUST_K)], 4),
+        "final_smaatunet": lambda: _robust_smaat(tmp, 4),
+    }
+    results = {}
+    for label, run in paths.items():
+        r = results[label] = run()
+        print(f"[robustness] {label}: SIGTERM after step {r['steps_seen']} "
+              f"seen, snapshot step {r['snapshot_step']} of "
+              f"{r['snapshot_bytes']} bytes written in {r['save_ms']:.3f} "
+              f"ms, signal to handler {r['signal_to_caught_ms']:.3f} ms, to "
+              f"the driver's return {r['signal_to_exit_ms']:.3f} ms, to the "
+              f"process's end {r['signal_to_process_end_ms']:.3f} ms; "
+              + (f"resumed run equal bit for bit ({r['leaves']} leaves)"
+                 if "leaves" in r else
+                 f"resumed run held: gap {r['verdict']['gap']:.3e} "
+                 f"(worst {r['verdict']['worst']:.3f} of its bound), a "
+                 f"skipped step {r['fault']['worst']:.1f} of it")
+              + f"; the cut run's launches {r['launches']}; {card}")
+
+    bf16 = {}
+    for name, hw in (("DCGAN", 64), ("final_temp_conv switch off", 80),
+                     ("final_temp_conv switch on", 80),
+                     ("final_smaatunet", 20)):
+        make, inputs = _bf16_case(name, batch, hw)
+        row = {}
+        for dtype in (torch.float32, torch.bfloat16):
+            row[str(dtype).split(".")[-1]] = _step_numbers(make, inputs,
+                                                           dtype)
+        l32, l16, params_f32 = _bf16_losses(make, inputs)
+        f32, b16 = row["float32"], row["bfloat16"]
+        gaps = [abs(a - b) for a, b in zip(l16, l32)]
+        check(all(math.isfinite(v) for v in l16) and params_f32 and all(
+            g <= max(ROBUST_LOSS_REL * abs(a), ROBUST_LOSS_ABS)
+            for g, a in zip(gaps, l32)),
+            f"bf16 {name}: losses {l16} against float32's {l32}; parameters "
+            f"and moments float32: {params_f32}")
+        check(b16["launches_a_step"] == f32["launches_a_step"],
+              f"bf16 {name}: launches {b16['launches_a_step']} a step, "
+              f"float32 {f32['launches_a_step']}")
+        for r in (f32, b16):
+            r.pop("mods")
+        bf16[name] = dict(row, loss_gap=max(gaps), losses_f32=l32,
+                          losses_bf16=l16)
+        print(f"[robustness] {name} b={batch}: ms a step eager f32 "
+              f"{f32['eager_ms']:.3f} / bf16 {b16['eager_ms']:.3f}, as a "
+              f"K={ROBUST_K} graph f32 {f32['graph_ms']:.3f} / bf16 "
+              f"{b16['graph_ms']:.3f}; busy a step {f32['busy_ms']:.4f} / "
+              f"{b16['busy_ms']:.4f}; kernels a step "
+              f"{f32['kernels_a_step']:.1f} / {b16['kernels_a_step']:.1f}; "
+              f"peak MiB {f32['peak_mib']:.1f} / {b16['peak_mib']:.1f} "
+              f"(a step's own {f32['peak_step_mib']:.1f} / "
+              f"{b16['peak_step_mib']:.1f}); the port's kernels a step "
+              f"{b16['launches_a_step'] or 'none'} (= f32's); 8 steps' "
+              f"largest loss gap {max(gaps):.3e} (bound "
+              f"{ROBUST_LOSS_REL} of the loss); {card}")
+
+    remat = {}
+    for name, hw in (("final_temp_conv switch off", 80),
+                     ("final_smaatunet", 20)):
+        make, inputs = _bf16_case(name, batch, hw)
+        verdict, launched = _remat_case(make, inputs, name)
+        rows = {flag: _step_numbers(make, inputs, torch.float32, remat=flag)
+                for flag in (False, True)}
+        in_graph = rows[True]["graph_launches"]
+        check(in_graph == {n: ROBUST_K * c for n, c in launched.items()},
+              f"remat {name}: a K={ROBUST_K} graph holds {in_graph}, a remat "
+              f"step launches {launched}")
+        for r in rows.values():
+            r.pop("mods")
+        remat[name] = dict(plain=rows[False], remat=rows[True],
+                           launches=launched,
+                           grads=verdict if isinstance(verdict, bool)
+                           else verdict["gap"])
+        print(f"[robustness] remat {name} b={batch}: peak MiB "
+              f"{rows[False]['peak_mib']:.1f} plain / "
+              f"{rows[True]['peak_mib']:.1f} remat (a step's own "
+              f"{rows[False]['peak_step_mib']:.1f} / "
+              f"{rows[True]['peak_step_mib']:.1f}); ms a step eager "
+              f"{rows[False]['eager_ms']:.3f} / {rows[True]['eager_ms']:.3f},"
+              f" as a K={ROBUST_K} graph {rows[False]['graph_ms']:.3f} / "
+              f"{rows[True]['graph_ms']:.3f}; gradients "
+              f"{'bitwise' if verdict is True else verdict}; launches a "
+              f"remat step {launched}, in its graph {in_graph}; {card}")
+    main_path = {n: c for n, c in ops.launch_counts().items() if c}
+    for name in ("gat_attention_fwd", "gat_attention_bwd", "dsconv_fwd",
+                 "dsconv_bwd", "gat_mapping_fwd", "gat_mapping_bwd"):
+        check(main_path.get(name, 0) > 0,
+              f"robustness: {name} never launched in this phase")
+    seconds = time.perf_counter() - t_phase
+    print(f"[robustness] launches in this process {main_path}; phase "
+          f"{seconds:.1f} s")
+    return dict(results=results, main_path=main_path, bf16=bf16,
+                remat=remat, seconds=seconds)
+
+
 def card_line():
     res = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -3120,6 +3796,8 @@ def main() -> int:
               file=sys.stderr)
         return 1
     sys.path.insert(0, REPO)
+    if sys.argv[1:2] == ["--robustness-child"]:
+        return robustness_child(sys.argv[2])
     t0 = time.perf_counter()
     try:
         build_logs = phase_build()
@@ -3142,6 +3820,11 @@ def main() -> int:
             mega = phase_megastep(mega_tmp)
         finally:
             shutil.rmtree(mega_tmp, ignore_errors=True)
+        robust_tmp = tempfile.mkdtemp(prefix="smoke_robustness_")
+        try:
+            robust = phase_robustness(robust_tmp)
+        finally:
+            shutil.rmtree(robust_tmp, ignore_errors=True)
         card = card_line()
     except SmokeFailure as e:
         print(f"chip_smoke: FAIL: {e}", file=sys.stderr)
@@ -3184,6 +3867,13 @@ def main() -> int:
             "3 programs": graphs["final_temp_conv switched"]["launched"][name],
             "megastep final_temp_smaat, 3 programs":
                 graphs["final_temp_smaat"]["launched"][name]})
+    # the robustness phase: this process's resumes and uninterrupted runs,
+    # bf16 and remat steps (the cut runs' children count their own)
+    robust_path = "robustness: resume, bf16, remat (in process)"
+    robust_launches = robust["main_path"]
+    for name in ("gat_attention_fwd", "gat_attention_bwd"):
+        (k1_family_fwd if name.endswith("fwd") else k1_family_bwd)[
+            robust_path] = robust_launches.get(name, 0)
     # K3's largest final_smaatunet launch by work: up4's first DSC
     dsc_main = max((r for r in dsc_rows if r["where"] != "tiled-variant shape"),
                    key=lambda r: r["gflop"])
@@ -3247,14 +3937,16 @@ def main() -> int:
         "source": "extended_gan_torch/ops/csrc/dsconv.cu",
         "replaces": "extended_gan_tpu/ops/pallas/dsconv.py:66",
         "launches": (train_launches["dsconv_fwd"] + extras["k3_launches"]
-                     + graphs["final_smaatunet"]["launched"]["dsconv_fwd"]),
+                     + graphs["final_smaatunet"]["launched"]["dsconv_fwd"]
+                     + robust_launches.get("dsconv_fwd", 0)),
         "launches_by_path": {
             "train final_smaatunet": train_launches["dsconv_fwd"],
             "unet train steps b=32, kernel path":
                 train_launches["unet_train_step"]["dsconv_fwd"],
             "serve final_smaatunet w8": extras["k3_launches"],
             "megastep final_smaatunet, 3 programs":
-                graphs["final_smaatunet"]["launched"]["dsconv_fwd"]},
+                graphs["final_smaatunet"]["launched"]["dsconv_fwd"],
+            robust_path: robust_launches.get("dsconv_fwd", 0)},
         "max_abs_err": dsc_worst,
         "ms": dsc_main["kernel_ms"],
         "kernel_ms": dsc_main["kernel_ms"],
@@ -3274,13 +3966,15 @@ def main() -> int:
         # the JAX _bwd is jax.vjp of _reference_dsc, not a Pallas kernel
         "replaces": "extended_gan_tpu/ops/pallas/dsconv.py:324",
         "launches": (train_launches["dsconv_bwd"]
-                     + graphs["final_smaatunet"]["launched"]["dsconv_bwd"]),
+                     + graphs["final_smaatunet"]["launched"]["dsconv_bwd"]
+                     + robust_launches.get("dsconv_bwd", 0)),
         "launches_by_path": {
             "train final_smaatunet": train_launches["dsconv_bwd"],
             "unet train steps b=32, kernel path":
                 train_launches["unet_train_step"]["dsconv_bwd"],
             "megastep final_smaatunet, 3 programs":
-                graphs["final_smaatunet"]["launched"]["dsconv_bwd"]},
+                graphs["final_smaatunet"]["launched"]["dsconv_bwd"],
+            robust_path: robust_launches.get("dsconv_bwd", 0)},
         "max_abs_err": dsc_bwd_worst,
         "ms": dsc_main["bwd_kernel_ms"],
         "kernel_ms": dsc_main["bwd_kernel_ms"],
@@ -3311,6 +4005,7 @@ def main() -> int:
                    "megastep final_temp_conv resident "
                    "use_pallas_mapping=True, 3 programs":
                    graphs["final_temp_conv switched"]["launched"][name],
+                   robust_path: robust_launches.get(name, 0),
                    "serve and CLI train runs (switch off)": 0}
         kernels.append({
             "name": name,

@@ -221,17 +221,19 @@ class ResidentVideos:
 
 
 def program_logs(store: ResidentVideos, megastep, seed: int, k: int,
-                 batch: int, *, max_batches: int = 0):
+                 batch: int, *, max_batches: int = 0, start: int = 0):
     """One train epoch from ``store``: its programs (shuffled with
-    ``seed``) through ``megastep``, yielding (logs, real windows) a program;
-    with ``max_batches`` (counted in train steps) at most
-    ``ceil(max_batches / k)`` programs."""
+    ``seed``) from program ``start`` on (a resumed epoch: the order is the
+    epoch's, so the programs before ``start`` are the ones already run)
+    through ``megastep``, yielding (logs, real windows) a program; with
+    ``max_batches`` (counted in train steps) at most ``ceil(max_batches /
+    k)`` programs in the epoch."""
     progs = store.epoch_programs(seed, k, batch)
     counts = store.program_sample_counts(len(progs), k, batch)
     n_prog = len(progs)
     if max_batches:
         n_prog = min(n_prog, math.ceil(max_batches / k))
-    for i in range(n_prog):
+    for i in range(start, n_prog):
         yield megastep(progs[i]), counts[i]
 
 
@@ -247,14 +249,16 @@ def _gather_windows(video, st, w, *, frame_axis_to: int):
 
 
 def make_gat_resident_megastep(model, optimizer, store: ResidentVideos, *,
-                               time_steps: int = 4, criterion: str = "mse"):
+                               time_steps: int = 4, criterion: str = "mse",
+                               remat: bool = False):
     """K conv-GAT train steps a call, their batches gathered from ``store``
     on its device: ``megastep(starts) -> logs`` with ``starts`` a (K, B)
     program of :meth:`ResidentVideos.epoch_programs`. The update is
     ``make_gat_megastep``'s; only the batch source differs. (JAX passes the
     video as an argument; here the graph reads ``store.video`` at its fixed
     address, so the store is bound when the megastep is made.)"""
-    step = make_gat_train_step(model, optimizer, criterion=criterion)
+    step = make_gat_train_step(model, optimizer, criterion=criterion,
+                               remat=remat)
     w = 2 * time_steps
 
     def body(st):

@@ -3,8 +3,11 @@
   python -m extended_gan_torch.dcgan --epochs 1 --synthetic --out-dir /tmp/run
 
 The flags mirror ``python -m dcgan``'s; those of its options that are not
-ported yet (mesh, FSDP, SP, resume, bf16, the step variants, profiling,
-multi-host) are absent. ``--megastep K`` runs K adversarial steps a CUDA
+ported yet (mesh, FSDP, SP, the step variants, profiling, multi-host) are
+absent. ``--precision bf16`` computes in bfloat16 with float32 weights;
+``--resume`` continues from the latest checkpoint under
+``--out-dir``/checkpoints, and a SIGTERM stops a run resumably after the
+current step (or group of K) when ``--out-dir`` is given. ``--megastep K`` runs K adversarial steps a CUDA
 graph and ``--resident`` keeps the frame archive in device memory. ``--device`` picks the device:
 the CUDA card by default, ``cpu`` on request. A missing archive falls back
 to a synthetic one. ``history.json`` and the checkpoints (``checkpoints/``,
@@ -25,8 +28,8 @@ def main(argv=None):
     parser.add_argument("--epochs", type=int, default=None)
     parser.add_argument("--train-batch-size", type=int, default=32)
     parser.add_argument("--test-batch-size", type=int, default=64)
-    parser.add_argument("--precision", choices=("f32",), default="f32",
-                        help="bf16 is not ported yet")
+    parser.add_argument("--precision", choices=("f32", "bf16"),
+                        default="f32")
     parser.add_argument("--seed", type=int, default=369)
     parser.add_argument("--max-batches", type=int, default=0,
                         help="truncate each epoch (smoke runs)")
@@ -49,6 +52,8 @@ def main(argv=None):
                         help="checkpoint and write history.json every N "
                              "epochs and at the last (the reference's "
                              "params['save_epoch'] = 2; 0: never)")
+    parser.add_argument("--resume", action="store_true",
+                        help="continue from the latest checkpoint")
     parser.add_argument("--device", default=None,
                         help="default: the CUDA card; 'cpu' to train on the "
                              "CPU")
@@ -59,7 +64,7 @@ def main(argv=None):
         test_batch_size=args.test_batch_size, precision=args.precision,
         seed=args.seed, max_batches=args.max_batches,
         synthetic=args.synthetic, out_dir=args.out_dir,
-        megastep=args.megastep, resident=args.resident,
+        megastep=args.megastep, resident=args.resident, resume=args.resume,
         params=({"save_epoch": args.save_epoch}
                 if args.save_epoch is not None else None),
         device=args.device)

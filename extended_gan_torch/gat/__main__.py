@@ -9,9 +9,14 @@
       --mapping-type conv --dataset synthetic --output-path /tmp/run
 
 The actions and flags mirror ``python -m convolutional_gat``; the flags of
-its options that are not ported yet (mesh, MoE, pipeline, profiling, bf16)
-are absent. ``--megastep K`` runs K train steps a CUDA graph and
-``--resident`` keeps the decoded archive in device memory. ``--device`` picks the device: the
+its options that are not ported yet (mesh, MoE, pipeline, profiling) are
+absent. ``--precision bf16`` computes in bfloat16 with float32 weights
+(config key PRECISION). ``--megastep K`` runs K train steps a CUDA graph
+and ``--resident`` keeps the decoded archive in device memory. As in the
+JAX CLI there is no ``--resume`` flag: ``generate_experiment`` takes the
+config keys RESUME, CHECKPOINT_EVERY and REMAT (checkpoints under
+``--output-path``), and a SIGTERM stops a run resumably after the current
+step when checkpoints are on. ``--device`` picks the device: the
 CUDA card by default, ``cpu`` on request. A missing KNMI archive falls back
 to a synthetic one.
 """
@@ -42,6 +47,11 @@ def main(argv=None):
     parser.add_argument("--output-path", type=str, default="",
                         help="where history.json and model.pt go (default: "
                              "nowhere)")
+    parser.add_argument("--precision", choices=("f32", "bf16"),
+                        default=None,
+                        help="bf16: activations and products in bfloat16, "
+                             "weights, optimizer state and BatchNorm in "
+                             "float32 (config key PRECISION; default f32)")
     parser.add_argument("--max-batches", type=int, default=0)
     parser.add_argument("--megastep", type=int, default=0,
                         help="K>1: capture K train steps into ONE CUDA "
@@ -73,7 +83,7 @@ def main(argv=None):
             test_batch_size=args.test_batch_size or 64,
             epochs=args.epochs or 10,
             learning_rate=args.learning_rate or 1e-3, lr_step=1, gamma=0.95,
-            dataset=args.dataset,
+            dataset=args.dataset, precision=args.precision or "f32",
             preprocessed_folder=args.preprocessed_folder,
             downsample_size=tuple(args.downsample_size),
             max_batches=args.max_batches, use_pallas=args.use_pallas,
@@ -85,7 +95,7 @@ def main(argv=None):
         args.exp_folder_name, output_path=args.output_path,
         device=args.device, train_batch_size=args.train_batch_size,
         test_batch_size=args.test_batch_size, epochs=args.epochs,
-        learning_rate=args.learning_rate,
+        learning_rate=args.learning_rate, precision=args.precision,
         max_batches=args.max_batches or None, use_pallas=args.use_pallas,
         megastep=args.megastep or None, resident=args.resident or None)
 

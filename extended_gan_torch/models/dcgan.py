@@ -20,6 +20,12 @@ torch's default conv init (``extended_gan_tpu/ops/initializers.py``) and
 0.9 being torch's 0.1 (``extended_gan_tpu/ops/norm.py``). With a
 ``generator`` the weights are drawn from it, from the same distributions.
 
+``dtype`` is the precision policy (``core/precision.py``), as the JAX
+modules' ``dtype`` (``dcgan.py:135-164``): with ``torch.bfloat16`` every
+convolution takes its input and weights in bfloat16 and writes bfloat16,
+BatchNorm takes float32 and stays float32 (``:160-164``), and the nets'
+outputs are float32. Parameters stay float32.
+
 Channel dropout (the reference's 0.01) zeroes whole channels of a sample,
 as ``torch.nn.Dropout2d`` does, drawing from ``dropout_generator`` when one
 is given. The JAX package's ``packed`` generator (2x2 space-to-depth) is
@@ -34,6 +40,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..core.precision import cast_to, to_float32
+
 
 def _leaky_relu_02(x):
     return F.leaky_relu(x, 0.2)
@@ -47,6 +55,13 @@ ACTIVATIONS = {
     "elu": F.elu,
     "identity": lambda x: x,
 }
+
+
+def _conv_in(conv, x, dtype):
+    """``conv(x)`` with the input and the weights in ``dtype``."""
+    bias = cast_to(conv.bias, dtype) if conv.bias is not None else None
+    return F.conv2d(cast_to(x, dtype), cast_to(conv.weight, dtype), bias,
+                    conv.stride, conv.padding)
 
 
 def _conv(chin, chout, k, stride, padding, bias, generator):
@@ -69,8 +84,9 @@ class ConvBlock(nn.Module):
 
     def __init__(self, chin, chout, kernel_size=4, stride=1, padding=0,
                  use_bias=True, dropout=0.01, act="relu", batchnorm=True, *,
-                 generator=None, dropout_generator=None):
+                 generator=None, dropout_generator=None, dtype=torch.float32):
         super().__init__()
+        self.dtype = dtype
         # "same" pads (k - 1) // 2 before and k // 2 after, as XLA does: 1
         # and 2 for the 4x4 kernels (torch's own "same" pads so too, through
         # the same copy, with a warning)
@@ -86,9 +102,9 @@ class ConvBlock(nn.Module):
     def forward(self, x):
         if self.same:
             x = F.pad(x, self.same * 2)
-        x = self.Conv_0(x)
+        x = _conv_in(self.Conv_0, x, self.dtype)
         if self.BatchNorm_0 is not None:
-            x = self.BatchNorm_0(x)
+            x = self.BatchNorm_0(to_float32(x))
         if self.dropout > 0 and self.training:
             keep = 1.0 - self.dropout
             draw = torch.rand(x.shape[:2] + (1, 1), device=x.device,
@@ -102,7 +118,7 @@ class Generator(nn.Module):
     ``dropout`` reaches every block; 0 turns it off."""
 
     def __init__(self, nc=4, dropout=0.01, *, generator=None,
-                 dropout_generator=None):
+                 dropout_generator=None, dtype=torch.float32):
         super().__init__()
         widths = (nc, nc * 8, nc * 4, nc * 2, nc, nc)
         for i in range(5):
@@ -111,12 +127,12 @@ class Generator(nn.Module):
                 widths[i], widths[i + 1], 4, padding="same",
                 act="sigmoid" if last else "relu", batchnorm=not last,
                 dropout=dropout, generator=generator,
-                dropout_generator=dropout_generator))
+                dropout_generator=dropout_generator, dtype=dtype))
 
     def forward(self, x):
         for block in self.children():
             x = block(x)
-        return x
+        return to_float32(x)
 
 
 class TemporalDiscriminator(nn.Module):
@@ -124,10 +140,11 @@ class TemporalDiscriminator(nn.Module):
     channels -> one probability a sample, shape (B,)."""
 
     def __init__(self, nc=4, ndf=64, dropout=0.01, *, generator=None,
-                 dropout_generator=None):
+                 dropout_generator=None, dtype=torch.float32):
         super().__init__()
         kw = dict(use_bias=False, act="leaky_relu", dropout=dropout,
-                  generator=generator, dropout_generator=dropout_generator)
+                  generator=generator, dropout_generator=dropout_generator,
+                  dtype=dtype)
         widths = (2 * nc, ndf, 2 * ndf, 4 * ndf, 8 * ndf)
         for i in range(4):
             self.add_module(f"ConvBlock_{i}", ConvBlock(
@@ -141,15 +158,16 @@ class TemporalDiscriminator(nn.Module):
         for block in self.children():
             xy = block(xy)
         # keep the batch axis at B = 1 (the reference's bare squeeze drops it)
-        return xy.reshape(xy.shape[0])
+        return to_float32(xy).reshape(xy.shape[0])
 
 
 class FrameDiscriminator(nn.Module):
     """The classic DCGAN discriminator on the predicted frames alone -> one
     probability a sample, shape (B,)."""
 
-    def __init__(self, nc=4, ndf=64, *, generator=None):
+    def __init__(self, nc=4, ndf=64, *, generator=None, dtype=torch.float32):
         super().__init__()
+        self.dtype = dtype
         widths = (nc, ndf, 2 * ndf, 4 * ndf, 8 * ndf)
         for i in range(4):
             self.add_module(f"Conv_{i}", _conv(widths[i], widths[i + 1], 4, 2,
@@ -159,9 +177,11 @@ class FrameDiscriminator(nn.Module):
             self.add_module(f"BatchNorm_{i}", nn.BatchNorm2d(widths[i + 2]))
 
     def forward(self, y):
-        x = _leaky_relu_02(self.Conv_0(y))
-        x = _leaky_relu_02(self.BatchNorm_0(self.Conv_1(x)))
-        x = _leaky_relu_02(self.BatchNorm_1(self.Conv_2(x)))
-        x = _leaky_relu_02(self.BatchNorm_2(self.Conv_3(x)))
-        x = torch.sigmoid(self.Conv_4(x))
+        dt = self.dtype
+        x = _leaky_relu_02(_conv_in(self.Conv_0, y, dt))
+        for i in range(3):  # BatchNorm in float32
+            conv = getattr(self, f"Conv_{i + 1}")
+            x = _leaky_relu_02(getattr(self, f"BatchNorm_{i}")(
+                to_float32(_conv_in(conv, x, dt))))
+        x = torch.sigmoid(to_float32(_conv_in(self.Conv_4, x, dt)))
         return x.reshape(x.shape[0])

@@ -23,13 +23,16 @@ class BaselineModel(nn.Module):
     """(B, H, W, T, V) -> (B, H, W, T, V)."""
 
     def __init__(self, image_width, image_height, n_vertices, time_steps=4,
-                 mapping_type="linear", generator=None):
+                 mapping_type="linear", generator=None,
+                 dtype=torch.float32):
         super().__init__()
         self.image_width, self.image_height = image_width, image_height
         self.mapping_type = mapping_type
         f = time_steps * image_height * image_width
-        self.hidden_layer = GATMultiHead(f, f, n_vertices, 0.2, 1, generator)
-        self.output_layer = GATMultiHead(f, f, n_vertices, 0.2, 1, generator)
+        self.hidden_layer = GATMultiHead(f, f, n_vertices, 0.2, 1, generator,
+                                         dtype)
+        self.output_layer = GATMultiHead(f, f, n_vertices, 0.2, 1, generator,
+                                         dtype)
 
     def forward(self, x):
         b, h, w, t, v = x.shape
@@ -43,13 +46,16 @@ class BaselineModel2D(nn.Module):
     """(B, H, W, T, V) -> (B, H, W, T, V)."""
 
     def __init__(self, image_width, image_height, n_vertices, time_steps=4,
-                 mapping_type="linear", generator=None):
+                 mapping_type="linear", generator=None,
+                 dtype=torch.float32):
         super().__init__()
         self.image_width, self.image_height = image_width, image_height
         self.mapping_type = mapping_type
         t = time_steps
-        self.hidden_layer = GATMultiHead2D(t, t, n_vertices, 0.2, 1, generator)
-        self.output_layer = GATMultiHead2D(t, t, n_vertices, 0.2, 1, generator)
+        self.hidden_layer = GATMultiHead2D(t, t, n_vertices, 0.2, 1,
+                                           generator, dtype)
+        self.output_layer = GATMultiHead2D(t, t, n_vertices, 0.2, 1,
+                                           generator, dtype)
 
     def forward(self, x):
         b, h, w, t, v = x.shape

@@ -25,6 +25,14 @@ n_classes=T', kernels_per_layer=1, base=16)`` over the B*V images of a
 head, without K3, as the JAX package builds it (``gat3d.py:181-187``). Its
 heads are unrolled (``GATMultiHead3D``); its output, (B*V, T', H, W)
 contiguous, reaches the attention as a plane-major view, with no copy.
+
+``dtype`` is the precision policy of ``core/precision.py``, as the JAX
+modules' ``dtype``: with ``torch.bfloat16`` the linear and cuDNN conv
+mappings and the smaat_unet mapping compute in bfloat16, while K2's fused
+mapping is fed float32 (``gat3d.py:157``), the mapped features go back to
+float32 before the attention (``:248-251``), so K1 and the plain attention
+run in float32, and the sigmoid runs in float32 (``:356``). Parameters stay
+float32.
 """
 
 from __future__ import annotations
@@ -33,6 +41,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ...core.precision import cast_to, to_float32
 from ...ops.gat_attention import attend_temporal
 from ...ops.gat_mapping import fused_conv_bottleneck, reference_bottleneck
 from ..smaat_unet import SmaAt_UNet
@@ -62,10 +71,12 @@ class _Mapping(nn.Module):
     heads at once: (B, H, W, T, V) -> (NH, B, H, W, T', V)."""
 
     def __init__(self, nfeat, nhid, mapping_type="linear", nheads=1,
-                 conv_hidden=74, generator=None, use_pallas_mapping=False):
+                 conv_hidden=74, generator=None, use_pallas_mapping=False,
+                 dtype=torch.float32):
         super().__init__()
         self.mapping_type = mapping_type
         self.use_pallas_mapping = use_pallas_mapping
+        self.dtype = dtype
         if mapping_type == "linear":
             self.W = nn.Parameter(torch.empty(nheads, nfeat, nhid))
             self.b = nn.Parameter(torch.zeros(nheads, nhid))
@@ -84,13 +95,16 @@ class _Mapping(nn.Module):
             # the JAX package builds it without use_pallas: K3 stays off
             self.unet = SmaAt_UNet(n_channels=nfeat, n_classes=nhid,
                                    kernels_per_layer=1, base=16,
-                                   generator=generator)
+                                   generator=generator, dtype=dtype)
         else:
             raise ValueError(f"unknown mapping_type {mapping_type!r}")
 
     def forward(self, x):
+        dt = self.dtype
         if self.mapping_type == "linear":
-            out = torch.einsum("bhwtv,nto->nbhwov", x, self.W)
+            out = torch.einsum("bhwtv,nto->nbhwov", cast_to(x, dt),
+                               cast_to(self.W, dt))
+            # the float32 bias promotes the sum to float32, as in JAX
             return out + self.b[:, None, None, None, :, None]
         if self.mapping_type == "smaat_unet":
             b, h, w, t, v = x.shape
@@ -102,9 +116,11 @@ class _Mapping(nn.Module):
         params = (self.conv1.weight, self.conv1.bias, self.conv2.weight,
                   self.conv2.bias, self.conv3.weight, self.conv3.bias)
         if self.use_pallas_mapping and x.shape[1] == x.shape[2]:
-            # one launch for every head, reading x in its own layout
-            return fused_conv_bottleneck(x.contiguous(), *params)
-        return reference_bottleneck(x, *params)
+            # one launch for every head, reading x in its own layout; fed
+            # float32 under every precision, as in JAX
+            return fused_conv_bottleneck(to_float32(x).contiguous(), *params)
+        return reference_bottleneck(cast_to(x, dt),
+                                    *(cast_to(p, dt) for p in params))
 
 
 class GAT3DHead(nn.Module):
@@ -114,7 +130,8 @@ class GAT3DHead(nn.Module):
 
     def __init__(self, nfeat, nhid, n_vertices, alpha=0.2, type_="temporal",
                  mapping_type="linear", use_pallas=False, nheads=1,
-                 generator=None, use_pallas_mapping=False):
+                 generator=None, use_pallas_mapping=False,
+                 dtype=torch.float32):
         super().__init__()
         if type_ not in ("temporal", "spatial", "multi_stream"):
             raise ValueError(f"unknown type_ {type_!r}")
@@ -123,7 +140,8 @@ class GAT3DHead(nn.Module):
         self.use_pallas = use_pallas
         self.mapping = _Mapping(nfeat, nhid, mapping_type, nheads,
                                 generator=generator,
-                                use_pallas_mapping=use_pallas_mapping)
+                                use_pallas_mapping=use_pallas_mapping,
+                                dtype=dtype)
         axes = {"temporal": ["temporal"], "spatial": ["spatial"],
                 "multi_stream": ["temporal", "spatial"]}[type_]
         # temporal graph: nodes T', features V; spatial: nodes V, features T'
@@ -154,7 +172,7 @@ class GAT3DHead(nn.Module):
         return torch.einsum("nbvu,nbhwtu->nbhwtv", attention, mapped), False
 
     def forward(self, x):
-        mapped = self.mapping(x)
+        mapped = to_float32(self.mapping(x))  # the attention: float32
         if self.type_ == "multi_stream":
             # ELU applies to the averaged streams: no fused-ELU kernel here
             t_out, _ = self._attend(mapped, "temporal")
@@ -175,11 +193,13 @@ class GATMultiHead3D(nn.Module):
 
     def __init__(self, nfeat, nhid, n_vertices, alpha=0.2, nheads=1,
                  type_="temporal", mapping_type="linear", use_pallas=False,
-                 generator=None, use_pallas_mapping=False):
+                 generator=None, use_pallas_mapping=False,
+                 dtype=torch.float32):
         super().__init__()
         args = (nfeat, nhid, n_vertices, alpha, type_, mapping_type,
                 use_pallas)
-        kw = dict(generator=generator, use_pallas_mapping=use_pallas_mapping)
+        kw = dict(generator=generator, use_pallas_mapping=use_pallas_mapping,
+                  dtype=dtype)
         self.unrolled = mapping_type == "smaat_unet"
         if not self.unrolled:
             self.heads = GAT3DHead(*args, nheads, **kw)
@@ -201,7 +221,7 @@ class Model(nn.Module):
     def __init__(self, image_width, image_height, n_vertices,
                  attention_type="temporal", mapping_type="linear",
                  time_steps=4, use_pallas=False, generator=None,
-                 use_pallas_mapping=False):
+                 use_pallas_mapping=False, dtype=torch.float32):
         super().__init__()
         self.image_width, self.image_height = image_width, image_height
         self.mapping_type = mapping_type
@@ -209,9 +229,10 @@ class Model(nn.Module):
                       alpha=0.2, type_=attention_type,
                       mapping_type=mapping_type, use_pallas=use_pallas,
                       generator=generator,
-                      use_pallas_mapping=use_pallas_mapping)
+                      use_pallas_mapping=use_pallas_mapping, dtype=dtype)
         self.hidden_layer = GATMultiHead3D(nheads=3, **common)
         self.output_layer = GATMultiHead3D(nheads=1, **common)
 
     def forward(self, x):
-        return torch.sigmoid(self.output_layer(self.hidden_layer(x)))
+        return torch.sigmoid(to_float32(
+            self.output_layer(self.hidden_layer(x))))

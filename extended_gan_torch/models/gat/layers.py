@@ -25,6 +25,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ...core.precision import cast_to, to_float32
+
 
 @torch.no_grad()
 def xavier_gain_1414(tensor: torch.Tensor,
@@ -91,9 +93,10 @@ class GraphAttentionLayer(nn.Module):
     (N, V, C) or (N, C, T, V), flattened to (N, V, C*T), -> (N, V, E)."""
 
     def __init__(self, in_features, out_features, n_vertices, alpha=0.2,
-                 generator=None):
+                 generator=None, dtype=torch.float32):
         super().__init__()
         self.alpha = alpha
+        self.dtype = dtype
         _attention_params(self, in_features, out_features, n_vertices,
                           generator)
 
@@ -101,7 +104,9 @@ class GraphAttentionLayer(nn.Module):
         if h.dim() == 4:
             n, c, t, v = h.shape
             h = h.permute(0, 3, 1, 2).reshape(n, v, c * t)
-        Wh = h @ self.W  # (N, V, E)
+        # the product in ``dtype``, the attention in float32 (as in JAX)
+        Wh = to_float32(cast_to(h, self.dtype)
+                        @ cast_to(self.W, self.dtype))  # (N, V, E)
         e = pairwise_scores(Wh, self.a[:, 0], self.alpha)  # (N, V, V)
         attention = normalized_adjacency(self.B) @ torch.softmax(e, dim=-1)
         return F.elu(attention @ Wh)
@@ -112,12 +117,12 @@ class GATMultiHead(nn.Module):
     concatenated on the feature axis (port of ``layers.py:104-128``)."""
 
     def __init__(self, nfeat, nhid, n_vertices, alpha=0.2, nheads=1,
-                 generator=None):
+                 generator=None, dtype=torch.float32):
         super().__init__()
         self.nheads = nheads
         for i in range(nheads):
             self.add_module(f"attention_{i}", GraphAttentionLayer(
-                nfeat, nhid, n_vertices, alpha, generator))
+                nfeat, nhid, n_vertices, alpha, generator, dtype))
 
     def forward(self, x):
         return torch.cat([getattr(self, f"attention_{i}")(x)
@@ -130,14 +135,16 @@ class GraphAttentionLayer2D(nn.Module):
     over the feature axis C, and the adjacency mixes after the attention."""
 
     def __init__(self, in_features, out_features, n_vertices, alpha=0.2,
-                 generator=None):
+                 generator=None, dtype=torch.float32):
         super().__init__()
         self.alpha = alpha
+        self.dtype = dtype
         _attention_params(self, in_features, out_features, n_vertices,
                           generator)
 
     def forward(self, h):
-        Wh = h.permute(0, 3, 1, 2) @ self.W  # (N, V, C, E)
+        Wh = to_float32(cast_to(h.permute(0, 3, 1, 2), self.dtype)
+                        @ cast_to(self.W, self.dtype))  # (N, V, C, E)
         e_dim = self.W.shape[1]
         s1 = Wh @ self.a[:e_dim]  # (N, V, C, 1)
         s2 = Wh @ self.a[e_dim:]
@@ -156,12 +163,12 @@ class GATMultiHead2D(nn.Module):
     ``layers.py:177-201``)."""
 
     def __init__(self, nfeat, nhid, n_vertices, alpha=0.2, nheads=1,
-                 generator=None):
+                 generator=None, dtype=torch.float32):
         super().__init__()
         self.nheads = nheads
         for i in range(nheads):
             self.add_module(f"attention_{i}", GraphAttentionLayer2D(
-                nfeat, nhid, n_vertices, alpha, generator))
+                nfeat, nhid, n_vertices, alpha, generator, dtype))
 
     def forward(self, x):
         return torch.cat([getattr(self, f"attention_{i}")(x)

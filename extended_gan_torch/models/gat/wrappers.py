@@ -9,6 +9,7 @@ plain version, on the card too.
 
 from __future__ import annotations
 
+import torch
 from torch import nn
 
 from .gat3d import GATMultiHead3D
@@ -19,7 +20,7 @@ class _StackedGAT(nn.Module):
 
     def __init__(self, image_width, image_height, n_vertices, time_steps=4,
                  mapping_type="linear", attention_type="temporal",
-                 heads=(3,), generator=None):
+                 heads=(3,), generator=None, dtype=torch.float32):
         super().__init__()
         self.image_width, self.image_height = image_width, image_height
         self.mapping_type = mapping_type
@@ -27,7 +28,7 @@ class _StackedGAT(nn.Module):
             block = GATMultiHead3D(
                 time_steps, time_steps, n_vertices, alpha=0.2, nheads=nheads,
                 type_=attention_type, mapping_type=mapping_type,
-                generator=generator)
+                generator=generator, dtype=dtype)
             self.add_module("hidden_layer" if i == 0 else "output_layer",
                             block)
 
@@ -39,9 +40,10 @@ class _StackedGAT(nn.Module):
 
 def _wrapper(attention_type, heads, doc):
     def make(image_width, image_height, n_vertices, time_steps=4,
-             mapping_type="linear", generator=None):
+             mapping_type="linear", generator=None, dtype=torch.float32):
         return _StackedGAT(image_width, image_height, n_vertices, time_steps,
-                           mapping_type, attention_type, heads, generator)
+                           mapping_type, attention_type, heads, generator,
+                           dtype)
 
     make.__doc__ = doc
     return make

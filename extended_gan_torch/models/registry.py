@@ -45,9 +45,11 @@ model_classes = {
 def build_model(model_type: str, *, image_width: int, image_height: int,
                 n_vertices: int, mapping_type: str, time_steps: int = 4,
                 use_pallas: bool | None = None, device=None,
-                generator: torch.Generator | None = None) -> torch.nn.Module:
+                generator: torch.Generator | None = None,
+                dtype: torch.dtype = torch.float32) -> torch.nn.Module:
     """Build a model on ``device`` (default: the CUDA card), in eval mode,
-    with weights drawn from ``generator``. ``use_pallas=None`` turns the
+    with weights drawn from ``generator``, computing in ``dtype``
+    (``core/precision.py``; the weights stay float32). ``use_pallas=None`` turns the
     fused kernels (K1 in GAT3D, K3 in SmaAt-UNet) on exactly when the model
     sits on the card; families without a kernel ignore it, with the JAX
     registry's note when the caller asked for it."""
@@ -57,7 +59,7 @@ def build_model(model_type: str, *, image_width: int, image_height: int,
     ctor, takes_attention, has_kernel = model_classes[model_type]
     dev = resolve_device(device)
     kwargs = dict(mapping_type=mapping_type, time_steps=time_steps,
-                  generator=generator)
+                  generator=generator, dtype=dtype)
     if takes_attention:
         kwargs["attention_type"] = model_type
     if has_kernel:

@@ -16,6 +16,13 @@ Parameter names follow the flax tree (``dsc0``, ``bn0``, ``cbam1.channel.fc1``,
 JAX package's BatchNorm (``ops/norm.py::TorchBatchNorm``) reproduces torch's
 ``BatchNorm2d`` with flax's momentum convention: flax 0.9 is torch 0.1, and
 the spatial gate's flax 0.99 is torch 0.01.
+
+``dtype`` is the precision policy (``core/precision.py``), as the JAX
+modules' ``dtype``: with ``torch.bfloat16`` the depthwise-separable convs
+compute in float32 (K3 and its plain version alike) and round their output
+to bfloat16 (``smaat_unet.py:59-61``), the CBAM gates' dense layers and 7x7
+conv and the output conv run in bfloat16, and BatchNorm, the gates'
+sigmoids and the UNet's output stay float32 (``:99-101``, ``:144-146``).
 """
 
 from __future__ import annotations
@@ -24,6 +31,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..core.precision import cast_to, to_float32
 from ..ops.dsconv import fused_dsconv, reference_dsc
 from .gat.layers import lecun_normal_
 
@@ -35,6 +43,12 @@ def _conv(in_ch, out_ch, k, bias, generator):
     if bias:
         nn.init.zeros_(conv.bias)
     return conv
+
+
+def _linear(x, fc, dtype):
+    """``fc(x)`` with the input and the weights in ``dtype``."""
+    return F.linear(cast_to(x, dtype), cast_to(fc.weight, dtype),
+                    cast_to(fc.bias, dtype))
 
 
 def _dense(in_f, out_f, generator):
@@ -53,10 +67,11 @@ class DepthwiseSeparableConv(nn.Module):
     layouts: (C*kpl, 1, 3, 3) and (nout, C*kpl, 1, 1)."""
 
     def __init__(self, nin, nout, kernels_per_layer=1, use_pallas=False,
-                 generator=None):
+                 generator=None, dtype=torch.float32):
         super().__init__()
         ckpl = nin * kernels_per_layer
         self.use_pallas = use_pallas
+        self.dtype = dtype
         self.depthwise_weight = nn.Parameter(torch.empty(ckpl, 1, 3, 3))
         self.depthwise_bias = nn.Parameter(torch.zeros(ckpl))
         self.pointwise_weight = nn.Parameter(torch.empty(nout, ckpl, 1, 1))
@@ -68,63 +83,70 @@ class DepthwiseSeparableConv(nn.Module):
         dw = self.depthwise_weight[:, 0].permute(1, 2, 0).contiguous()
         pw = self.pointwise_weight[:, :, 0, 0].t().contiguous()
         fn = fused_dsconv if self.use_pallas else reference_dsc
+        # float32 inside, x as it comes (both cast it), output in dtype
         y = fn(x.permute(0, 2, 3, 1).contiguous(), dw, self.depthwise_bias,
                pw, self.pointwise_bias)
-        return y.permute(0, 3, 1, 2)
+        return cast_to(y.permute(0, 3, 1, 2), self.dtype)
 
 
 class DoubleConvDS(nn.Module):
     def __init__(self, in_ch, out_ch, mid_ch=None, kernels_per_layer=1,
-                 use_pallas=False, generator=None):
+                 use_pallas=False, generator=None, dtype=torch.float32):
         super().__init__()
         mid_ch = mid_ch or out_ch
         self.dsc0 = DepthwiseSeparableConv(in_ch, mid_ch, kernels_per_layer,
-                                           use_pallas, generator)
+                                           use_pallas, generator, dtype)
         self.bn0 = nn.BatchNorm2d(mid_ch, eps=1e-5, momentum=0.1)
         self.dsc1 = DepthwiseSeparableConv(mid_ch, out_ch, kernels_per_layer,
-                                           use_pallas, generator)
+                                           use_pallas, generator, dtype)
         self.bn1 = nn.BatchNorm2d(out_ch, eps=1e-5, momentum=0.1)
 
-    def forward(self, x):
-        x = F.relu(self.bn0(self.dsc0(x)))
-        return F.relu(self.bn1(self.dsc1(x)))
+    def forward(self, x):  # BatchNorm in float32 under every dtype
+        x = F.relu(self.bn0(to_float32(self.dsc0(x))))
+        return F.relu(self.bn1(to_float32(self.dsc1(x))))
 
 
 class ChannelAttention(nn.Module):
     """CBAM channel gate: shared MLP over avg- and max-pooled descriptors."""
 
-    def __init__(self, ch, reduction=16, generator=None):
+    def __init__(self, ch, reduction=16, generator=None, dtype=torch.float32):
         super().__init__()
         hidden = max(1, ch // reduction)
         self.fc1 = _dense(ch, hidden, generator)
         self.fc2 = _dense(hidden, ch, generator)
+        self.dtype = dtype
 
     def forward(self, x):
         def mlp(v):
-            return self.fc2(F.relu(self.fc1(v)))
+            return _linear(F.relu(_linear(v, self.fc1, self.dtype)),
+                           self.fc2, self.dtype)
 
-        scale = torch.sigmoid(mlp(x.mean(dim=(2, 3))) + mlp(x.amax(dim=(2, 3))))
+        scale = torch.sigmoid(to_float32(mlp(x.mean(dim=(2, 3)))
+                                         + mlp(x.amax(dim=(2, 3)))))
         return x * scale[:, :, None, None]
 
 
 class SpatialAttention(nn.Module):
     """CBAM spatial gate: 7x7 conv over [max, mean] channel pools + BN."""
 
-    def __init__(self, generator=None):
+    def __init__(self, generator=None, dtype=torch.float32):
         super().__init__()
         self.conv = _conv(2, 1, 7, False, generator)
         self.bn = nn.BatchNorm2d(1, eps=1e-5, momentum=0.01)
+        self.dtype = dtype
 
     def forward(self, x):
         pooled = torch.stack([x.amax(dim=1), x.mean(dim=1)], dim=1)
-        return x * torch.sigmoid(self.bn(self.conv(pooled)))
+        s = F.conv2d(cast_to(pooled, self.dtype),
+                     cast_to(self.conv.weight, self.dtype), padding=3)
+        return x * torch.sigmoid(self.bn(to_float32(s)))
 
 
 class CBAM(nn.Module):
-    def __init__(self, ch, reduction=16, generator=None):
+    def __init__(self, ch, reduction=16, generator=None, dtype=torch.float32):
         super().__init__()
-        self.channel = ChannelAttention(ch, reduction, generator)
-        self.spatial = SpatialAttention(generator)
+        self.channel = ChannelAttention(ch, reduction, generator, dtype)
+        self.spatial = SpatialAttention(generator, dtype)
 
     def forward(self, x):
         return self.spatial(self.channel(x))
@@ -132,10 +154,10 @@ class CBAM(nn.Module):
 
 class DownDS(nn.Module):
     def __init__(self, in_ch, out_ch, kernels_per_layer=1, use_pallas=False,
-                 generator=None):
+                 generator=None, dtype=torch.float32):
         super().__init__()
         self.conv = DoubleConvDS(in_ch, out_ch, None, kernels_per_layer,
-                                 use_pallas, generator)
+                                 use_pallas, generator, dtype)
 
     def forward(self, x):
         return self.conv(F.max_pool2d(x, 2))
@@ -146,11 +168,11 @@ class UpDS(nn.Module):
     ``x2``'s size, concatenate ``[x2, x1]`` and double-conv."""
 
     def __init__(self, in1_ch, in2_ch, out_ch, kernels_per_layer=1,
-                 use_pallas=False, generator=None):
+                 use_pallas=False, generator=None, dtype=torch.float32):
         super().__init__()
         cat = in1_ch + in2_ch
         self.conv = DoubleConvDS(cat, out_ch, cat // 2, kernels_per_layer,
-                                 use_pallas, generator)
+                                 use_pallas, generator, dtype)
 
     def forward(self, x1, x2):
         h, w = x1.shape[2], x1.shape[3]
@@ -168,25 +190,26 @@ class SmaAt_UNet(nn.Module):  # noqa: N801 - the JAX package's name
 
     def __init__(self, n_channels=4, n_classes=4, kernels_per_layer=2,
                  reduction_ratio=16, base=64, use_pallas=False, moe_experts=0,
-                 generator=None):
+                 generator=None, dtype=torch.float32):
         super().__init__()
         if moe_experts:
             raise NotImplementedError(
                 "the Switch-MoE bottleneck (moe_experts) is not ported yet "
                 "(ROADMAP: queue 1, parallelism and MoE)")
+        self.dtype = dtype
         kw = dict(kernels_per_layer=kernels_per_layer, use_pallas=use_pallas,
-                  generator=generator)
+                  generator=generator, dtype=dtype)
         b, r = base, reduction_ratio
         self.inc = DoubleConvDS(n_channels, b, **kw)
-        self.cbam1 = CBAM(b, r, generator)
+        self.cbam1 = CBAM(b, r, generator, dtype)
         self.down1 = DownDS(b, 2 * b, **kw)
-        self.cbam2 = CBAM(2 * b, r, generator)
+        self.cbam2 = CBAM(2 * b, r, generator, dtype)
         self.down2 = DownDS(2 * b, 4 * b, **kw)
-        self.cbam3 = CBAM(4 * b, r, generator)
+        self.cbam3 = CBAM(4 * b, r, generator, dtype)
         self.down3 = DownDS(4 * b, 8 * b, **kw)
-        self.cbam4 = CBAM(8 * b, r, generator)
+        self.cbam4 = CBAM(8 * b, r, generator, dtype)
         self.down4 = DownDS(8 * b, 8 * b, **kw)  # 16b // factor, factor 2
-        self.cbam5 = CBAM(8 * b, r, generator)
+        self.cbam5 = CBAM(8 * b, r, generator, dtype)
         self.up1 = UpDS(8 * b, 8 * b, 4 * b, **kw)
         self.up2 = UpDS(4 * b, 4 * b, 2 * b, **kw)
         self.up3 = UpDS(2 * b, 2 * b, b, **kw)
@@ -206,10 +229,13 @@ class SmaAt_UNet(nn.Module):  # noqa: N801 - the JAX package's name
         # the 1x1 output conv as one product over channels-last x, written
         # (N, n_classes, H, W) contiguous: a GAT3D head's attention reads
         # that in place (a cuDNN conv would write channels-last)
+        # (in dtype; the UNet's output is float32, as in JAX)
         n, c, h, w = x.shape
-        y = self.outc.weight[:, :, 0, 0] @ x.permute(0, 2, 3, 1).reshape(
-            n, h * w, c).transpose(1, 2)
-        return (y + self.outc.bias[:, None]).view(n, -1, h, w)
+        dt = self.dtype
+        y = cast_to(self.outc.weight[:, :, 0, 0], dt) @ cast_to(x, dt).permute(
+            0, 2, 3, 1).reshape(n, h * w, c).transpose(1, 2)
+        return to_float32((y + cast_to(self.outc.bias[:, None], dt)).view(
+            n, -1, h, w))
 
 
 def dsc_shapes(batch=32, hw=20, vertices=6, device="cuda"):

@@ -9,6 +9,7 @@ on B*V images, so BatchNorm statistics pool over B*V samples.
 
 from __future__ import annotations
 
+import torch
 from torch import nn
 
 from .smaat_unet import SmaAt_UNet
@@ -20,7 +21,7 @@ class UnetModel(nn.Module):
     def __init__(self, image_width, image_height, n_vertices,
                  mapping_type="conv", time_steps=4, kernels_per_layer=2,
                  per_vertex_bn=False, use_pallas=False, moe_experts=0,
-                 generator=None):
+                 generator=None, dtype=torch.float32):
         super().__init__()
         if per_vertex_bn:
             raise NotImplementedError(
@@ -31,7 +32,7 @@ class UnetModel(nn.Module):
         self.unet = SmaAt_UNet(n_channels=time_steps, n_classes=time_steps,
                                kernels_per_layer=kernels_per_layer,
                                use_pallas=use_pallas, moe_experts=moe_experts,
-                               generator=generator)
+                               generator=generator, dtype=dtype)
 
     def forward(self, x):
         b, h, w, t, v = x.shape

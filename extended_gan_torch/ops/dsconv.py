@@ -164,7 +164,12 @@ def fused_dsconv(x, dw, dwb, pw, pwb):
             f"(Cout,)")
     # the forward kernel writes d for dpw only when autograd will ask for it
     keep_d = torch.is_grad_enabled() and pw.requires_grad
-    return _FusedDSConv.apply(x, dw, dwb, pw, pwb, keep_d)
+    # a bf16 model's x cast to float32 here, as the JAX kernel reads it (its
+    # ``:55-63``); the output is float32. Other dtypes reach the kernel's
+    # check as they are.
+    return _FusedDSConv.apply(
+        *(t.float() if t.dtype == torch.bfloat16 else t
+          for t in (x, dw, dwb, pw, pwb)), keep_d)
 
 
 def _cdiv(a, b):

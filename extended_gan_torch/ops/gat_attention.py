@@ -134,6 +134,11 @@ def attend_temporal(mapped, a, adj_norm, alpha=0.2):
     three with a leading head axis (NH, ...), which runs every head in one
     launch. Returns ELU(mixed) with the strides of ``mapped`` where the
     kernels take its layout (see the module docstring)."""
+    # a bf16 model's tensors cast to float32 at the boundary, as the JAX
+    # wrapper casts (its ``:160``); the casts' gradients go back in bf16.
+    # Other dtypes reach the kernel's check as they are.
+    mapped, a, adj_norm = (t.float() if t.dtype == torch.bfloat16 else t
+                           for t in (mapped, a, adj_norm))
     heads = mapped.dim() == 6
     if not heads:
         mapped, a, adj_norm = mapped[None], a[None], adj_norm[None]

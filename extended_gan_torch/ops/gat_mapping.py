@@ -117,7 +117,12 @@ def fused_conv_bottleneck(x, w1, b1, w2, b2, w3, b3):
             raise ValueError(f"{name} {tuple(t.shape)} does not fit x "
                              f"{tuple(x.shape)} and b1 {tuple(b1.shape)}: "
                              f"want {want[name]}")
-    return _FusedConvBottleneck.apply(x, w1, b1, w2, b2, w3, b3)
+    # a bf16 model's tensors cast to float32 at the boundary, as the JAX
+    # wrapper casts (its ``:277-284``); the casts' gradients go back in bf16
+    # (its ``:368-374``). Other dtypes reach the kernel's check as they are.
+    return _FusedConvBottleneck.apply(
+        *(t.float() if t.dtype == torch.bfloat16 else t
+          for t in (x, w1, b1, w2, b2, w3, b3)))
 
 
 def _geometry(x, tensors):

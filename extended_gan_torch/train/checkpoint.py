@@ -1,5 +1,4 @@
-"""Checkpointing (port of the parts of ``extended_gan_tpu/train/checkpoint.py``
-that serving needs: the save side and ``restore``).
+"""Checkpointing (port of ``extended_gan_tpu/train/checkpoint.py``).
 
 Two tiers, as in the JAX package:
 
@@ -13,10 +12,21 @@ Two tiers, as in the JAX package:
 Both carry ``SCHEMA_VERSION`` and refuse a version from the future. The
 JAX package writes Orbax directories, which the port cannot read; a GAN
 checkpoint here holds the three nets' state_dicts (BatchNorm running
-statistics included), their three Adam states, ``epoch``, the state of the
-driver's seeded dropout generator and a zeroed v3 ``mid``. Resuming from
-it, mid-epoch snapshots, preemption, precision and the PRNG module are not
-ported yet (ROADMAP queue 1 item 6).
+statistics included), their three Adam states (``train/state.py``),
+``epoch``, the state of the driver's dropout stream (``core/prng.py``) and
+the v3 ``mid`` subtree; a conv-GAT checkpoint holds the net, its optimizer
+and its scheduler, ``epoch``, ``lr``, ``best``, the key stream and the
+conv-GAT's ``mid`` (:func:`empty_gat_mid`).
+
+Resume (:func:`setup_gan_checkpointing`, and the conv-GAT driver's own
+block): the latest step is loaded into the running nets, optimizers and
+streams, and ``history.json`` is read back. ``mid["batch"] > 0`` marks a
+snapshot taken inside an epoch (a preemption, ``train/preempt.py``): the
+driver redoes that epoch from that batch, replaying the consumed batches,
+with the partial sums of ``mid``. A restore casts each tensor to the
+running template's dtype, so a run resumes under another ``precision``
+than it was saved with (the port keeps parameters and optimizer state in
+float32 under both).
 """
 
 from __future__ import annotations
@@ -27,6 +37,9 @@ import re
 from typing import Any
 
 import torch
+
+from ..utils.history import TrainingHistory
+from .state import NetState
 
 SCHEMA_VERSION = 3
 _SIDECAR = "schema.json"
@@ -55,6 +68,18 @@ def empty_mid() -> dict:
         "mse": torch.zeros(2, dtype=torch.float64),
         "fd_acc": torch.zeros(2, dtype=torch.float64),
         "td_acc": torch.zeros(2, dtype=torch.float64),
+    }
+
+
+def empty_gat_mid() -> dict:
+    """The conv-GAT trainer's v3 ``mid`` subtree, zeroed: ``batch`` loader
+    batches consumed in the epoch being resumed (programs on the resident
+    path), and its partial running-loss numerator ``loss`` and sample count
+    ``total``."""
+    return {
+        "batch": torch.tensor(0, dtype=torch.int64),
+        "loss": torch.tensor(0.0, dtype=torch.float64),
+        "total": torch.tensor(0, dtype=torch.int64),
     }
 
 
@@ -178,19 +203,62 @@ def gan_restore_template(mgr: CheckpointManager, states, key_state):
     return template
 
 
-def gan_states(nets, opts) -> dict:
-    """The three nets' state_dicts and their optimizers' states, keyed as
-    the JAX package's ``GANStates``: ``g``, ``fd``, ``td``."""
-    return {name: {"model": net.state_dict(), "optimizer": opt.state_dict()}
+def gan_net_states(nets, opts) -> dict:
+    """The three nets with their optimizers, keyed as the JAX package's
+    ``GANStates``: ``g``, ``fd``, ``td``."""
+    return {name: NetState(net, opt)
             for name, net, opt in zip(("g", "fd", "td"), nets, opts)}
 
 
-def setup_gan_checkpointing(out_dir: str | None, *, save_epoch: int
-                            ) -> CheckpointManager | None:
-    """The save side of the JAX package's shared dcgan/cyclegan block: a
-    manager over ``<out_dir>/checkpoints`` keeping 2, when ``out_dir`` is
-    set and ``save_epoch`` asks for checkpoints."""
-    if not (out_dir and save_epoch):
-        return None
-    return CheckpointManager(os.path.join(out_dir, "checkpoints"),
-                             max_to_keep=2)
+def gan_states(nets, opts) -> dict:
+    """The state tree of :func:`gan_net_states`: each net's state_dict and
+    its optimizer's state."""
+    return {name: st.state_dict()
+            for name, st in gan_net_states(nets, opts).items()}
+
+
+def describe_resume(mid: dict, epoch: int) -> int:
+    """The epoch a resumed run starts at, from a restored ``mid`` and
+    ``epoch``, printed as the JAX drivers print it: the same epoch, redone
+    from ``mid["batch"]``, after a mid-epoch snapshot; the next one after
+    an epoch-boundary one."""
+    done = int(mid["batch"])
+    if done > 0:
+        print(f"[resume] restored mid-epoch snapshot: epoch {epoch}, {done} "
+              "batches done; continuing inside the epoch")
+        return epoch
+    print(f"[resume] restored epoch {epoch}; continuing at {epoch + 1}")
+    return epoch + 1
+
+
+def setup_gan_checkpointing(out_dir: str | None, *, resume: bool = False,
+                            save_epoch: int = 0, states: dict | None = None,
+                            keys=None, history: TrainingHistory | None = None):
+    """The JAX package's shared dcgan/cyclegan block.
+
+    A manager over ``<out_dir>/checkpoints`` keeping 2, when ``out_dir`` is
+    set and checkpoints or a resume are asked for; with ``resume`` and a
+    step on disk, the latest one is loaded into ``states`` (name ->
+    :class:`~.state.NetState`) and ``keys`` (a ``core.prng.KeySeq``), and
+    ``<out_dir>/history.json`` into the history. Returns ``(manager or
+    None, start_epoch, history, mid)``: with ``mid["batch"] > 0`` the
+    driver redoes ``start_epoch`` from that batch."""
+    mid = empty_mid()
+    if not (out_dir and (resume or save_epoch)):
+        return None, 1, history, mid
+    mgr = CheckpointManager(os.path.join(out_dir, "checkpoints"),
+                            max_to_keep=2)
+    if not (resume and mgr.latest_step() is not None):
+        return mgr, 1, history, mid
+    template = gan_restore_template(
+        mgr, {n: st.state_dict() for n, st in states.items()}, keys.state)
+    restored = mgr.restore(template)
+    for name, st in states.items():
+        st.load_state_dict(restored["states"][name])
+    keys.state = restored["key"]
+    mid = restored.get("mid", empty_mid())
+    start_epoch = describe_resume(mid, int(restored["epoch"]))
+    hist_path = os.path.join(out_dir, "history.json")
+    if os.path.exists(hist_path):
+        history = TrainingHistory.from_json(hist_path)
+    return mgr, start_epoch, history, mid

@@ -11,11 +11,16 @@ to the history. A missing archive falls back to a synthetic one.
 Every ``save_epoch`` epochs and at the last, the driver writes a
 checkpoint under ``<out_dir>/checkpoints`` (``train/checkpoint.py``,
 keeping 2, as the JAX driver does: the three nets with their BatchNorm
-statistics, the three Adam states, the epoch, the dropout generator's
-state) and ``history.json``, and only under ``out_dir``; with no
-``out_dir`` it writes nothing (the JAX driver's default, the repo's own
-``dcgan/``, holds a committed history). Resuming from a checkpoint is not
-ported (ROADMAP queue 1 item 6). The figures and plots are not ported.
+statistics, the three Adam states, the epoch, the dropout stream's state)
+and ``history.json``, and only under ``out_dir``; with no ``out_dir`` it
+writes nothing (the JAX driver's default, the repo's own ``dcgan/``, holds
+a committed history). A SIGTERM (``train/preempt.py``) stops the epoch
+after the current step or group of K and writes a mid-epoch snapshot;
+``resume=True`` restores the latest checkpoint (a cut epoch is redone from
+its consumed batches, replayed) and continues bit for bit as the
+uninterrupted run would. ``precision="bf16"`` builds the nets with
+``dtype=torch.bfloat16`` (``core/precision.py``). The figures and plots are
+not ported.
 
 ``megastep=K`` (K > 1) runs K adversarial steps a CUDA graph
 (``train/megastep.py``); ``resident=True`` copies the train and test splits
@@ -24,8 +29,8 @@ steps a graph (K = ``megastep``, else 8). On the card both use Adam with
 its step count on the device (``capturable``) and register the dropout's
 generator with the graphs.
 
-The JAX driver's mesh, tensor/sequence/FSDP parallelism, bf16, resume,
-profiling and its step variants (fused_disc, fused_prop, packed_g) are not
+The JAX driver's mesh, tensor/sequence/FSDP parallelism, profiling and
+its step variants (fused_disc, fused_prop, packed_g) are not
 ported yet: a keyword that sets one of them raises, naming the ROADMAP item
 that ports it.
 """
@@ -39,6 +44,8 @@ import os
 import torch
 
 from ..core.device import resolve_device
+from ..core.precision import resolve_dtype
+from ..core.prng import KeySeq
 from ..data.resident import (
     ResidentVideos,
     epoch_seed,
@@ -54,6 +61,7 @@ from ..utils.history import TrainingHistory
 from .checkpoint import (
     ckpt_step,
     empty_mid,
+    gan_net_states,
     gan_states,
     setup_gan_checkpointing,
 )
@@ -66,6 +74,7 @@ from .dcgan_trainer import (
     test,
     train_single_epoch,
 )
+from .preempt import GracefulShutdown
 from .unported import refuse_unported
 
 DEFAULT_PARAMS = {
@@ -85,7 +94,6 @@ DEFAULT_DATA = "/mnt/tmp/multi_channel_train_test"
 # keywords of JAX driver options the port does not have yet: (the value
 # that means "off", the ROADMAP queue 1 item)
 _NOT_PORTED = {
-    "precision": ("f32", 6), "resume": (False, 6),
     "data_axis": (None, 9), "model_axis": (1, 9), "tp_min_channels": (256, 9),
     "fsdp": (False, 9), "fsdp_min_size": (4096, 9), "spatial": (False, 9),
     "fused_disc": (False, 10), "fused_prop": (False, 10),
@@ -95,21 +103,24 @@ _NOT_PORTED = {
 
 
 def build_dcgan(params: dict, *, seed: int, device=None, dropout=0.01,
-                capturable=False):
+                capturable=False, precision: str = "f32", keys=None):
     """``((G, FD, TD), (their Adam optimizers))`` on ``device`` (default:
-    the CUDA card), the weights drawn from a generator seeded ``seed``, the
-    channel dropout from one on the device, seeded ``seed`` too.
+    the CUDA card), computing in ``precision``'s dtype, the weights drawn
+    from a generator seeded ``seed``, the channel dropout from ``keys`` (a
+    ``core.prng.KeySeq`` on the device; default: one seeded ``seed``).
     ``capturable``: Adam keeps its step count on the card, for CUDA
     graphs."""
     dev = resolve_device(device)
     init = torch.Generator().manual_seed(seed)
-    drop = torch.Generator(device=dev).manual_seed(seed)
+    drop = (keys or KeySeq(seed, device=dev)).generator
     nc, ndf = params["nc"], params["ndf"]
+    dtype = resolve_dtype(precision)
     nets = (
-        Generator(nc, dropout, generator=init, dropout_generator=drop),
-        FrameDiscriminator(nc, ndf, generator=init),
+        Generator(nc, dropout, generator=init, dropout_generator=drop,
+                  dtype=dtype),
+        FrameDiscriminator(nc, ndf, generator=init, dtype=dtype),
         TemporalDiscriminator(nc, ndf, dropout, generator=init,
-                              dropout_generator=drop),
+                              dropout_generator=drop, dtype=dtype),
     )
     nets = tuple(net.to(dev) for net in nets)
     opts = tuple(torch.optim.Adam(net.parameters(), lr=params["lr"],
@@ -123,8 +134,8 @@ def train(*, data_location: str | None = None, epochs: int | None = None,
           train_batch_size: int = 32, test_batch_size: int = 64,
           seed: int = 369, max_batches: int = 0, synthetic: bool = False,
           out_dir: str | None = None, params: dict | None = None,
-          megastep: int = 0, resident: bool = False, device=None,
-          **options):
+          precision: str = "f32", resume: bool = False, megastep: int = 0,
+          resident: bool = False, device=None, **options):
     """Train on ``device`` (default: the CUDA card). Takes the JAX driver's
     keyword arguments. Returns ``((G, FD, TD), history)``."""
     refuse_unported(options, _NOT_PORTED)
@@ -141,13 +152,14 @@ def train(*, data_location: str | None = None, epochs: int | None = None,
             None, frames_train=256, frames_test=64, h=params["imsize"],
             w=params["imsize"])
     print("Random Seed: ", seed)
+    keys = KeySeq(seed, device=dev)  # the channel dropout's stream
     nets, opts = build_dcgan(params, seed=seed, device=dev,
                              capturable=dev.type == "cuda"
-                             and (megastep > 1 or resident))
+                             and (megastep > 1 or resident),
+                             precision=precision, keys=keys)
     step = make_dcgan_train_step(*nets, *opts)
     eval_step = make_dcgan_eval_step(*nets)
-    dropout_generator = nets[0].ConvBlock_0.dropout_generator
-    generators = (dropout_generator,)  # registered with each CUDA graph
+    generators = (keys.generator,)  # registered with each CUDA graph
     if resident:
         train_store, test_store = (ResidentVideos.from_h5(
             os.path.join(data_location, sub), dev, in_seq_len=params["nc"],
@@ -169,14 +181,16 @@ def train(*, data_location: str | None = None, epochs: int | None = None,
         megastep_fn = make_dcgan_megastep(*nets, *opts, generators=generators)
         print(f"[megastep] {megastep} steps per CUDA graph")
 
-    def epoch_feed(epoch):
-        """(the epoch's train logs, a step or a group of them each; its
-        test pass)."""
+    def epoch_feed(epoch, skip):
+        """(the epoch's train logs, (a step's or a group's logs, the
+        batches it counts) each, from batch ``skip`` on; its test pass)."""
         if resident:
+            # a resumed epoch starts at program skip // K of its order
             programs = program_logs(
                 train_store, train_k, epoch_seed(seed, epoch), resident_k,
-                train_batch_size, max_batches=max_batches)
-            return ((logs for logs, _ in programs),
+                train_batch_size, max_batches=max_batches,
+                start=skip // resident_k)
+            return (((logs, resident_k) for logs, _ in programs),
                     lambda: resident_dcgan_test(eval_k, test_store,
                                                 k=resident_k,
                                                 batch_size=test_batch_size))
@@ -185,8 +199,15 @@ def train(*, data_location: str | None = None, epochs: int | None = None,
             crop=params["imsize"], in_seq_len=params["nc"],
             out_seq_len=params["nc"], seed=seed + epoch)
         batches = iter(train_loader)
+        if skip:
+            # replay the consumed batches: the same random draws as the run
+            # that was cut
+            print(f"[resume] skipping {skip} consumed batches of epoch "
+                  f"{epoch}")
+            for _ in range(skip):
+                next(batches)
         if max_batches:
-            batches = itertools.islice(batches, max_batches)
+            batches = itertools.islice(batches, max(max_batches - skip, 0))
         if megastep > 1:
             logs = megastep_logs(batches, megastep_fn, dev, megastep,
                                  train_batch_size)
@@ -194,20 +215,57 @@ def train(*, data_location: str | None = None, epochs: int | None = None,
             logs = step_logs(batches, step, dev)
         return logs, lambda: test(test_loader, eval_step, dev)
 
-    history = TrainingHistory()
     save_epoch = int(params.get("save_epoch") or 0)
-    ckpt_mgr = setup_gan_checkpointing(out_dir, save_epoch=save_epoch)
-    for epoch in range(1, params["nepochs"] + 1):
-        logs, evaluate = epoch_feed(epoch)
-        results = train_single_epoch(logs)
-        results |= evaluate()
-        print(json.dumps(results, indent=4))
-        history.append(results)
-        if ckpt_mgr is not None and (epoch % save_epoch == 0
-                                     or epoch == params["nepochs"]):
-            # an epoch-boundary snapshot is the start of epoch + 1
-            ckpt_mgr.save(ckpt_step(epoch + 1, 0), {
-                "states": gan_states(nets, opts), "epoch": epoch,
-                "key": dropout_generator.get_state(), "mid": empty_mid()})
-            history.to_json(os.path.join(out_dir, "history.json"))
+    # restored before any graph is captured: a graph names the tensors it
+    # was captured with
+    ckpt_mgr, start_epoch, history, mid = setup_gan_checkpointing(
+        out_dir, resume=resume, save_epoch=save_epoch,
+        states=gan_net_states(nets, opts), keys=keys,
+        history=TrainingHistory())
+    hist_path = os.path.join(out_dir, "history.json") if out_dir else None
+
+    def snapshot(epoch, mid_tree):
+        return {"states": gan_states(nets, opts), "epoch": epoch,
+                "key": keys.state, "mid": mid_tree}
+
+    with GracefulShutdown() as shutdown:
+        for epoch in range(start_epoch, params["nepochs"] + 1):
+            skip = int(mid["batch"]) if epoch == start_epoch else 0
+            logs, evaluate = epoch_feed(epoch, skip)
+            results, mid_out = train_single_epoch(
+                logs, shutdown=shutdown, init_metrics=mid if skip else None,
+                epoch=epoch)
+            if mid_out is not None:
+                # step-granular preemption: a snapshot inside the epoch
+                if ckpt_mgr is not None:
+                    ckpt_mgr.save(ckpt_step(epoch, int(mid_out["batch"])),
+                                  snapshot(epoch, mid_out))
+                    history.to_json(hist_path)
+                    print(f"[preempt] stopped resumably mid-epoch {epoch} "
+                          f"({int(mid_out['batch'])} batches in)")
+                else:
+                    print(f"[preempt] stopped mid-epoch {epoch} WITHOUT a "
+                          "snapshot: no checkpointing configured (set "
+                          "save_epoch / --save-epoch); progress is lost")
+                break
+            mid = empty_mid()
+            results |= evaluate()
+            print(json.dumps(results, indent=4))
+            history.append(results)
+            # read once: a SIGTERM between "save?" and "stop?" must not
+            # stop without the snapshot
+            preempted = shutdown.requested
+            if ckpt_mgr is not None and (
+                    (save_epoch and epoch % save_epoch == 0)
+                    or epoch == params["nepochs"] or preempted):
+                # an epoch-boundary snapshot is the start of epoch + 1
+                ckpt_mgr.save(ckpt_step(epoch + 1, 0),
+                              snapshot(epoch, empty_mid()))
+                history.to_json(hist_path)
+            if preempted:
+                print(f"[preempt] stopped after epoch {epoch}"
+                      + ("" if ckpt_mgr is not None else
+                         " WITHOUT a snapshot: no checkpointing configured "
+                         "(set save_epoch / --save-epoch)"))
+                break
     return nets, history

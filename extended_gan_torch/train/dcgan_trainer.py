@@ -198,39 +198,66 @@ def _megafeed(loader, device, batch_size: int, k: int, *, depth=2):
 
 
 def step_logs(dataloader, step, device, *, log_every: int = 50):
-    """Single train steps over ``dataloader``, yielding each step's logs;
-    prints the losses every ``log_every`` steps."""
+    """Single train steps over ``dataloader``, yielding (the step's logs,
+    1 batch) a step; prints the losses every ``log_every`` steps."""
     for i, (x, y) in enumerate(dcgan_feed(dataloader, device)):
         logs = step(x, y)
         if i % log_every == 0:
             print(f"Loss_FD: {float(logs['errFD']):.4f}\t"
                   f"Loss_TD: {float(logs['errTD']):.4f}\t"
                   f"Loss_G: {float(logs['errG']):.4f}\t")
-        yield logs
+        yield logs, 1
 
 
 def megastep_logs(dataloader, megastep, device, k: int, batch_size: int):
     """Groups of K batches of ``dataloader`` (:func:`_megafeed`, padded to
-    ``batch_size``) through ``megastep``, yielding each group's logs."""
-    for _, staged in _megafeed(dataloader, device, batch_size, k):
-        yield megastep(*staged)
+    ``batch_size``) through ``megastep``, yielding (the group's logs, its
+    loader batches) a group."""
+    for k_actual, staged in _megafeed(dataloader, device, batch_size, k):
+        yield megastep(*staged), k_actual
 
 
-def train_single_epoch(logs) -> dict:
-    """One epoch's train metrics from ``logs`` (a train step's or a group's
-    logs each; :func:`step_logs`, :func:`megastep_logs` or the resident
-    programs): ``train_mse``, ``train_fd_accuracy`` and
-    ``train_td_accuracy``."""
-    pending = list(logs)
+def train_single_epoch(logs, *, shutdown=None, init_metrics=None,
+                       epoch=None):
+    """One epoch's train metrics from ``logs``, (a train step's or a
+    group's logs, the batches it counts for ``mid``) each
+    (:func:`step_logs`, :func:`megastep_logs` or the resident programs).
+
+    Returns ``(results, None)``: ``train_mse``, ``train_fd_accuracy`` and
+    ``train_td_accuracy``; or, when ``shutdown.requested`` is seen after a
+    step (a group), ``(None, mid)``: the v3 ``mid`` subtree of the batches
+    consumed so far and the epoch's partial (num, denom) sums, which a
+    resumed run passes back as ``init_metrics`` (JAX
+    ``dcgan_trainer.py:696-795``)."""
     pred = MetricsManager(("mse",), prefix="train")
     acc_fd, acc_td = IncrementalTuple(), IncrementalTuple()
+    n_done = 0
+    if init_metrics is not None and int(init_metrics["batch"]) > 0:
+        n_done = int(init_metrics["batch"])
+        pred.metrics["mse"] += IncrementalTuple(init_metrics["mse"].numpy())
+        acc_fd += IncrementalTuple(init_metrics["fd_acc"].numpy())
+        acc_td += IncrementalTuple(init_metrics["td_acc"].numpy())
+    pending, interrupted = [], False
+    for item, n in logs:
+        pending.append(item)
+        n_done += n
+        if shutdown is not None and shutdown.requested:
+            interrupted = True
+            break
     for mse, fd_nd, td_nd in _fetch(
             pending, ("train_mse_nd", "fd_acc_nd", "td_acc_nd")):
         pred.metrics["mse"] += IncrementalTuple(mse)
         acc_fd += IncrementalTuple(fd_nd)
         acc_td += IncrementalTuple(td_nd)
+    if interrupted:
+        print(f"[preempt] epoch {epoch} interrupted after {n_done} batches")
+        return None, {
+            "batch": torch.tensor(n_done, dtype=torch.int64),
+            "mse": torch.from_numpy(pred.metrics["mse"].val.copy()),
+            "fd_acc": torch.from_numpy(acc_fd.val.copy()),
+            "td_acc": torch.from_numpy(acc_td.val.copy())}
     return pred.results() | {"train_fd_accuracy": acc_fd.item(),
-                             "train_td_accuracy": acc_td.item()}
+                             "train_td_accuracy": acc_td.item()}, None
 
 
 _EVAL_KEYS = ("fd_acc_nd", "td_acc_nd") + tuple(f"pred_{n}"

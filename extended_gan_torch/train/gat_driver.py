@@ -15,20 +15,41 @@ validation splits to the device once and gathers each batch there
 epoch moves only start indices. On the card both use Adam with its step
 count on the device (``capturable``).
 
+State and robustness (JAX ``gat_driver.py:565-711``):
+
+- ``precision="bf16"`` builds the model with ``dtype=torch.bfloat16``
+  (``core/precision.py``); ``remat=True`` recomputes the forward during
+  the backward (``gat_trainer.remat_forward``), in the single step and
+  inside the captured graphs;
+- with ``output_path`` and ``checkpoint_every`` (or ``resume``), full
+  train-state checkpoints go to ``<output_path>/checkpoints`` (the model,
+  Adam, the scheduler, the key stream, the epoch), every
+  ``checkpoint_every`` epochs (every epoch at 0) and at the last;
+- a SIGTERM (``train/preempt.py``) stops the epoch after the current step
+  or group of K, and the driver writes a mid-epoch snapshot (its ``mid``:
+  loader batches consumed, programs on the resident path, and the partial
+  running loss) and returns; ``resume=True`` restores the latest snapshot,
+  replays the consumed batches of a cut epoch and continues bit for bit as
+  the uninterrupted run would.
+
 The JAX driver's mesh, tensor/sequence/FSDP/pipeline parallelism, MoE,
-checkpoints and resume, profiling, bf16 and plots are not ported yet: a
-config that sets one of them to anything but its default raises, naming
-the ROADMAP item that ports it.
+profiling, the global shuffle and plots are not ported yet: a config that
+sets one of them to anything but its default raises, naming the ROADMAP
+item that ports it.
 """
 
 from __future__ import annotations
 
+import itertools
 import json
+import math
 import os
 
 import torch
 
 from ..core.device import resolve_device
+from ..core.precision import resolve_dtype
+from ..core.prng import KeySeq
 from ..data.resident import (
     ResidentVideos,
     epoch_seed,
@@ -50,14 +71,20 @@ from .gat_trainer import (
     make_gat_train_step,
     test,
 )
+from .checkpoint import (
+    CheckpointManager,
+    ckpt_step,
+    describe_resume,
+    empty_gat_mid,
+)
 from .optim import current_lr, make_optimizer, make_scheduler, scheduler_step
+from .preempt import GracefulShutdown
+from .state import NetState, param_count
 from .unported import refuse_unported
 
 # experiment-config keys and keywords of JAX driver options the port does
 # not have yet: (the value that means "off", the ROADMAP queue 1 item)
 _NOT_PORTED = {
-    "precision": ("f32", 6), "resume": (False, 6), "checkpoint_every": (0, 6),
-    "remat": (False, 6),
     "shuffle_mode": ("batch", 7),
     "data_axis": (None, 9), "model_axis": (1, 9), "tp_min_channels": (256, 9),
     "fsdp": (False, 9), "fsdp_min_size": (4096, 9), "spatial": (False, 9),
@@ -69,18 +96,42 @@ _NOT_PORTED = {
 
 
 def train_single_epoch(*, epoch, model, train_steps, evaluate, scheduler,
-                       history, output_path):
+                       history, output_path, keys=None, shutdown=None,
+                       start_batch=0, init_running=(0.0, 0)):
     """One epoch of the reference's loop: ``train_steps`` yields
-    (running_nd, samples) a train step or a group of them, ``evaluate()``
-    returns the validation metrics, which this returns too."""
+    (running_nd, samples, loader batches consumed, train steps) a train
+    step or a group of them, or (None, 0, 1, 0) for a skipped batch
+    (``keys`` draws one seed a train step, as the JAX driver does), and the
+    shutdown flag is read after each; ``evaluate()`` returns the
+    validation metrics.
+
+    Returns ``(result, None)``, or ``(None, mid)`` when
+    ``shutdown.requested`` is seen after a step (a group): ``mid`` holds the
+    batches consumed (``start_batch`` of them before this call), the
+    partial running-loss numerator and the samples so far, from
+    ``init_running`` on (JAX ``gat_driver.py:47-210``)."""
     print(f"\nEpoch: {epoch}")
     print(f"LR: {current_lr(scheduler.optimizer)}")
-    pending, total = [], 0  # running_nd pairs stay on the card; one fetch
-    for nd, n in train_steps:
-        pending.append(nd)
+    running, total = float(init_running[0]), int(init_running[1])
+    n_done, interrupted = start_batch, False
+    pending = []  # running_nd pairs stay on the card; one fetch
+    for nd, n, consumed, steps in train_steps:
+        if steps and keys is not None:
+            keys.split(steps)
+        if nd is not None:
+            pending.append(nd)
         total += n
-    running = sum(nd[0] for nd in torch.stack(pending).tolist()) \
-        if pending else 0.0
+        n_done += consumed
+        if shutdown is not None and shutdown.requested:
+            interrupted = True
+            break
+    for nd in (torch.stack(pending).tolist() if pending else []):
+        running += nd[0]
+    if interrupted:
+        print(f"[preempt] epoch {epoch} interrupted after {n_done} batches")
+        return None, {"batch": torch.tensor(n_done, dtype=torch.int64),
+                      "loss": torch.tensor(running, dtype=torch.float64),
+                      "total": torch.tensor(total, dtype=torch.int64)}
     train_loss = running / max(total, 1)
     print(f"Train loss: {round(float(train_loss), 6)}")
     history["train_loss"].append(float(train_loss))
@@ -97,7 +148,7 @@ def train_single_epoch(*, epoch, model, train_steps, evaluate, scheduler,
             print("Saving model.")
             torch.save(model.state_dict(),
                        os.path.join(output_path, "model.pt"))
-    return result
+    return result, None
 
 
 def train(*, model_type: str = "temporal", optimizer: str = "adam",
@@ -108,9 +159,11 @@ def train(*, model_type: str = "temporal", optimizer: str = "adam",
           weight_decay: float = 0.01, downsample_size=(256, 256),
           preprocessed_folder: str = "", dataset: str = "kmni",
           test_first: bool = False, reduce_lr_on_plateau: bool = False,
-          seed: int = 369, max_batches: int = 0,
-          use_pallas: bool | None = None, megastep: int = 0,
-          resident: bool = False, device=None, **options):
+          precision: str = "f32", seed: int = 369, max_batches: int = 0,
+          resume: bool = False, checkpoint_every: int = 0,
+          remat: bool = False, use_pallas: bool | None = None,
+          megastep: int = 0, resident: bool = False, device=None,
+          **options):
     """Train on ``device`` (default: the CUDA card). Takes the JAX driver's
     keyword arguments, every field of an experiment config among them;
     ``plot`` is accepted and ignored (plots are not ported). ``use_pallas=None`` runs the fused kernels exactly when
@@ -143,16 +196,17 @@ def train(*, model_type: str = "temporal", optimizer: str = "adam",
                         image_height=image_height, n_vertices=n_vertices,
                         mapping_type=mapping_type, time_steps=steps,
                         use_pallas=use_pallas, device=dev,
-                        generator=torch.Generator().manual_seed(seed))
+                        generator=torch.Generator().manual_seed(seed),
+                        dtype=resolve_dtype(precision))
+    keys = KeySeq(seed)
     graphs = dev.type == "cuda" and (megastep > 1 or resident)
     opt = make_optimizer(optimizer, model.parameters(), learning_rate,
                          weight_decay=weight_decay, capturable=graphs)
     scheduler = make_scheduler(opt, reduce_lr_on_plateau=reduce_lr_on_plateau,
                                lr_step=lr_step, gamma=gamma)
-    print(f"Number of parameters: "
-          f"{sum(p.numel() for p in model.parameters())}")
+    print(f"Number of parameters: {param_count(model)}")
     print(f"Using mapping: {model.mapping_type}")
-    step = make_gat_train_step(model, opt, criterion=criterion)
+    step = make_gat_train_step(model, opt, criterion=criterion, remat=remat)
     eval_step = make_gat_eval_step(model)
     if resident:
         train_store, val_store = _resident_splits(
@@ -160,7 +214,7 @@ def train(*, model_type: str = "temporal", optimizer: str = "adam",
         resident_k = megastep if megastep > 1 else 8
         train_k = make_gat_resident_megastep(model, opt, train_store,
                                              time_steps=steps,
-                                             criterion=criterion)
+                                             criterion=criterion, remat=remat)
         eval_k = make_gat_resident_eval(model, val_store, time_steps=steps)
         mb = (train_store.nbytes + val_store.nbytes) / 1e6
         print(f"[resident] {train_store.n_windows} train + "
@@ -168,31 +222,71 @@ def train(*, model_type: str = "temporal", optimizer: str = "adam",
               f"device memory; K={resident_k} steps per CUDA graph, "
               "index-only transfers")
     elif megastep > 1:
-        megastep_fn = make_gat_megastep(model, opt, criterion=criterion)
+        megastep_fn = make_gat_megastep(model, opt, criterion=criterion,
+                                        remat=remat)
         print(f"[megastep] {megastep} steps per CUDA graph")
 
-    def epoch_feed(epoch):
-        """(the epoch's train steps as (running_nd, samples), its
-        validation pass)."""
+    def epoch_feed(epoch, skip):
+        """(the epoch's train steps as (running_nd, samples, batches
+        consumed, steps), its validation pass), from loader batch ``skip``
+        on (program ``skip`` on the resident path)."""
         if resident:
             programs = program_logs(
                 train_store, train_k, epoch_seed(seed, epoch), resident_k,
-                train_batch_size, max_batches=max_batches)
-            return (((logs["running_nd"], n) for logs, n in programs),
+                train_batch_size, max_batches=max_batches, start=skip)
+            return (((logs["running_nd"], n, 1, resident_k)
+                     for logs, n in programs),
                     lambda: resident_gat_test(eval_k, val_store,
                                               k=resident_k,
                                               batch_size=test_batch_size))
         train_loader, val_loader, _ = loader_factory(epoch=epoch)
+        batches = iter(train_loader)
+        if skip:
+            # replay the consumed batches: the loader makes the same random
+            # draws as the run that was cut, so the rest of the epoch is
+            # the same
+            print(f"[resume] skipping {skip} consumed batches of epoch "
+                  f"{epoch}")
+            for _ in range(skip):
+                next(batches)
+        if max_batches:
+            batches = itertools.islice(batches, max(max_batches - skip, 0))
         if megastep > 1:
-            steps_ = gat_megastep_logs(train_loader, megastep_fn, dev,
-                                       megastep, train_batch_size,
-                                       max_batches=max_batches)
+            steps_ = gat_megastep_logs(batches, megastep_fn, dev, megastep,
+                                       train_batch_size)
         else:
-            steps_ = gat_step_logs(train_loader, step, dev,
-                                   max_batches=max_batches)
+            steps_ = gat_step_logs(batches, step, dev)
         return steps_, lambda: test(eval_step, val_loader, dev)
 
+    state = NetState(model, opt, scheduler)
+
+    def snapshot(epoch, mid):
+        best = getattr(scheduler, "best", math.inf)
+        return {"state": state.state_dict(), "epoch": epoch,
+                "lr": current_lr(opt), "best": float(best),
+                "key": keys.state, "mid": mid}
+
     history: dict = {"train_loss": []}
+    start_epoch, mid, ckpt_mgr = 1, empty_gat_mid(), None
+    if output_path and (resume or checkpoint_every):
+        ckpt_mgr = CheckpointManager(
+            os.path.join(output_path, "checkpoints"), max_to_keep=2)
+        if resume and ckpt_mgr.latest_step() is not None:
+            template = snapshot(0, empty_gat_mid())
+            if ckpt_mgr.sidecar_version() < 3:
+                template.pop("mid")
+            restored = ckpt_mgr.restore(template)
+            # the model, Adam (with its step count where this run keeps
+            # it) and the schedule: a mid-epoch snapshot holds the epoch's
+            # schedule, which steps only after the validation pass
+            state.load_state_dict(restored["state"])
+            keys.state = restored["key"]
+            mid = restored.get("mid", empty_gat_mid())
+            start_epoch = describe_resume(mid, int(restored["epoch"]))
+            hist_path = os.path.join(output_path, "history.json")
+            if os.path.exists(hist_path):
+                with open(hist_path) as f:
+                    history = json.load(f)
     if test_first:
         tr_l, _, te_l = loader_factory()
         history["train_loss"].append(test(eval_step, tr_l, dev)["val_loss"])
@@ -200,11 +294,46 @@ def train(*, model_type: str = "temporal", optimizer: str = "adam",
         print(f"Test loss (without any training): {result['val_loss']:.6f}")
         update_history(history, result)
         print(json.dumps(result, indent=4))
-    for epoch in range(1, epochs + 1):
-        train_steps, evaluate = epoch_feed(epoch)
-        train_single_epoch(epoch=epoch, model=model, train_steps=train_steps,
-                           evaluate=evaluate, scheduler=scheduler,
-                           history=history, output_path=output_path)
+    with GracefulShutdown() as shutdown:
+        for epoch in range(start_epoch, epochs + 1):
+            skip = int(mid["batch"]) if epoch == start_epoch else 0
+            train_steps, evaluate = epoch_feed(epoch, skip)
+            _, mid_out = train_single_epoch(
+                epoch=epoch, model=model, train_steps=train_steps,
+                evaluate=evaluate, scheduler=scheduler, history=history,
+                output_path=output_path, keys=keys, shutdown=shutdown,
+                start_batch=skip,
+                init_running=(float(mid["loss"]), int(mid["total"]))
+                if skip else (0.0, 0))
+            if mid_out is not None:
+                # step-granular preemption: a snapshot inside the epoch
+                if ckpt_mgr is not None:
+                    ckpt_mgr.save(ckpt_step(epoch, int(mid_out["batch"])),
+                                  snapshot(epoch, mid_out))
+                    print(f"[preempt] stopped resumably mid-epoch {epoch} "
+                          f"({int(mid_out['batch'])} batches in)")
+                else:
+                    print(f"[preempt] stopped mid-epoch {epoch} WITHOUT a "
+                          "snapshot: no checkpointing configured (set "
+                          "CHECKPOINT_EVERY / checkpoint_every); progress is "
+                          "lost")
+                break
+            mid = empty_gat_mid()
+            # read once: a SIGTERM between "save?" and "stop?" must not
+            # stop without the snapshot
+            preempted = shutdown.requested
+            if ckpt_mgr is not None and (
+                    not checkpoint_every or epoch % checkpoint_every == 0
+                    or epoch == epochs or preempted):
+                # an epoch-boundary snapshot is the start of epoch + 1
+                ckpt_mgr.save(ckpt_step(epoch + 1, 0),
+                              snapshot(epoch, empty_gat_mid()))
+            if preempted:
+                print(f"[preempt] stopped after epoch {epoch}"
+                      + ("" if ckpt_mgr is not None else
+                         " WITHOUT a snapshot: no checkpointing configured "
+                         "(set CHECKPOINT_EVERY / checkpoint_every)"))
+                break
     print(json.dumps({"kernel_launches": launch_counts()}))
     return model, history
 

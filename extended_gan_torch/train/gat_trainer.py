@@ -19,14 +19,25 @@ batch as it comes, with a mask of ones. The megastep (K steps a CUDA graph,
 and a mask of zeros; train-mode BatchNorm then sees the padded rows, as it
 does in JAX's megastep. Metric sums stay on the card until one fetch at the
 end of a pass.
+
+``remat=True`` runs the model's forward under ``torch.utils.checkpoint``
+(non-reentrant): its activations are dropped after the forward and
+recomputed during the backward, which trades a second forward for memory,
+as ``jax.checkpoint`` does in the JAX step. ``jax.checkpoint`` is
+functional, but a recomputed train-mode BatchNorm would update its running
+statistics a second time, so the recompute normalises with the batch's
+statistics as the first pass did and leaves the running ones as the first
+pass left them (:func:`remat_forward`).
 """
 
 from __future__ import annotations
 
+import contextlib
 import itertools
 
 import numpy as np
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from ..core.device import to_device
 from ..data.streaming import Prefetcher
@@ -34,17 +45,59 @@ from .losses import CRITERIA
 from .megastep import Megastep
 
 
-def make_gat_train_step(model, optimizer, *, criterion: str = "mse"):
+@contextlib.contextmanager
+def _running_stats_frozen(bns):
+    """Train-mode BatchNorm that normalises with the batch's statistics and
+    saves for its backward what it saved in the first pass, but leaves the
+    running statistics as they are: momentum 0 keeps them bit for bit
+    (running * 1 + batch * 0), and with no batch counter there is none to
+    advance."""
+    saved = [(m.momentum, m.num_batches_tracked) for m in bns]
+    for m in bns:
+        m.momentum, m.num_batches_tracked = 0.0, None
+    try:
+        yield
+    finally:
+        for m, (momentum, tracked) in zip(bns, saved):
+            m.momentum, m.num_batches_tracked = momentum, tracked
+
+
+def remat_forward(model):
+    """``model``'s forward under non-reentrant ``torch.utils.checkpoint``:
+    the same outputs and gradients, with the activations recomputed during
+    the backward. The recompute leaves the BatchNorm running statistics as
+    the first pass left them, so a remat step updates them once, as a plain
+    step does. ``preserve_rng_state=False`` is sound: the conv-GAT and UNet
+    models draw no random numbers (and reading the card's generator state
+    is what a CUDA graph capture may refuse)."""
+    bns = [m for m in model.modules()
+           if isinstance(m, torch.nn.modules.batchnorm._BatchNorm)]
+
+    def contexts():
+        return contextlib.nullcontext(), _running_stats_frozen(bns)
+
+    def forward(x):
+        return checkpoint(model, x, use_reentrant=False,
+                          preserve_rng_state=False, context_fn=contexts)
+
+    return forward
+
+
+def make_gat_train_step(model, optimizer, *, criterion: str = "mse",
+                        remat: bool = False):
     """``step(x, y, mask) -> (loss, running_nd)``: forward in train mode,
-    backward, one optimizer step. ``criterion`` is "mse" or "l1"."""
+    backward, one optimizer step. ``criterion`` is "mse" or "l1";
+    ``remat`` recomputes the forward during the backward
+    (:func:`remat_forward`)."""
     if criterion not in CRITERIA:
         raise ValueError(
             f"unsupported criterion {criterion!r}; choose 'mse' or 'l1'")
     crit = CRITERIA[criterion]
+    forward = remat_forward(model) if remat else model
 
     def step(x, y, mask):
         model.train()
-        y_hat = model(x)
+        y_hat = forward(x)
         m = mask.reshape((-1,) + (1,) * (y.dim() - 1))
         n_valid = mask.sum()
         err = crit(y_hat, y, mask=mask)  # sum(err * m) / (n_valid * y[0].numel())
@@ -59,11 +112,13 @@ def make_gat_train_step(model, optimizer, *, criterion: str = "mse"):
     return step
 
 
-def make_gat_megastep(model, optimizer, *, criterion: str = "mse"):
+def make_gat_megastep(model, optimizer, *, criterion: str = "mse",
+                      remat: bool = False):
     """K train steps a call (``megastep(xs, ys, masks) -> logs``, a leading
     K axis on each): one CUDA graph on the card, K eager steps on the CPU.
     Logs: ``loss`` of the last step, ``running_nd`` summed over the K."""
-    step = make_gat_train_step(model, optimizer, criterion=criterion)
+    step = make_gat_train_step(model, optimizer, criterion=criterion,
+                               remat=remat)
 
     def body(x, y, mask):
         loss, running_nd = step(x, y, mask)
@@ -183,28 +238,29 @@ def gat_megafeed(loader, device, k: int, *, batch_size=None, depth=2):
 
 def gat_step_logs(loader, step, device, *, max_batches: int = 0):
     """Single train steps over the first ``max_batches`` (all: 0) loader
-    batches, those of at most one sample skipped: (running_nd, samples) a
-    step."""
+    batches: (running_nd, samples, 1 loader batch, 1 train step) a step;
+    a batch of at most one sample is skipped, as (None, 0, 1, 0)."""
     for i, (n, batch) in enumerate(gat_feed(loader, device)):
         if max_batches and i >= max_batches:
             break
         if n <= 1:
+            yield None, 0, 1, 0
             continue
         _, nd = step(*batch)
-        yield nd, n
+        yield nd, n, 1, 1
 
 
 def gat_megastep_logs(loader, megastep, device, k: int, batch_size: int, *,
                       max_batches: int = 0):
     """Groups of K of the first ``max_batches`` (all: 0) loader batches
-    (:func:`gat_megafeed`) through ``megastep``: (running_nd, samples) a
-    group."""
+    (:func:`gat_megafeed`) through ``megastep``: (running_nd, samples,
+    loader batches consumed, train steps) a group."""
     batches = iter(loader)
     if max_batches:
         batches = itertools.islice(batches, max_batches)
-    for _, n, _, staged in gat_megafeed(batches, device, k,
-                                        batch_size=batch_size):
-        yield megastep(*staged)["running_nd"], n
+    for consumed, n, steps, staged in gat_megafeed(batches, device, k,
+                                                   batch_size=batch_size):
+        yield megastep(*staged)["running_nd"], n, consumed, steps
 
 
 _METRICS = ("loss_num", "denorm_num", "acc", "prec", "rec")

@@ -12,6 +12,7 @@ JAX is not installed (the repository's conftest.py imports JAX, hence
 """
 
 import functools
+import os
 
 import numpy as np
 import pytest
@@ -849,3 +850,166 @@ def test_adam_step_count_under_replay(cuda_device):
     assert (mega.captures, mega.replays) == (2, 4)
     steps = {s["step"].item() for s in opt.state.values()}
     assert steps == {3 * 3 + 2 * 2}
+
+
+def test_remat_step_with_the_kernels_equals_the_plain_step(cuda_device):
+    """``remat=True`` with K1 and K2 (GAT3D, ``use_pallas_mapping=True``):
+    the same loss, gradients and weights after Adam as the plain step, bit
+    for bit (cuDNN deterministic), with each forward kernel launched twice
+    a step (the forward, then the recompute) and each backward once."""
+    from extended_gan_torch import ops
+    from extended_gan_torch.models.gat.gat3d import Model as GatModel
+    from extended_gan_torch.train.gat_trainer import make_gat_train_step
+
+    def make():
+        model = GatModel(16, 16, 6, attention_type="temporal",
+                         mapping_type="conv", use_pallas=True,
+                         use_pallas_mapping=True,
+                         generator=torch.Generator().manual_seed(0))
+        model = model.to(cuda_device)
+        return model, torch.optim.Adam(model.parameters(), lr=1e-3)
+
+    (plain, o_plain), (remat, o_remat) = make(), make()
+    x, y, mask = (t[0] for t in _batches(cuda_device, 1, 4, 16, 1)[0])
+    counts = []
+    with torch.backends.cudnn.flags(enabled=True, allow_tf32=False,
+                                    deterministic=True):
+        for model, opt, flag in ((plain, o_plain, False),
+                                 (remat, o_remat, True)):
+            before = ops.launch_counts()
+            loss = make_gat_train_step(model, opt, remat=flag)(x, y, mask)[0]
+            counts.append({n: c - before[n] for n, c in
+                           ops.launch_counts().items() if c != before[n]})
+            counts.append(loss)
+    assert counts[0] == {"gat_attention_fwd": 2, "gat_attention_bwd": 2,
+                         "gat_mapping_fwd": 2, "gat_mapping_bwd": 2}
+    assert counts[2] == {**counts[0], "gat_attention_fwd": 4,
+                         "gat_mapping_fwd": 4}
+    assert torch.equal(counts[1], counts[3])
+    for a, b in zip(plain.parameters(), remat.parameters()):
+        assert torch.equal(a.grad, b.grad) and torch.equal(a, b)
+
+
+@pytest.mark.parametrize("family", ["k1", "k1+k2", "k3"])
+def test_bf16_forward_with_the_kernels_matches_the_plain_twins(
+        cuda_device, family):
+    """The bf16 model with the kernels (which take float32 at their
+    boundary) against the same bf16 model on the plain versions: the
+    root-mean-square gap within 2x the plain bf16 forward's own gap to the
+    plain float32 forward (the CPU tests' bound against JAX), and the
+    kernels launched as often as in the float32 forward."""
+    from extended_gan_torch import ops
+    from extended_gan_torch.models.gat.gat3d import Model as GatModel
+
+    hw = 20 if family == "k3" else 16
+
+    def make(dtype, kernels):
+        if family == "k3":
+            return build_model("unet", image_width=hw, image_height=hw,
+                               n_vertices=6, mapping_type="linear",
+                               use_pallas=kernels, device=cuda_device,
+                               generator=torch.Generator().manual_seed(0),
+                               dtype=dtype)
+        return GatModel(hw, hw, 6, attention_type="temporal",
+                        mapping_type="conv", use_pallas=kernels,
+                        use_pallas_mapping=kernels and family == "k1+k2",
+                        generator=torch.Generator().manual_seed(0),
+                        dtype=dtype).to(cuda_device).eval()
+
+    x = torch.rand(4, hw, hw, 4, 6, device=cuda_device,
+                   generator=torch.Generator(device=cuda_device).manual_seed(1))
+    outs, launched = {}, {}
+    with torch.no_grad(), torch.backends.cudnn.flags(
+            enabled=True, allow_tf32=False, deterministic=True):
+        for dtype in (torch.float32, torch.bfloat16):
+            for kernels in (True, False):
+                before = ops.launch_counts()
+                outs[dtype, kernels] = make(dtype, kernels)(x).double()
+                launched[dtype, kernels] = {
+                    n: c - before[n] for n, c in ops.launch_counts().items()
+                    if c != before[n]}
+    bf16, f32 = torch.bfloat16, torch.float32
+    assert all(v.dtype == torch.float64 and torch.isfinite(v).all()
+               for v in outs.values())
+
+    def rms(a, b):
+        return float(((a - b) ** 2).mean().sqrt())
+    own = rms(outs[bf16, False], outs[f32, False])
+    assert 0 < rms(outs[bf16, True], outs[bf16, False]) <= 2 * own or \
+        torch.equal(outs[bf16, True], outs[bf16, False])
+    assert launched[bf16, True] == launched[f32, True] != {}
+    assert launched[bf16, False] == launched[f32, False] == {}
+
+
+def test_resume_in_process_with_k1_and_k2_in_a_graph(cuda_device, tmp_path,
+                                                     monkeypatch):
+    """The conv-GAT driver with K1 and K2 (``use_pallas_mapping=True``)
+    under ``--megastep 2``: a preemption after epoch 2's first group, then
+    a resume in the same process (Adam's state restored before the first
+    capture), equals the uninterrupted run bit for bit (cuDNN
+    deterministic), and the resumed run launches both kernels."""
+    from extended_gan_torch import ops
+    from extended_gan_torch.models.gat.gat3d import Model as GatModel
+    from extended_gan_torch.train import gat_driver
+
+    def switched(model_type, *, image_width, image_height, n_vertices,
+                 mapping_type, time_steps, use_pallas, device, generator,
+                 dtype):
+        return GatModel(image_width, image_height, n_vertices, model_type,
+                        mapping_type, time_steps, use_pallas=True,
+                        generator=generator, use_pallas_mapping=True,
+                        dtype=dtype).to(device).eval()
+
+    class Counting:
+        reads = 0
+
+        def __enter__(self):
+            return self
+
+        def __exit__(self, *exc):
+            return False
+
+        @property
+        def requested(self):
+            Counting.reads += 1
+            return Counting.reads >= 6  # epoch 1: 4 groups + its tail
+
+    monkeypatch.setattr(gat_driver, "build_model", switched)
+    kw = dict(model_type="temporal", mapping_type="conv",
+              train_batch_size=4, test_batch_size=8, epochs=2,
+              max_batches=8, downsample_size=(16, 16), dataset="synthetic",
+              seed=31, checkpoint_every=10, megastep=2)
+
+    def latest(out):
+        steps = sorted(int(f[5:-3]) for f in os.listdir(out)
+                       if f.startswith("step_"))
+        return steps[-1], torch.load(os.path.join(out, f"step_{steps[-1]}.pt"),
+                                     weights_only=True)
+
+    ref, run = str(tmp_path / "ref"), str(tmp_path / "run")
+    with torch.backends.cudnn.flags(enabled=True, allow_tf32=False,
+                                    deterministic=True):
+        gat_driver.train(output_path=ref, **kw)
+        with monkeypatch.context() as m:
+            m.setattr(gat_driver, "GracefulShutdown", Counting)
+            gat_driver.train(output_path=run, **kw)
+        assert latest(os.path.join(run, "checkpoints"))[0] == 200_002
+        before = ops.launch_counts()
+        gat_driver.train(output_path=run, resume=True, **kw)
+        launched = {n: c - before[n] for n, c in ops.launch_counts().items()}
+    assert all(launched[n] > 0 for n in ("gat_attention_fwd",
+                                         "gat_mapping_fwd",
+                                         "gat_attention_bwd",
+                                         "gat_mapping_bwd")), launched
+    (s_ref, c_ref), (s_run, c_run) = (latest(os.path.join(d, "checkpoints"))
+                                      for d in (ref, run))
+    assert s_ref == s_run
+
+    def flat(tree):
+        if isinstance(tree, dict):
+            return [x for k in sorted(tree, key=str) for x in flat(tree[k])]
+        if isinstance(tree, (list, tuple)):
+            return [x for v in tree for x in flat(v)]
+        return [tree]
+    for a, b in zip(flat(c_ref), flat(c_run), strict=True):
+        assert (torch.equal(a, b) if torch.is_tensor(a) else a == b)

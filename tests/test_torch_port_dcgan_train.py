@@ -87,8 +87,9 @@ def test_two_epochs_match_jax():
     keys = KeySeq(5)
     cpu = torch.device("cpu")
     for epoch in range(1, EPOCHS + 1):
-        result = dcgan_trainer.train_single_epoch(dcgan_trainer.step_logs(
-            train_batches, capture_port, cpu, log_every=1000))
+        result, _ = dcgan_trainer.train_single_epoch(
+            dcgan_trainer.step_logs(train_batches, capture_port, cpu,
+                                    log_every=1000))
         p_hist.append(result | dcgan_trainer.test(val_batches, port_eval, cpu))
         states, result, _ = jax_train_single_epoch(
             dataloader=list(train_batches), states=states, step=capture_jax,
@@ -209,7 +210,6 @@ def test_cli_trains_on_the_cpu(tmp_path, monkeypatch):
 # the JAX driver's keywords the port refuses, a value that is not "off", and
 # the ROADMAP queue 1 item that ports each
 UNPORTED = [
-    ("precision", "bf16", 6), ("resume", True, 6),
     ("data_axis", 2, 9), ("model_axis", 2, 9), ("tp_min_channels", 64, 9),
     ("fsdp", True, 9), ("fsdp_min_size", 1, 9), ("spatial", True, 9),
     ("fused_disc", True, 10), ("fused_prop", True, 10),

@@ -295,8 +295,6 @@ def test_generate_experiment_reads_the_jax_configs(tmp_path):
 
 
 @pytest.mark.parametrize("kwargs,error", [
-    (dict(resume=True), NotImplementedError),
-    (dict(precision="bf16"), NotImplementedError),
     (dict(bogus=1), TypeError),
 ])
 def test_unported_driver_options_raise(kwargs, error):
@@ -307,8 +305,6 @@ def test_unported_driver_options_raise(kwargs, error):
 # every option the conv-GAT driver refuses, a value that is not "off", and
 # the ROADMAP queue 1 item that ports it
 GAT_UNPORTED = [
-    ("precision", "bf16", 6), ("resume", True, 6), ("checkpoint_every", 1, 6),
-    ("remat", True, 6),
     ("shuffle_mode", "global", 7),
     ("data_axis", 2, 9), ("model_axis", 2, 9), ("tp_min_channels", 64, 9),
     ("fsdp", True, 9), ("fsdp_min_size", 1, 9), ("spatial", True, 9),
