@@ -154,7 +154,25 @@ Phases, each fatal on failure (non-zero exit, no result line):
              final_temp_conv and final_smaatunet: peak memory and ms a step
              with and without, gradients equal (bitwise for GAT3D), each
              forward kernel twice a step.
-12. report - the total time, the ``kernels`` JSON line, the card's name and
+12. cyclegan - the CycleGAN (two DCGAN generators, two FrameDiscriminators;
+             nc 4, ndf 64, 64x64, b=32, cycle lambda 10): ``python -m
+             extended_gan_torch.cycle_gan --synthetic --epochs 2
+             --max-batches 4 --save-epoch 1 --out-dir``; in process the
+             card's exact f32 eval forwards, step losses, gradients and
+             running statistics against float64 on the CPU (the dcgan
+             phase's bounds); ms a step eager and as a K=8 CUDA graph over
+             the resident archive, busy, kernels, peak memory; the graph
+             bit for bit against eager steps; a SIGTERM mid-epoch in a
+             child and ``--resume``, bitwise against an uninterrupted run,
+             streaming and ``--resident --megastep 8``; a bf16 step; ``serve
+             export --workload cyclegan`` of both directions, f32 and
+             w8a8, checked on the card. K1, K2 and K3 launch 0 times.
+13. vanilla_gan - the vanilla MLP GAN (latent 100, 28x28, b=64): the
+             default and FusedProp steps in exact f32 against float64 on
+             the CPU, ms a step of each, and ``python -m
+             extended_gan_torch.vanilla_gan`` for 20 batches with its PNG
+             grids. K1, K2 and K3 launch 0 times.
+14. report - the total time, the ``kernels`` JSON line, the card's name and
              power limit, and the last line ``{"ok": true, "device":
              {...}}``.
 """
@@ -1924,6 +1942,16 @@ def dcgan_steps(nets, batches, device, dtype):
     return out
 
 
+def _leaf_gaps(got, want):
+    """max |got - want| of each tensor of a net, in units of the net's
+    largest entry (numpy, one a tensor)."""
+    import numpy as np
+
+    largest = max(w.abs().max().item() for w in want)
+    return np.array([(g - w).abs().max().item() / largest
+                     for g, w in zip(got, want)])
+
+
 def _net_gap(got, want):
     """max |got - want| over a net's tensors, in units of its largest
     entry."""
@@ -3140,6 +3168,7 @@ def robustness_child(spec_json):
     from extended_gan_torch import ops
     from extended_gan_torch.train import (
         checkpoint,
+        cyclegan_driver,
         dcgan_driver,
         gat_driver,
         preempt,
@@ -3156,11 +3185,14 @@ def robustness_child(spec_json):
             yield item
             print("[child] step", flush=True)
 
-    real_gat, real_dcgan = (gat_driver.train_single_epoch,
-                            dcgan_driver.train_single_epoch)
+    real_gat, real_dcgan, real_cyclegan = (
+        gat_driver.train_single_epoch, dcgan_driver.train_single_epoch,
+        cyclegan_driver.train_single_epoch)
     gat_driver.train_single_epoch = lambda **kw: real_gat(
         **{**kw, "train_steps": stepped(kw["train_steps"])})
     dcgan_driver.train_single_epoch = lambda logs, **kw: real_dcgan(
+        stepped(logs), **kw)
+    cyclegan_driver.train_single_epoch = lambda logs, **kw: real_cyclegan(
         stepped(logs), **kw)
     handler = preempt.GracefulShutdown._handler
 
@@ -3186,6 +3218,9 @@ def robustness_child(spec_json):
             generate_experiment,
         )
         generate_experiment(spec["name"], **spec["kwargs"])
+    elif spec["kind"] == "cyclegan":
+        from extended_gan_torch.cycle_gan.__main__ import main as cyclegan_cli
+        cyclegan_cli(spec["argv"])
     else:
         from extended_gan_torch.dcgan.__main__ import main as dcgan_cli
         dcgan_cli(spec["argv"])
@@ -3772,6 +3807,488 @@ def phase_robustness(tmp, batch=32):
                 remat=remat, seconds=seconds)
 
 
+CYCLEGAN_K = 8
+CYCLEGAN_KEYS = ("train_mse", "pred_mse", "cycle_l1")
+LOSS_NAMES = ("g_loss", "adv_loss", "cycle_loss", "d_x_loss", "d_y_loss")
+
+
+def cyclegan_steps(nets, batches, device, dtype):
+    """The CycleGAN's four nets' weights in fresh nets on ``device`` in
+    ``dtype``, dropout off, with Adam as the driver builds it: the eval
+    forwards on the first batch (G_xy(x), then G_yx on it), then one train
+    step's five losses, gradients and running statistics, then the losses
+    of a step on each further batch."""
+    import torch
+
+    from extended_gan_torch.train.cyclegan_driver import build_cyclegan
+    from extended_gan_torch.train.cyclegan_trainer import (
+        make_cyclegan_eval_step,
+        make_cyclegan_train_step,
+    )
+
+    copies, opts = build_cyclegan(seed=0, device="cpu", dropout=0.0)
+    for c, n in zip(copies, nets):
+        c.load_state_dict(n.state_dict())
+    nets = tuple(c.to(device, dtype) for c in copies)
+    opts = tuple(torch.optim.Adam(n.parameters(), lr=2e-4,
+                                  betas=(0.5, 0.999), eps=1e-8)
+                 for n in nets)
+    step = make_cyclegan_train_step(*nets, *opts)
+    data = [tuple(torch.from_numpy(a).to(device, dtype) for a in b)
+            for b in batches]
+    fake, _ = make_cyclegan_eval_step(nets[0], nets[1])(*data[0])
+    with torch.no_grad():
+        cyc = nets[1](fake)
+    out = dict(fwd=[t.double().cpu() for t in (fake, cyc)], losses=[])
+    for i, (x, y) in enumerate(data):
+        logs = step(x, y)
+        out["losses"].append([float(logs[k]) for k in LOSS_NAMES])
+        if i == 0:
+            out["grads"] = [[p.grad.to("cpu", torch.float64, copy=True)
+                             for p in n.parameters()] for n in nets]
+            out["stats"] = [[b.to("cpu", torch.float64, copy=True)
+                             for k, b in n.state_dict().items()
+                             if "running" in k] for n in nets]
+    return out
+
+
+def _robust_cyclegan_path(tmp, label, data, extra, stop_after):
+    """The published CycleGAN through ``python -m
+    extended_gan_torch.cycle_gan`` (dropout 0.01): uninterrupted here, cut
+    in a child by a SIGTERM, ``--resume`` here; bitwise."""
+    import torch
+
+    from extended_gan_torch.cycle_gan.__main__ import main as cyclegan_cli
+
+    argv = ["--data-location", data, "--epochs", "2", "--save-epoch", "10",
+            *extra]
+    ref, run = os.path.join(tmp, label + "_ref"), os.path.join(tmp, label)
+    child = _Child(label, {"kind": "cyclegan",
+                           "argv": argv + ["--out-dir", run]}, stop_after)
+    with torch.backends.cudnn.flags(enabled=True, allow_tf32=False,
+                                    deterministic=True), \
+            contextlib.redirect_stdout(io.StringIO()):
+        t0 = time.perf_counter()
+        cyclegan_cli(argv + ["--out-dir", ref])
+        torch.cuda.synchronize()
+        ref_s = time.perf_counter() - t0
+        cut = child.finish()
+        cyclegan_cli(argv + ["--out-dir", run, "--resume"])
+        torch.cuda.synchronize()
+    return dict(cut, leaves=_same_run(ref, run, label), ref_s=ref_s)
+
+
+def phase_cyclegan(tmp, batch=32):
+    """The CycleGAN at the published width (nc 4, ndf 64, 64x64, b=32,
+    cycle lambda 10) as a user trains it, outputs under ``tmp``:
+
+    - ``python -m extended_gan_torch.cycle_gan --synthetic --epochs 2
+      --max-batches 4 --save-epoch 1 --out-dir``: finite results under the
+      JAX driver's keys, only history.json and checkpoints/ written;
+    - in process from seed 0, dropout off: the card's exact-f32 eval
+      forwards, step losses, gradients and running statistics against
+      float64 on the CPU (the ``dcgan`` phase's bounds, each tensor held
+      to 10x what noise on both halves of the batch moves it), and a TF32
+      step that these limits must refuse;
+    - ms a step eager and as a K=8 CUDA graph over the resident archive,
+      busy time and kernels a step in the graph, peak memory of a step;
+      the graph bit for bit against eager steps (dropout off, cuDNN
+      deterministic);
+    - a SIGTERM mid-epoch in a child and ``--resume``, bit for bit against
+      an uninterrupted run, streaming and ``--resident --megastep 8``;
+    - a bf16 step: finite, float32 parameters;
+    - ``serve export --workload cyclegan`` of both directions, f32 and
+      w8a8, each with --check on the card.
+
+    No CUDA kernel of the port is on this path (no Pallas kernel is on the
+    JAX package's): K1, K2 and K3 launch 0 times."""
+    import numpy as np
+    import torch
+
+    from extended_gan_torch import ops
+    from extended_gan_torch.cycle_gan.__main__ import main as cyclegan_cli
+    from extended_gan_torch.data.resident import (
+        ResidentVideos,
+        make_cyclegan_resident_megastep,
+    )
+    from extended_gan_torch.data.streaming import get_coastal_loaders
+    from extended_gan_torch.data.synthetic import make_coastal_dataset
+    from extended_gan_torch.serve.__main__ import main as serve_cli
+    from extended_gan_torch.train.cyclegan_driver import build_cyclegan
+    from extended_gan_torch.train.cyclegan_trainer import (
+        make_cyclegan_train_step,
+    )
+    from extended_gan_torch.train.dcgan_trainer import to_nchw
+
+    t_phase = time.perf_counter()
+    card = card_line()
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    # a 4-file archive: 20 streaming batches and 3 resident programs an
+    # epoch, for the cuts (and the bigger split the children start on)
+    data = make_coastal_dataset(os.path.join(tmp, "coastal"),
+                                n_train_files=4, n_test_files=1,
+                                frames_per_file=136, h=64, w=64)
+    _reset_launches()  # the main path starts here: every launch below
+    # 1. the CLI, two epochs of 4 batches, checkpointed
+    out = os.path.join(tmp, "cli")
+    before = _tree_state(REPO)
+    t0 = time.perf_counter()
+    nets, history = cyclegan_cli(["--synthetic", "--epochs", "2",
+                                  "--max-batches", "4", "--save-epoch", "1",
+                                  "--out-dir", out])
+    torch.cuda.synchronize()
+    cli_s = time.perf_counter() - t0
+    written = sorted(os.listdir(out))
+    changed = sorted(set(before.items()) ^ set(_tree_state(REPO).items()))
+    results = {k: v[-1] for k, v in history.history.items()}
+    check(all(next(n.parameters()).device.type == "cuda" for n in nets),
+          "cyclegan CLI: the nets are not on the card")
+    check(sorted(results) == sorted(CYCLEGAN_KEYS)
+          and all(len(v) == 2 for v in history.history.values()),
+          f"cyclegan CLI: history {history.history}")
+    check(_finite(results.values()), f"cyclegan CLI: results {results}")
+    check(written == ["checkpoints", "history.json"],
+          f"cyclegan CLI: wrote {written} into --out-dir")
+    check(not changed, f"cyclegan CLI: wrote into the checkout: "
+          f"{changed[:5]}")
+    print(f"[cyclegan] python -m extended_gan_torch.cycle_gan --synthetic "
+          f"--epochs 2 --max-batches 4 --save-epoch 1 --out-dir <tmp> (nc 4, "
+          f"ndf 64, 64x64, b={batch}): {cli_s:.2f} s with start-up, last "
+          f"epoch {json.dumps(results)}; only history.json and checkpoints/ "
+          "written, under --out-dir")
+
+    # 2. agreement: the card's exact f32 against float64 on the CPU
+    nets, _ = build_cyclegan(seed=0, device="cuda", dropout=0.0)
+    loader, _ = get_coastal_loaders(data, batch, 64, seq_len=4, crop=64,
+                                    seed=1)
+    batches = [tuple(to_nchw(a) for a in next(loader)) for _ in range(3)]
+    check(all(len(b[0]) == batch for b in batches), "short batch")
+    t0 = time.perf_counter()
+    card_run = cyclegan_steps(nets, batches, torch.device("cuda"),
+                              torch.float32)
+    ref = cyclegan_steps(nets, batches, torch.device("cpu"), torch.float64)
+    # roundoff's scale: what 1e-7 noise on both halves of the first batch
+    # moves float64, the most of three draws (noise on the context alone
+    # leaves D_x's gradients nearly still, far below their roundoff)
+
+    def noisy(seed):
+        rng = np.random.default_rng(seed)
+        return [tuple((a * (1 + 1e-7 * rng.standard_normal(a.shape)))
+                      .astype(np.float32) for a in batches[0])]
+
+    draws = [cyclegan_steps(nets, noisy(seed), torch.device("cpu"),
+                            torch.float64) for seed in range(3)]
+    # a lower precision, which the limits below must refuse: TF32
+    # convolutions and products on the card
+    torch.backends.cudnn.allow_tf32 = True
+    torch.backends.cuda.matmul.allow_tf32 = True
+    tf32_run = cyclegan_steps(nets, batches[:1], torch.device("cuda"),
+                              torch.float32)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    ref_s = time.perf_counter() - t0
+    fwd_err = max((a - b).abs().max().item()
+                  for a, b in zip(card_run["fwd"], ref["fwd"]))
+    check(fwd_err <= DCGAN_FWD_TOL,
+          f"cyclegan eval forwards: card f32 vs CPU float64 {fwd_err:.3e} "
+          f"(limit {DCGAN_FWD_TOL})")
+    got, want = np.array(card_run["losses"]), np.array(ref["losses"])
+    check(np.isfinite(got).all(), f"cyclegan losses {got}")
+    rel = np.abs(got - want) / np.abs(want)
+    check(rel[0].max() <= DCGAN_LOSS_TOL,
+          f"cyclegan step 1 losses {got[0]} vs float64 {want[0]}: {rel[0]}")
+    check(rel.max() <= DCGAN_LOSSES_TOL,
+          f"cyclegan 3 steps' losses {got} vs float64 {want}: {rel}")
+    lines, tf32_worst = [], 0.0
+    for what in ("grads", "stats"):
+        for i, name in enumerate(("G_xy", "G_yx", "D_x", "D_y")):
+            # each tensor's gap in units of its net's largest entry, held
+            # to the floor or 10x what the noise moves that tensor
+            w = ref[what][i]
+            gaps = _leaf_gaps(card_run[what][i], w)
+            sens = np.max([_leaf_gaps(d[what][i], w) for d in draws], 0)
+            limits = np.maximum(DCGAN_FLOOR, DCGAN_SENS_FACTOR * sens)
+            worst = int(np.argmax(gaps / limits))
+            check((gaps <= limits).all(),
+                  f"cyclegan {what} of {name}: card f32 vs CPU float64, "
+                  f"tensor {worst} {gaps[worst]:.3e} of the net's largest "
+                  f"entry (limit {limits[worst]:.3e}; 1e-7 noise moves "
+                  f"float64 {sens[worst]:.3e})")
+            tf32 = _leaf_gaps(tf32_run[what][i], w) / limits
+            tf32_worst = max(tf32_worst, float(tf32.max()))
+            lines.append(f"{what} {name} {gaps.max():.3e} (at most "
+                         f"{(gaps / limits).max():.3f} of its tensor's "
+                         f"limit; TF32 {tf32.max():.3f})")
+    check(tf32_worst > 1.0,
+          f"cyclegan agreement: TF32 on the card passes the exact-f32 "
+          f"limits (at most {tf32_worst:.3f} of a limit), so they cannot "
+          "tell a lower precision from roundoff")
+    print(f"[cyclegan] agreement, card exact f32 vs CPU float64, full width "
+          f"from seed 0, dropout off, b={batch} ({ref_s:.1f} s): eval "
+          f"forwards {fwd_err:.3e} (limit {DCGAN_FWD_TOL}); step 1 losses "
+          f"{rel[0].max():.3e} relative (limit {DCGAN_LOSS_TOL}), 3 steps "
+          f"{rel.max():.3e} (limit {DCGAN_LOSSES_TOL}); " + "; ".join(lines))
+
+    # 3. times: eager, and K=8 steps a graph over the resident archive
+    store = ResidentVideos.from_pt_frames(os.path.join(data, "train"),
+                                          "cuda")
+    prog = store.epoch_programs(0, CYCLEGAN_K, batch)[0]
+    nets, opts = build_cyclegan(seed=0, device="cuda", capturable=True)
+    step = make_cyclegan_train_step(*nets, *opts)
+    x, y = (torch.from_numpy(a).cuda() for a in batches[0])
+    for _ in range(2):
+        step(x, y)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    step(x, y)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() / 2**20
+    t0 = time.perf_counter()
+    for _ in range(20):
+        step(x, y)
+    torch.cuda.synchronize()
+    eager_ms = (time.perf_counter() - t0) * 1e3 / 20
+    eager_prof = _profile_call(lambda: step(x, y), 1)
+    mega = make_cyclegan_resident_megastep(
+        *nets, *opts, store, generators=(
+            nets[0].ConvBlock_0.dropout_generator,))
+    mega(prog)  # the warm-up group, eager
+    mega(prog)  # captured, then replayed
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(5):
+        mega(prog)
+    torch.cuda.synchronize()
+    graph_ms = (time.perf_counter() - t0) * 1e3 / (5 * CYCLEGAN_K)
+    prof = _profile_call(lambda: mega(prog), CYCLEGAN_K)
+    # the graph against eager steps from the same seed, dropout off
+    runs = []
+    for graphs in (True, False):
+        tw, tw_opts = build_cyclegan(seed=0, device="cuda", dropout=0.0,
+                                     capturable=True)
+        m = make_cyclegan_resident_megastep(*tw, *tw_opts, store)
+        with torch.backends.cudnn.flags(enabled=True, allow_tf32=False,
+                                        deterministic=True):
+            logs = [(m if graphs else m.eager)(p) for p in
+                    store.epoch_programs(3, CYCLEGAN_K, batch)]
+        torch.cuda.synchronize()
+        runs.append(_train_state(tw, tw_opts)
+                    + [v for g in logs for v in g.values()])
+        if graphs:
+            check((m.captures, m.replays) == (1, 2),
+                  f"cyclegan graph: {m.captures} captures, {m.replays} "
+                  "replays")
+    same = all(torch.equal(a, b) for a, b in zip(*runs, strict=True))
+    check(same, "cyclegan: the replayed graphs differ from eager steps")
+    print(f"[cyclegan] {card}: b={batch} train step eager {eager_ms:.3f} ms "
+          f"(host clock, synchronised, 20 steps; busy {eager_prof['busy_ms']:.4f} "
+          f"ms, {eager_prof['kernels']} kernels), as a K={CYCLEGAN_K} CUDA "
+          f"graph over the resident archive {graph_ms:.3f} ms a step (busy "
+          f"{prof['busy_ms']:.4f} ms, {prof['kernels'] / CYCLEGAN_K:.1f} "
+          f"kernels a step); peak memory of a step {peak:.1f} MiB; 3 "
+          f"programs as graphs equal eager steps bit for bit")
+
+    # 4. preempt and resume, bitwise
+    # streaming: 12 steps an epoch, the SIGTERM after epoch 1 and 4 more;
+    # resident: 3 programs of 8 an epoch, after 4 programs
+    cuts = {
+        "streaming": _robust_cyclegan_path(
+            tmp, "cg_stream", data, ["--max-batches", "12"], 16),
+        "resident": _robust_cyclegan_path(
+            tmp, "cg_resident", data, ["--max-batches", "24", "--resident",
+                                       "--megastep", str(CYCLEGAN_K)], 4),
+    }
+    for label, r in cuts.items():
+        print(f"[cyclegan] preempt {label}: SIGTERM after step "
+              f"{r['steps_seen']} seen, snapshot step {r['snapshot_step']} "
+              f"of {r['snapshot_bytes']} bytes in {r['save_ms']:.3f} ms, "
+              f"signal to the driver's return {r['signal_to_exit_ms']:.3f} "
+              f"ms; resumed run equal bit for bit ({r['leaves']} leaves); "
+              f"uninterrupted run {r['ref_s']:.2f} s")
+
+    # 5. bf16
+    nets16, opts16 = build_cyclegan(seed=0, device="cuda", precision="bf16")
+    step16 = make_cyclegan_train_step(*nets16, *opts16)
+    losses16 = [float(v) for _ in range(3) for k, v in step16(x, y).items()
+                if k in LOSS_NAMES]
+    f32_params = all(p.dtype == torch.float32 for n in nets16
+                     for p in n.parameters())
+    check(_finite(losses16) and f32_params,
+          f"cyclegan bf16: losses {losses16}, float32 parameters "
+          f"{f32_params}")
+
+    # 6. export both generators, f32 and w8a8, checked on the card
+    exports = {}
+    for direction in ("xy", "yx"):
+        for q in ("", "w8a8"):
+            path = os.path.join(tmp, f"g_{direction}{q}.pt")
+            with contextlib.redirect_stdout(io.StringIO()) as text:
+                info = serve_cli(["export", out, "--workload", "cyclegan",
+                                  "--direction", direction, "--out", path,
+                                  "--check", *(["--quantize", q] if q
+                                               else [])])
+            checks = re.findall(r"max\|serve - live\| = (\S+)",
+                                text.getvalue())
+            check(info["model_type"] == f"cyclegan_generator_{direction}"
+                  and len(checks) == 2 and "check OK" in text.getvalue(),
+                  f"cyclegan export {direction} {q}: {text.getvalue()}")
+            exports[f"{direction} {q or 'f32'}"] = (info["nbytes"], checks)
+    launched = {n: c for n, c in ops.launch_counts().items() if c}
+    check(not launched, f"cyclegan phase: CUDA kernel launches {launched}, "
+          "expected none")
+    secs = time.perf_counter() - t_phase
+    print(f"[cyclegan] bf16: 3 steps finite ({losses16[-5:]}), parameters "
+          f"float32; export --check on the card: "
+          + "; ".join(f"{k} {b} bytes, |serve - live| {' / '.join(c)}"
+                      for k, (b, c) in exports.items())
+          + f"; K1, K2, K3 launches 0; the phase took {secs:.1f} s")
+    return dict(cli_s=cli_s, results=results, fwd_err=fwd_err,
+                loss_rel=float(rel.max()), eager_ms=eager_ms,
+                graph_ms=graph_ms, busy_ms=prof["busy_ms"], peak_mib=peak,
+                cuts=cuts, exports=exports, secs=secs,
+                launches=ops.launch_counts())
+
+
+def vanilla_steps(nets, real, z, device, dtype, fused):
+    """One vanilla GAN step from ``nets``' weights in fresh nets on
+    ``device`` in ``dtype``, with the CLI's Adam, on ``real`` with latents
+    ``z``: the losses, each net's gradients and the generator's running
+    statistics after it."""
+    import torch
+
+    from extended_gan_torch.models.vanilla_gan import (
+        MLPDiscriminator,
+        MLPGenerator,
+    )
+    from extended_gan_torch.train.adversarial import make_vanilla_gan_step
+
+    copies = (MLPGenerator(), MLPDiscriminator())
+    for c, n in zip(copies, nets):
+        c.load_state_dict(n.state_dict())
+    g, d = (c.to(device, dtype) for c in copies)
+    opts = [torch.optim.Adam(n.parameters(), lr=2e-4, betas=(0.5, 0.999),
+                             eps=1e-8) for n in (g, d)]
+    step = make_vanilla_gan_step(g, d, *opts, latent_dim=100,
+                                 fused_prop=fused)
+    logs = step(torch.from_numpy(real).to(device, dtype),
+                torch.from_numpy(z).to(device, dtype))
+    return dict(losses=[float(logs[k]) for k in ("g_loss", "d_loss")],
+                grads=[[p.grad.to("cpu", torch.float64, copy=True)
+                        for p in n.parameters()] for n in (g, d)],
+                stats=[[b.to("cpu", torch.float64, copy=True)
+                        for k, b in g.state_dict().items()
+                        if "running" in k]])
+
+
+def phase_vanilla_gan(tmp, batch=64):
+    """The vanilla MLP GAN at the published width (latent 100, 28x28,
+    b=64): the default and FusedProp steps in exact f32 on the card against
+    float64 on the CPU from seed 0 (losses, gradients, the generator's
+    running statistics; the ``dcgan`` phase's bounds), ms a step of each,
+    and ``python -m extended_gan_torch.vanilla_gan --n_epochs 1
+    --max_batches 20 --data_root "" --sample_interval 10 --out_dir`` with
+    its PNG grids. K1, K2 and K3 launch 0 times (dense layers only)."""
+    import numpy as np
+    import torch
+
+    from extended_gan_torch import ops
+    from extended_gan_torch.models.vanilla_gan import (
+        MLPDiscriminator,
+        MLPGenerator,
+    )
+    from extended_gan_torch.train.adversarial import make_vanilla_gan_step
+    from extended_gan_torch.vanilla_gan.__main__ import main as vanilla_cli
+
+    t_phase = time.perf_counter()
+    card = card_line()
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    _reset_launches()  # the main path starts here
+    init = torch.Generator().manual_seed(0)
+    nets = (MLPGenerator(generator=init), MLPDiscriminator(generator=init))
+    rng = np.random.default_rng(0)
+    real = rng.uniform(-1, 1, (batch, 1, 28, 28)).astype(np.float32)
+    z = rng.standard_normal((batch, 100)).astype(np.float32)
+    noisy = (real * (1 + 1e-7 * rng.standard_normal(real.shape))).astype(
+        np.float32)
+    lines, times = [], {}
+    for fused in (False, True):
+        label = "FusedProp" if fused else "default"
+        got = vanilla_steps(nets, real, z, torch.device("cuda"),
+                            torch.float32, fused)
+        want = vanilla_steps(nets, real, z, torch.device("cpu"),
+                             torch.float64, fused)
+        moved = vanilla_steps(nets, noisy, z, torch.device("cpu"),
+                              torch.float64, fused)
+        rel = max(abs(a - b) / abs(b) for a, b in zip(got["losses"],
+                                                       want["losses"]))
+        check(_finite(got["losses"]) and rel <= DCGAN_LOSS_TOL,
+              f"vanilla {label}: losses {got['losses']} vs float64 "
+              f"{want['losses']}")
+        parts = [f"losses {rel:.3e} relative (limit {DCGAN_LOSS_TOL})"]
+        for what in ("grads", "stats"):
+            for name, g, w, m in zip(("G", "D"), got[what], want[what],
+                                     moved[what]):
+                gap, sens = _net_gap(g, w), _net_gap(m, w)
+                limit = max(DCGAN_FLOOR, DCGAN_SENS_FACTOR * sens)
+                check(gap <= limit, f"vanilla {label} {what} of {name}: "
+                      f"{gap:.3e} (limit {limit:.3e})")
+                parts.append(f"{what} {name} {gap:.3e} (limit {limit:.3e})")
+        g, d = (n.cuda() for n in (MLPGenerator(generator=torch.Generator()
+                                                .manual_seed(0)),
+                                   MLPDiscriminator()))
+        opts = [torch.optim.Adam(n.parameters(), lr=2e-4, betas=(0.5, 0.999))
+                for n in (g, d)]
+        step = make_vanilla_gan_step(
+            g, d, *opts, latent_dim=100, fused_prop=fused,
+            generator=torch.Generator("cuda").manual_seed(0))
+        r = torch.from_numpy(real).cuda()
+        for _ in range(3):
+            step(r)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(50):
+            step(r)
+        torch.cuda.synchronize()
+        times[label] = (time.perf_counter() - t0) * 1e3 / 50
+        busy = _profile_call(lambda: step(r), 1)
+        lines.append(f"{label}: {times[label]:.3f} ms a step (host clock, "
+                     f"50 steps; busy {busy['busy_ms']:.4f} ms, "
+                     f"{busy['kernels']} kernels); " + ", ".join(parts))
+    print(f"[vanilla_gan] {card}, b={batch}, card exact f32 vs CPU float64 "
+          "from seed 0: " + "; ".join(lines))
+    out = os.path.join(tmp, "images")
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()) as text:
+        g, _ = vanilla_cli(["--n_epochs", "1", "--max_batches", "20",
+                            "--data_root", "", "--sample_interval", "10",
+                            "--out_dir", out])
+    torch.cuda.synchronize()
+    cli_s = time.perf_counter() - t0
+    pngs = sorted(os.listdir(out))
+    losses = re.findall(r"\[D loss: (\S+)\] \[G loss: (\S+)\]",
+                        text.getvalue())
+    check(next(g.parameters()).device.type == "cuda",
+          "vanilla CLI: the generator is not on the card")
+    check(pngs == ["0.png", "10.png"] and all(
+        open(os.path.join(out, p), "rb").read(8) == b"\x89PNG\r\n\x1a\n"
+        for p in pngs), f"vanilla CLI: wrote {pngs}")
+    check(len(losses) == 20 and _finite(float(v) for pair in losses
+                                        for v in pair),
+          f"vanilla CLI: {len(losses)} loss lines, last {losses[-1:]}")
+    launched = {n: c for n, c in ops.launch_counts().items() if c}
+    check(not launched, f"vanilla phase: CUDA kernel launches {launched}")
+    secs = time.perf_counter() - t_phase
+    print(f"[vanilla_gan] python -m extended_gan_torch.vanilla_gan --n_epochs "
+          f"1 --max_batches 20 --data_root '' --sample_interval 10: "
+          f"{cli_s:.2f} s (8,192 synthetic digits made first), grids {pngs}, "
+          f"last losses D {losses[-1][0]} G {losses[-1][1]}; K1, K2, K3 "
+          f"launches 0; the phase took {secs:.1f} s")
+    return dict(times=times, cli_s=cli_s, secs=secs,
+                launches=ops.launch_counts())
+
+
 def card_line():
     res = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -3825,6 +4342,14 @@ def main() -> int:
             robust = phase_robustness(robust_tmp)
         finally:
             shutil.rmtree(robust_tmp, ignore_errors=True)
+        new_paths = {}
+        for name, phase in (("cyclegan", phase_cyclegan),
+                            ("vanilla_gan", phase_vanilla_gan)):
+            tmp = tempfile.mkdtemp(prefix=f"smoke_{name}_")
+            try:
+                new_paths[name] = phase(tmp)["launches"]
+            finally:
+                shutil.rmtree(tmp, ignore_errors=True)
         card = card_line()
     except SmokeFailure as e:
         print(f"chip_smoke: FAIL: {e}", file=sys.stderr)
@@ -4028,6 +4553,11 @@ def main() -> int:
                      "batch 32)".format(*main_k2["shape"],
                                         main_k2["shape"][3]),
         })
+    # the CycleGAN and vanilla GAN paths (slice 15) launch none of them
+    for k in kernels:
+        k["launches_by_path"].update({
+            f"{name} phase (CLI and in process)": counts[k["name"]]
+            for name, counts in new_paths.items()})
     print(f"[smoke] all phases passed in {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(card)

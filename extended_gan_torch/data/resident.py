@@ -19,8 +19,9 @@ generator of the store's device seeded from (seed, epoch)
 (:func:`epoch_seed`), not ``jax.random.permutation``, so the order of the
 windows differs from the JAX package's for the same seed.
 
-``from_pt_frames`` and the CycleGAN functions wait for the CycleGAN port
-(ROADMAP queue 1 item 8).
+``from_pt_frames`` holds the CycleGAN's coastal-sea frames; its train
+megastep and eval gather in NCHW with the frames as channels, as the
+DCGAN's do.
 """
 
 from __future__ import annotations
@@ -31,6 +32,7 @@ import os
 import numpy as np
 import torch
 
+from ..train import cyclegan_trainer
 from ..train.dcgan_trainer import (
     eval_results,
     make_dcgan_eval_step,
@@ -162,6 +164,31 @@ class ResidentVideos:
             offset += len(data)
         if not chunks:
             raise ValueError(f"no usable ARAI blocks under {folder!r}")
+        return cls(np.concatenate(chunks), np.concatenate(starts), w, device,
+                   file_starts=starts)
+
+    @classmethod
+    def from_pt_frames(cls, folder: str, device=None, *, seq_len: int = 4,
+                       crop: int | None = 64):
+        """Coastal-sea frame archives -> one (sum_T, H, W) tensor, the
+        window universe of ``CoastalSeaLoader``: no truncation, every
+        stride-1 window of 2 * seq_len frames within a file, a file too
+        short for one skipped; values as stored."""
+        w = 2 * seq_len
+        chunks, starts, offset = [], [], 0
+        for path in _list_video_files(folder):
+            data = np.asarray(load_array(path))
+            if len(data) < w:
+                continue
+            if data.ndim == 4:  # (T, 1, H, W)
+                data = data.squeeze(1)
+            if crop is not None:
+                data = data[:, :crop, :crop]
+            chunks.append(np.ascontiguousarray(data, np.float32))
+            starts.append(offset + np.arange(len(data) - w + 1))
+            offset += len(data)
+        if not chunks:
+            raise ValueError(f"no usable videos under {folder!r}")
         return cls(np.concatenate(chunks), np.concatenate(starts), w, device,
                    file_starts=starts)
 
@@ -383,3 +410,54 @@ def make_dcgan_resident_megastep(g, fd, td, g_opt, fd_opt, td_opt,
 
     return Megastep(body, optimizers=(g_opt, fd_opt, td_opt),
                     generators=generators)
+
+
+def make_cyclegan_resident_megastep(g_xy, g_yx, d_x, d_y, g_xy_opt, g_yx_opt,
+                                    d_x_opt, d_y_opt, store: ResidentVideos,
+                                    *, seq_len: int = 4,
+                                    cycle_lambda: float = 10.0,
+                                    generators=()):
+    """K CycleGAN steps a call, their batches gathered from ``store``
+    (``from_pt_frames``'s (sum_T, H, W)) on its device: ``megastep(starts)
+    -> logs``. The update is ``make_cyclegan_megastep``'s; ``generators``
+    the dropout's generators on the card."""
+    opts = (g_xy_opt, g_yx_opt, d_x_opt, d_y_opt)
+    step = cyclegan_trainer.make_cyclegan_train_step(
+        g_xy, g_yx, d_x, d_y, *opts, cycle_lambda=cycle_lambda)
+    w = 2 * seq_len
+
+    def body(st):
+        wins, mask = _gather_windows(store.video, st, w, frame_axis_to=1)
+        return step(wins[:, :seq_len].contiguous(),
+                    wins[:, seq_len:].contiguous(), mask)
+
+    return Megastep(body, optimizers=opts, generators=generators)
+
+
+def make_cyclegan_resident_eval(g_xy, g_yx, store: ResidentVideos, *,
+                                seq_len: int = 4):
+    """``eval_k(starts) -> logs``: ``make_cyclegan_eval_step``'s (num,
+    denom) pairs summed over the K eval batches of a program; a batch of
+    padding adds 0 to both."""
+    inner = cyclegan_trainer.make_cyclegan_eval_step(g_xy, g_yx)
+    w = 2 * seq_len
+
+    def eval_k(starts):
+        total = None
+        for st in starts:
+            wins, mask = _gather_windows(store.video, st, w, frame_axis_to=1)
+            _, logs = inner(wins[:, :seq_len].contiguous(),
+                            wins[:, seq_len:].contiguous(), mask)
+            total = logs if total is None else {
+                name: total[name] + v for name, v in logs.items()}
+        return total
+
+    return eval_k
+
+
+def resident_cyclegan_test(eval_k, store: ResidentVideos, *, k: int = 8,
+                           batch_size: int = 64) -> dict:
+    """``cyclegan_trainer.test`` over a resident split: the same keys. Every
+    batch counts (``min_batch=1``): the metrics are masked sums."""
+    programs, _ = store.eval_programs(k, batch_size, min_batch=1)
+    return cyclegan_trainer.eval_results([eval_k(p) for p in programs])

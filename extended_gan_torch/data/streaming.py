@@ -1,6 +1,12 @@
-"""File-streaming batch loaders (port of the KNMI, ARAI and h5 paths of
-``extended_gan_tpu/data/streaming.py``).
+"""File-streaming batch loaders (port of the coastal-sea, KNMI, ARAI and h5
+paths of ``extended_gan_tpu/data/streaming.py``).
 
+- :class:`CoastalSeaLoader` streams the CycleGAN's coastal-sea frame files,
+  (frames, C, H, W) each: every stride-1 window of 2 * seq_len frames of a
+  file (no truncation: the reference's truncation slice is an
+  operator-precedence no-op, which JAX keeps), cropped, ``batch_size``
+  windows a batch, a file too short for one window skipped. (x, y) come as
+  (B, seq_len, C, H, W) each, the window's two halves.
 - :class:`H5SequenceLoader` streams the DCGAN's frame files, (frames, C, H,
   W) each: a batch takes the ``batch_size`` windows of in + out frames that
   start at offsets 0..batch_size-1 of the current buffer, then drops
@@ -66,6 +72,39 @@ class _FileStream:
 
     def __iter__(self):
         return self
+
+
+class CoastalSeaLoader(_FileStream):
+    """The CycleGAN's coastal-sea frame streamer (see the module
+    docstring)."""
+
+    def __init__(self, folder: str, batch_size: int, *,
+                 crop: int | None = 64, shuffle: bool = True,
+                 seq_len: int = 4, seed: int = 369):
+        super().__init__(folder, shuffle=shuffle, seed=seed)
+        self.batch_size = batch_size
+        self.crop = crop
+        self.seq_len = seq_len
+        self.remainder = self._segmentify(self.read_next_file())
+
+    def _segmentify(self, data: np.ndarray) -> np.ndarray:
+        # the reference's `data[: (len // 2 * seq_len) * 2 * seq_len]`
+        # bound always exceeds len: every window of the file is used
+        if self.crop is not None:
+            data = data[:, :, : self.crop, : self.crop]
+        return sliding_windows(data, 2 * self.seq_len)
+
+    def __next__(self):
+        data = self.remainder
+        while data.shape[0] == 0:
+            # StopIteration comes from read_next_file once the folder is done
+            data = self._segmentify(self.read_next_file())
+        self.remainder = data[self.batch_size:]
+        result = data[: self.batch_size]
+        idx = self.perm(result.shape[0])
+        x = result[idx, : self.seq_len].astype(np.float32)
+        y = result[idx, self.seq_len:].astype(np.float32)
+        return x, y
 
 
 class H5SequenceLoader(_FileStream):
@@ -268,6 +307,19 @@ class Prefetcher:
         if isinstance(item, BaseException):
             raise item
         return item
+
+
+def get_coastal_loaders(data_location: str, train_batch_size: int,
+                        test_batch_size: int, *, seq_len: int = 4,
+                        crop: int | None = 64, seed: int = 369):
+    """(train, test) coastal-sea loaders over ``train`` and ``test``, seeded
+    ``seed`` and ``seed + 1``."""
+    def mk(sub, bs, s):
+        return CoastalSeaLoader(os.path.join(data_location, sub), bs,
+                                crop=crop, seq_len=seq_len, seed=s)
+
+    return mk("train", train_batch_size, seed), mk("test", test_batch_size,
+                                                   seed + 1)
 
 
 def get_h5_loaders(data_location: str, train_batch_size: int,

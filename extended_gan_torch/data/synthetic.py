@@ -1,5 +1,5 @@
-"""Synthetic radar archives (port of the KNMI, ARAI and h5 parts of
-``extended_gan_tpu/data/synthetic.py``).
+"""Synthetic radar archives (port of the KNMI, ARAI, coastal-sea and h5
+parts of ``extended_gan_tpu/data/synthetic.py``).
 
 Advecting smooth rain cells with temporal coherence, in the formats the
 loaders read:
@@ -8,6 +8,8 @@ loaders read:
   [0, 254];
 - ARAI: ``<dir>/{training,validation}/<i>.pt`` float (T, R, 1, H, W) region
   blocks in [0, 1], and ``<dir>/metadata.json``;
+- coastal sea (the CycleGAN's): ``<dir>/{train,test}/<i:04d>.pt`` float
+  (T, 1, H, W) frames in [0, 1];
 - the DCGAN's sequence archive: ``<dir>/train/train.npy`` and
   ``<dir>/test/test_1.npy``, float (T, 1, H, W) in [0, 1]. The JAX package
   writes the same arrays as ``.h5``; the port writes ``.npy``, which needs
@@ -16,6 +18,11 @@ loaders read:
 For the same arguments the files hold the same values as the JAX package's
 (the random draws are made in the same order from the same numpy
 generator).
+
+``ensure_synthetic_*`` make an archive beside its folder and rename it into
+place, so a process that finds the folder finds it whole, and two processes
+can ask for one archive at once: the one that loses the rename uses the
+winner's.
 """
 
 from __future__ import annotations
@@ -100,35 +107,65 @@ def make_h5_dataset(out_dir: str, *, frames_train: int = 96,
     return out_dir
 
 
+def make_coastal_dataset(out_dir: str, *, n_train_files: int = 2,
+                         n_test_files: int = 1, frames_per_file: int = 48,
+                         h: int = 64, w: int = 64, seed: int = 0,
+                         fmt: str = "pt") -> str:
+    rng = np.random.default_rng(seed)
+    for sub, n_files in (("train", n_train_files), ("test", n_test_files)):
+        mkdir(os.path.join(out_dir, sub))
+        for i in range(n_files):
+            video = _rain_video(rng, frames_per_file, h, w)[:, None]
+            save_array(os.path.join(out_dir, sub, f"{i:04d}.{fmt}"),
+                       video.astype(np.float32))
+    return out_dir
+
+
+def _default_folder(base: str, kwargs: dict) -> str:
+    """A folder under the temporary directory named after the arguments,
+    so archives of different shapes never share one."""
+    key = "_".join(f"{k}{v}" for k, v in sorted(kwargs.items()))
+    return os.path.join(tempfile.gettempdir(), "extended_gan_torch_synthetic",
+                        f"{base}_{key}" if key else base)
+
+
+def _ensure(folder: str, make, kwargs: dict) -> str:
+    """``make(staging, **kwargs)`` in a staging folder beside ``folder``,
+    renamed to ``folder`` unless ``folder/train`` exists already."""
+    if os.path.isdir(os.path.join(folder, "train")):
+        return folder
+    parent = os.path.dirname(os.path.abspath(folder))
+    mkdir(parent)
+    staging = tempfile.mkdtemp(prefix=".staging_", dir=parent)
+    try:
+        make(staging, **kwargs)
+        os.rename(staging, folder)
+    except OSError:  # another process made it first, or folder exists
+        if not os.path.isdir(os.path.join(folder, "train")):
+            raise
+    finally:
+        shutil.rmtree(staging, ignore_errors=True)
+    return folder
+
+
 def ensure_synthetic_h5(folder: str | None = None, **kwargs) -> str:
     """The DCGAN's archive for ``make_h5_dataset(**kwargs)`` in ``folder``
-    (by default one under the temporary directory named after the
-    arguments), made there if it is missing. It is made beside the folder
-    and renamed into place, so two processes can ask at once."""
-    if folder is None:
-        key = "_".join(f"{k}{v}" for k, v in sorted(kwargs.items()))
-        folder = os.path.join(tempfile.gettempdir(),
-                              "extended_gan_torch_synthetic",
-                              f"h5_{key}" if key else "h5")
-    if not os.path.isdir(os.path.join(folder, "train")):
-        parent = os.path.dirname(os.path.abspath(folder))
-        mkdir(parent)
-        staging = tempfile.mkdtemp(prefix=".h5_", dir=parent)
-        make_h5_dataset(staging, **kwargs)
-        try:
-            os.rename(staging, folder)
-        except OSError:  # another process made it first, or folder exists
-            shutil.rmtree(staging, ignore_errors=True)
-            if not os.path.isdir(os.path.join(folder, "train")):
-                raise
-    return folder
+    (default: one under the temporary directory named after the
+    arguments), made there if it is missing."""
+    return _ensure(folder or _default_folder("h5", kwargs), make_h5_dataset,
+                   kwargs)
 
 
 def ensure_synthetic_kmni(folder: str | None = None) -> str:
-    """The default archive in ``folder`` (by default one under the
+    """The default KNMI archive in ``folder`` (default: one under the
     temporary directory), made there if it is missing."""
-    folder = folder or os.path.join(tempfile.gettempdir(),
-                                    "extended_gan_torch_synthetic", "kmni")
-    if not os.path.isdir(os.path.join(folder, "train")):
-        make_kmni_dataset(folder)
-    return folder
+    return _ensure(folder or _default_folder("kmni", {}), make_kmni_dataset,
+                   {})
+
+
+def ensure_synthetic_coastal(folder: str | None = None, **kwargs) -> str:
+    """The CycleGAN's archive for ``make_coastal_dataset(**kwargs)`` in
+    ``folder`` (default: one under the temporary directory named after the
+    arguments), made there if it is missing."""
+    return _ensure(folder or _default_folder("coastal", kwargs),
+                   make_coastal_dataset, kwargs)

@@ -1,17 +1,20 @@
 """Carry weights from the JAX package's flax parameter trees to the port.
 
 The port's parameter names and shapes follow the flax tree leaf for leaf
-(``models/gat/gat3d.py``, ``models/smaat_unet.py``, ``models/dcgan.py``), so
-the conversion is a rename. Nested keys are joined with ``.``, and:
+(``models/gat/gat3d.py``, ``models/smaat_unet.py``, ``models/dcgan.py``,
+``models/vanilla_gan.py``), so the conversion is a rename. Nested keys are
+joined with ``.``, and:
 
 - a conv ``*kernel`` (HWIO, behind the head axis of a vmapped block) becomes
   a ``*weight`` in torch's OIHW: the depthwise (3, 3, 1, C*kpl) kernel turns
   into (C*kpl, 1, 3, 3), the pointwise (1, 1, C*kpl, Cout) one into
   (Cout, C*kpl, 1, 1);
-- a Dense ``kernel`` (in, out) becomes a ``Linear.weight`` (out, in);
-- a BatchNorm's ``scale`` becomes its ``weight``, and its ``batch_stats``
-  ``mean`` and ``var`` the ``running_mean`` and ``running_var`` buffers
-  (with a zero ``num_batches_tracked``, which torch keeps beside them);
+- a Dense ``kernel`` (in, out) becomes a ``Linear.weight`` (out, in) (the
+  vanilla GAN's MLPs are Dense layers only);
+- a BatchNorm's (``TorchBatchNorm``'s too) ``scale`` becomes its
+  ``weight``, and its ``batch_stats`` ``mean`` and ``var`` the
+  ``running_mean`` and ``running_var`` buffers (with a zero
+  ``num_batches_tracked``, which torch keeps beside them);
 - an unrolled GAT3D head ``head_{i}`` (the smaat_unet mapping's) is a
   stack of one head in the port, so its attention's ``a_*`` and ``B_*``
   gain a leading head axis of size 1.

@@ -14,6 +14,12 @@
   python -m extended_gan_torch.serve export /tmp/run --workload dcgan \\
       --out /tmp/g.pt --quantize w8a8 --check
 
+  # either generator of the CycleGAN's latest checkpoint (python -m
+  # extended_gan_torch.cycle_gan --out-dir /tmp/cg --save-epoch 1), in the
+  # DCGAN generator's artifact format, which the server serves as it is:
+  python -m extended_gan_torch.serve export /tmp/cg --workload cyclegan \\
+      --direction yx --out /tmp/g_yx.pt [--quantize w8a8] --check
+
   # serve an artifact over HTTP (GET /healthz, POST /predict with .npy
   # bodies):
   python -m extended_gan_torch.serve serve /tmp/g.pt --port 8000
@@ -41,9 +47,6 @@ import torch
 def _refuse(args):
     """The JAX script's flags that the port does not take, and the
     combinations it refuses."""
-    if args.workload == "cyclegan":
-        raise SystemExit("--workload cyclegan is not ported yet (ROADMAP "
-                         "queue 1 item 8)")
     if args.packed_g:
         raise SystemExit("--packed-g is not ported yet (ROADMAP queue 1 "
                          "item 10)")
@@ -56,10 +59,10 @@ def _refuse(args):
         raise SystemExit("--quantize w8a8 needs the BN-folded conv chain "
                          "of the dcgan/cyclegan generators; the gat/unet "
                          "families support weight-only --quantize w8")
-    if args.weights and args.workload == "dcgan":
+    if args.weights and args.workload != "gat":
         raise SystemExit("--weights reads a conv-GAT flax .npz; the dcgan "
-                         "generator exports from its checkpoint or "
-                         "--init-seed")
+                         "and cyclegan generators export from their "
+                         "checkpoints or --init-seed")
     if args.rollout < 1:
         raise SystemExit("--rollout must be >= 1")
     if args.rollout_final and args.rollout == 1:
@@ -119,43 +122,31 @@ def _export_gat(args, dev):
     return spec, weights, live, meta
 
 
-def _export_dcgan(args, dev):
-    """(spec, weights, live forward, meta) of the DCGAN generator."""
+def _restore(args, names, nets, opts, template_key):
+    """The latest checkpoint under ``<experiment_dir>/checkpoints``, read
+    into a template of ``nets`` and ``opts`` keyed by ``names``."""
     from ..train.checkpoint import (
         CheckpointManager,
         gan_restore_template,
         gan_states,
     )
-    from ..train.dcgan_driver import DEFAULT_PARAMS, build_dcgan
+
+    ckpts = os.path.join(args.experiment_dir, "checkpoints")
+    mgr = CheckpointManager(ckpts) if os.path.isdir(ckpts) else None
+    if mgr is None or mgr.latest_step() is None:
+        raise SystemExit(f"no checkpoints under {args.experiment_dir}; "
+                         "train with --save-epoch first")
+    return mgr.restore(gan_restore_template(
+        mgr, gan_states(nets, opts, names), template_key))
+
+
+def _export_generator(args, g, meta, im, nc, dev):
+    """(spec, weights, live forward, meta) of a frame generator (the DCGAN
+    ``Generator``: the DCGAN's, or either of the CycleGAN's), quantised
+    with ``--quantize``."""
     from .export import nhwc_generator
     from .quantize import generator_apply, quantize_generator
 
-    params = dict(DEFAULT_PARAMS)
-    if args.imsize:
-        params["imsize"] = args.imsize
-    if args.ndf:
-        # the template's widths, as at training time
-        params["ngf"] = params["ndf"] = args.ndf
-    # the seed only shapes the template; restore() overwrites every weight
-    nets, opts = build_dcgan(params, device=dev, seed=369 if args.init_seed
-                             is None else args.init_seed)
-    g = nets[0].eval()
-    meta = {"source": args.experiment_dir, "model_type": "dcgan_generator",
-            "layout": "default"}
-    if args.init_seed is None:
-        ckpts = os.path.join(args.experiment_dir, "checkpoints")
-        mgr = CheckpointManager(ckpts) if os.path.isdir(ckpts) else None
-        if mgr is None or mgr.latest_step() is None:
-            raise SystemExit(f"no checkpoints under {args.experiment_dir}; "
-                             "train with --save-epoch first")
-        key = g.ConvBlock_0.dropout_generator.get_state()
-        restored = mgr.restore(gan_restore_template(
-            mgr, gan_states(nets, opts), key))
-        g.load_state_dict(restored["states"]["g"]["model"])
-        meta["epoch"] = int(restored["epoch"])
-    else:
-        meta["weights"] = f"init-seed {args.init_seed}"
-    im, nc = params["imsize"], params["nc"]
     spec = {"workload": "dcgan_generator", "nc": nc, "imsize": im}
     weights, live = g.state_dict(), nhwc_generator(g)
     if args.quantize:
@@ -180,6 +171,60 @@ def _export_dcgan(args, dev):
         live = generator_apply(weights, dev)
         meta.update(qmeta)
     return spec, weights, live, meta
+
+
+def _export_dcgan(args, dev):
+    """(spec, weights, live forward, meta) of the DCGAN generator."""
+    from ..train.checkpoint import DCGAN_NETS
+    from ..train.dcgan_driver import DEFAULT_PARAMS, build_dcgan
+
+    params = dict(DEFAULT_PARAMS)
+    if args.imsize:
+        params["imsize"] = args.imsize
+    if args.ndf:
+        # the template's widths, as at training time
+        params["ngf"] = params["ndf"] = args.ndf
+    # the seed only shapes the template; restore() overwrites every weight
+    nets, opts = build_dcgan(params, device=dev, seed=369 if args.init_seed
+                             is None else args.init_seed)
+    g = nets[0].eval()
+    meta = {"source": args.experiment_dir, "model_type": "dcgan_generator",
+            "layout": "default"}
+    if args.init_seed is None:
+        key = g.ConvBlock_0.dropout_generator.get_state()
+        restored = _restore(args, DCGAN_NETS, nets, opts, key)
+        g.load_state_dict(restored["states"]["g"]["model"])
+        meta["epoch"] = int(restored["epoch"])
+    else:
+        meta["weights"] = f"init-seed {args.init_seed}"
+    return _export_generator(args, g, meta, params["imsize"], params["nc"],
+                             dev)
+
+
+def _export_cyclegan(args, dev):
+    """(spec, weights, live forward, meta) of one CycleGAN generator,
+    ``--direction xy`` (context -> future) or ``yx``."""
+    from ..train.checkpoint import CYCLEGAN_NETS
+    from ..train.cyclegan_driver import build_cyclegan
+
+    im, nc = args.imsize or 64, 4
+    # the seed only shapes the template; restore() overwrites every weight
+    nets, opts = build_cyclegan(nc=nc, ndf=args.ndf or 64, device=dev,
+                                seed=369 if args.init_seed is None
+                                else args.init_seed)
+    name = f"g_{args.direction}"
+    g = nets[CYCLEGAN_NETS.index(name)].eval()
+    meta = {"source": args.experiment_dir,
+            "model_type": f"cyclegan_generator_{args.direction}",
+            "layout": "default"}
+    if args.init_seed is None:
+        key = g.ConvBlock_0.dropout_generator.get_state()
+        restored = _restore(args, CYCLEGAN_NETS, nets, opts, key)
+        g.load_state_dict(restored["states"][name]["model"])
+        meta["epoch"] = int(restored["epoch"])
+    else:
+        meta["weights"] = f"init-seed {args.init_seed}"
+    return _export_generator(args, g, meta, im, nc, dev)
 
 
 def _check(path, live, args):
@@ -218,9 +263,9 @@ def _export(args) -> dict:
     with torch.no_grad():
         # the weights' work (conversion, BN fold, int8, calibration) is
         # host work: on the CPU, so an artifact does not depend on the card
-        spec, weights, live, meta = (
-            _export_dcgan if args.workload == "dcgan" else _export_gat)(
-                args, torch.device("cpu"))
+        export = {"gat": _export_gat, "dcgan": _export_dcgan,
+                  "cyclegan": _export_cyclegan}[args.workload]
+        spec, weights, live, meta = export(args, torch.device("cpu"))
         spec.update(quantize=args.quantize, rollout=args.rollout,
                     rollout_final_only=bool(args.rollout_final))
         if args.rollout > 1:
@@ -242,10 +287,13 @@ def main(argv=None):
     ex = sub.add_parser("export", help="write a serving artifact")
     ex.add_argument("experiment_dir",
                     help="a conv-GAT experiment (config.py, and model.pt "
-                         "from training) or, with --workload dcgan, the "
-                         "DCGAN driver's --out-dir")
+                         "from training) or, with --workload dcgan or "
+                         "cyclegan, that driver's --out-dir")
     ex.add_argument("--workload", choices=("gat", "dcgan", "cyclegan"),
-                    default="gat", help="cyclegan is not ported yet")
+                    default="gat")
+    ex.add_argument("--direction", choices=("xy", "yx"), default="xy",
+                    help="cyclegan: which generator to export (xy: context "
+                         "-> future, yx: future -> context)")
     src = ex.add_mutually_exclusive_group()
     src.add_argument("--weights", default="",
                      help="flat .npz of the JAX package's flax params, keys "
@@ -261,14 +309,15 @@ def main(argv=None):
     ex.add_argument("--time-steps", dest="time_steps", type=int, default=4)
     ex.add_argument("--vertices", type=int, default=6)
     ex.add_argument("--imsize", type=int, default=0,
-                    help="dcgan: the frame size (default 64)")
+                    help="dcgan, cyclegan: the frame size (default 64)")
     ex.add_argument("--ndf", type=int, default=0,
-                    help="dcgan: the discriminators' width at training time")
+                    help="dcgan, cyclegan: the discriminators' width at "
+                         "training time")
     ex.add_argument("--quantize", choices=("w8", "w8a8"), default="",
                     help="post-training int8: w8 = weight-only int8 (a "
-                         "smaller artifact, f32 compute; gat and dcgan), "
-                         "w8a8 = int8 convs with int32 accumulation "
-                         "(dcgan)")
+                         "smaller artifact, f32 compute; gat, dcgan and "
+                         "cyclegan), w8a8 = int8 convs with int32 "
+                         "accumulation (dcgan, cyclegan)")
     ex.add_argument("--calib-npz", dest="calib_npz", type=str, default="",
                     help="with --quantize: .npy/.npz holding a "
                          "representative NHWC input batch for the "

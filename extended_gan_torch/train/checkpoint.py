@@ -11,12 +11,12 @@ Two tiers, as in the JAX package:
 
 Both carry ``SCHEMA_VERSION`` and refuse a version from the future. The
 JAX package writes Orbax directories, which the port cannot read; a GAN
-checkpoint here holds the three nets' state_dicts (BatchNorm running
-statistics included), their three Adam states (``train/state.py``),
-``epoch``, the state of the driver's dropout stream (``core/prng.py``) and
-the v3 ``mid`` subtree; a conv-GAT checkpoint holds the net, its optimizer
-and its scheduler, ``epoch``, ``lr``, ``best``, the key stream and the
-conv-GAT's ``mid`` (:func:`empty_gat_mid`).
+checkpoint here holds the nets' state_dicts (the DCGAN's three, the
+CycleGAN's four; BatchNorm running statistics included), their Adam states
+(``train/state.py``), ``epoch``, the state of the driver's dropout stream
+(``core/prng.py``) and the v3 ``mid`` subtree; a conv-GAT checkpoint holds
+the net, its optimizer and its scheduler, ``epoch``, ``lr``, ``best``, the
+key stream and the conv-GAT's ``mid`` (:func:`empty_gat_mid`).
 
 Resume (:func:`setup_gan_checkpointing`, and the conv-GAT driver's own
 block): the latest step is loaded into the running nets, optimizers and
@@ -203,18 +203,26 @@ def gan_restore_template(mgr: CheckpointManager, states, key_state):
     return template
 
 
-def gan_net_states(nets, opts) -> dict:
-    """The three nets with their optimizers, keyed as the JAX package's
-    ``GANStates``: ``g``, ``fd``, ``td``."""
+# the nets' names in the JAX package's state containers
+DCGAN_NETS = ("g", "fd", "td")  # GANStates
+CYCLEGAN_NETS = ("g_xy", "g_yx", "d_x", "d_y")  # CycleGANStates
+
+
+def gan_net_states(nets, opts, names=DCGAN_NETS) -> dict:
+    """The nets with their optimizers, keyed by ``names``: the DCGAN's
+    ``g``, ``fd``, ``td`` by default, or :data:`CYCLEGAN_NETS`."""
+    if not len(nets) == len(opts) == len(names):
+        raise ValueError(f"{len(nets)} nets, {len(opts)} optimizers and "
+                         f"{len(names)} names")
     return {name: NetState(net, opt)
-            for name, net, opt in zip(("g", "fd", "td"), nets, opts)}
+            for name, net, opt in zip(names, nets, opts)}
 
 
-def gan_states(nets, opts) -> dict:
+def gan_states(nets, opts, names=DCGAN_NETS) -> dict:
     """The state tree of :func:`gan_net_states`: each net's state_dict and
     its optimizer's state."""
     return {name: st.state_dict()
-            for name, st in gan_net_states(nets, opts).items()}
+            for name, st in gan_net_states(nets, opts, names).items()}
 
 
 def describe_resume(mid: dict, epoch: int) -> int:
@@ -262,3 +270,58 @@ def setup_gan_checkpointing(out_dir: str | None, *, resume: bool = False,
     if os.path.exists(hist_path):
         history = TrainingHistory.from_json(hist_path)
     return mgr, start_epoch, history, mid
+
+
+def run_gan_epochs(epoch_feed, train_epoch, *, shutdown, ckpt_mgr, snapshot,
+                   history: TrainingHistory, hist_path: str | None,
+                   start_epoch: int, epochs: int, save_epoch: int,
+                   mid: dict):
+    """The DCGAN and CycleGAN drivers' epochs, from ``start_epoch`` (redone
+    from ``mid["batch"]`` when that is > 0) to ``epochs``.
+
+    ``epoch_feed(epoch, skip)`` gives (the epoch's train logs from batch
+    ``skip`` on, its eval); ``train_epoch(logs, shutdown=, init_metrics=,
+    epoch=)`` gives (results, None), or (None, mid) when ``shutdown`` was
+    requested inside the epoch; ``snapshot(epoch, mid)`` is the checkpoint
+    tree. A snapshot is written every ``save_epoch`` epochs, at the last
+    and at a preemption, with ``history.json``, when ``ckpt_mgr`` is set.
+    A preemption ends the loop."""
+    for epoch in range(start_epoch, epochs + 1):
+        skip = int(mid["batch"]) if epoch == start_epoch else 0
+        logs, evaluate = epoch_feed(epoch, skip)
+        results, mid_out = train_epoch(
+            logs, shutdown=shutdown, init_metrics=mid if skip else None,
+            epoch=epoch)
+        if mid_out is not None:
+            # step-granular preemption: a snapshot inside the epoch
+            if ckpt_mgr is not None:
+                ckpt_mgr.save(ckpt_step(epoch, int(mid_out["batch"])),
+                              snapshot(epoch, mid_out))
+                history.to_json(hist_path)
+                print(f"[preempt] stopped resumably mid-epoch {epoch} "
+                      f"({int(mid_out['batch'])} batches in)")
+            else:
+                print(f"[preempt] stopped mid-epoch {epoch} WITHOUT a "
+                      "snapshot: no checkpointing configured (set "
+                      "save_epoch / --save-epoch); progress is lost")
+            return
+        mid = empty_mid()
+        results |= evaluate()
+        print(json.dumps(results, indent=4))
+        history.append(results)
+        # read once: a SIGTERM between "save?" and "stop?" must not stop
+        # without the snapshot
+        preempted = shutdown.requested
+        if ckpt_mgr is not None and (
+                (save_epoch and epoch % save_epoch == 0) or epoch == epochs
+                or preempted):
+            # an epoch-boundary snapshot is the start of epoch + 1
+            ckpt_mgr.save(ckpt_step(epoch + 1, 0),
+                          snapshot(epoch, empty_mid()))
+            history.to_json(hist_path)
+        if preempted:
+            print(f"[preempt] stopped after epoch {epoch}"
+                  + ("" if ckpt_mgr is not None else
+                     " WITHOUT a snapshot: no checkpointing configured "
+                     "(set save_epoch / --save-epoch)"))
+            return

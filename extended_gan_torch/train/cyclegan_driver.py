@@ -1,0 +1,221 @@
+"""CycleGAN training driver (port of the single-device paths of
+``extended_gan_tpu/train/cyclegan_driver.py``): ``python -m
+extended_gan_torch.cycle_gan``.
+
+Two DCGAN generators and two FrameDiscriminators (``train/
+cyclegan_trainer.py``) on the coastal-sea ``.pt`` frames: seed 369, four
+Adam optimizers (lr 2e-4, betas (0.5, 0.999)), loaders made anew each
+epoch (seeded ``seed + epoch``) over the archive's ``train`` and ``test``
+folders, ``nc`` frames in and ``nc`` out, then per epoch the train steps,
+the eval pass (``pred_mse``, ``cycle_l1``), the results printed as JSON and
+appended to the history. A missing archive falls back to a synthetic one
+(three files of 64 frames at ``imsize``, as JAX's).
+
+Every ``save_epoch`` epochs and at the last, the driver writes a checkpoint
+under ``<out_dir>/checkpoints`` (``train/checkpoint.py``, keeping 2: the
+four nets with their BatchNorm statistics, the four Adam states, the epoch,
+the dropout stream's state and the ``mid`` subtree) and ``history.json``,
+and only under ``out_dir``; with no ``out_dir`` it writes nothing (the JAX
+driver's default is the repo's own ``cycle_gan/``). A SIGTERM
+(``train/preempt.py``) stops the epoch after the current step or group of
+K and writes a mid-epoch snapshot; ``resume=True`` restores the latest
+checkpoint and continues bit for bit as the uninterrupted run would.
+``precision="bf16"`` builds the nets with ``dtype=torch.bfloat16``. The
+prediction figures and plots are not ported.
+
+``megastep=K`` (K > 1) runs K steps a CUDA graph (``train/megastep.py``);
+``resident=True`` copies the train and test splits to the device once
+(``ResidentVideos.from_pt_frames``) and gathers each batch there, K steps a
+graph (K = ``megastep``, else 8). On the card both use Adam with its step
+count on the device (``capturable``) and register the dropout's generator
+with the graphs.
+
+The JAX driver's mesh, tensor/sequence/FSDP parallelism, profiling and its
+packed generators are not ported yet: a keyword that sets one of them
+raises, naming the ROADMAP item that ports it.
+"""
+
+from __future__ import annotations
+
+import functools
+import itertools
+import os
+
+import torch
+
+from ..core.device import resolve_device
+from ..core.precision import resolve_dtype
+from ..core.prng import KeySeq
+from ..data.resident import (
+    ResidentVideos,
+    epoch_seed,
+    make_cyclegan_resident_eval,
+    make_cyclegan_resident_megastep,
+    program_logs,
+    resident_cyclegan_test,
+)
+from ..data.streaming import get_coastal_loaders
+from ..data.synthetic import ensure_synthetic_coastal
+from ..models.dcgan import FrameDiscriminator, Generator
+from ..utils.history import TrainingHistory
+from .checkpoint import (
+    CYCLEGAN_NETS,
+    gan_net_states,
+    gan_states,
+    run_gan_epochs,
+    setup_gan_checkpointing,
+)
+from .cyclegan_trainer import (
+    LOSS_LABELS,
+    TRAIN_SUMS,
+    make_cyclegan_eval_step,
+    make_cyclegan_megastep,
+    make_cyclegan_train_step,
+    test,
+)
+from .dcgan_trainer import megastep_logs, step_logs
+from .dcgan_trainer import train_single_epoch as gan_epoch
+from .preempt import GracefulShutdown
+from .unported import refuse_unported
+
+DEFAULT_DATA = "./datasets/data"
+# an epoch's train metrics: ``train_mse``, and its ``mid`` when preempted
+train_single_epoch = functools.partial(gan_epoch, keys=TRAIN_SUMS)
+
+# keywords of JAX driver options the port does not have yet: (the value
+# that means "off", the ROADMAP queue 1 item)
+_NOT_PORTED = {
+    "data_axis": (None, 9), "model_axis": (1, 9), "tp_min_channels": (256, 9),
+    "fsdp": (False, 9), "fsdp_min_size": (4096, 9), "spatial": (False, 9),
+    "packed_g": ((None, False), 10), "profile": (False, 10),
+    "profile_trace_dir": ("", 10),
+}
+
+
+def build_cyclegan(*, nc: int = 4, ndf: int = 64, lr: float = 2e-4,
+                   beta1: float = 0.5, precision: str = "f32",
+                   seed: int = 369, device=None, dropout: float = 0.01,
+                   capturable: bool = False, keys=None):
+    """``((G_xy, G_yx, D_x, D_y), (their Adam optimizers))`` on ``device``
+    (default: the CUDA card), computing in ``precision``'s dtype, the
+    weights drawn in that order from a generator seeded ``seed``, the
+    generators' channel dropout from ``keys`` (a ``core.prng.KeySeq`` on
+    the device; default: one seeded ``seed``). ``capturable``: Adam keeps
+    its step count on the card, for CUDA graphs."""
+    dev = resolve_device(device)
+    init = torch.Generator().manual_seed(seed)
+    drop = (keys or KeySeq(seed, device=dev)).generator
+    dtype = resolve_dtype(precision)
+    nets = tuple(
+        Generator(nc, dropout, generator=init, dropout_generator=drop,
+                  dtype=dtype) for _ in range(2)) + tuple(
+        FrameDiscriminator(nc, ndf, generator=init, dtype=dtype)
+        for _ in range(2))
+    nets = tuple(net.to(dev) for net in nets)
+    opts = tuple(torch.optim.Adam(net.parameters(), lr=lr,
+                                  betas=(beta1, 0.999), eps=1e-8,
+                                  capturable=capturable)
+                 for net in nets)
+    return nets, opts
+
+
+def train(*, data_location: str | None = None, epochs: int = 10,
+          train_batch_size: int = 32, test_batch_size: int = 64,
+          imsize: int = 64, nc: int = 4, ndf: int = 64, lr: float = 2e-4,
+          cycle_lambda: float = 10.0, precision: str = "f32",
+          seed: int = 369, max_batches: int = 0, synthetic: bool = False,
+          out_dir: str | None = None, log_every: int = 50,
+          save_epoch: int = 0, resume: bool = False, megastep: int = 0,
+          resident: bool = False, device=None, **options):
+    """Train on ``device`` (default: the CUDA card). Takes the JAX driver's
+    keyword arguments. Returns ``((G_xy, G_yx, D_x, D_y), history)``."""
+    refuse_unported(options, _NOT_PORTED)
+    dev = resolve_device(device)
+    print(f"Using device: {dev}")
+    data_location = data_location or DEFAULT_DATA
+    if synthetic or not os.path.isdir(data_location):
+        print(f"[cycle_gan] data not found at {data_location}; using "
+              "synthetic coastal-sea data")
+        data_location = ensure_synthetic_coastal(
+            None, frames_per_file=64, h=imsize, w=imsize)
+    keys = KeySeq(seed, device=dev)  # the channel dropout's stream
+    nets, opts = build_cyclegan(nc=nc, ndf=ndf, lr=lr, precision=precision,
+                                seed=seed, device=dev,
+                                capturable=dev.type == "cuda"
+                                and (megastep > 1 or resident), keys=keys)
+    step = make_cyclegan_train_step(*nets, *opts, cycle_lambda=cycle_lambda)
+    eval_step = make_cyclegan_eval_step(nets[0], nets[1])
+    generators = (keys.generator,)  # registered with each CUDA graph
+    if resident:
+        train_store, test_store = (ResidentVideos.from_pt_frames(
+            os.path.join(data_location, sub), dev, seq_len=nc, crop=imsize)
+            for sub in ("train", "test"))
+        resident_k = megastep if megastep > 1 else 8
+        train_k = make_cyclegan_resident_megastep(
+            *nets, *opts, train_store, seq_len=nc, cycle_lambda=cycle_lambda,
+            generators=generators)
+        eval_k = make_cyclegan_resident_eval(nets[0], nets[1], test_store,
+                                             seq_len=nc)
+        mb = (train_store.nbytes + test_store.nbytes) / 1e6
+        print(f"[resident] {train_store.n_windows} train + "
+              f"{test_store.n_windows} test windows / {mb:.0f} MB live in "
+              f"device memory; K={resident_k} steps per CUDA graph, "
+              "index-only transfers")
+    elif megastep > 1:
+        megastep_fn = make_cyclegan_megastep(*nets, *opts,
+                                             cycle_lambda=cycle_lambda,
+                                             generators=generators)
+        print(f"[megastep] {megastep} steps per CUDA graph")
+
+    def epoch_feed(epoch, skip):
+        """(the epoch's train logs, (a step's or a group's logs, the
+        batches it counts) each, from batch ``skip`` on; its eval)."""
+        if resident:
+            # a resumed epoch starts at program skip // K of its order
+            programs = program_logs(
+                train_store, train_k, epoch_seed(seed, epoch), resident_k,
+                train_batch_size, max_batches=max_batches,
+                start=skip // resident_k)
+            return (((logs, resident_k) for logs, _ in programs),
+                    lambda: resident_cyclegan_test(
+                        eval_k, test_store, k=resident_k,
+                        batch_size=test_batch_size))
+        train_loader, test_loader = get_coastal_loaders(
+            data_location, train_batch_size, test_batch_size, seq_len=nc,
+            crop=imsize, seed=seed + epoch)
+        batches = iter(train_loader)
+        if skip:
+            # replay the consumed batches: the same random draws as the run
+            # that was cut
+            print(f"[resume] skipping {skip} consumed batches of epoch "
+                  f"{epoch}")
+            for _ in range(skip):
+                next(batches)
+        if max_batches:
+            batches = itertools.islice(batches, max(max_batches - skip, 0))
+        if megastep > 1:
+            logs = megastep_logs(batches, megastep_fn, dev, megastep,
+                                 train_batch_size)
+        else:
+            logs = step_logs(batches, step, dev, log_every=log_every,
+                             labels=LOSS_LABELS)
+        return logs, lambda: test(test_loader, eval_step, dev)
+
+    # restored before any graph is captured: a graph names the tensors it
+    # was captured with
+    ckpt_mgr, start_epoch, history, mid = setup_gan_checkpointing(
+        out_dir, resume=resume, save_epoch=save_epoch,
+        states=gan_net_states(nets, opts, CYCLEGAN_NETS), keys=keys,
+        history=TrainingHistory())
+    hist_path = os.path.join(out_dir, "history.json") if out_dir else None
+
+    def snapshot(epoch, mid_tree):
+        return {"states": gan_states(nets, opts, CYCLEGAN_NETS),
+                "epoch": epoch, "key": keys.state, "mid": mid_tree}
+
+    with GracefulShutdown() as shutdown:
+        run_gan_epochs(epoch_feed, train_single_epoch, shutdown=shutdown,
+                       ckpt_mgr=ckpt_mgr, snapshot=snapshot, history=history,
+                       hist_path=hist_path, start_epoch=start_epoch,
+                       epochs=epochs, save_epoch=save_epoch, mid=mid)
+    return nets, history

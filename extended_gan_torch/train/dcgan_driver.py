@@ -38,7 +38,6 @@ that ports it.
 from __future__ import annotations
 
 import itertools
-import json
 import os
 
 import torch
@@ -59,10 +58,9 @@ from ..data.synthetic import ensure_synthetic_h5
 from ..models.dcgan import FrameDiscriminator, Generator, TemporalDiscriminator
 from ..utils.history import TrainingHistory
 from .checkpoint import (
-    ckpt_step,
-    empty_mid,
     gan_net_states,
     gan_states,
+    run_gan_epochs,
     setup_gan_checkpointing,
 )
 from .dcgan_trainer import (
@@ -229,43 +227,9 @@ def train(*, data_location: str | None = None, epochs: int | None = None,
                 "key": keys.state, "mid": mid_tree}
 
     with GracefulShutdown() as shutdown:
-        for epoch in range(start_epoch, params["nepochs"] + 1):
-            skip = int(mid["batch"]) if epoch == start_epoch else 0
-            logs, evaluate = epoch_feed(epoch, skip)
-            results, mid_out = train_single_epoch(
-                logs, shutdown=shutdown, init_metrics=mid if skip else None,
-                epoch=epoch)
-            if mid_out is not None:
-                # step-granular preemption: a snapshot inside the epoch
-                if ckpt_mgr is not None:
-                    ckpt_mgr.save(ckpt_step(epoch, int(mid_out["batch"])),
-                                  snapshot(epoch, mid_out))
-                    history.to_json(hist_path)
-                    print(f"[preempt] stopped resumably mid-epoch {epoch} "
-                          f"({int(mid_out['batch'])} batches in)")
-                else:
-                    print(f"[preempt] stopped mid-epoch {epoch} WITHOUT a "
-                          "snapshot: no checkpointing configured (set "
-                          "save_epoch / --save-epoch); progress is lost")
-                break
-            mid = empty_mid()
-            results |= evaluate()
-            print(json.dumps(results, indent=4))
-            history.append(results)
-            # read once: a SIGTERM between "save?" and "stop?" must not
-            # stop without the snapshot
-            preempted = shutdown.requested
-            if ckpt_mgr is not None and (
-                    (save_epoch and epoch % save_epoch == 0)
-                    or epoch == params["nepochs"] or preempted):
-                # an epoch-boundary snapshot is the start of epoch + 1
-                ckpt_mgr.save(ckpt_step(epoch + 1, 0),
-                              snapshot(epoch, empty_mid()))
-                history.to_json(hist_path)
-            if preempted:
-                print(f"[preempt] stopped after epoch {epoch}"
-                      + ("" if ckpt_mgr is not None else
-                         " WITHOUT a snapshot: no checkpointing configured "
-                         "(set save_epoch / --save-epoch)"))
-                break
+        run_gan_epochs(epoch_feed, train_single_epoch, shutdown=shutdown,
+                       ckpt_mgr=ckpt_mgr, snapshot=snapshot, history=history,
+                       hist_path=hist_path, start_epoch=start_epoch,
+                       epochs=params["nepochs"], save_epoch=save_epoch,
+                       mid=mid)
     return nets, history

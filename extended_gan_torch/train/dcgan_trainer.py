@@ -161,7 +161,7 @@ def dcgan_feed(loader, device, *, depth=2):
     return Prefetcher(iter(loader), depth=depth, transfer=prepare)
 
 
-def _fetch(pending: list[dict], keys: tuple[str, ...]) -> np.ndarray:
+def fetch_nd(pending: list[dict], keys: tuple[str, ...]) -> np.ndarray:
     """The (num, denom) pairs of ``keys`` from every step's logs, in one
     copy from the device: (steps, keys, 2) float64."""
     if not pending:
@@ -197,15 +197,20 @@ def _megafeed(loader, device, batch_size: int, k: int, *, depth=2):
     return Prefetcher(grouped(), depth=depth, transfer=prepare)
 
 
-def step_logs(dataloader, step, device, *, log_every: int = 50):
+DCGAN_LOSS_LABELS = (("Loss_FD", "errFD"), ("Loss_TD", "errTD"),
+                     ("Loss_G", "errG"))
+
+
+def step_logs(dataloader, step, device, *, log_every: int = 50,
+              labels=DCGAN_LOSS_LABELS):
     """Single train steps over ``dataloader``, yielding (the step's logs,
-    1 batch) a step; prints the losses every ``log_every`` steps."""
+    1 batch) a step; prints the losses ``labels`` names, (label, log key)
+    each, every ``log_every`` steps."""
     for i, (x, y) in enumerate(dcgan_feed(dataloader, device)):
         logs = step(x, y)
         if i % log_every == 0:
-            print(f"Loss_FD: {float(logs['errFD']):.4f}\t"
-                  f"Loss_TD: {float(logs['errTD']):.4f}\t"
-                  f"Loss_G: {float(logs['errG']):.4f}\t")
+            print("\t".join(f"{label}: {float(logs[key]):.4f}"
+                            for label, key in labels))
         yield logs, 1
 
 
@@ -217,26 +222,34 @@ def megastep_logs(dataloader, megastep, device, k: int, batch_size: int):
         yield megastep(*staged), k_actual
 
 
-def train_single_epoch(logs, *, shutdown=None, init_metrics=None,
-                       epoch=None):
+DCGAN_TRAIN_SUMS = ("train_mse_nd", "fd_acc_nd", "td_acc_nd")
+# each summed log's name in the v3 ``mid`` subtree and in the results
+_SUM_NAMES = {"train_mse_nd": ("mse", "train_mse"),
+              "fd_acc_nd": ("fd_acc", "train_fd_accuracy"),
+              "td_acc_nd": ("td_acc", "train_td_accuracy")}
+
+
+def train_single_epoch(logs, *, keys=DCGAN_TRAIN_SUMS, shutdown=None,
+                       init_metrics=None, epoch=None):
     """One epoch's train metrics from ``logs``, (a train step's or a
     group's logs, the batches it counts for ``mid``) each
-    (:func:`step_logs`, :func:`megastep_logs` or the resident programs).
+    (:func:`step_logs`, :func:`megastep_logs` or the resident programs),
+    summing the (num, denom) pairs of ``keys`` (the CycleGAN's logs have
+    ``train_mse_nd`` alone).
 
-    Returns ``(results, None)``: ``train_mse``, ``train_fd_accuracy`` and
-    ``train_td_accuracy``; or, when ``shutdown.requested`` is seen after a
-    step (a group), ``(None, mid)``: the v3 ``mid`` subtree of the batches
-    consumed so far and the epoch's partial (num, denom) sums, which a
-    resumed run passes back as ``init_metrics`` (JAX
+    Returns ``(results, None)``: ``train_mse``, and ``train_fd_accuracy``
+    and ``train_td_accuracy`` where they are summed; or, when
+    ``shutdown.requested`` is seen after a step (a group), ``(None,
+    mid)``: the v3 ``mid`` subtree of the batches consumed so far and the
+    epoch's partial (num, denom) sums (zeros for a pair not summed), which
+    a resumed run passes back as ``init_metrics`` (JAX
     ``dcgan_trainer.py:696-795``)."""
-    pred = MetricsManager(("mse",), prefix="train")
-    acc_fd, acc_td = IncrementalTuple(), IncrementalTuple()
+    sums = {k: IncrementalTuple() for k in keys}
     n_done = 0
     if init_metrics is not None and int(init_metrics["batch"]) > 0:
         n_done = int(init_metrics["batch"])
-        pred.metrics["mse"] += IncrementalTuple(init_metrics["mse"].numpy())
-        acc_fd += IncrementalTuple(init_metrics["fd_acc"].numpy())
-        acc_td += IncrementalTuple(init_metrics["td_acc"].numpy())
+        for k in keys:
+            sums[k] += IncrementalTuple(init_metrics[_SUM_NAMES[k][0]].numpy())
     pending, interrupted = [], False
     for item, n in logs:
         pending.append(item)
@@ -244,20 +257,17 @@ def train_single_epoch(logs, *, shutdown=None, init_metrics=None,
         if shutdown is not None and shutdown.requested:
             interrupted = True
             break
-    for mse, fd_nd, td_nd in _fetch(
-            pending, ("train_mse_nd", "fd_acc_nd", "td_acc_nd")):
-        pred.metrics["mse"] += IncrementalTuple(mse)
-        acc_fd += IncrementalTuple(fd_nd)
-        acc_td += IncrementalTuple(td_nd)
+    for row in fetch_nd(pending, keys):
+        for k, nd in zip(keys, row):
+            sums[k] += IncrementalTuple(nd)
     if interrupted:
         print(f"[preempt] epoch {epoch} interrupted after {n_done} batches")
-        return None, {
-            "batch": torch.tensor(n_done, dtype=torch.int64),
-            "mse": torch.from_numpy(pred.metrics["mse"].val.copy()),
-            "fd_acc": torch.from_numpy(acc_fd.val.copy()),
-            "td_acc": torch.from_numpy(acc_td.val.copy())}
-    return pred.results() | {"train_fd_accuracy": acc_fd.item(),
-                             "train_td_accuracy": acc_td.item()}, None
+        mid = {"batch": torch.tensor(n_done, dtype=torch.int64)}
+        for k, (name, _) in _SUM_NAMES.items():
+            mid[name] = torch.from_numpy(
+                sums[k].val.copy() if k in sums else np.zeros(2))
+        return None, mid
+    return {_SUM_NAMES[k][1]: sums[k].item() for k in keys}, None
 
 
 _EVAL_KEYS = ("fd_acc_nd", "td_acc_nd") + tuple(f"pred_{n}"
@@ -271,7 +281,7 @@ def eval_results(pending: list[dict]) -> dict:
     fd_m = MetricsManager(("accuracy",), prefix="frame_disc")
     td_m = MetricsManager(("accuracy",), prefix="temp_disc")
     pred = MetricsManager(PRED_METRICS, prefix="pred")
-    for row in _fetch(pending, _EVAL_KEYS):
+    for row in fetch_nd(pending, _EVAL_KEYS):
         fd_m.update_from_nd({"accuracy": row[0]})
         td_m.update_from_nd({"accuracy": row[1]})
         pred.update_from_nd(dict(zip(PRED_METRICS, row[2:])))

@@ -27,7 +27,8 @@ as ``jax.checkpoint`` does in the JAX step. ``jax.checkpoint`` is
 functional, but a recomputed train-mode BatchNorm would update its running
 statistics a second time, so the recompute normalises with the batch's
 statistics as the first pass did and leaves the running ones as the first
-pass left them (:func:`remat_forward`).
+pass left them (:func:`remat_forward`,
+``state.running_stats_frozen``).
 """
 
 from __future__ import annotations
@@ -43,23 +44,7 @@ from ..core.device import to_device
 from ..data.streaming import Prefetcher
 from .losses import CRITERIA
 from .megastep import Megastep
-
-
-@contextlib.contextmanager
-def _running_stats_frozen(bns):
-    """Train-mode BatchNorm that normalises with the batch's statistics and
-    saves for its backward what it saved in the first pass, but leaves the
-    running statistics as they are: momentum 0 keeps them bit for bit
-    (running * 1 + batch * 0), and with no batch counter there is none to
-    advance."""
-    saved = [(m.momentum, m.num_batches_tracked) for m in bns]
-    for m in bns:
-        m.momentum, m.num_batches_tracked = 0.0, None
-    try:
-        yield
-    finally:
-        for m, (momentum, tracked) in zip(bns, saved):
-            m.momentum, m.num_batches_tracked = momentum, tracked
+from .state import batchnorms, running_stats_frozen
 
 
 def remat_forward(model):
@@ -70,11 +55,10 @@ def remat_forward(model):
     step does. ``preserve_rng_state=False`` is sound: the conv-GAT and UNet
     models draw no random numbers (and reading the card's generator state
     is what a CUDA graph capture may refuse)."""
-    bns = [m for m in model.modules()
-           if isinstance(m, torch.nn.modules.batchnorm._BatchNorm)]
+    bns = batchnorms(model)
 
     def contexts():
-        return contextlib.nullcontext(), _running_stats_frozen(bns)
+        return contextlib.nullcontext(), running_stats_frozen(bns)
 
     def forward(x):
         return checkpoint(model, x, use_reentrant=False,
@@ -88,7 +72,8 @@ def make_gat_train_step(model, optimizer, *, criterion: str = "mse",
     """``step(x, y, mask) -> (loss, running_nd)``: forward in train mode,
     backward, one optimizer step. ``criterion`` is "mse" or "l1";
     ``remat`` recomputes the forward during the backward
-    (:func:`remat_forward`)."""
+    (:func:`remat_forward`,
+``state.running_stats_frozen``)."""
     if criterion not in CRITERIA:
         raise ValueError(
             f"unsupported criterion {criterion!r}; choose 'mse' or 'l1'")

@@ -5,10 +5,16 @@ optimizer moments as one functional ``NetState``. In PyTorch they live in
 the module and the optimizer, so :class:`NetState` only bundles the two
 (and a learning-rate scheduler, where there is one) and gives a checkpoint
 their state tree: ``{"model", "optimizer"[, "scheduler"]}``.
+
+A flax step returns a forward's new ``batch_stats`` and may drop them (the
+CycleGAN's cycle forwards, a recomputed forward under ``jax.checkpoint``);
+a torch BatchNorm in train mode writes its running statistics in place.
+:func:`running_stats_frozen` is the port's way to drop them.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 from typing import Any
 
@@ -54,3 +60,26 @@ def load_optimizer_state(opt: torch.optim.Optimizer, saved: dict):
 
 def param_count(module: torch.nn.Module) -> int:
     return sum(p.numel() for p in module.parameters())
+
+
+def batchnorms(*modules: torch.nn.Module) -> list:
+    """Every BatchNorm layer of ``modules``."""
+    return [m for mod in modules for m in mod.modules()
+            if isinstance(m, torch.nn.modules.batchnorm._BatchNorm)]
+
+
+@contextlib.contextmanager
+def running_stats_frozen(bns):
+    """Train-mode BatchNorm that normalises with the batch's statistics
+    and saves for its backward what a plain pass saves, but leaves the
+    running statistics as they are: momentum 0 keeps them bit for bit
+    (running * 1 + batch * 0), and with no batch counter there is none to
+    advance."""
+    saved = [(m.momentum, m.num_batches_tracked) for m in bns]
+    for m in bns:
+        m.momentum, m.num_batches_tracked = 0.0, None
+    try:
+        yield
+    finally:
+        for m, (momentum, tracked) in zip(bns, saved):
+            m.momentum, m.num_batches_tracked = momentum, tracked

@@ -1,7 +1,9 @@
 """The port's CUDA kernels against their plain PyTorch versions, on a GPU,
 and the megastep's CUDA graphs (``train/megastep.py``) against eager steps:
 K1, K2 and K3 captured, the dropout generator across replays, a changed
-learning rate, Adam's step count and the launch counters under replay.
+learning rate, Adam's step count and the launch counters under replay; the
+CycleGAN's graph against eager steps, and the vanilla GAN's FusedProp step
+against its default step.
 
 Every test here is marked ``cuda`` and skips without a card: a CUDA kernel
 has no CPU mode. The file imports nothing of JAX, so it also runs where
@@ -1013,3 +1015,71 @@ def test_resume_in_process_with_k1_and_k2_in_a_graph(cuda_device, tmp_path,
         return [tree]
     for a, b in zip(flat(c_ref), flat(c_run), strict=True):
         assert (torch.equal(a, b) if torch.is_tensor(a) else a == b)
+
+
+def test_cyclegan_graph_equals_eager_steps(cuda_device):
+    """The CycleGAN resident megastep (ndf 8, 64x64, B = 4, K = 2, dropout
+    off, capturable Adam): three programs as CUDA graphs (the first eager,
+    the second captured and replayed, the third replayed) against the same
+    programs run eagerly on a twin from the same seed, bit for bit with
+    cuDNN deterministic; no kernel of the port is launched."""
+    from extended_gan_torch import ops
+    from extended_gan_torch.data.resident import (
+        ResidentVideos,
+        make_cyclegan_resident_megastep,
+    )
+    from extended_gan_torch.train.cyclegan_driver import build_cyclegan
+
+    rng = np.random.default_rng(0)
+    store = ResidentVideos(rng.uniform(0, 1, (40, 64, 64)).astype(np.float32),
+                           np.arange(33), 8, cuda_device)
+    progs = store.epoch_programs(0, 2, 4)[:3]
+    runs, before = [], ops.launch_counts()
+    for graphs in (True, False):
+        nets, opts = build_cyclegan(ndf=8, seed=0, device=cuda_device,
+                                    dropout=0.0, capturable=True)
+        mega = make_cyclegan_resident_megastep(*nets, *opts, store)
+        with torch.backends.cudnn.flags(enabled=True, allow_tf32=False,
+                                        deterministic=True):
+            logs = [(mega if graphs else mega.eager)(p) for p in progs]
+        torch.cuda.synchronize()
+        runs.append((_params(*nets), [v for g in logs for v in g.values()]))
+        if graphs:
+            assert (mega.captures, mega.replays) == (1, 2)
+    assert ops.launch_counts() == before
+    for a, b in zip(runs[0][0] + runs[0][1], runs[1][0] + runs[1][1],
+                    strict=True):
+        assert torch.equal(a, b)
+
+
+def test_vanilla_fused_prop_equals_the_default_step(cuda_device):
+    """The vanilla GAN's FusedProp step against its default step on the
+    card at the published widths (latent 100, 28x28, b=64), exact f32, SGD,
+    3 steps from one seed, z from one generator: losses within 1e-6
+    relative, parameters and statistics within 2e-6 (JAX's
+    ``tests/test_vanilla_fused_prop.py`` bounds)."""
+    from extended_gan_torch.models.vanilla_gan import (
+        MLPDiscriminator,
+        MLPGenerator,
+    )
+    from extended_gan_torch.train.adversarial import make_vanilla_gan_step
+
+    real = torch.rand(3, 64, 1, 28, 28, device=cuda_device,
+                      generator=torch.Generator(cuda_device).manual_seed(1))
+    runs = []
+    for fused in (False, True):
+        init = torch.Generator().manual_seed(0)
+        g = MLPGenerator(generator=init).to(cuda_device)
+        d = MLPDiscriminator(generator=init).to(cuda_device)
+        opts = [torch.optim.SGD(n.parameters(), lr=1e-3) for n in (g, d)]
+        step = make_vanilla_gan_step(
+            g, d, *opts, latent_dim=100, fused_prop=fused,
+            generator=torch.Generator(cuda_device).manual_seed(7))
+        assert not torch.backends.cuda.matmul.allow_tf32  # exact f32
+        losses = [step(r) for r in real]
+        runs.append(([float(v) for lg in losses for v in lg.values()],
+                     _params(g, d)))
+    np.testing.assert_allclose(runs[1][0], runs[0][0], rtol=1e-6, atol=1e-7)
+    for a, b in zip(runs[0][1], runs[1][1], strict=True):
+        np.testing.assert_allclose(b.cpu().numpy(), a.cpu().numpy(),
+                                   atol=2e-6)

@@ -272,12 +272,13 @@ def test_format_1_artifacts_still_load(tmp_path, flax_gat):
 
 
 @pytest.mark.parametrize("argv,match", [
-    (["--workload", "cyclegan"], r"queue 1 item 8"),
+    (["--workload", "cyclegan"], "no checkpoints"),
     (["--packed-g"], r"queue 1 item 10"),
     (["--platforms", "cpu"], "StableHLO"),
     (["--fixed-batch", "2"], "StableHLO"),
     (["--quantize", "w8a8"], "weight-only --quantize w8"),
     (["--workload", "dcgan", "--weights", "p.npz"], "checkpoint"),
+    (["--workload", "cyclegan", "--weights", "p.npz"], "checkpoint"),
     (["--workload", "dcgan"], "no checkpoints"),
     (["--rollout", "0"], "rollout"),
     (["--rollout-final"], "rollout-final"),
