@@ -6,7 +6,8 @@
 Phases, each fatal on failure (non-zero exit, no result line):
 
 1. build   - compile every kernel in ``extended_gan_torch/ops/csrc/`` with
-             nvcc (one process per source, all at once) into build/kernels/.
+             nvcc (one process per source, all at once) into build/kernels/,
+             and the host's C++ batch core with g++ into build/native/.
 2. kernels - hold each kernel against its plain PyTorch version on the card
              and time both with CUDA events (median of 20 timed groups
              after warm-up): K1's forward at the twelve served shapes
@@ -172,7 +173,24 @@ Phases, each fatal on failure (non-zero exit, no result line):
              the CPU, ms a step of each, and ``python -m
              extended_gan_torch.vanilla_gan`` for 20 batches with its PNG
              grids. K1, K2 and K3 launch 0 times.
-14. report - the total time, the ``kernels`` JSON line, the card's name and
+14. host_data - in a process of its own (the first profiler session of
+             that process), the KNMI host pipeline and the drivers'
+             profiling: the C++ batch core (``data/csrc/egt_native.cpp``,
+             built with g++ beside the CUDA kernels in phase 1) and the
+             loaders' rates at b=32 over a 20-file archive of 96 frames of
+             80x80x6 (numpy, native, global shuffle with pool 4 and 0;
+             native against numpy within HOST_ATOL + HOST_RTOL); after a
+             2-step warm-up epoch, ``python -m extended_gan_torch.gat
+             generate_experiment`` of final_temp_conv's config with
+             SHUFFLE_MODE "global", ``--profile --profile-trace-dir``, 12
+             steps (the profiling keys in history.json, K1's kernel records
+             in the trace equal to its launch counters), and the same epoch
+             on the numpy and the native loader: device busy against wall;
+             conv_impl chanfirst against cuDNN exact and TF32 and K2 at b=32
+             (forward and train-step ms, agreement with exact cuDNN); the
+             DCGAN and CycleGAN CLIs with ``--profile --profile-trace-dir``,
+             streaming and ``--megastep 2``.
+15. report - the total time, the ``kernels`` JSON line, the card's name and
              power limit, and the last line ``{"ok": true, "device":
              {...}}``.
 """
@@ -249,12 +267,32 @@ def ptxas_entries(log):
 
 
 def phase_build():
-    """Builds every kernel source; returns each source's nvcc log."""
+    """Builds every kernel source, and the host's C++ batch core
+    (``extended_gan_torch/data/csrc/egt_native.cpp``, g++) beside them;
+    returns each kernel source's nvcc log."""
+    from extended_gan_torch.data import native
     from extended_gan_torch.ops import build
 
     t0 = time.perf_counter()
-    report = build.build()
+    host = {}
+
+    def build_host():
+        try:
+            host["lib"] = native.build()
+        except RuntimeError as e:
+            host["error"] = str(e)
+        host["seconds"] = time.perf_counter() - t0
+    thread = threading.Thread(target=build_host)
+    thread.start()
+    try:
+        report = build.build()
+    finally:
+        thread.join()
     secs = time.perf_counter() - t0
+    check("error" not in host, f"the host batch core did not build: "
+          f"{host.get('error')}")
+    print(f"[build] data/csrc/egt_native.cpp: g++ {host['seconds']:.2f} s "
+          f"into {host['lib']}")
     for name, info in report.items():
         # ptxas -v: one "Used N registers" and one spill line per kernel
         regs = [int(w) for w in re.findall(r"Used (\d+) registers",
@@ -3180,10 +3218,19 @@ def robustness_child(spec_json):
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
 
+    signalled = threading.Event()
+    steps = [0]
+
     def stepped(items):
         for item in items:
             yield item
+            steps[0] += 1
             print("[child] step", flush=True)
+            if steps[0] == spec["stop_after"]:
+                # the parent sends SIGTERM on this line: let it land before
+                # the next step, whose dispatch (a graph replay) could
+                # otherwise run ahead of it to the epoch's end
+                signalled.wait(timeout=60)
 
     real_gat, real_dcgan, real_cyclegan = (
         gat_driver.train_single_epoch, dcgan_driver.train_single_epoch,
@@ -3199,6 +3246,7 @@ def robustness_child(spec_json):
     def caught(self, signum, frame):
         print(f"[child] caught {time.monotonic():.6f}", flush=True)
         handler(self, signum, frame)
+        signalled.set()
     preempt.GracefulShutdown._handler = caught
     save = checkpoint.CheckpointManager.save
 
@@ -3238,11 +3286,11 @@ def _switched_build_model():
 
     def build(model_type, *, image_width, image_height, n_vertices,
               mapping_type, time_steps, use_pallas, device, generator,
-              dtype):
+              dtype, conv_impl):
         return GatModel(image_width, image_height, n_vertices, model_type,
                         mapping_type, time_steps, use_pallas=True,
                         generator=generator, use_pallas_mapping=True,
-                        dtype=dtype).to(device).eval()
+                        dtype=dtype, conv_impl=conv_impl).to(device).eval()
     return build
 
 
@@ -3259,7 +3307,8 @@ class _Child:
         self.saves, self.launches, self.tail = [], {}, []
         self.proc = subprocess.Popen(
             [sys.executable, "-u", os.path.abspath(__file__),
-             "--robustness-child", json.dumps(spec)], cwd=REPO,
+             "--robustness-child",
+             json.dumps({**spec, "stop_after": stop_after})], cwd=REPO,
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
 
         def watch():
@@ -4289,6 +4338,439 @@ def phase_vanilla_gan(tmp, batch=64):
                 launches=ops.launch_counts())
 
 
+# the native batches against the numpy path's (tests/test_native.py:27-28)
+HOST_RTOL, HOST_ATOL = 1e-5, 1e-6
+# chanfirst against the exact-f32 cuDNN mapping from the same weights: the
+# forward within the CPU tests' 2e-5 bar of its largest entry, each
+# gradient within 1e-5 of the model's largest gradient entry (the output
+# block's adjacency B has a gradient that cancels to roundoff: its entries
+# start equal and tie in the min-max normalisation)
+CHANFIRST_FWD_TOL, CHANFIRST_GRAD_TOL = 2e-5, 1e-5
+PROFILE_KEYS = ("epoch_wall_s", "profiled_steps", "steps_per_sec",
+                "dispatch_mean_s", "dispatch_p90_s")
+
+
+def _trace_device(trace_dir, detail=None):
+    """The one Chrome trace in ``trace_dir``: (records of each of the port's
+    kernels, kernel records, device busy ms: the union of every kernel,
+    copy and set on the card). ``detail``, a dict, gets each of the port's
+    kernels' record start times (ms from the first device record) and the
+    runtime's launch calls by name, for a failure's message."""
+    paths = [os.path.join(trace_dir, f) for f in os.listdir(trace_dir)
+             if f.endswith(".json")]
+    check(len(paths) == 1, f"{trace_dir}: {len(paths)} trace files, not 1")
+    with open(paths[0]) as f:
+        events = json.load(f)["traceEvents"]
+    dev = [e for e in events if e.get("ph") == "X"
+           and e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
+    kernels = [e["name"] for e in dev if e["cat"] == "kernel"]
+    counts = {k: sum(any(re.search(rf"\b{n}[<(]", name) for n in names)
+                     for name in kernels)
+              for k, names in KERNEL_NAMES.items()}
+    if detail is not None and dev:
+        t0 = min(float(e["ts"]) for e in dev)
+        for k, names in KERNEL_NAMES.items():
+            detail[k] = [round((float(e["ts"]) - t0) / 1e3, 3) for e in dev
+                         if e["cat"] == "kernel" and any(
+                             re.search(rf"\b{n}[<(]", e["name"])
+                             for n in names)]
+        launches = [e["name"] for e in events
+                    if e.get("cat") == "cuda_runtime"
+                    and "Launch" in e.get("name", "")]
+        detail["runtime launches"] = {n: launches.count(n)
+                                      for n in sorted(set(launches))}
+    busy, end = 0.0, -math.inf
+    for s, t in sorted((float(e["ts"]), float(e["ts"]) + float(e["dur"]))
+                       for e in dev):
+        if t > end:
+            busy += t - max(s, end)
+            end = t
+    return counts, len(kernels), busy / 1e3
+
+
+def _experiment_dir(tmp, label, knmi, shuffle_mode):
+    """final_temp_conv's experiment config, reading ``knmi`` with
+    ``shuffle_mode``: later assignments take the place of earlier ones."""
+    exp = os.path.join(tmp, f"exp_{label}")
+    os.makedirs(exp)
+    with open(os.path.join(REPO, "convolutional_gat", "experiments",
+                           "final_temp_conv", "config.py")) as f:
+        text = f.read()
+    with open(os.path.join(exp, "config.py"), "w") as f:
+        f.write(text + f"\nPREPROCESSED_FOLDER = {knmi!r}\n"
+                       f"SHUFFLE_MODE = {shuffle_mode!r}\n")
+    return exp
+
+
+def _host_epoch(tmp, knmi, label, *, shuffle_mode, use_native, max_batches):
+    """``python -m extended_gan_torch.gat generate_experiment`` of
+    final_temp_conv on ``knmi`` with ``--profile --profile-trace-dir``, one
+    epoch of ``max_batches`` steps, the launch counters set to 0 just
+    before: its history, the counters at the traced epoch's end and after
+    the run, what the trace holds, and the native core's calls.
+    ``use_native=False`` puts the KNMI loaders on their numpy path."""
+    import torch
+
+    from extended_gan_torch import ops
+    from extended_gan_torch.data import native, streaming
+    from extended_gan_torch.gat.__main__ import main as gat_cli
+    from extended_gan_torch.utils.profiling import EpochProfiler
+
+    exp = _experiment_dir(tmp, label, knmi, shuffle_mode)
+    out = os.path.join(tmp, f"out_{label}")
+    trace_dir = os.path.join(tmp, f"trace_{label}")
+    at_end = {}
+    real_end = EpochProfiler.end_epoch
+
+    def end_epoch(self):
+        at_end.update(ops.launch_counts())  # the traced span's launches
+        return real_end(self)
+    defaults = streaming.KmniLoader.__init__.__kwdefaults__
+    native_default = defaults["use_native"]
+    EpochProfiler.end_epoch = end_epoch
+    defaults["use_native"] = use_native
+    text = io.StringIO()
+    try:
+        _reset_launches()  # the main path starts here
+        native.reset_call_counts()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(text):
+            model, history = gat_cli([
+                "generate_experiment", "--exp_folder_name", exp,
+                "--output-path", out, "--epochs", "1", "--max-batches",
+                str(max_batches), "--profile", "--profile-trace-dir",
+                trace_dir])
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        launches = ops.launch_counts()
+        calls = native.call_counts()
+    finally:
+        EpochProfiler.end_epoch = real_end
+        defaults["use_native"] = native_default
+    with open(os.path.join(out, "history.json")) as f:
+        saved = json.load(f)
+    check(all(len(history.get(k, [])) == 1 and saved.get(k) == history[k]
+              for k in PROFILE_KEYS),
+          f"{label}: history {sorted(history)} lacks the profiling keys "
+          f"{PROFILE_KEYS} (history.json: {sorted(saved)})")
+    check(history["profiled_steps"] == [float(max_batches)],
+          f"{label}: {history['profiled_steps']} profiled steps, expected "
+          f"{max_batches}")
+    check(_finite(history["train_loss"]) and _finite(history["val_loss"])
+          and all(bool(p.isfinite().all()) for p in model.parameters()),
+          f"{label}: history {history}")
+    check(f"SHUFFLE_MODE\": \"{shuffle_mode}\"" in text.getvalue(),
+          f"{label}: the run did not use SHUFFLE_MODE {shuffle_mode}")
+    check(at_end["gat_attention_fwd"] == at_end["gat_attention_bwd"]
+          == 2 * max_batches and not any(
+              launches[k] for k in ("dsconv_fwd", "dsconv_bwd",
+                                    "gat_mapping_fwd", "gat_mapping_bwd")),
+          f"{label}: launches {at_end} at the epoch's end, {launches} after "
+          f"the run; expected K1 2 + 2 a step, K2 and K3 none")
+    used = calls["kmni_make_batch"]
+    check((used > 0) == (use_native or shuffle_mode == "global"),
+          f"{label}: the native core ran {calls} (use_native {use_native})")
+    detail = {}
+    recorded, n_kernels, busy_ms = _trace_device(trace_dir, detail)
+    for k in ("gat_attention_fwd", "gat_attention_bwd"):
+        check(recorded[k] == at_end[k],
+              f"{label}: the trace holds {recorded[k]} {k} records, the "
+              f"launch counter {at_end[k]}; the records at (ms) "
+              f"{detail.get(k)}; the runtime's launch calls "
+              f"{detail.get('runtime launches')}")
+    wall_ms = history["epoch_wall_s"][0] * 1e3
+    row = dict(secs=secs, wall_ms=wall_ms, busy_ms=busy_ms,
+               kernels=n_kernels, recorded=recorded, launches=launches,
+               native_calls=used,
+               prof={k: history[k][0] for k in PROFILE_KEYS})
+    print(f"[host_data] {label}: generate_experiment final_temp_conv, "
+          f"SHUFFLE_MODE {shuffle_mode}, "
+          f"{'native' if use_native or shuffle_mode == 'global' else 'numpy'}"
+          f" batches, {max_batches} steps --profile: epoch wall "
+          f"{wall_ms:.3f} ms, device busy {busy_ms:.3f} ms "
+          f"({100 * busy_ms / wall_ms:.1f}%, idle "
+          f"{100 * (1 - busy_ms / wall_ms):.1f}%), {n_kernels} kernels "
+          f"traced, K1 {recorded['gat_attention_fwd']} + "
+          f"{recorded['gat_attention_bwd']} records = the counters; "
+          f"dispatch mean {history['dispatch_mean_s'][0] * 1e3:.3f} ms, p90 "
+          f"{history['dispatch_p90_s'][0] * 1e3:.3f} ms, "
+          f"{history['steps_per_sec'][0]} steps/s; native core calls {used};"
+          f" {secs:.2f} s with start-up")
+    return row
+
+
+def _loader_epoch(make, label, nbytes_label=""):
+    """One whole epoch of the loader ``make()`` builds, timed from its
+    construction: batches, seconds, batches a second, MB a second."""
+    t0 = time.perf_counter()
+    loader = make()
+    n = nbytes = 0
+    for x, y in loader:
+        n += 1
+        nbytes += x.nbytes + y.nbytes
+    secs = time.perf_counter() - t0
+    row = dict(batches=n, s=secs, batches_per_s=n / secs,
+               mb_per_s=nbytes / secs / 1e6,
+               n_decodes=getattr(loader, "n_decodes", None),
+               files=len(loader.files))
+    print(f"[host_data] loader {label}: {n} batches of {nbytes / n / 1e6:.3f}"
+          f" MB (x and y) in {secs:.3f} s: {row['batches_per_s']:.2f} "
+          f"batches/s, {row['mb_per_s']:.1f} MB/s"
+          + (f", {row['n_decodes']} decodes of {row['files']} files"
+             if row["n_decodes"] is not None else ""))
+    return row
+
+
+def _chanfirst_ab(batch, hw):
+    """final_temp_conv at ``batch``: forward and train-step ms of the
+    chanfirst mapping, the cuDNN mapping exact and TF32 and the switched K2
+    mapping, from the same weights; chanfirst's forward and gradients
+    against the exact-f32 cuDNN mapping's."""
+    import numpy as np
+    import torch
+
+    from extended_gan_torch.models.gat.gat3d import Model
+
+    def make(**kw):
+        return Model(hw, hw, 6, "temporal", "conv", use_pallas=True,
+                     generator=torch.Generator().manual_seed(0),
+                     **kw).cuda().eval()
+    models = {"chanfirst": make(conv_impl="chanfirst"), "cudnn": make(),
+              "k2": make(use_pallas_mapping=True)}
+    for m in models.values():
+        m.load_state_dict(models["cudnn"].state_dict())
+    rng = np.random.default_rng(5)
+    x = torch.from_numpy(rng.random((batch, hw, hw, 4, 6), np.float32)).cuda()
+
+    def grads(model):
+        model.zero_grad()
+        y = model(x)
+        ((y - 0.5) ** 2).mean().backward()
+        return y.detach(), {n: p.grad.detach().clone()
+                            for n, p in model.named_parameters()}
+    with torch.backends.cudnn.flags(enabled=True, allow_tf32=False):
+        y_c, g_c = grads(models["chanfirst"])
+        y_n, g_n = grads(models["cudnn"])
+    fwd_gap = float((y_c - y_n).abs().max() / y_n.abs().max())
+    scale = max(float(g.abs().max()) for g in g_n.values())
+    grad_gap = max(float((g_c[n] - g_n[n]).abs().max()) for n in g_n) / scale
+    check(fwd_gap <= CHANFIRST_FWD_TOL and grad_gap <= CHANFIRST_GRAD_TOL,
+          f"chanfirst against the exact-f32 cuDNN mapping: forward "
+          f"{fwd_gap:.3e} of the largest output (limit {CHANFIRST_FWD_TOL}),"
+          f" gradients {grad_gap:.3e} of the largest gradient entry (limit "
+          f"{CHANFIRST_GRAD_TOL})")
+    rows = {}
+    for name, model, tf32 in (("chanfirst", models["chanfirst"], False),
+                              ("cuDNN exact f32", models["cudnn"], False),
+                              ("cuDNN TF32", models["cudnn"], True),
+                              ("K2 (use_pallas_mapping=True)", models["k2"],
+                               False)):
+        with torch.backends.cudnn.flags(enabled=True, allow_tf32=tf32), \
+                torch.no_grad():
+            fwd = time_ms(lambda m=model: m(x), groups=6, warmup=1,
+                          per_group=3)
+        with torch.backends.cudnn.flags(enabled=True, allow_tf32=tf32):
+            step = adam_step_ms(model, batch, n=6)
+        rows[name] = dict(forward_ms=fwd, step_ms=step)
+    peak = torch.cuda.max_memory_allocated() / 2**20
+    print(f"[host_data] conv_impl A/B, final_temp_conv b={batch}: "
+          + "; ".join(f"{k} forward {r['forward_ms']:.4f} ms, train step "
+                      f"{r['step_ms']:.3f} ms" for k, r in rows.items())
+          + f"; chanfirst against exact cuDNN: forward {fwd_gap:.3e}, "
+          f"gradients {grad_gap:.3e} (limits {CHANFIRST_FWD_TOL}, "
+          f"{CHANFIRST_GRAD_TOL}); process peak {peak:.1f} MiB")
+    return dict(rows=rows, fwd_gap=fwd_gap, grad_gap=grad_gap)
+
+
+def _gan_profile_runs(tmp):
+    """The DCGAN and CycleGAN CLIs with ``--profile --profile-trace-dir``
+    for 4 batches streaming, and as ``--megastep 2`` (whose first epoch
+    captures its graph while the profiler records): the keys in the epoch's
+    results (the dispatch times where more than the profiler's 2 warm-up
+    dispatches ran: the CycleGAN's synthetic archive holds 4 batches, 2
+    groups), the trace written and, under ``--megastep``, a graph
+    captured. Returns their launch counters."""
+    import torch
+
+    from extended_gan_torch import ops
+    from extended_gan_torch.cycle_gan.__main__ import main as cyclegan_cli
+    from extended_gan_torch.dcgan.__main__ import main as dcgan_cli
+
+    launches = {}
+    for name, cli in (("dcgan", dcgan_cli), ("cycle_gan", cyclegan_cli)):
+        for extra in (["--max-batches", "4"],
+                      ["--max-batches", "8", "--megastep", "2"]):
+            label = f"{name} {' '.join(extra)}"
+            trace_dir = os.path.join(tmp, f"trace_{name}_{len(extra)}")
+            _reset_launches()
+            t0 = time.perf_counter()
+            with _megastep_watch() as captured, \
+                    contextlib.redirect_stdout(io.StringIO()):
+                _, hist = cli(["--synthetic", "--epochs", "1", "--profile",
+                               "--profile-trace-dir", trace_dir, *extra])
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+            h = hist.history
+            want = PROFILE_KEYS if h.get("profiled_steps") != [2.0] \
+                else PROFILE_KEYS[:3]
+            check(all(len(h.get(k, [])) == 1 for k in want),
+                  f"{label} --profile: results {sorted(h)} lack "
+                  f"{PROFILE_KEYS}")
+            check(bool(captured) == ("--megastep" in extra),
+                  f"{label}: graphs captured {captured}")
+            _, n_kernels, busy_ms = _trace_device(trace_dir)
+            check(n_kernels > 0, f"{label}: the trace holds no kernel")
+            launches[label] = {k: n for k, n in ops.launch_counts().items()
+                               if n}
+            wall = h["epoch_wall_s"][0] * 1e3
+            print(f"[host_data] python -m extended_gan_torch.{name} "
+                  f"{' '.join(extra)} --profile --profile-trace-dir: "
+                  f"profiled steps {h['profiled_steps'][0]:.0f}, "
+                  f"epoch wall {wall:.3f} ms, dispatch mean "
+                  f"{h.get('dispatch_mean_s', [math.nan])[0] * 1e3:.3f} ms, "
+                  f"trace "
+                  f"{n_kernels} kernels, busy {busy_ms:.3f} ms"
+                  + (f", graphs captured under the profiler {len(captured)}"
+                     if captured else "") + f"; {secs:.2f} s")
+    check(not any(launches.values()),
+          f"the DCGAN and CycleGAN paths launched the port's kernels: "
+          f"{launches}")
+    return launches
+
+
+def phase_host_data(tmp, batch=32, hw=80, max_batches=12):
+    """The KNMI host pipeline and the drivers' profiling (slice 16):
+
+    - a synthetic KNMI archive at the published geometry (20 train files
+      of 96 frames of 80x80x6, 2 test files); the loaders' rates at b=32,
+      in this process, over a whole epoch: the numpy path, the C++ core,
+      the global shuffle with shuffle_pool 4 (each file decoded once) and
+      0; the native batches against the numpy path's (HOST_RTOL,
+      HOST_ATOL);
+    - ``python -m extended_gan_torch.gat generate_experiment`` of
+      final_temp_conv's config with SHUFFLE_MODE "global", ``--profile
+      --profile-trace-dir``, one epoch of ``max_batches`` steps: the five
+      profiling keys in history.json, K1's records in the trace equal to
+      its launch counters at the traced epoch's end; the same epoch with
+      the numpy and the native batch loader, SHUFFLE_MODE batch: device
+      busy against wall for each;
+    - conv_impl: chanfirst against cuDNN (exact, TF32) and K2 at b=32;
+    - the DCGAN and CycleGAN CLIs with ``--profile --profile-trace-dir``.
+    """
+    import numpy as np
+    import torch
+
+    from extended_gan_torch.data import native, streaming
+    from extended_gan_torch.data.synthetic import make_kmni_dataset
+
+    t_phase = time.perf_counter()
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    knmi = make_kmni_dataset(os.path.join(tmp, "knmi"), n_train_files=20,
+                             n_test_files=2, frames_per_file=96, hw=hw)
+    train = os.path.join(knmi, "train")
+    check(native._lib is not None or native.library_path().exists(),
+          "the host batch core was not built")
+    native.reset_call_counts()
+    kw = dict(crop=hw, seed=369)
+    loaders = {
+        "numpy (use_native=False)": lambda: streaming.KmniLoader(
+            batch, train, use_native=False, **kw),
+        "native": lambda: streaming.KmniLoader(batch, train, **kw),
+        "global, shuffle_pool 4": lambda: streaming.KmniLoader(
+            batch, train, shuffle_mode="global", **kw),
+        "global, shuffle_pool 0": lambda: streaming.KmniLoader(
+            batch, train, shuffle_mode="global", shuffle_pool=0, **kw)}
+    rates = {label: _loader_epoch(make, label)
+             for label, make in loaders.items()}
+    pooled = rates["global, shuffle_pool 4"]
+    check(pooled["n_decodes"] == pooled["files"] == 20,
+          f"global shuffle, pool 4: {pooled['n_decodes']} decodes of "
+          f"{pooled['files']} files")
+    check(native._lib is not None and native.call_counts()[
+        "kmni_make_batch"] > 0, f"the native core was not loaded or not "
+          f"called: {native.call_counts()}")
+    worst, n = 0.0, 0
+    for (xn, yn), (xp, yp) in zip(loaders["native"](),
+                                  loaders["numpy (use_native=False)"](),
+                                  strict=True):
+        for a, b in ((xn, xp), (yn, yp)):
+            check(a.shape == b.shape and np.all(
+                np.abs(a - b) <= HOST_ATOL + HOST_RTOL * np.abs(b)),
+                f"native batch {n} against numpy: max gap "
+                f"{np.abs(a - b).max():.3e}")
+            worst = max(worst, float(np.abs(a - b).max()))
+        n += 1
+    print(f"[host_data] native against numpy batches, the whole epoch ({n} "
+          f"batches): max gap {worst:.3e} (limit {HOST_ATOL} + {HOST_RTOL} "
+          f"relative)")
+    # a short epoch first, so the measured ones start warm (cuDNN's plans,
+    # the kernels' modules), as a run's later epochs do
+    from extended_gan_torch.gat.__main__ import main as gat_cli
+
+    with contextlib.redirect_stdout(io.StringIO()):
+        gat_cli(["generate_experiment", "--exp_folder_name",
+                 _experiment_dir(tmp, "warm_up", knmi, "batch"), "--epochs",
+                 "1", "--max-batches", "2"])
+    epochs = {label: _host_epoch(tmp, knmi, label, shuffle_mode=mode,
+                                 use_native=nat, max_batches=max_batches)
+              for label, mode, nat in (("global", "global", True),
+                                       ("numpy loader", "batch", False),
+                                       ("native loader", "batch", True))}
+    ab = _chanfirst_ab(batch, hw)
+    gan = _gan_profile_runs(tmp)
+    secs = time.perf_counter() - t_phase
+    print(f"[host_data] phase: {secs:.1f} s; {card_line()}")
+    return dict(rates=rates, epochs=epochs, chanfirst=ab, gan=gan, secs=secs,
+                launches={
+                    f"host_data: generate_experiment final_temp_conv "
+                    f"SHUFFLE_MODE {e_mode} --profile, {e_label} (CLI)":
+                    epochs[e_label]["launches"]
+                    for e_label, e_mode in (("global", "global"),
+                                            ("numpy loader", "batch"),
+                                            ("native loader", "batch"))})
+
+
+def host_data_child(tmp):
+    """``phase_host_data`` in a process of its own (this script with
+    ``--host-data-child``): its first profiler session there, the process's
+    CUDA context and the profiler's state fresh, where late in a long
+    process the profiler has dropped kernel records (``PERF.md`` §7). The
+    result, the launch counts among it, goes back as a JSON line."""
+    try:
+        result = phase_host_data(tmp)
+    except SmokeFailure as e:
+        print(f"[host_data] FAIL: {e}", flush=True)
+        return 1
+    print("[host_data] result " + json.dumps(result), flush=True)
+    return 0
+
+
+def run_host_data(tmp, timeout=600):
+    """:func:`host_data_child` in a child process, its output passed on;
+    fails unless it exits 0 with its result."""
+    proc = subprocess.Popen(
+        [sys.executable, "-u", os.path.abspath(__file__), "--host-data-child",
+         tmp], cwd=REPO, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+        text=True)
+    result, tail = None, []
+    try:
+        for line in proc.stdout:
+            if line.startswith("[host_data] result "):
+                result = json.loads(line.split(" ", 2)[2])
+                continue
+            print(line, end="", flush=True)
+            tail = (tail + [line])[-40:]
+        rc = proc.wait(timeout=timeout)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    check(rc == 0 and result is not None,
+          f"the host_data phase's process exited {rc}:\n{''.join(tail)}")
+    return result
+
+
 def card_line():
     res = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -4315,6 +4797,8 @@ def main() -> int:
     sys.path.insert(0, REPO)
     if sys.argv[1:2] == ["--robustness-child"]:
         return robustness_child(sys.argv[2])
+    if sys.argv[1:2] == ["--host-data-child"]:
+        return host_data_child(sys.argv[2])
     t0 = time.perf_counter()
     try:
         build_logs = phase_build()
@@ -4350,6 +4834,11 @@ def main() -> int:
                 new_paths[name] = phase(tmp)["launches"]
             finally:
                 shutil.rmtree(tmp, ignore_errors=True)
+        host_tmp = tempfile.mkdtemp(prefix="smoke_host_data_")
+        try:
+            host = run_host_data(host_tmp)
+        finally:
+            shutil.rmtree(host_tmp, ignore_errors=True)
         card = card_line()
     except SmokeFailure as e:
         print(f"chip_smoke: FAIL: {e}", file=sys.stderr)
@@ -4558,6 +5047,15 @@ def main() -> int:
         k["launches_by_path"].update({
             f"{name} phase (CLI and in process)": counts[k["name"]]
             for name, counts in new_paths.items()})
+    # the host_data phase's CLI epochs (slice 16): K1 2 + 2 a step, K2 and
+    # K3 none; the DCGAN and CycleGAN --profile runs none
+    for k in kernels:
+        by_path = {path: counts[k["name"]]
+                   for path, counts in host["launches"].items()}
+        by_path["host_data: DCGAN and CycleGAN CLIs --profile"] = sum(
+            counts.get(k["name"], 0) for counts in host["gan"].values())
+        k["launches_by_path"].update(by_path)
+        k["launches"] += sum(by_path.values())
     print(f"[smoke] all phases passed in {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(card)

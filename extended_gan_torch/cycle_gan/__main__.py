@@ -5,8 +5,8 @@
 
 The flags and defaults are ``python -m cycle_gan``'s, plus ``--device``
 (the CUDA card by default, ``cpu`` on request). The JAX options that are
-not ported yet (the mesh axes, FSDP, SP, the packed generators,
-profiling) are taken and refused by the driver unless they are off;
+not ported yet (the mesh axes, FSDP, SP, the packed generators) are
+taken and refused by the driver unless they are off;
 ``--multihost`` is refused here. ``--precision bf16`` computes in bfloat16
 with float32 weights; ``--megastep K`` runs K steps a CUDA graph and
 ``--resident`` keeps the frame archive in device memory; ``--resume``
@@ -15,7 +15,9 @@ a SIGTERM stops a run resumably after the current step (or group of K)
 when checkpoints are on (``--save-epoch``). A missing archive falls back to
 a synthetic one. ``history.json`` and the checkpoints (which ``python -m
 extended_gan_torch.serve export --workload cyclegan`` reads) go to
-``--out-dir`` (default: nowhere).
+``--out-dir`` (default: nowhere). ``--profile`` records each epoch's step
+timing into its results; ``--profile-trace-dir`` also writes a
+``torch.profiler`` trace of the first epoch there.
 """
 
 from __future__ import annotations
@@ -47,9 +49,10 @@ def main(argv=None):
     parser.add_argument("--resume", action="store_true",
                         help="continue from the latest checkpoint")
     parser.add_argument("--profile", action="store_true",
-                        help="not ported yet: refused")
+                        help="record per-epoch step timing into the history")
     parser.add_argument("--profile-trace-dir", type=str, default="",
-                        help="not ported yet: refused")
+                        help="capture a torch.profiler trace of the first "
+                             "epoch into this directory (implies --profile)")
     parser.add_argument("--data-axis", type=int, default=None,
                         help="mesh data-parallel axis size: not ported yet, "
                              "refused")

@@ -3,8 +3,10 @@
   python -m extended_gan_torch.dcgan --epochs 1 --synthetic --out-dir /tmp/run
 
 The flags mirror ``python -m dcgan``'s; those of its options that are not
-ported yet (mesh, FSDP, SP, the step variants, profiling, multi-host) are
-absent. ``--precision bf16`` computes in bfloat16 with float32 weights;
+ported yet (mesh, FSDP, SP, the step variants, multi-host) are absent.
+``--profile`` records each epoch's step timing into its results, and
+``--profile-trace-dir`` also writes a ``torch.profiler`` trace of the first
+epoch there. ``--precision bf16`` computes in bfloat16 with float32 weights;
 ``--resume`` continues from the latest checkpoint under
 ``--out-dir``/checkpoints, and a SIGTERM stops a run resumably after the
 current step (or group of K) when ``--out-dir`` is given. ``--megastep K`` runs K adversarial steps a CUDA
@@ -54,6 +56,12 @@ def main(argv=None):
                              "params['save_epoch'] = 2; 0: never)")
     parser.add_argument("--resume", action="store_true",
                         help="continue from the latest checkpoint")
+    parser.add_argument("--profile", action="store_true",
+                        help="record per-epoch step timing (steps/sec, "
+                             "dispatch latency) into the history")
+    parser.add_argument("--profile-trace-dir", type=str, default="",
+                        help="capture a torch.profiler trace of the first "
+                             "epoch into this directory (implies --profile)")
     parser.add_argument("--device", default=None,
                         help="default: the CUDA card; 'cpu' to train on the "
                              "CPU")
@@ -67,6 +75,7 @@ def main(argv=None):
         megastep=args.megastep, resident=args.resident, resume=args.resume,
         params=({"save_epoch": args.save_epoch}
                 if args.save_epoch is not None else None),
+        profile=args.profile, profile_trace_dir=args.profile_trace_dir,
         device=args.device)
 
 

@@ -9,9 +9,13 @@
       --mapping-type conv --dataset synthetic --output-path /tmp/run
 
 The actions and flags mirror ``python -m convolutional_gat``; the flags of
-its options that are not ported yet (mesh, MoE, pipeline, profiling) are
-absent. ``--precision bf16`` computes in bfloat16 with float32 weights
-(config key PRECISION). ``--megastep K`` runs K train steps a CUDA graph
+its options that are not ported yet (mesh, MoE, pipeline) are absent.
+``--profile`` records each epoch's step timing into history.json,
+``--profile-trace-dir`` also writes a ``torch.profiler`` trace of the first
+epoch there, and ``--conv-impl chanfirst`` runs the conv mapping in its
+positions-on-lanes form (``auto`` is ``nhwc``, cuDNN); the global shuffle
+is the config key SHUFFLE_MODE, as in JAX. ``--precision bf16`` computes in
+bfloat16 with float32 weights (config key PRECISION). ``--megastep K`` runs K train steps a CUDA graph
 and ``--resident`` keeps the decoded archive in device memory. As in the
 JAX CLI there is no ``--resume`` flag: ``generate_experiment`` takes the
 config keys RESUME, CHECKPOINT_EVERY and REMAT (checkpoints under
@@ -71,6 +75,17 @@ def main(argv=None):
     parser.add_argument("--no-use-pallas", dest="use_pallas",
                         action="store_false",
                         help="force the plain PyTorch versions")
+    parser.add_argument("--profile", action="store_true",
+                        help="record per-epoch step timing (steps/sec, "
+                             "dispatch latency) into history.json")
+    parser.add_argument("--profile-trace-dir", type=str, default="",
+                        help="capture a torch.profiler trace of the first "
+                             "epoch into this directory (implies --profile)")
+    parser.add_argument("--conv-impl", dest="conv_impl", default="auto",
+                        choices=("auto", "nhwc", "chanfirst"),
+                        help="conv-mapping form: nhwc = cuDNN convs; "
+                             "chanfirst = positions-on-lanes products; auto "
+                             "currently = nhwc")
     parser.add_argument("--device", default=None,
                         help="default: the CUDA card; 'cpu' to train on the "
                              "CPU")
@@ -88,7 +103,8 @@ def main(argv=None):
             downsample_size=tuple(args.downsample_size),
             max_batches=args.max_batches, use_pallas=args.use_pallas,
             megastep=args.megastep, resident=args.resident,
-            device=args.device)
+            conv_impl=args.conv_impl, profile=args.profile,
+            profile_trace_dir=args.profile_trace_dir, device=args.device)
     if not args.exp_folder_name:
         parser.error("generate_experiment needs --exp_folder_name")
     return generate_experiment(
@@ -97,7 +113,10 @@ def main(argv=None):
         test_batch_size=args.test_batch_size, epochs=args.epochs,
         learning_rate=args.learning_rate, precision=args.precision,
         max_batches=args.max_batches or None, use_pallas=args.use_pallas,
-        megastep=args.megastep or None, resident=args.resident or None)
+        megastep=args.megastep or None, resident=args.resident or None,
+        profile=args.profile or None,
+        profile_trace_dir=args.profile_trace_dir or None,
+        conv_impl=args.conv_impl)
 
 
 if __name__ == "__main__":

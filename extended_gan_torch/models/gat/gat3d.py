@@ -20,6 +20,12 @@ package it is a constructor switch only: no registry, CLI or config passes
 it. The fused attention is the CUDA kernel of ``ops/gat_attention.py`` when
 ``use_pallas`` is on (the names follow the JAX package's switches).
 
+``conv_impl="chanfirst"`` (the drivers' ``--conv-impl``) runs the conv
+mapping as :func:`chanfirst_bottleneck`, the JAX package's positions-on-lanes
+form (``gat3d.py:69-108``), after K2 and before cuDNN in the JAX package's
+branch order; the parameters are the same tensors on every path, so a
+checkpoint loads under each.
+
 The smaat_unet mapping is the port's ``SmaAt_UNet(n_channels=T,
 n_classes=T', kernels_per_layer=1, base=16)`` over the B*V images of a
 head, without K3, as the JAX package builds it (``gat3d.py:181-187``). Its
@@ -54,6 +60,49 @@ from .layers import (
 )
 
 
+def chanfirst_bottleneck(x, w1, b1, w2, b2, w3, b3):
+    """The conv bottleneck in channels-first, positions-on-lanes form, for
+    every head at once: x (B, H, W, C, V) square images, stacked OIHW
+    weights as ``ops/gat_mapping.py`` takes them; returns (NH, B, H, W,
+    C_out, V), float32.
+
+    Activations ride as (N, C, P) with P the row-flattened positions of the
+    image padded by a ring of one, with an apron of ``ph + 4`` zeros each
+    side: a 3x3 SAME conv is nine shifted slices of the position axis, each
+    contracted over C (``torch.matmul``, exact float32 on the card), and the
+    ring is re-zeroed between the 3x3 layers. The same function as the cuDNN
+    composition, summed in another order."""
+    b, h, w, c, v = x.shape
+    if h != w:
+        raise ValueError(f"the chanfirst mapping takes square images, got "
+                         f"{h}x{w}")
+    nh, cout = b3.shape
+    n, ph = b * v, h + 2
+    npos = ph * ph
+    apron = ph + 4  # at least the largest shift, ph + 1
+    shifts = [dy * ph + dx for dy in (-1, 0, 1) for dx in (-1, 0, 1)]
+    grid = x.new_zeros(ph, ph)
+    grid[1:h + 1, 1:w + 1] = 1.0
+    mask = F.pad(grid.reshape(-1), (apron, apron))
+
+    def conv3x3(z, wt, bias):
+        # z (N, C, L) or (NH, N, C, L); wt (NH, O, C, 3, 3)
+        acc = 0.0
+        for i, k in enumerate(shifts):
+            acc = acc + wt[:, None, :, :, i // 3, i % 3] @ \
+                z[..., apron + k:apron + k + npos]
+        return acc + bias[:, None, :, None]
+
+    xb = x.permute(0, 4, 3, 1, 2).reshape(n, c, h, w)
+    xc = F.pad(F.pad(xb, (1, 1, 1, 1)).reshape(n, c, npos), (apron, apron))
+    h1 = F.relu(conv3x3(xc, w1, b1))  # (NH, N, F, P)
+    h2 = F.relu(w2[:, None, :, :, 0, 0] @ h1 + b2[:, None, :, None])
+    h2 = F.pad(h2, (apron, apron)) * mask
+    out = conv3x3(h2, w3, b3).reshape(nh, n, cout, ph, ph)
+    out = out[..., 1:h + 1, 1:w + 1].reshape(nh, b, v, cout, h, w)
+    return out.permute(0, 1, 4, 5, 3, 2)
+
+
 class _StackedConv2d(nn.Module):
     """Parameters of ``nheads`` independent SAME convolutions: weight
     (NH, O, I, k, k) and bias (NH, O), flax's vmapped ``nn.Conv`` parameters
@@ -72,10 +121,13 @@ class _Mapping(nn.Module):
 
     def __init__(self, nfeat, nhid, mapping_type="linear", nheads=1,
                  conv_hidden=74, generator=None, use_pallas_mapping=False,
-                 dtype=torch.float32):
+                 dtype=torch.float32, conv_impl="nhwc"):
         super().__init__()
+        if conv_impl not in ("nhwc", "chanfirst"):
+            raise ValueError(f"unknown conv_impl {conv_impl!r}")
         self.mapping_type = mapping_type
         self.use_pallas_mapping = use_pallas_mapping
+        self.conv_impl = conv_impl
         self.dtype = dtype
         if mapping_type == "linear":
             self.W = nn.Parameter(torch.empty(nheads, nfeat, nhid))
@@ -119,6 +171,9 @@ class _Mapping(nn.Module):
             # one launch for every head, reading x in its own layout; fed
             # float32 under every precision, as in JAX
             return fused_conv_bottleneck(to_float32(x).contiguous(), *params)
+        if self.conv_impl == "chanfirst":
+            # float32 under every precision, as in JAX (gat3d.py:168)
+            return chanfirst_bottleneck(to_float32(x), *params)
         return reference_bottleneck(cast_to(x, dt),
                                     *(cast_to(p, dt) for p in params))
 
@@ -131,7 +186,7 @@ class GAT3DHead(nn.Module):
     def __init__(self, nfeat, nhid, n_vertices, alpha=0.2, type_="temporal",
                  mapping_type="linear", use_pallas=False, nheads=1,
                  generator=None, use_pallas_mapping=False,
-                 dtype=torch.float32):
+                 dtype=torch.float32, conv_impl="nhwc"):
         super().__init__()
         if type_ not in ("temporal", "spatial", "multi_stream"):
             raise ValueError(f"unknown type_ {type_!r}")
@@ -141,7 +196,7 @@ class GAT3DHead(nn.Module):
         self.mapping = _Mapping(nfeat, nhid, mapping_type, nheads,
                                 generator=generator,
                                 use_pallas_mapping=use_pallas_mapping,
-                                dtype=dtype)
+                                dtype=dtype, conv_impl=conv_impl)
         axes = {"temporal": ["temporal"], "spatial": ["spatial"],
                 "multi_stream": ["temporal", "spatial"]}[type_]
         # temporal graph: nodes T', features V; spatial: nodes V, features T'
@@ -194,12 +249,12 @@ class GATMultiHead3D(nn.Module):
     def __init__(self, nfeat, nhid, n_vertices, alpha=0.2, nheads=1,
                  type_="temporal", mapping_type="linear", use_pallas=False,
                  generator=None, use_pallas_mapping=False,
-                 dtype=torch.float32):
+                 dtype=torch.float32, conv_impl="nhwc"):
         super().__init__()
         args = (nfeat, nhid, n_vertices, alpha, type_, mapping_type,
                 use_pallas)
         kw = dict(generator=generator, use_pallas_mapping=use_pallas_mapping,
-                  dtype=dtype)
+                  dtype=dtype, conv_impl=conv_impl)
         self.unrolled = mapping_type == "smaat_unet"
         if not self.unrolled:
             self.heads = GAT3DHead(*args, nheads, **kw)
@@ -221,7 +276,8 @@ class Model(nn.Module):
     def __init__(self, image_width, image_height, n_vertices,
                  attention_type="temporal", mapping_type="linear",
                  time_steps=4, use_pallas=False, generator=None,
-                 use_pallas_mapping=False, dtype=torch.float32):
+                 use_pallas_mapping=False, dtype=torch.float32,
+                 conv_impl="nhwc"):
         super().__init__()
         self.image_width, self.image_height = image_width, image_height
         self.mapping_type = mapping_type
@@ -229,7 +285,8 @@ class Model(nn.Module):
                       alpha=0.2, type_=attention_type,
                       mapping_type=mapping_type, use_pallas=use_pallas,
                       generator=generator,
-                      use_pallas_mapping=use_pallas_mapping, dtype=dtype)
+                      use_pallas_mapping=use_pallas_mapping, dtype=dtype,
+                      conv_impl=conv_impl)
         self.hidden_layer = GATMultiHead3D(nheads=3, **common)
         self.output_layer = GATMultiHead3D(nheads=1, **common)
 

@@ -11,6 +11,8 @@ exposes ``mapping_type``.
 
 from __future__ import annotations
 
+import inspect
+
 import torch
 
 from ..core.device import resolve_device
@@ -46,13 +48,16 @@ def build_model(model_type: str, *, image_width: int, image_height: int,
                 n_vertices: int, mapping_type: str, time_steps: int = 4,
                 use_pallas: bool | None = None, device=None,
                 generator: torch.Generator | None = None,
-                dtype: torch.dtype = torch.float32) -> torch.nn.Module:
+                dtype: torch.dtype = torch.float32,
+                conv_impl: str = "nhwc") -> torch.nn.Module:
     """Build a model on ``device`` (default: the CUDA card), in eval mode,
     with weights drawn from ``generator``, computing in ``dtype``
     (``core/precision.py``; the weights stay float32). ``use_pallas=None`` turns the
     fused kernels (K1 in GAT3D, K3 in SmaAt-UNet) on exactly when the model
     sits on the card; families without a kernel ignore it, with the JAX
-    registry's note when the caller asked for it."""
+    registry's note when the caller asked for it. ``conv_impl`` (the conv
+    mapping's form, ``"nhwc"`` or ``"chanfirst"``) goes to the constructors
+    that take it; the others ignore it, with the JAX registry's note."""
     if model_type not in model_classes:
         raise KeyError(f"unknown model_type {model_type!r}; choose from "
                        f"{sorted(model_classes)}")
@@ -68,5 +73,11 @@ def build_model(model_type: str, *, image_width: int, image_height: int,
     elif use_pallas:
         name = getattr(ctor, "__name__", model_type)
         print(f"[registry] {name} has no Pallas path; use_pallas ignored")
+    if conv_impl != "nhwc":
+        if "conv_impl" in inspect.signature(ctor).parameters:
+            kwargs["conv_impl"] = conv_impl
+        else:
+            name = getattr(ctor, "__name__", model_type)
+            print(f"[registry] {name} has no conv_impl switch; ignored")
     model = ctor(image_width, image_height, n_vertices, **kwargs)
     return model.to(dev).eval()

@@ -275,23 +275,25 @@ def setup_gan_checkpointing(out_dir: str | None, *, resume: bool = False,
 def run_gan_epochs(epoch_feed, train_epoch, *, shutdown, ckpt_mgr, snapshot,
                    history: TrainingHistory, hist_path: str | None,
                    start_epoch: int, epochs: int, save_epoch: int,
-                   mid: dict):
+                   mid: dict, profiler=None):
     """The DCGAN and CycleGAN drivers' epochs, from ``start_epoch`` (redone
     from ``mid["batch"]`` when that is > 0) to ``epochs``.
 
     ``epoch_feed(epoch, skip)`` gives (the epoch's train logs from batch
     ``skip`` on, its eval); ``train_epoch(logs, shutdown=, init_metrics=,
-    epoch=)`` gives (results, None), or (None, mid) when ``shutdown`` was
-    requested inside the epoch; ``snapshot(epoch, mid)`` is the checkpoint
-    tree. A snapshot is written every ``save_epoch`` epochs, at the last
-    and at a preemption, with ``history.json``, when ``ckpt_mgr`` is set.
-    A preemption ends the loop."""
+    epoch=, profiler=)`` gives (results, None), or (None, mid) when
+    ``shutdown`` was requested inside the epoch (``profiler``, a
+    ``utils/profiling.EpochProfiler`` or None, times it);
+    ``snapshot(epoch, mid)`` is the checkpoint tree. A snapshot is written
+    every ``save_epoch`` epochs, at the last and at a preemption, with
+    ``history.json``, when ``ckpt_mgr`` is set. A preemption ends the
+    loop."""
     for epoch in range(start_epoch, epochs + 1):
         skip = int(mid["batch"]) if epoch == start_epoch else 0
         logs, evaluate = epoch_feed(epoch, skip)
         results, mid_out = train_epoch(
             logs, shutdown=shutdown, init_metrics=mid if skip else None,
-            epoch=epoch)
+            epoch=epoch, profiler=profiler)
         if mid_out is not None:
             # step-granular preemption: a snapshot inside the epoch
             if ckpt_mgr is not None:

@@ -30,9 +30,16 @@ graph (K = ``megastep``, else 8). On the card both use Adam with its step
 count on the device (``capturable``) and register the dropout's generator
 with the graphs.
 
-The JAX driver's mesh, tensor/sequence/FSDP parallelism, profiling and its
-packed generators are not ported yet: a keyword that sets one of them
-raises, naming the ROADMAP item that ports it.
+``profile`` (or ``profile_trace_dir``) times each step's dispatch (a graph
+replay under ``megastep``, a resident program) and the epoch
+(``utils/profiling.py``), prints ``Step timing: {...}`` and adds its keys to
+the epoch's results; ``profile_trace_dir`` also traces the first epoch with
+``torch.profiler`` into that directory (JAX ``cyclegan_driver.py:120-124,
+382-384``).
+
+The JAX driver's mesh, tensor/sequence/FSDP parallelism and its packed
+generators are not ported yet: a keyword that sets one of them raises,
+naming the ROADMAP item that ports it.
 """
 
 from __future__ import annotations
@@ -58,6 +65,7 @@ from ..data.streaming import get_coastal_loaders
 from ..data.synthetic import ensure_synthetic_coastal
 from ..models.dcgan import FrameDiscriminator, Generator
 from ..utils.history import TrainingHistory
+from ..utils.profiling import epoch_profiler, timed
 from .checkpoint import (
     CYCLEGAN_NETS,
     gan_net_states,
@@ -87,8 +95,7 @@ train_single_epoch = functools.partial(gan_epoch, keys=TRAIN_SUMS)
 _NOT_PORTED = {
     "data_axis": (None, 9), "model_axis": (1, 9), "tp_min_channels": (256, 9),
     "fsdp": (False, 9), "fsdp_min_size": (4096, 9), "spatial": (False, 9),
-    "packed_g": ((None, False), 10), "profile": (False, 10),
-    "profile_trace_dir": ("", 10),
+    "packed_g": ((None, False), 10),
 }
 
 
@@ -126,7 +133,8 @@ def train(*, data_location: str | None = None, epochs: int = 10,
           seed: int = 369, max_batches: int = 0, synthetic: bool = False,
           out_dir: str | None = None, log_every: int = 50,
           save_epoch: int = 0, resume: bool = False, megastep: int = 0,
-          resident: bool = False, device=None, **options):
+          resident: bool = False, profile: bool = False,
+          profile_trace_dir: str = "", device=None, **options):
     """Train on ``device`` (default: the CUDA card). Takes the JAX driver's
     keyword arguments. Returns ``((G_xy, G_yx, D_x, D_y), history)``."""
     refuse_unported(options, _NOT_PORTED)
@@ -143,7 +151,9 @@ def train(*, data_location: str | None = None, epochs: int = 10,
                                 seed=seed, device=dev,
                                 capturable=dev.type == "cuda"
                                 and (megastep > 1 or resident), keys=keys)
-    step = make_cyclegan_train_step(*nets, *opts, cycle_lambda=cycle_lambda)
+    profiler = epoch_profiler(profile, profile_trace_dir)
+    step = timed(make_cyclegan_train_step(*nets, *opts,
+                                          cycle_lambda=cycle_lambda), profiler)
     eval_step = make_cyclegan_eval_step(nets[0], nets[1])
     generators = (keys.generator,)  # registered with each CUDA graph
     if resident:
@@ -151,9 +161,9 @@ def train(*, data_location: str | None = None, epochs: int = 10,
             os.path.join(data_location, sub), dev, seq_len=nc, crop=imsize)
             for sub in ("train", "test"))
         resident_k = megastep if megastep > 1 else 8
-        train_k = make_cyclegan_resident_megastep(
+        train_k = timed(make_cyclegan_resident_megastep(
             *nets, *opts, train_store, seq_len=nc, cycle_lambda=cycle_lambda,
-            generators=generators)
+            generators=generators), profiler)
         eval_k = make_cyclegan_resident_eval(nets[0], nets[1], test_store,
                                              seq_len=nc)
         mb = (train_store.nbytes + test_store.nbytes) / 1e6
@@ -162,9 +172,9 @@ def train(*, data_location: str | None = None, epochs: int = 10,
               f"device memory; K={resident_k} steps per CUDA graph, "
               "index-only transfers")
     elif megastep > 1:
-        megastep_fn = make_cyclegan_megastep(*nets, *opts,
-                                             cycle_lambda=cycle_lambda,
-                                             generators=generators)
+        megastep_fn = timed(make_cyclegan_megastep(
+            *nets, *opts, cycle_lambda=cycle_lambda, generators=generators),
+            profiler)
         print(f"[megastep] {megastep} steps per CUDA graph")
 
     def epoch_feed(epoch, skip):
@@ -217,5 +227,6 @@ def train(*, data_location: str | None = None, epochs: int = 10,
         run_gan_epochs(epoch_feed, train_single_epoch, shutdown=shutdown,
                        ckpt_mgr=ckpt_mgr, snapshot=snapshot, history=history,
                        hist_path=hist_path, start_epoch=start_epoch,
-                       epochs=epochs, save_epoch=save_epoch, mid=mid)
+                       epochs=epochs, save_epoch=save_epoch, mid=mid,
+                       profiler=profiler)
     return nets, history

@@ -29,10 +29,15 @@ steps a graph (K = ``megastep``, else 8). On the card both use Adam with
 its step count on the device (``capturable``) and register the dropout's
 generator with the graphs.
 
-The JAX driver's mesh, tensor/sequence/FSDP parallelism, profiling and
-its step variants (fused_disc, fused_prop, packed_g) are not
-ported yet: a keyword that sets one of them raises, naming the ROADMAP item
-that ports it.
+``profile`` (or ``profile_trace_dir``) times each step's dispatch (a graph
+replay under ``megastep``, a resident program) and the epoch
+(``utils/profiling.py``), prints ``Step timing: {...}`` and adds its keys to
+the epoch's results; ``profile_trace_dir`` also traces the first epoch with
+``torch.profiler`` into that directory (JAX ``dcgan_driver.py:260-264``).
+
+The JAX driver's mesh, tensor/sequence/FSDP parallelism and its step
+variants (fused_disc, fused_prop, packed_g) are not ported yet: a keyword
+that sets one of them raises, naming the ROADMAP item that ports it.
 """
 
 from __future__ import annotations
@@ -57,6 +62,7 @@ from ..data.streaming import get_h5_loaders
 from ..data.synthetic import ensure_synthetic_h5
 from ..models.dcgan import FrameDiscriminator, Generator, TemporalDiscriminator
 from ..utils.history import TrainingHistory
+from ..utils.profiling import epoch_profiler, timed
 from .checkpoint import (
     gan_net_states,
     gan_states,
@@ -95,8 +101,7 @@ _NOT_PORTED = {
     "data_axis": (None, 9), "model_axis": (1, 9), "tp_min_channels": (256, 9),
     "fsdp": (False, 9), "fsdp_min_size": (4096, 9), "spatial": (False, 9),
     "fused_disc": (False, 10), "fused_prop": (False, 10),
-    "packed_g": ((None, False), 10), "profile": (False, 10),
-    "profile_trace_dir": ("", 10),
+    "packed_g": ((None, False), 10),
 }
 
 
@@ -133,7 +138,8 @@ def train(*, data_location: str | None = None, epochs: int | None = None,
           seed: int = 369, max_batches: int = 0, synthetic: bool = False,
           out_dir: str | None = None, params: dict | None = None,
           precision: str = "f32", resume: bool = False, megastep: int = 0,
-          resident: bool = False, device=None, **options):
+          resident: bool = False, profile: bool = False,
+          profile_trace_dir: str = "", device=None, **options):
     """Train on ``device`` (default: the CUDA card). Takes the JAX driver's
     keyword arguments. Returns ``((G, FD, TD), history)``."""
     refuse_unported(options, _NOT_PORTED)
@@ -155,7 +161,8 @@ def train(*, data_location: str | None = None, epochs: int | None = None,
                              capturable=dev.type == "cuda"
                              and (megastep > 1 or resident),
                              precision=precision, keys=keys)
-    step = make_dcgan_train_step(*nets, *opts)
+    profiler = epoch_profiler(profile, profile_trace_dir)
+    step = timed(make_dcgan_train_step(*nets, *opts), profiler)
     eval_step = make_dcgan_eval_step(*nets)
     generators = (keys.generator,)  # registered with each CUDA graph
     if resident:
@@ -164,9 +171,9 @@ def train(*, data_location: str | None = None, epochs: int | None = None,
             out_seq_len=params["nc"], crop=params["imsize"])
             for sub in ("train", "test"))
         resident_k = megastep if megastep > 1 else 8
-        train_k = make_dcgan_resident_megastep(
+        train_k = timed(make_dcgan_resident_megastep(
             *nets, *opts, train_store, in_seq_len=params["nc"],
-            out_seq_len=params["nc"], generators=generators)
+            out_seq_len=params["nc"], generators=generators), profiler)
         eval_k = make_dcgan_resident_eval(*nets, test_store,
                                           in_seq_len=params["nc"],
                                           out_seq_len=params["nc"])
@@ -176,7 +183,9 @@ def train(*, data_location: str | None = None, epochs: int | None = None,
               f"device memory; K={resident_k} steps per CUDA graph, "
               "index-only transfers")
     elif megastep > 1:
-        megastep_fn = make_dcgan_megastep(*nets, *opts, generators=generators)
+        megastep_fn = timed(make_dcgan_megastep(*nets, *opts,
+                                                generators=generators),
+                            profiler)
         print(f"[megastep] {megastep} steps per CUDA graph")
 
     def epoch_feed(epoch, skip):
@@ -231,5 +240,5 @@ def train(*, data_location: str | None = None, epochs: int | None = None,
                        ckpt_mgr=ckpt_mgr, snapshot=snapshot, history=history,
                        hist_path=hist_path, start_epoch=start_epoch,
                        epochs=params["nepochs"], save_epoch=save_epoch,
-                       mid=mid)
+                       mid=mid, profiler=profiler)
     return nets, history

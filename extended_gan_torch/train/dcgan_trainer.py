@@ -32,6 +32,8 @@ fetch at the end of the pass.
 
 from __future__ import annotations
 
+import json
+
 import numpy as np
 import torch
 
@@ -230,7 +232,7 @@ _SUM_NAMES = {"train_mse_nd": ("mse", "train_mse"),
 
 
 def train_single_epoch(logs, *, keys=DCGAN_TRAIN_SUMS, shutdown=None,
-                       init_metrics=None, epoch=None):
+                       init_metrics=None, epoch=None, profiler=None):
     """One epoch's train metrics from ``logs``, (a train step's or a
     group's logs, the batches it counts for ``mid``) each
     (:func:`step_logs`, :func:`megastep_logs` or the resident programs),
@@ -243,13 +245,17 @@ def train_single_epoch(logs, *, keys=DCGAN_TRAIN_SUMS, shutdown=None,
     mid)``: the v3 ``mid`` subtree of the batches consumed so far and the
     epoch's partial (num, denom) sums (zeros for a pair not summed), which
     a resumed run passes back as ``init_metrics`` (JAX
-    ``dcgan_trainer.py:696-795``)."""
+    ``dcgan_trainer.py:696-795``). With a ``profiler``
+    (``utils/profiling.EpochProfiler``) the epoch is timed up to the fetch
+    of its sums, and its stats join the results (JAX ``:720-806``)."""
     sums = {k: IncrementalTuple() for k in keys}
     n_done = 0
     if init_metrics is not None and int(init_metrics["batch"]) > 0:
         n_done = int(init_metrics["batch"])
         for k in keys:
             sums[k] += IncrementalTuple(init_metrics[_SUM_NAMES[k][0]].numpy())
+    if profiler is not None:
+        profiler.start_epoch()
     pending, interrupted = [], False
     for item, n in logs:
         pending.append(item)
@@ -267,7 +273,12 @@ def train_single_epoch(logs, *, keys=DCGAN_TRAIN_SUMS, shutdown=None,
             mid[name] = torch.from_numpy(
                 sums[k].val.copy() if k in sums else np.zeros(2))
         return None, mid
-    return {_SUM_NAMES[k][1]: sums[k].item() for k in keys}, None
+    results = {_SUM_NAMES[k][1]: sums[k].item() for k in keys}
+    if profiler is not None:
+        prof_stats = profiler.end_epoch()
+        print(f"Step timing: {json.dumps(prof_stats)}")
+        results |= prof_stats
+    return results, None
 
 
 _EVAL_KEYS = ("fd_acc_nd", "td_acc_nd") + tuple(f"pred_{n}"

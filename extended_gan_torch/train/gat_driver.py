@@ -32,10 +32,23 @@ State and robustness (JAX ``gat_driver.py:565-711``):
   replays the consumed batches of a cut epoch and continues bit for bit as
   the uninterrupted run would.
 
-The JAX driver's mesh, tensor/sequence/FSDP/pipeline parallelism, MoE,
-profiling, the global shuffle and plots are not ported yet: a config that
-sets one of them to anything but its default raises, naming the ROADMAP
-item that ports it.
+Host data, profiling and the mapping's form (JAX ``gat_driver.py:272-357,
+556-560``):
+
+- ``shuffle_mode`` goes to the KNMI loaders (``"global"``: a permutation of
+  every window of pools of files, ``data/streaming.py``); the loaders build
+  their batches in the C++ core of ``data/native.py``;
+- ``profile`` (or ``profile_trace_dir``) times each step's dispatch (a
+  graph replay under ``megastep``, a resident program) and the epoch
+  (``utils/profiling.py``), prints ``Step timing: {...}`` at the epoch's end
+  and adds its keys to the history; ``profile_trace_dir`` also traces the
+  first epoch with ``torch.profiler`` into that directory;
+- ``conv_impl`` picks the conv mapping's form: ``"auto"`` is ``"nhwc"``
+  (cuDNN), as in JAX, and ``"chanfirst"`` the positions-on-lanes form.
+
+The JAX driver's mesh, tensor/sequence/FSDP/pipeline parallelism, MoE and
+plots are not ported yet: a config that sets one of them to anything but
+its default raises, naming the ROADMAP item that ports it.
 """
 
 from __future__ import annotations
@@ -63,6 +76,7 @@ from ..data.synthetic import ensure_synthetic_kmni
 from ..models.registry import build_model
 from ..ops import launch_counts
 from ..utils.history import save_history_json, update_history
+from ..utils.profiling import epoch_profiler, timed
 from .gat_trainer import (
     gat_megastep_logs,
     gat_step_logs,
@@ -85,19 +99,16 @@ from .unported import refuse_unported
 # experiment-config keys and keywords of JAX driver options the port does
 # not have yet: (the value that means "off", the ROADMAP queue 1 item)
 _NOT_PORTED = {
-    "shuffle_mode": ("batch", 7),
     "data_axis": (None, 9), "model_axis": (1, 9), "tp_min_channels": (256, 9),
     "fsdp": (False, 9), "fsdp_min_size": (4096, 9), "spatial": (False, 9),
     "moe_experts": (0, 9), "moe_aux_weight": (0.01, 9),
     "pipeline_stages": (0, 9), "pp_microbatches": (0, 9),
-    "conv_impl": ("auto", 10), "profile": (False, 10),
-    "profile_trace_dir": ("", 10),
 }
 
 
 def train_single_epoch(*, epoch, model, train_steps, evaluate, scheduler,
                        history, output_path, keys=None, shutdown=None,
-                       start_batch=0, init_running=(0.0, 0)):
+                       start_batch=0, init_running=(0.0, 0), profiler=None):
     """One epoch of the reference's loop: ``train_steps`` yields
     (running_nd, samples, loader batches consumed, train steps) a train
     step or a group of them, or (None, 0, 1, 0) for a skipped batch
@@ -109,9 +120,13 @@ def train_single_epoch(*, epoch, model, train_steps, evaluate, scheduler,
     ``shutdown.requested`` is seen after a step (a group): ``mid`` holds the
     batches consumed (``start_batch`` of them before this call), the
     partial running-loss numerator and the samples so far, from
-    ``init_running`` on (JAX ``gat_driver.py:47-210``)."""
+    ``init_running`` on (JAX ``gat_driver.py:47-210``). With a
+    ``profiler`` (``utils/profiling.EpochProfiler``) the epoch is timed up
+    to the fetch of its losses, and its stats join ``history``."""
     print(f"\nEpoch: {epoch}")
     print(f"LR: {current_lr(scheduler.optimizer)}")
+    if profiler is not None:
+        profiler.start_epoch()
     running, total = float(init_running[0]), int(init_running[1])
     n_done, interrupted = start_batch, False
     pending = []  # running_nd pairs stay on the card; one fetch
@@ -132,6 +147,11 @@ def train_single_epoch(*, epoch, model, train_steps, evaluate, scheduler,
         return None, {"batch": torch.tensor(n_done, dtype=torch.int64),
                       "loss": torch.tensor(running, dtype=torch.float64),
                       "total": torch.tensor(total, dtype=torch.int64)}
+    if profiler is not None:
+        prof_stats = profiler.end_epoch()
+        print(f"Step timing: {json.dumps(prof_stats)}")
+        for k, v in prof_stats.items():
+            history.setdefault(k, []).append(v)
     train_loss = running / max(total, 1)
     print(f"Train loss: {round(float(train_loss), 6)}")
     history["train_loss"].append(float(train_loss))
@@ -162,13 +182,19 @@ def train(*, model_type: str = "temporal", optimizer: str = "adam",
           precision: str = "f32", seed: int = 369, max_batches: int = 0,
           resume: bool = False, checkpoint_every: int = 0,
           remat: bool = False, use_pallas: bool | None = None,
-          megastep: int = 0, resident: bool = False, device=None,
+          megastep: int = 0, resident: bool = False,
+          shuffle_mode: str = "batch", conv_impl: str = "auto",
+          profile: bool = False, profile_trace_dir: str = "", device=None,
           **options):
     """Train on ``device`` (default: the CUDA card). Takes the JAX driver's
     keyword arguments, every field of an experiment config among them;
     ``plot`` is accepted and ignored (plots are not ported). ``use_pallas=None`` runs the fused kernels exactly when
     the model sits on the card. Returns ``(model, history)``."""
     refuse_unported(options, _NOT_PORTED)
+    if conv_impl == "auto":
+        # chanfirst becomes the pick only after an A/B on the card shows a
+        # win, as in JAX
+        conv_impl = "nhwc"
     if resident and dataset not in ("kmni", "synthetic", "arai"):
         raise ValueError(f"--resident supports the kmni/synthetic/arai "
                          f"datasets, not {dataset!r}")
@@ -187,7 +213,8 @@ def train(*, model_type: str = "temporal", optimizer: str = "adam",
         # fresh per-epoch loaders do
         return get_loaders(train_bs, test_bs, preprocessed_folder,
                            dataset=dataset, downsample_size=downsample_size,
-                           seed=seed + epoch)
+                           merge_nodes=False, seed=seed + epoch,
+                           shuffle_mode=shuffle_mode)
 
     # probe a val batch for (H, W, T, V)
     x, _ = next(loader_factory()[1])
@@ -197,7 +224,7 @@ def train(*, model_type: str = "temporal", optimizer: str = "adam",
                         mapping_type=mapping_type, time_steps=steps,
                         use_pallas=use_pallas, device=dev,
                         generator=torch.Generator().manual_seed(seed),
-                        dtype=resolve_dtype(precision))
+                        dtype=resolve_dtype(precision), conv_impl=conv_impl)
     keys = KeySeq(seed)
     graphs = dev.type == "cuda" and (megastep > 1 or resident)
     opt = make_optimizer(optimizer, model.parameters(), learning_rate,
@@ -206,15 +233,17 @@ def train(*, model_type: str = "temporal", optimizer: str = "adam",
                                lr_step=lr_step, gamma=gamma)
     print(f"Number of parameters: {param_count(model)}")
     print(f"Using mapping: {model.mapping_type}")
-    step = make_gat_train_step(model, opt, criterion=criterion, remat=remat)
+    profiler = epoch_profiler(profile, profile_trace_dir)
+    step = timed(make_gat_train_step(model, opt, criterion=criterion,
+                                     remat=remat), profiler)
     eval_step = make_gat_eval_step(model)
     if resident:
         train_store, val_store = _resident_splits(
             dataset, preprocessed_folder, dev, steps, downsample_size)
         resident_k = megastep if megastep > 1 else 8
-        train_k = make_gat_resident_megastep(model, opt, train_store,
-                                             time_steps=steps,
-                                             criterion=criterion, remat=remat)
+        train_k = timed(make_gat_resident_megastep(
+            model, opt, train_store, time_steps=steps, criterion=criterion,
+            remat=remat), profiler)
         eval_k = make_gat_resident_eval(model, val_store, time_steps=steps)
         mb = (train_store.nbytes + val_store.nbytes) / 1e6
         print(f"[resident] {train_store.n_windows} train + "
@@ -222,8 +251,8 @@ def train(*, model_type: str = "temporal", optimizer: str = "adam",
               f"device memory; K={resident_k} steps per CUDA graph, "
               "index-only transfers")
     elif megastep > 1:
-        megastep_fn = make_gat_megastep(model, opt, criterion=criterion,
-                                        remat=remat)
+        megastep_fn = timed(make_gat_megastep(model, opt, criterion=criterion,
+                                              remat=remat), profiler)
         print(f"[megastep] {megastep} steps per CUDA graph")
 
     def epoch_feed(epoch, skip):
@@ -304,7 +333,7 @@ def train(*, model_type: str = "temporal", optimizer: str = "adam",
                 output_path=output_path, keys=keys, shutdown=shutdown,
                 start_batch=skip,
                 init_running=(float(mid["loss"]), int(mid["total"]))
-                if skip else (0.0, 0))
+                if skip else (0.0, 0), profiler=profiler)
             if mid_out is not None:
                 # step-granular preemption: a snapshot inside the epoch
                 if ckpt_mgr is not None:

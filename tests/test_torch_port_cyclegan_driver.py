@@ -363,8 +363,7 @@ def test_a_preempted_run_resumes_bit_for_bit(tmp_path, monkeypatch, coastal,
 @pytest.mark.parametrize("key,value,item", [
     ("data_axis", 2, 9), ("model_axis", 2, 9), ("tp_min_channels", 8, 9),
     ("fsdp", True, 9), ("fsdp_min_size", 1, 9), ("spatial", True, 9),
-    ("packed_g", True, 10), ("profile", True, 10),
-    ("profile_trace_dir", "/tmp/t", 10)])
+    ("packed_g", True, 10)])
 def test_unported_keywords_are_refused(key, value, item):
     with pytest.raises(NotImplementedError, match=f"queue 1 item {item}"):
         cyclegan_driver.train(**{key: value}, **RUN)

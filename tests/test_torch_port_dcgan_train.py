@@ -213,8 +213,7 @@ UNPORTED = [
     ("data_axis", 2, 9), ("model_axis", 2, 9), ("tp_min_channels", 64, 9),
     ("fsdp", True, 9), ("fsdp_min_size", 1, 9), ("spatial", True, 9),
     ("fused_disc", True, 10), ("fused_prop", True, 10),
-    ("packed_g", True, 10), ("profile", True, 10),
-    ("profile_trace_dir", "/x", 10),
+    ("packed_g", True, 10),
 ]
 
 

@@ -158,9 +158,8 @@ def test_without_checkpoints_a_preemption_stops_and_says_so(
 
 
 def test_the_mid_at_a_stop_holds_the_jax_drivers(tmp_path, monkeypatch):
-    # the JAX loaders on their numpy batch path (the C++ core rounds 1/254)
-    monkeypatch.setattr(jax_native, "_lib", None)
-    monkeypatch.setattr(jax_native, "_lib_failed", True)
+    # the JAX loaders on their C++ batch path, as the port's
+    assert jax_native.available()
     kw = dict(model_type="temporal", mapping_type="linear", optimizer="sgd",
               train_batch_size=4, test_batch_size=8, epochs=2, max_batches=8,
               downsample_size=(16, 16), dataset="synthetic", seed=31,
