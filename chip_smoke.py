@@ -190,7 +190,22 @@ Phases, each fatal on failure (non-zero exit, no result line):
              (forward and train-step ms, agreement with exact cuDNN); the
              DCGAN and CycleGAN CLIs with ``--profile --profile-trace-dir``,
              streaming and ``--megastep 2``.
-15. report - the total time, the ``kernels`` JSON line, the card's name and
+15. gan_variants - the DCGAN's step bodies and packed generator, and the
+             UNet's leftovers, run before host_data: the
+             published DCGAN (b=32, exact f32) with the default body,
+             ``fused_disc``, ``fused_prop``, both, and ``packed_g``: one
+             step's gradients and running statistics against the same body
+             in float64 on the CPU per tensor (a planted fault, the fake
+             rows against label 1, must miss the limits), ms a step eager
+             and as a K=8 graph, busy ms and kernels a step, peak MiB, the
+             graph against eager; each body through ``python -m
+             extended_gan_torch.dcgan`` streaming and ``--resident
+             --megastep 8``; the CycleGAN CLI with ``--packed-g`` and
+             ``serve export --packed-g --check`` of three generators;
+             ``UnetModel(per_vertex_bn=True)`` and the ``bilinear=False``
+             SmaAt-UNet at final_smaatunet's width against the plain DSC
+             (K3 18 a forward, 18 + 18 a step). K1 and K2 0 launches.
+16. report - the total time, the ``kernels`` JSON line, the card's name and
              power limit, and the last line ``{"ok": true, "device":
              {...}}``.
 """
@@ -4346,6 +4361,478 @@ HOST_RTOL, HOST_ATOL = 1e-5, 1e-6
 # block's adjacency B has a gradient that cancels to roundoff: its entries
 # start equal and tie in the min-max normalisation)
 CHANFIRST_FWD_TOL, CHANFIRST_GRAD_TOL = 2e-5, 1e-5
+# the DCGAN step bodies and the generator's layout: the body's
+# options and whether G is packed
+VARIANT_BODIES = {
+    "default": ({}, False),
+    "fused_disc": ({"fused_disc": True}, False),
+    "fused_prop": ({"fused_prop": True}, False),
+    "fused_disc+fused_prop": ({"fused_disc": True, "fused_prop": True},
+                              False),
+    "packed_g": ({}, True),
+}
+
+
+def _variant_flags(body, packed):
+    """The DCGAN CLI's flags for a body and layout."""
+    return ([f"--{k.replace('_', '-')}" for k in body]
+            + (["--packed-g"] if packed else []))
+
+
+@contextlib.contextmanager
+def _fake_rows_against_1():
+    """The planted fault: every BCE against label 0 (the discriminators'
+    fake rows) taken against 1."""
+    from extended_gan_torch.train import dcgan_trainer
+
+    real = dcgan_trainer.bce
+
+    def swapped(p, target, *, mask=None):
+        return real(p, 1.0 if target == 0.0 else target, mask=mask)
+
+    dcgan_trainer.bce = swapped
+    try:
+        yield
+    finally:
+        dcgan_trainer.bce = real
+
+
+def variant_step(states, batch, device, dtype, body, packed):
+    """One Adam step of a DCGAN body (dropout off) from ``states`` (the
+    three nets' state_dicts) on ``batch`` (numpy x, y), in ``dtype`` on
+    ``device``: its losses, each net's gradients and running statistics
+    (float64, on the CPU)."""
+    import torch
+
+    from extended_gan_torch.models.dcgan import (
+        FrameDiscriminator,
+        Generator,
+        TemporalDiscriminator,
+    )
+    from extended_gan_torch.train.dcgan_driver import DEFAULT_PARAMS
+    from extended_gan_torch.train.dcgan_trainer import make_dcgan_train_step
+
+    nc, ndf = DEFAULT_PARAMS["nc"], DEFAULT_PARAMS["ndf"]
+    nets = (Generator(nc, 0.0, packed=packed), FrameDiscriminator(nc, ndf),
+            TemporalDiscriminator(nc, ndf, 0.0))
+    for net, sd in zip(nets, states):
+        net.load_state_dict(sd)
+    nets = tuple(n.to(device, dtype) for n in nets)
+    opts = tuple(torch.optim.Adam(n.parameters(), lr=DEFAULT_PARAMS["lr"],
+                                  betas=(DEFAULT_PARAMS["beta1"], 0.999),
+                                  eps=1e-8) for n in nets)
+    x, y = (torch.from_numpy(a).to(device, dtype) for a in batch)
+    logs = make_dcgan_train_step(*nets, *opts, **body)(x, y)
+
+    def cpu(t):
+        return t.to("cpu", torch.float64, copy=True)
+
+    return dict(
+        losses=[float(logs[k]) for k in ("errFD", "errTD", "errG")],
+        grads=[[cpu(p.grad) for p in n.parameters()] for n in nets],
+        stats=[[cpu(b) for k, b in n.state_dict().items() if "running" in k]
+               for n in nets])
+
+
+def _variant_make(body, packed, dropout):
+    """make(dtype, remat) for ``_step_numbers``: the published DCGAN with
+    this body, from seed 369, capturable Adam."""
+    import torch
+
+    from extended_gan_torch.train.dcgan_driver import (
+        DEFAULT_PARAMS,
+        build_dcgan,
+    )
+    from extended_gan_torch.train.dcgan_trainer import (
+        make_dcgan_megastep,
+        make_dcgan_train_step,
+    )
+
+    def make(dtype=torch.float32, remat=False):
+        nets, opts = build_dcgan(DEFAULT_PARAMS, seed=369, device="cuda",
+                                 capturable=True, dropout=dropout,
+                                 packed_g=packed)
+        step = make_dcgan_train_step(*nets, *opts, **body)
+        gens = (nets[0].ConvBlock_0.dropout_generator,)
+
+        def losses(*a):
+            logs = step(*a)
+            return [logs[k] for k in ("errFD", "errTD", "errG")]
+        return (nets, losses,
+                make_dcgan_megastep(*nets, *opts, generators=gens, **body),
+                opts)
+    return make
+
+
+def _variant_graph_vs_eager(body, packed, inputs, k=MEGA_K):
+    """2K steps of a body (dropout off, cuDNN deterministic) as K eager
+    steps then one captured and replayed graph of K, against 2K eager
+    steps from the same state: the worst gap of any state tensor in units
+    of its largest entry."""
+    import torch
+
+    from extended_gan_torch.train.dcgan_trainer import make_dcgan_train_step
+
+    make = _variant_make(body, packed, 0.0)
+    staged = tuple(torch.stack([t] * k) for t in inputs)
+    with torch.backends.cudnn.flags(enabled=True, allow_tf32=False,
+                                    deterministic=True):
+        nets, _, mega, opts = make()
+        mega(*staged)
+        mega(*staged)
+        # the eager twin: the same seed, the same state
+        nets_e, _, _, opts_e = make()
+        step = make_dcgan_train_step(*nets_e, *opts_e, **body)
+        for _ in range(2 * k):
+            step(*inputs)
+        torch.cuda.synchronize()
+    worst, bitwise = 0.0, True
+    for a, b in zip(_train_state(nets, opts), _train_state(nets_e, opts_e)):
+        if not a.is_floating_point():
+            bitwise &= bool(torch.equal(a, b))
+            continue
+        bitwise &= bool(torch.equal(a, b))
+        scale = max(b.abs().max().item(), 1e-30)
+        worst = max(worst, (a - b).abs().max().item() / scale)
+    return worst, bitwise, mega.replays
+
+
+def _unet_variant_pair(kind):
+    """(kernel model, plain twin) at final_smaatunet's width (base 64, kpl
+    2, 20x20, V 6) from seed 0: ``per_vertex_bn`` is ``UnetModel(...,
+    per_vertex_bn=True)``; ``bilinear=False`` a UnetModel whose SmaAt-UNet
+    has the transposed-conv decoder."""
+    import torch
+
+    from extended_gan_torch.models.smaat_unet import SmaAt_UNet
+    from extended_gan_torch.models.unet_model import UnetModel
+
+    def build(use_pallas):
+        g = torch.Generator().manual_seed(0)
+        if kind == "per_vertex_bn":
+            return UnetModel(20, 20, 6, mapping_type="linear",
+                             per_vertex_bn=True, use_pallas=use_pallas,
+                             generator=g)
+        model = UnetModel(20, 20, 6, mapping_type="linear",
+                          use_pallas=use_pallas, generator=g)
+        model.unet = SmaAt_UNet(4, 4, kernels_per_layer=2,
+                                use_pallas=use_pallas, generator=g,
+                                bilinear=False)
+        return model
+
+    fused, plain = build(True).cuda(), build(False).cuda()
+    plain.load_state_dict(fused.state_dict())
+    return fused, plain
+
+
+def phase_gan_variants(tmp, batch=32):
+    """The DCGAN's step bodies and packed generator, and the UNet's
+    leftovers, on the card, outputs under ``tmp``:
+
+    - the published DCGAN (nc 4, ndf 64, 64x64, b=32, exact f32) with each
+      body: default, ``fused_disc``, ``fused_prop``, both, and the default
+      body with ``packed_g``: one step's gradients and running statistics
+      on the card against the same body in float64 on the CPU, each tensor
+      within DCGAN_FLOOR or 10x roundoff's scale: what 1e-7 noise on the
+      batch moves float64, or what another row order of the
+      batch moves the card's own float32 result (G's first block under
+      ``fused_disc``: about 8e-4 of G's largest gradient entry, where the
+      noise moves float64 9e-5); the fake rows taken against label 1 (a
+      planted fault) must miss those limits 10x; ms a step eager and as a K=8 CUDA
+      graph (dropout 0.01), busy ms and kernels a step in a replay, peak
+      MiB of an eager step; 16 steps as eager + graph against 16 eager
+      steps (dropout off, cuDNN deterministic);
+    - each body through ``python -m extended_gan_torch.dcgan`` streaming
+      and ``--resident --megastep 8``; the CycleGAN CLI with
+      ``--packed-g``; ``serve export --packed-g --check`` of the packed
+      DCGAN generator and of both CycleGAN generators (``layout``
+      ``packed2``);
+    - ``UnetModel(per_vertex_bn=True)`` and the ``bilinear=False``
+      SmaAt-UNet at final_smaatunet's width (V 6, b=32): an eval forward
+      and one step's gradients, three SGD steps, against the plain DSC,
+      K3 18 launches a forward and 18 + 18 a step, as its counters say.
+
+    K1 and K2 launch 0 times; K3 only in the UNets. Returns the launches
+    by path and the rows."""
+    import numpy as np
+    import torch
+
+    from extended_gan_torch import ops
+    from extended_gan_torch.cycle_gan.__main__ import main as cyclegan_cli
+    from extended_gan_torch.data.streaming import get_h5_loaders
+    from extended_gan_torch.data.synthetic import ensure_synthetic_h5
+    from extended_gan_torch.dcgan.__main__ import main as dcgan_cli
+    from extended_gan_torch.ops import dsconv as k3
+    from extended_gan_torch.serve.__main__ import main as serve_cli
+    from extended_gan_torch.train.dcgan_driver import (
+        DEFAULT_PARAMS,
+        build_dcgan,
+    )
+    from extended_gan_torch.train.dcgan_trainer import to_nchw
+
+    t_phase = time.perf_counter()
+    card = card_line()
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda")
+    by_path = {}
+
+    # 1. each body: agreement with float64, a planted fault, graph vs eager
+    folder = ensure_synthetic_h5(None, frames_train=256, frames_test=64,
+                                 h=64, w=64)
+    loader, _ = get_h5_loaders(folder, batch, 64, crop=64, in_seq_len=4,
+                               out_seq_len=4, seed=1)
+    real = tuple(to_nchw(a) for a in next(loader))
+    check(len(real[0]) == batch, "short batch")
+    nets, _ = build_dcgan(DEFAULT_PARAMS, seed=0, device="cpu", dropout=0.0)
+    states = [n.state_dict() for n in nets]
+    gen = torch.Generator(device=dev).manual_seed(7)
+    inputs = (torch.rand(batch, 4, 64, 64, device=dev, generator=gen),
+              torch.rand(batch, 4, 64, 64, device=dev, generator=gen),
+              torch.ones(batch, device=dev))
+
+    def noisy(seed):
+        rng = np.random.default_rng(seed)
+        return tuple((a * (1 + 1e-7 * rng.standard_normal(a.shape)))
+                     .astype(np.float32) for a in real)
+
+    order = np.random.default_rng(0).permutation(batch)
+    rows = {}
+    for name, (body, packed) in VARIANT_BODIES.items():
+        t0 = time.perf_counter()
+        _reset_launches()
+        card_run = variant_step(states, real, dev, torch.float32, body,
+                                packed)
+        # the same batch in another row order: the same step, which the
+        # card's float32 reductions round otherwise
+        reordered = variant_step(states, tuple(a[order] for a in real), dev,
+                                 torch.float32, body, packed)
+        with _fake_rows_against_1():
+            fault = variant_step(states, real, dev, torch.float32, body,
+                                 packed)
+        ref = variant_step(states, real, torch.device("cpu"), torch.float64,
+                           body, packed)
+        draws = [variant_step(states, noisy(0), torch.device("cpu"),
+                              torch.float64, body, packed)]
+        ref_s = time.perf_counter() - t0
+        rel = np.abs(np.array(card_run["losses"]) - ref["losses"]) / np.abs(
+            ref["losses"])
+        check(rel.max() <= DCGAN_LOSS_TOL,
+              f"gan_variants {name}: losses {card_run['losses']} vs float64 "
+              f"{ref['losses']}")
+        worst, fault_worst = 0.0, 0.0
+        for what in ("grads", "stats"):
+            for i, net in enumerate(("G", "FD", "TD")):
+                w = ref[what][i]
+                if not w:
+                    continue
+                gaps = _leaf_gaps(card_run[what][i], w)
+                # roundoff's scale: what 1e-7 noise moves float64, or what
+                # the row order moves the card's own float32 result
+                sens = np.max([_leaf_gaps(d[what][i], w) for d in draws]
+                              + [_leaf_gaps(reordered[what][i],
+                                            card_run[what][i])], 0)
+                limits = np.maximum(DCGAN_FLOOR, DCGAN_SENS_FACTOR * sens)
+                at = int(np.argmax(gaps / limits))
+                check((gaps <= limits).all(),
+                      f"gan_variants {name}: {what} of {net}, card f32 vs "
+                      f"CPU float64, tensor {at} {gaps[at]:.3e} of the "
+                      f"net's largest entry (limit {limits[at]:.3e})")
+                worst = max(worst, float((gaps / limits).max()))
+                fault_worst = max(fault_worst, float(
+                    (_leaf_gaps(fault[what][i], w) / limits).max()))
+        check(fault_worst > 10,
+              f"gan_variants {name}: the fake rows against label 1 stay "
+              f"within {fault_worst:.2f} of the limits")
+        gap_ge, bitwise, replays = _variant_graph_vs_eager(body, packed,
+                                                           inputs)
+        check(gap_ge <= MEGA_LIMIT and replays == 1,
+              f"gan_variants {name}: graph against eager {gap_ge:.3e} "
+              f"(limit {MEGA_LIMIT}), {replays} replays")
+        rows[name] = dict(loss_rel=float(rel.max()), worst_of_limit=worst,
+                          fault_of_limit=fault_worst, graph_vs_eager=gap_ge,
+                          bitwise=bitwise)
+        print(f"[gan_variants] DCGAN b={batch} exact f32, body {name}: one "
+              f"step vs CPU float64: losses {rel.max():.3e} relative, "
+              f"gradients and statistics at most {worst:.3f} of their "
+              f"per-tensor limits, the planted fault {fault_worst:.1f}; 16 "
+              f"steps eager+graph vs eager {gap_ge:.3e}"
+              f"{' (bitwise)' if bitwise else ''} ({ref_s:.1f} s for the "
+              f"references)")
+        by_path[f"gan_variants: DCGAN {name}, float64 check and graph"] = \
+            ops.launch_counts()
+
+    # 2. times, dropout 0.01 (the CLI's): each body eager and as a K=8
+    # graph, in 3 alternating rounds (medians kept), then a replay profiled
+    runs = {}
+    staged = tuple(torch.stack([t] * MEGA_K) for t in inputs)
+    for name, (body, packed) in VARIANT_BODIES.items():
+        _reset_launches()
+        torch.cuda.synchronize()
+        held = torch.cuda.memory_allocated()  # the bodies built before
+        _, step, mega, _ = _variant_make(body, packed, 0.01)()
+        for _ in range(2):
+            step(*inputs)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        step(*inputs)
+        torch.cuda.synchronize()
+        # this body's own peak: its nets, Adam state and an eager step
+        peak = (torch.cuda.max_memory_allocated() - held) / 2**20
+        mega(*staged)  # the warm-up group, eager
+        mega(*staged)  # captured, then replayed
+        torch.cuda.synchronize()
+        launches = ops.launch_counts()
+        check(not any(launches.values()),
+              f"gan_variants {name}: port kernels launched {launches}")
+        by_path[f"gan_variants: DCGAN {name}, timing"] = launches
+        runs[name] = dict(step=step, mega=mega, peak=peak, eager=[],
+                          graph=[])
+    host = host_state()
+    for _ in range(3):
+        for r in runs.values():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(8):
+                r["step"](*inputs)
+            torch.cuda.synchronize()
+            r["eager"].append((time.perf_counter() - t0) * 1e3 / 8)
+            t0 = time.perf_counter()
+            for _ in range(3):
+                r["mega"](*staged)
+            torch.cuda.synchronize()
+            r["graph"].append((time.perf_counter() - t0) * 1e3 / (3 * MEGA_K))
+    for name, r in runs.items():
+        prof = _profile_call(lambda: r["mega"](*staged), MEGA_K)
+        row = rows[name]
+        row.update(eager_ms=statistics.median(r["eager"]),
+                   graph_ms=statistics.median(r["graph"]),
+                   eager_rounds=r["eager"], graph_rounds=r["graph"],
+                   busy_ms=prof["busy_ms"],
+                   kernels_a_step=prof["kernels"] / MEGA_K,
+                   peak_mib=r["peak"])
+        print(f"[gan_variants] {card}: DCGAN b={batch} exact f32, body "
+              f"{name}: {row['eager_ms']:.3f} ms a step eager (rounds "
+              + ", ".join(f"{v:.3f}" for v in r["eager"])
+              + f"), {row['graph_ms']:.3f} ms as a K=8 graph (rounds "
+              + ", ".join(f"{v:.3f}" for v in r["graph"])
+              + f"; host clock), busy {row['busy_ms']:.4f} ms and "
+              f"{row['kernels_a_step']:.1f} kernels a step in a replay, "
+              f"peak {row['peak_mib']:.1f} MiB in an eager step")
+    print(f"[gan_variants] host during the rounds: {host}")
+    del runs
+
+    # 3. the CLIs, each body streaming and resident
+    cli_s = {}
+    for name, (body, packed) in VARIANT_BODIES.items():
+        flags = _variant_flags(body, packed)
+        for mode, extra in (("streaming", ["--max-batches", "4"]),
+                            ("resident", ["--resident", "--megastep", "8",
+                                          "--max-batches", "8"])):
+            out = os.path.join(tmp, f"dcgan_{name}_{mode}".replace("+", "_"))
+            _reset_launches()
+            t0 = time.perf_counter()
+            cli_nets, history = dcgan_cli(
+                ["--epochs", "1", "--synthetic", "--out-dir", out,
+                 "--save-epoch", "1", *extra, *flags])
+            torch.cuda.synchronize()
+            cli_s[name, mode] = time.perf_counter() - t0
+            launches = ops.launch_counts()
+            results = {k: v[0] for k, v in history.history.items()}
+            check(_finite(results.values())
+                  and cli_nets[0].packed == ("--packed-g" in flags)
+                  and next(cli_nets[0].parameters()).is_cuda,
+                  f"gan_variants: dcgan CLI {flags} {mode}: {results}")
+            check(not any(launches.values()),
+                  f"gan_variants: dcgan CLI {flags} {mode}: launches "
+                  f"{launches}")
+            by_path[f"gan_variants: dcgan CLI {name} {mode}"] = launches
+    print(f"[gan_variants] python -m extended_gan_torch.dcgan --epochs 1 "
+          f"--synthetic with each body's flags, streaming (4 batches) and "
+          f"--resident --megastep 8 (8 batches): "
+          + ", ".join(f"{n} {m} {s:.2f} s" for (n, m), s in cli_s.items())
+          + "; finite results, K1, K2, K3 0 launches")
+
+    # 4. the packed generators through the CycleGAN CLI and serve export
+    _reset_launches()
+    cg_out = os.path.join(tmp, "cyclegan_packed")
+    t0 = time.perf_counter()
+    cg_nets, cg_hist = cyclegan_cli(
+        ["--synthetic", "--epochs", "1", "--max-batches", "4",
+         "--save-epoch", "1", "--out-dir", cg_out, "--packed-g"])
+    cg_s = time.perf_counter() - t0
+    check(cg_nets[0].packed and cg_nets[1].packed
+          and _finite(v[0] for v in cg_hist.history.values()),
+          f"gan_variants: cyclegan --packed-g: {cg_hist.history}")
+    exports = []
+    for src, argv in (
+            (os.path.join(tmp, "dcgan_packed_g_streaming"),
+             ["--workload", "dcgan"]),
+            (cg_out, ["--workload", "cyclegan", "--direction", "xy"]),
+            (cg_out, ["--workload", "cyclegan", "--direction", "yx"])):
+        path = os.path.join(tmp, f"export_{len(exports)}.pt")
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            info = serve_cli(["export", src, *argv, "--packed-g", "--out",
+                              path, "--check"])
+        text = buf.getvalue()
+        errs = [float(e) for e in re.findall(r"= ([0-9.e+-]+)\n", text)]
+        check("check OK" in text and info["spec"]["layout"] == "packed2"
+              and info["layout"] == "packed2",
+              f"gan_variants: serve export {argv} --packed-g: {text[-300:]}")
+        exports.append((" ".join(argv[1::2]), info["nbytes"], max(errs)))
+    launches = ops.launch_counts()
+    check(not any(launches.values()),
+          f"gan_variants: cyclegan --packed-g and export: launches {launches}")
+    by_path["gan_variants: cyclegan --packed-g and export"] = launches
+    print(f"[gan_variants] python -m extended_gan_torch.cycle_gan "
+          f"--packed-g, 4 batches: {cg_s:.2f} s, finite; serve export "
+          f"--packed-g --check on the card, layout packed2: "
+          + "; ".join(f"{w} {n} bytes, |serve - live| {e:.3e}"
+                      for w, n, e in exports))
+
+    # 5. the UNet leftovers: K3 inside, against the plain DSC
+    counts = lambda: {"dsconv_fwd": k3.launch_count,  # noqa: E731
+                      "dsconv_bwd": k3.bwd_launch_count}
+    x = torch.rand(batch, 20, 20, 4, 6, device=dev,
+                   generator=torch.Generator(device=dev).manual_seed(3))
+    unets = {}
+    for kind in ("per_vertex_bn", "bilinear=False"):
+        _reset_launches()
+        fused, plain = _unet_variant_pair(kind)
+        with torch.no_grad():
+            got = fused.eval()(x)
+            fwd = counts()
+            want = plain.eval()(x)
+        err = (got - want).abs().max().item() / want.abs().max().item()
+        check(fwd == {"dsconv_fwd": 18, "dsconv_bwd": 0}
+              and err <= TRAIN_GRAD_FLOOR,
+              f"gan_variants {kind}: eval forward {err:.3e} of the largest "
+              f"output against the plain DSC, K3 launches {fwd}")
+        # one step's gradients and three SGD steps against the plain DSC
+        # (18 + 18 launches a step, checked there), then its timing runs
+        res = compare_train_steps(f"unet {kind}", fused, plain, 20, "sgd",
+                                  counts, {"dsconv_fwd": 18,
+                                           "dsconv_bwd": 18})
+        launched = ops.launch_counts()
+        check(launched["dsconv_fwd"] > 0 and launched["dsconv_bwd"] > 0
+              and not launched["gat_attention_fwd"]
+              and not launched["gat_mapping_fwd"],
+              f"gan_variants {kind}: launches {launched}")
+        unets[kind] = dict(fwd_err=err, kernel_ms=res["kernel_ms"],
+                           plain_ms=res["plain_ms"], launched=res["launched"])
+        by_path[f"gan_variants: unet {kind} forward, steps and timing"] = \
+            launched
+        print(f"[gan_variants] unet {kind} (base 64, kpl 2, 20x20, V 6, "
+              f"b={batch}): eval forward within {err:.3e} of the largest "
+              f"output of the plain DSC, K3 18 launches; train step "
+              f"{res['kernel_ms']:.3f} ms with K3, {res['plain_ms']:.3f} ms "
+              f"plain (exact f32)")
+    secs = time.perf_counter() - t_phase
+    print(f"[gan_variants] the phase took {secs:.1f} s")
+    return dict(launches=by_path, rows=rows, unets=unets, secs=secs)
+
+
 PROFILE_KEYS = ("epoch_wall_s", "profiled_steps", "steps_per_sec",
                 "dispatch_mean_s", "dispatch_p90_s")
 
@@ -4834,6 +5321,11 @@ def main() -> int:
                 new_paths[name] = phase(tmp)["launches"]
             finally:
                 shutil.rmtree(tmp, ignore_errors=True)
+        variants_tmp = tempfile.mkdtemp(prefix="smoke_gan_variants_")
+        try:
+            variants = phase_gan_variants(variants_tmp)
+        finally:
+            shutil.rmtree(variants_tmp, ignore_errors=True)
         host_tmp = tempfile.mkdtemp(prefix="smoke_host_data_")
         try:
             host = run_host_data(host_tmp)
@@ -5047,6 +5539,14 @@ def main() -> int:
         k["launches_by_path"].update({
             f"{name} phase (CLI and in process)": counts[k["name"]]
             for name, counts in new_paths.items()})
+    # the gan_variants phase: K3 in the per-vertex and
+    # transposed-conv UNets; none of them on the DCGAN bodies, the packed
+    # generators and their CLIs and exports
+    for k in kernels:
+        by_path = {path: counts[k["name"]]
+                   for path, counts in variants["launches"].items()}
+        k["launches_by_path"].update(by_path)
+        k["launches"] += sum(by_path.values())
     # the host_data phase's CLI epochs (slice 16): K1 2 + 2 a step, K2 and
     # K3 none; the DCGAN and CycleGAN --profile runs none
     for k in kernels:

@@ -5,9 +5,10 @@
 
 The flags and defaults are ``python -m cycle_gan``'s, plus ``--device``
 (the CUDA card by default, ``cpu`` on request). The JAX options that are
-not ported yet (the mesh axes, FSDP, SP, the packed generators) are
-taken and refused by the driver unless they are off;
-``--multihost`` is refused here. ``--precision bf16`` computes in bfloat16
+not ported yet (the mesh axes, FSDP, SP) are taken and refused by the
+driver unless they are off; ``--multihost`` is refused here.
+``--packed-g`` computes both generators in the 2x2 space-to-depth layout
+(off by default, as in JAX). ``--precision bf16`` computes in bfloat16
 with float32 weights; ``--megastep K`` runs K steps a CUDA graph and
 ``--resident`` keeps the frame archive in device memory; ``--resume``
 continues from the latest checkpoint under ``--out-dir``/checkpoints, and
@@ -76,7 +77,10 @@ def main(argv=None):
                              "--megastep as the program length K, default "
                              "8)")
     parser.add_argument("--packed-g", dest="packed_g", default=None,
-                        action="store_true", help="not ported yet: refused")
+                        action="store_true",
+                        help="compute both generators in 2x2 "
+                             "space-to-depth layout (identical function "
+                             "and state_dict). Opt-in")
     parser.add_argument("--no-packed-g", dest="packed_g",
                         action="store_false")
     parser.add_argument("--multihost", action="store_true",

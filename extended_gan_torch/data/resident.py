@@ -395,12 +395,15 @@ def resident_dcgan_test(eval_k, store: ResidentVideos, *, k: int = 8,
 def make_dcgan_resident_megastep(g, fd, td, g_opt, fd_opt, td_opt,
                                  store: ResidentVideos, *,
                                  in_seq_len: int = 4, out_seq_len: int = 4,
-                                 generators=()):
+                                 generators=(), fused_disc=False,
+                                 fused_prop=False):
     """K adversarial steps a call, their batches gathered from ``store``
     (``from_h5``'s (sum_T, H, W)) on its device: ``megastep(starts) ->
-    logs``. The update is ``make_dcgan_megastep``'s; ``generators`` the
-    dropout's generators on the card."""
-    step = make_dcgan_train_step(g, fd, td, g_opt, fd_opt, td_opt)
+    logs``. The update is ``make_dcgan_megastep``'s, with its
+    ``fused_disc`` and ``fused_prop`` (JAX ``data/resident.py:601-617``);
+    ``generators`` the dropout's generators on the card."""
+    step = make_dcgan_train_step(g, fd, td, g_opt, fd_opt, td_opt,
+                                 fused_disc=fused_disc, fused_prop=fused_prop)
     w = in_seq_len + out_seq_len
 
     def body(st):

@@ -3,7 +3,9 @@
   python -m extended_gan_torch.dcgan --epochs 1 --synthetic --out-dir /tmp/run
 
 The flags mirror ``python -m dcgan``'s; those of its options that are not
-ported yet (mesh, FSDP, SP, the step variants, multi-host) are absent.
+ported yet (mesh, FSDP, SP, multi-host) are absent. ``--fused-disc`` and
+``--fused-prop`` pick the step body and ``--packed-g`` the generator's 2x2
+space-to-depth layout, all off by default, as in JAX.
 ``--profile`` records each epoch's step timing into its results, and
 ``--profile-trace-dir`` also writes a ``torch.profiler`` trace of the first
 epoch there. ``--precision bf16`` computes in bfloat16 with float32 weights;
@@ -45,6 +47,25 @@ def main(argv=None):
                              "on-device; steady-state epochs move only "
                              "index programs (composes with --megastep as "
                              "the program length K, default 8)")
+    parser.add_argument("--fused-disc", action="store_true",
+                        help="batch each discriminator's real+fake passes "
+                             "into one doubled-batch fwd/bwd (fewer serial "
+                             "net passes per step; BN batch statistics mix "
+                             "real and fake — a documented deviation)")
+    parser.add_argument("--fused-prop", action="store_true",
+                        help="FusedProp (arxiv 2004.03335): compute the "
+                             "fake G->D chain once and pull the D-fake "
+                             "and G gradients back through it before any "
+                             "update. G trains against the PRE-update "
+                             "discriminators (simultaneous update — a "
+                             "documented deviation)")
+    parser.add_argument("--packed-g", dest="packed_g", default=None,
+                        action="store_true",
+                        help="compute the generator in 2x2 space-to-depth "
+                             "layout (identical function and state_dict). "
+                             "Opt-in")
+    parser.add_argument("--no-packed-g", dest="packed_g",
+                        action="store_false")
     parser.add_argument("--synthetic", action="store_true",
                         help="force the synthetic dataset")
     parser.add_argument("--out-dir", type=str, default=None,
@@ -73,6 +94,8 @@ def main(argv=None):
         seed=args.seed, max_batches=args.max_batches,
         synthetic=args.synthetic, out_dir=args.out_dir,
         megastep=args.megastep, resident=args.resident, resume=args.resume,
+        fused_disc=args.fused_disc, fused_prop=args.fused_prop,
+        packed_g=args.packed_g,
         params=({"save_epoch": args.save_epoch}
                 if args.save_epoch is not None else None),
         profile=args.profile, profile_trace_dir=args.profile_trace_dir,

@@ -11,10 +11,15 @@ joined with ``.``, and:
   (Cout, C*kpl, 1, 1);
 - a Dense ``kernel`` (in, out) becomes a ``Linear.weight`` (out, in) (the
   vanilla GAN's MLPs are Dense layers only);
+- a ConvTranspose ``kernel`` (the SmaAt-UNet's ``upconv``, HWIO) becomes a
+  ``ConvTranspose2d.weight`` (in, out, kh, kw), flipped in both spatial
+  axes: flax's transposed conv applies its kernel as it is, torch's as the
+  gradient of a conv, which reverses it;
 - a BatchNorm's (``TorchBatchNorm``'s too) ``scale`` becomes its
   ``weight``, and its ``batch_stats`` ``mean`` and ``var`` the
   ``running_mean`` and ``running_var`` buffers (with a zero
-  ``num_batches_tracked``, which torch keeps beside them);
+  ``num_batches_tracked``, which torch keeps beside them), whatever their
+  shape (the per-vertex BatchNorm's are (V, C));
 - an unrolled GAT3D head ``head_{i}`` (the smaat_unet mapping's) is a
   stack of one head in the port, so its attention's ``a_*`` and ``B_*``
   gain a leading head axis of size 1.
@@ -55,6 +60,8 @@ def from_flax_params(params: Mapping, batch_stats: Mapping | None = None
                 key = _BN_STATS[key]
             elif key.endswith("kernel") and arr.ndim == 2:  # Dense
                 arr, key = arr.T, "weight"
+            elif key == "kernel" and prefix.endswith("upconv."):
+                arr, key = arr[::-1, ::-1].transpose(2, 3, 0, 1), "weight"
             elif key.endswith("kernel"):
                 nd = arr.ndim  # (..., kh, kw, I, O) -> (..., O, I, kh, kw)
                 arr = arr.transpose(*range(nd - 4), nd - 1, nd - 2, nd - 4,

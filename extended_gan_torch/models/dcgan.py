@@ -28,8 +28,17 @@ outputs are float32. Parameters stay float32.
 
 Channel dropout (the reference's 0.01) zeroes whole channels of a sample,
 as ``torch.nn.Dropout2d`` does, drawing from ``dropout_generator`` when one
-is given. The JAX package's ``packed`` generator (2x2 space-to-depth) is
-not ported.
+is given.
+
+``Generator(packed=True)`` computes the same function in the 2x2
+space-to-depth layout (``ops/space_to_depth.py``; JAX ``dcgan.py:175-253``):
+its five stride-1 4x4 convs become 3x3 convs at half resolution with 4x
+the channels. Its ``state_dict`` is the unpacked generator's, name for name
+and shape for shape (the 4x4 kernels, the (C,) BatchNorm tensors), so
+checkpoints, ``models/convert.py`` and ``serve/quantize.py`` take either;
+its BatchNorm (:class:`_PackedBN`) is a ``BatchNorm2d``, so
+``train/state.py::batchnorms`` finds it, and its dropout draws the
+unpacked block's (B, C, 1, 1) mask from the same generator.
 """
 
 from __future__ import annotations
@@ -41,6 +50,12 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..core.precision import cast_to, to_float32
+from ..ops.space_to_depth import (
+    pack2,
+    pack_conv_weights,
+    packed_conv_same,
+    unpack2,
+)
 
 
 def _leaky_relu_02(x):
@@ -78,14 +93,34 @@ def _conv(chin, chout, k, stride, padding, bias, generator):
     return conv
 
 
+class _PackedBN(nn.BatchNorm2d):
+    """BatchNorm2d(C) of a packed (B, 4C, H/2, W/2) map: it normalises the
+    free view (4B, C, H/2, W/2), whose (batch, H/2, W/2) reduction is the
+    (batch, phase, H/2, W/2) set of JAX's ``_PackedBN`` (``dcgan.py:69-108``)
+    and the unpacked map's (batch, H, W): the same statistics, the same
+    unbiased count, (C,) tensors."""
+
+    def forward(self, xp):
+        b, c4, h, w = xp.shape
+        return super().forward(xp.reshape(4 * b, c4 // 4, h, w)).reshape(
+            b, c4, h, w)
+
+
 class ConvBlock(nn.Module):
     """Conv2d -> BatchNorm2d? -> channel dropout -> activation.
-    ``padding`` is "same" or a symmetric int."""
+    ``padding`` is "same" or a symmetric int. ``packed=True`` (the
+    stride-1 "same" 4x4 block only) takes and returns the 2x2-packed map
+    (``ops/space_to_depth.py``) and computes the same function."""
 
     def __init__(self, chin, chout, kernel_size=4, stride=1, padding=0,
                  use_bias=True, dropout=0.01, act="relu", batchnorm=True, *,
-                 generator=None, dropout_generator=None, dtype=torch.float32):
+                 generator=None, dropout_generator=None, dtype=torch.float32,
+                 packed=False):
         super().__init__()
+        if packed and (kernel_size, stride, padding) != (4, 1, "same"):
+            raise ValueError("a packed ConvBlock is a stride-1 'same' 4x4 "
+                             "block")
+        self.packed = packed
         self.dtype = dtype
         # "same" pads (k - 1) // 2 before and k // 2 after, as XLA does: 1
         # and 2 for the 4x4 kernels (torch's own "same" pads so too, through
@@ -94,32 +129,52 @@ class ConvBlock(nn.Module):
             if padding == "same" else None
         self.Conv_0 = _conv(chin, chout, kernel_size, stride,
                             0 if self.same else padding, use_bias, generator)
-        self.BatchNorm_0 = nn.BatchNorm2d(chout) if batchnorm else None
+        self.BatchNorm_0 = ((_PackedBN if packed else nn.BatchNorm2d)(chout)
+                            if batchnorm else None)
         self.dropout = dropout
         self.act = ACTIVATIONS[act]
         self.dropout_generator = dropout_generator
 
+    def _packed_conv(self, xp):
+        """The 4x4 conv on a packed map: its weights packed in their own
+        dtype, then cast, as JAX casts ``wp`` (``dcgan.py:184``)."""
+        conv, dt = self.Conv_0, self.dtype
+        bias = (cast_to(conv.bias, dt).repeat(4) if conv.bias is not None
+                else None)
+        return packed_conv_same(cast_to(xp, dt),
+                                cast_to(pack_conv_weights(conv.weight), dt),
+                                bias)
+
     def forward(self, x):
-        if self.same:
-            x = F.pad(x, self.same * 2)
-        x = _conv_in(self.Conv_0, x, self.dtype)
+        if self.packed:
+            x = self._packed_conv(x)
+        else:
+            if self.same:
+                x = F.pad(x, self.same * 2)
+            x = _conv_in(self.Conv_0, x, self.dtype)
         if self.BatchNorm_0 is not None:
             x = self.BatchNorm_0(to_float32(x))
         if self.dropout > 0 and self.training:
             keep = 1.0 - self.dropout
-            draw = torch.rand(x.shape[:2] + (1, 1), device=x.device,
+            # the unpacked block's (B, C, 1, 1) draw, tiled over the four
+            # phases of a packed map
+            c = x.shape[1] // 4 if self.packed else x.shape[1]
+            draw = torch.rand((x.shape[0], c, 1, 1), device=x.device,
                               generator=self.dropout_generator)
-            x = x * (draw < keep).to(x.dtype) / keep
+            mask = (draw < keep).to(x.dtype)
+            x = x * (mask.repeat(1, 4, 1, 1) if self.packed else mask) / keep
         return self.act(x)
 
 
 class Generator(nn.Module):
     """nc context frames (as channels) -> nc predicted frames in [0, 1].
-    ``dropout`` reaches every block; 0 turns it off."""
+    ``dropout`` reaches every block; 0 turns it off. ``packed=True``: the
+    same function in the 2x2 space-to-depth layout (H, W even)."""
 
     def __init__(self, nc=4, dropout=0.01, *, generator=None,
-                 dropout_generator=None, dtype=torch.float32):
+                 dropout_generator=None, dtype=torch.float32, packed=False):
         super().__init__()
+        self.packed = packed
         widths = (nc, nc * 8, nc * 4, nc * 2, nc, nc)
         for i in range(5):
             last = i == 4
@@ -127,11 +182,16 @@ class Generator(nn.Module):
                 widths[i], widths[i + 1], 4, padding="same",
                 act="sigmoid" if last else "relu", batchnorm=not last,
                 dropout=dropout, generator=generator,
-                dropout_generator=dropout_generator, dtype=dtype))
+                dropout_generator=dropout_generator, dtype=dtype,
+                packed=packed))
 
     def forward(self, x):
+        if self.packed:
+            x = pack2(x)
         for block in self.children():
             x = block(x)
+        if self.packed:
+            x = unpack2(x)
         return to_float32(x)
 
 

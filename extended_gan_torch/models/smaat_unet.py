@@ -4,7 +4,11 @@ Port of ``extended_gan_tpu/models/smaat_unet.py``: a U-Net whose double
 convs are depthwise-separable and whose skip connections pass through CBAM
 (channel + spatial attention); bilinear upsampling with
 ``align_corners=True``. At ``base=64``, ``kernels_per_layer=2`` it has the
-reference's 4,032,548 parameters.
+reference's 4,032,548 parameters. ``bilinear=False`` (JAX
+``smaat_unet.py:204-296``) upsamples with a 2x2 stride-2 transposed
+convolution (``upconv``, halving the channels) instead, and the decoder's
+widths double (``factor`` 1: a 16b-channel bottleneck); its double convs
+run K3 as the bilinear ones do.
 
 Modules take and return NCHW tensors, as torch's layers do. The
 depthwise-separable convs hand the fused kernel an NHWC view of their input
@@ -163,21 +167,48 @@ class DownDS(nn.Module):
         return self.conv(F.max_pool2d(x, 2))
 
 
+def _conv_transpose(in_ch, out_ch, generator):
+    """flax ``nn.ConvTranspose(kernel_size=(2, 2), strides=(2, 2))`` init:
+    lecun_normal kernel (fan in 4 in_ch), zero bias; torch's (in, out, 2,
+    2) weight."""
+    conv = nn.ConvTranspose2d(in_ch, out_ch, 2, stride=2)
+    lecun_normal_(conv.weight, 4 * in_ch, generator)
+    nn.init.zeros_(conv.bias)
+    return conv
+
+
 class UpDS(nn.Module):
-    """Bilinear x2 upsample of ``x1`` (``align_corners=True``), zero-pad to
-    ``x2``'s size, concatenate ``[x2, x1]`` and double-conv."""
+    """x2 upsample of ``x1``, zero-pad to ``x2``'s size, concatenate ``[x2,
+    x1]`` and double-conv. ``bilinear``: bilinear (``align_corners=True``),
+    the double conv's middle width half the concatenation's; else a 2x2
+    stride-2 transposed conv ``upconv`` to half of ``x1``'s channels, the
+    middle width ``out_ch``."""
 
     def __init__(self, in1_ch, in2_ch, out_ch, kernels_per_layer=1,
-                 use_pallas=False, generator=None, dtype=torch.float32):
+                 use_pallas=False, generator=None, dtype=torch.float32,
+                 bilinear=True):
         super().__init__()
-        cat = in1_ch + in2_ch
-        self.conv = DoubleConvDS(cat, out_ch, cat // 2, kernels_per_layer,
+        self.dtype = dtype
+        if bilinear:
+            self.upconv = None
+            cat = in1_ch + in2_ch
+            mid = cat // 2
+        else:
+            self.upconv = _conv_transpose(in1_ch, in1_ch // 2, generator)
+            cat, mid = in1_ch // 2 + in2_ch, None
+        self.conv = DoubleConvDS(cat, out_ch, mid, kernels_per_layer,
                                  use_pallas, generator, dtype)
 
     def forward(self, x1, x2):
         h, w = x1.shape[2], x1.shape[3]
-        x1 = F.interpolate(x1, size=(2 * h, 2 * w), mode="bilinear",
-                           align_corners=True)
+        if self.upconv is None:
+            x1 = F.interpolate(x1, size=(2 * h, 2 * w), mode="bilinear",
+                               align_corners=True)
+        else:  # in dtype; concatenated in float32, as JAX promotes
+            dt, up = self.dtype, self.upconv
+            x1 = to_float32(F.conv_transpose2d(
+                cast_to(x1, dt), cast_to(up.weight, dt),
+                cast_to(up.bias, dt), stride=2))
         # odd-size inputs: the JAX split, the smaller half first
         dh, dw = x2.shape[2] - 2 * h, x2.shape[3] - 2 * w
         if dh or dw:
@@ -190,7 +221,7 @@ class SmaAt_UNet(nn.Module):  # noqa: N801 - the JAX package's name
 
     def __init__(self, n_channels=4, n_classes=4, kernels_per_layer=2,
                  reduction_ratio=16, base=64, use_pallas=False, moe_experts=0,
-                 generator=None, dtype=torch.float32):
+                 generator=None, dtype=torch.float32, bilinear=True):
         super().__init__()
         if moe_experts:
             raise NotImplementedError(
@@ -200,6 +231,7 @@ class SmaAt_UNet(nn.Module):  # noqa: N801 - the JAX package's name
         kw = dict(kernels_per_layer=kernels_per_layer, use_pallas=use_pallas,
                   generator=generator, dtype=dtype)
         b, r = base, reduction_ratio
+        f = 2 if bilinear else 1  # the JAX package's ``factor``
         self.inc = DoubleConvDS(n_channels, b, **kw)
         self.cbam1 = CBAM(b, r, generator, dtype)
         self.down1 = DownDS(b, 2 * b, **kw)
@@ -208,12 +240,13 @@ class SmaAt_UNet(nn.Module):  # noqa: N801 - the JAX package's name
         self.cbam3 = CBAM(4 * b, r, generator, dtype)
         self.down3 = DownDS(4 * b, 8 * b, **kw)
         self.cbam4 = CBAM(8 * b, r, generator, dtype)
-        self.down4 = DownDS(8 * b, 8 * b, **kw)  # 16b // factor, factor 2
-        self.cbam5 = CBAM(8 * b, r, generator, dtype)
-        self.up1 = UpDS(8 * b, 8 * b, 4 * b, **kw)
-        self.up2 = UpDS(4 * b, 4 * b, 2 * b, **kw)
-        self.up3 = UpDS(2 * b, 2 * b, b, **kw)
-        self.up4 = UpDS(b, b, b, **kw)
+        self.down4 = DownDS(8 * b, 16 * b // f, **kw)
+        self.cbam5 = CBAM(16 * b // f, r, generator, dtype)
+        up = dict(kw, bilinear=bilinear)
+        self.up1 = UpDS(16 * b // f, 8 * b, 8 * b // f, **up)
+        self.up2 = UpDS(8 * b // f, 4 * b, 4 * b // f, **up)
+        self.up3 = UpDS(4 * b // f, 2 * b, 2 * b // f, **up)
+        self.up4 = UpDS(2 * b // f, b, b, **up)
         self.outc = _conv(b, n_classes, 1, True, generator)
 
     def forward(self, x):

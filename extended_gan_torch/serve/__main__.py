@@ -20,6 +20,11 @@
   python -m extended_gan_torch.serve export /tmp/cg --workload cyclegan \\
       --direction yx --out /tmp/g_yx.pt [--quantize w8a8] --check
 
+  # either generator in the 2x2 space-to-depth layout (the same weights;
+  # the spec's "layout" is "packed2"):
+  python -m extended_gan_torch.serve export /tmp/run --workload dcgan \\
+      --packed-g --out /tmp/g_packed.pt --check
+
   # serve an artifact over HTTP (GET /healthz, POST /predict with .npy
   # bodies):
   python -m extended_gan_torch.serve serve /tmp/g.pt --port 8000
@@ -47,9 +52,12 @@ import torch
 def _refuse(args):
     """The JAX script's flags that the port does not take, and the
     combinations it refuses."""
-    if args.packed_g:
-        raise SystemExit("--packed-g is not ported yet (ROADMAP queue 1 "
-                         "item 10)")
+    if args.packed_g and args.workload == "gat":
+        raise SystemExit("--packed-g applies to the dcgan/cyclegan "
+                         "generator workloads only")
+    if args.quantize and args.packed_g:
+        raise SystemExit("--quantize folds BN into the canonical conv "
+                         "layout; combine with --packed-g is unsupported")
     if args.platforms is not None or args.fixed_batch:
         raise SystemExit("--platforms and --fixed-batch shape the JAX "
                          "package's StableHLO artifact; the port's artifact "
@@ -147,7 +155,8 @@ def _export_generator(args, g, meta, im, nc, dev):
     from .export import nhwc_generator
     from .quantize import generator_apply, quantize_generator
 
-    spec = {"workload": "dcgan_generator", "nc": nc, "imsize": im}
+    spec = {"workload": "dcgan_generator", "nc": nc, "imsize": im,
+            "layout": meta["layout"]}
     weights, live = g.state_dict(), nhwc_generator(g)
     if args.quantize:
         if args.calib_npz:
@@ -173,6 +182,11 @@ def _export_generator(args, g, meta, im, nc, dev):
     return spec, weights, live, meta
 
 
+def _layout(args) -> str:
+    """The generator's compute layout, as the JAX export names it."""
+    return "packed2" if args.packed_g else "default"
+
+
 def _export_dcgan(args, dev):
     """(spec, weights, live forward, meta) of the DCGAN generator."""
     from ..train.checkpoint import DCGAN_NETS
@@ -185,11 +199,13 @@ def _export_dcgan(args, dev):
         # the template's widths, as at training time
         params["ngf"] = params["ndf"] = args.ndf
     # the seed only shapes the template; restore() overwrites every weight
+    # packed_g changes the compute layout alone: the state_dict is the same
     nets, opts = build_dcgan(params, device=dev, seed=369 if args.init_seed
-                             is None else args.init_seed)
+                             is None else args.init_seed,
+                             packed_g=args.packed_g)
     g = nets[0].eval()
     meta = {"source": args.experiment_dir, "model_type": "dcgan_generator",
-            "layout": "default"}
+            "layout": _layout(args)}
     if args.init_seed is None:
         key = g.ConvBlock_0.dropout_generator.get_state()
         restored = _restore(args, DCGAN_NETS, nets, opts, key)
@@ -211,12 +227,12 @@ def _export_cyclegan(args, dev):
     # the seed only shapes the template; restore() overwrites every weight
     nets, opts = build_cyclegan(nc=nc, ndf=args.ndf or 64, device=dev,
                                 seed=369 if args.init_seed is None
-                                else args.init_seed)
+                                else args.init_seed, packed_g=args.packed_g)
     name = f"g_{args.direction}"
     g = nets[CYCLEGAN_NETS.index(name)].eval()
     meta = {"source": args.experiment_dir,
             "model_type": f"cyclegan_generator_{args.direction}",
-            "layout": "default"}
+            "layout": _layout(args)}
     if args.init_seed is None:
         key = g.ConvBlock_0.dropout_generator.get_state()
         restored = _restore(args, CYCLEGAN_NETS, nets, opts, key)
@@ -336,7 +352,9 @@ def main(argv=None):
                     help="where --check runs the artifact (default: the "
                          "CUDA card; 'cpu')")
     ex.add_argument("--packed-g", dest="packed_g", action="store_true",
-                    help="not ported yet: refused")
+                    help="dcgan, cyclegan: export the generator's 2x2 "
+                         "space-to-depth compute layout (the same function "
+                         "and weights; the spec's layout is 'packed2')")
     ex.add_argument("--platforms", type=str, nargs="*", default=None,
                     help="the JAX artifact's: refused")
     ex.add_argument("--fixed-batch", dest="fixed_batch", type=int, default=0,

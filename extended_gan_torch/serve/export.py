@@ -16,9 +16,11 @@ The spec's ``workload`` says what the weights are:
   runs its f32 forward with its kernels (K1, K3) as before.
 - ``dcgan_generator``: the DCGAN generator (``nc``, ``imsize``), NHWC
   ``float32[b, imsize, imsize, nc]`` in and out, as the JAX artifact takes
-  it: with no ``quantize`` the ``Generator``'s state_dict; with ``w8`` or
+  it: with no ``quantize`` the ``Generator``'s state_dict, run in the
+  spec's ``layout`` (``default``, or ``packed2``: ``Generator(packed=True)``,
+  the 2x2 space-to-depth layout, the same state_dict); with ``w8`` or
   ``w8a8`` the state of ``serve/quantize.py::quantize_generator`` (the
-  BN-folded int8 chain).
+  BN-folded int8 chain, default layout only).
 
 A spec without ``workload`` (the artifacts of format 1) is a ``gat`` one.
 ``rollout`` K > 1 wraps the forward in a K-step autoregressive rollout.
@@ -146,9 +148,15 @@ def build_forward(spec: dict, weights: dict, device
         model.load_state_dict(dequantize_state_dict(weights) if quantize
                               else weights)
         return model, model
+    layout = spec.get("layout", "default")
+    if layout not in ("default", "packed2"):
+        raise ValueError(f"unknown generator layout {layout!r}")
     if quantize:
+        if layout != "default":
+            raise ValueError("a quantised generator runs the default layout")
         return None, generator_apply(weights, device)
-    model = Generator(spec["nc"], dropout=0.0).to(device).eval()
+    model = Generator(spec["nc"], dropout=0.0,
+                      packed=layout == "packed2").to(device).eval()
     model.load_state_dict(weights)
     return model, nhwc_generator(model)
 

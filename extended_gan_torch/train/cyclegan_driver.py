@@ -37,9 +37,13 @@ the epoch's results; ``profile_trace_dir`` also traces the first epoch with
 ``torch.profiler`` into that directory (JAX ``cyclegan_driver.py:120-124,
 382-384``).
 
-The JAX driver's mesh, tensor/sequence/FSDP parallelism and its packed
-generators are not ported yet: a keyword that sets one of them raises,
-naming the ROADMAP item that ports it.
+``packed_g`` builds both generators in the 2x2 space-to-depth layout
+(``models/dcgan.py``; the same weights and state_dict), off by default as
+in JAX (``None`` is off).
+
+The JAX driver's mesh and tensor/sequence/FSDP parallelism are not ported
+yet: a keyword that sets one of them raises, naming the ROADMAP item that
+ports it.
 """
 
 from __future__ import annotations
@@ -95,27 +99,29 @@ train_single_epoch = functools.partial(gan_epoch, keys=TRAIN_SUMS)
 _NOT_PORTED = {
     "data_axis": (None, 9), "model_axis": (1, 9), "tp_min_channels": (256, 9),
     "fsdp": (False, 9), "fsdp_min_size": (4096, 9), "spatial": (False, 9),
-    "packed_g": ((None, False), 10),
 }
 
 
 def build_cyclegan(*, nc: int = 4, ndf: int = 64, lr: float = 2e-4,
                    beta1: float = 0.5, precision: str = "f32",
                    seed: int = 369, device=None, dropout: float = 0.01,
-                   capturable: bool = False, keys=None):
+                   capturable: bool = False, keys=None,
+                   packed_g: bool = False):
     """``((G_xy, G_yx, D_x, D_y), (their Adam optimizers))`` on ``device``
     (default: the CUDA card), computing in ``precision``'s dtype, the
     weights drawn in that order from a generator seeded ``seed``, the
     generators' channel dropout from ``keys`` (a ``core.prng.KeySeq`` on
     the device; default: one seeded ``seed``). ``capturable``: Adam keeps
-    its step count on the card, for CUDA graphs."""
+    its step count on the card, for CUDA graphs. ``packed_g``: both
+    generators in the 2x2 space-to-depth layout (JAX
+    ``cyclegan_driver.py:47-51``)."""
     dev = resolve_device(device)
     init = torch.Generator().manual_seed(seed)
     drop = (keys or KeySeq(seed, device=dev)).generator
     dtype = resolve_dtype(precision)
     nets = tuple(
         Generator(nc, dropout, generator=init, dropout_generator=drop,
-                  dtype=dtype) for _ in range(2)) + tuple(
+                  dtype=dtype, packed=packed_g) for _ in range(2)) + tuple(
         FrameDiscriminator(nc, ndf, generator=init, dtype=dtype)
         for _ in range(2))
     nets = tuple(net.to(dev) for net in nets)
@@ -133,8 +139,9 @@ def train(*, data_location: str | None = None, epochs: int = 10,
           seed: int = 369, max_batches: int = 0, synthetic: bool = False,
           out_dir: str | None = None, log_every: int = 50,
           save_epoch: int = 0, resume: bool = False, megastep: int = 0,
-          resident: bool = False, profile: bool = False,
-          profile_trace_dir: str = "", device=None, **options):
+          resident: bool = False, packed_g: bool | None = None,
+          profile: bool = False, profile_trace_dir: str = "", device=None,
+          **options):
     """Train on ``device`` (default: the CUDA card). Takes the JAX driver's
     keyword arguments. Returns ``((G_xy, G_yx, D_x, D_y), history)``."""
     refuse_unported(options, _NOT_PORTED)
@@ -146,11 +153,15 @@ def train(*, data_location: str | None = None, epochs: int = 10,
               "synthetic coastal-sea data")
         data_location = ensure_synthetic_coastal(
             None, frames_per_file=64, h=imsize, w=imsize)
+    packed_g = bool(packed_g)  # None: off, as in JAX
+    if packed_g:
+        print("[packed-g] generators in 2x2 space-to-depth layout")
     keys = KeySeq(seed, device=dev)  # the channel dropout's stream
     nets, opts = build_cyclegan(nc=nc, ndf=ndf, lr=lr, precision=precision,
                                 seed=seed, device=dev,
                                 capturable=dev.type == "cuda"
-                                and (megastep > 1 or resident), keys=keys)
+                                and (megastep > 1 or resident), keys=keys,
+                                packed_g=packed_g)
     profiler = epoch_profiler(profile, profile_trace_dir)
     step = timed(make_cyclegan_train_step(*nets, *opts,
                                           cycle_lambda=cycle_lambda), profiler)

@@ -35,9 +35,15 @@ replay under ``megastep``, a resident program) and the epoch
 the epoch's results; ``profile_trace_dir`` also traces the first epoch with
 ``torch.profiler`` into that directory (JAX ``dcgan_driver.py:260-264``).
 
-The JAX driver's mesh, tensor/sequence/FSDP parallelism and its step
-variants (fused_disc, fused_prop, packed_g) are not ported yet: a keyword
-that sets one of them raises, naming the ROADMAP item that ports it.
+``fused_disc`` and ``fused_prop`` pick the step body
+(``train/dcgan_trainer.py::make_dcgan_train_step``), ``packed_g`` builds the
+generator in the 2x2 space-to-depth layout (``models/dcgan.py``), each on
+the single-step, megastep and resident paths; all three are off by
+default, as in JAX (``packed_g=None`` is off).
+
+The JAX driver's mesh and tensor/sequence/FSDP parallelism are not ported
+yet: a keyword that sets one of them raises, naming the ROADMAP item that
+ports it.
 """
 
 from __future__ import annotations
@@ -100,19 +106,19 @@ DEFAULT_DATA = "/mnt/tmp/multi_channel_train_test"
 _NOT_PORTED = {
     "data_axis": (None, 9), "model_axis": (1, 9), "tp_min_channels": (256, 9),
     "fsdp": (False, 9), "fsdp_min_size": (4096, 9), "spatial": (False, 9),
-    "fused_disc": (False, 10), "fused_prop": (False, 10),
-    "packed_g": ((None, False), 10),
 }
 
 
 def build_dcgan(params: dict, *, seed: int, device=None, dropout=0.01,
-                capturable=False, precision: str = "f32", keys=None):
+                capturable=False, precision: str = "f32", keys=None,
+                packed_g: bool = False):
     """``((G, FD, TD), (their Adam optimizers))`` on ``device`` (default:
     the CUDA card), computing in ``precision``'s dtype, the weights drawn
     from a generator seeded ``seed``, the channel dropout from ``keys`` (a
     ``core.prng.KeySeq`` on the device; default: one seeded ``seed``).
     ``capturable``: Adam keeps its step count on the card, for CUDA
-    graphs."""
+    graphs. ``packed_g``: G in the 2x2 space-to-depth layout, with the
+    same weights and state_dict (JAX ``dcgan_driver.py:50-76``)."""
     dev = resolve_device(device)
     init = torch.Generator().manual_seed(seed)
     drop = (keys or KeySeq(seed, device=dev)).generator
@@ -120,7 +126,7 @@ def build_dcgan(params: dict, *, seed: int, device=None, dropout=0.01,
     dtype = resolve_dtype(precision)
     nets = (
         Generator(nc, dropout, generator=init, dropout_generator=drop,
-                  dtype=dtype),
+                  dtype=dtype, packed=packed_g),
         FrameDiscriminator(nc, ndf, generator=init, dtype=dtype),
         TemporalDiscriminator(nc, ndf, dropout, generator=init,
                               dropout_generator=drop, dtype=dtype),
@@ -138,8 +144,10 @@ def train(*, data_location: str | None = None, epochs: int | None = None,
           seed: int = 369, max_batches: int = 0, synthetic: bool = False,
           out_dir: str | None = None, params: dict | None = None,
           precision: str = "f32", resume: bool = False, megastep: int = 0,
-          resident: bool = False, profile: bool = False,
-          profile_trace_dir: str = "", device=None, **options):
+          resident: bool = False, fused_disc: bool = False,
+          fused_prop: bool = False, packed_g: bool | None = None,
+          profile: bool = False, profile_trace_dir: str = "", device=None,
+          **options):
     """Train on ``device`` (default: the CUDA card). Takes the JAX driver's
     keyword arguments. Returns ``((G, FD, TD), history)``."""
     refuse_unported(options, _NOT_PORTED)
@@ -156,13 +164,24 @@ def train(*, data_location: str | None = None, epochs: int | None = None,
             None, frames_train=256, frames_test=64, h=params["imsize"],
             w=params["imsize"])
     print("Random Seed: ", seed)
+    packed_g = bool(packed_g)  # None: off, as in JAX
+    if packed_g:
+        print("[packed-g] generator in 2x2 space-to-depth layout")
     keys = KeySeq(seed, device=dev)  # the channel dropout's stream
     nets, opts = build_dcgan(params, seed=seed, device=dev,
                              capturable=dev.type == "cuda"
                              and (megastep > 1 or resident),
-                             precision=precision, keys=keys)
+                             precision=precision, keys=keys,
+                             packed_g=packed_g)
+    if fused_disc:
+        print("[fused-disc] doubled-batch discriminator passes "
+              "(mixed real+fake BN statistics)")
+    if fused_prop:
+        print("[fused-prop] shared fake G->D pass, 2-cotangent backward "
+              "(G trains against the PRE-update discriminators)")
+    body = dict(fused_disc=fused_disc, fused_prop=fused_prop)
     profiler = epoch_profiler(profile, profile_trace_dir)
-    step = timed(make_dcgan_train_step(*nets, *opts), profiler)
+    step = timed(make_dcgan_train_step(*nets, *opts, **body), profiler)
     eval_step = make_dcgan_eval_step(*nets)
     generators = (keys.generator,)  # registered with each CUDA graph
     if resident:
@@ -173,7 +192,8 @@ def train(*, data_location: str | None = None, epochs: int | None = None,
         resident_k = megastep if megastep > 1 else 8
         train_k = timed(make_dcgan_resident_megastep(
             *nets, *opts, train_store, in_seq_len=params["nc"],
-            out_seq_len=params["nc"], generators=generators), profiler)
+            out_seq_len=params["nc"], generators=generators, **body),
+            profiler)
         eval_k = make_dcgan_resident_eval(*nets, test_store,
                                           in_seq_len=params["nc"],
                                           out_seq_len=params["nc"])
@@ -184,7 +204,8 @@ def train(*, data_location: str | None = None, epochs: int | None = None,
               "index-only transfers")
     elif megastep > 1:
         megastep_fn = timed(make_dcgan_megastep(*nets, *opts,
-                                                generators=generators),
+                                                generators=generators,
+                                                **body),
                             profiler)
         print(f"[megastep] {megastep} steps per CUDA graph")
 

@@ -1,7 +1,7 @@
-"""DCGAN adversarial trainer (port of the default step of
+"""DCGAN adversarial trainer (port of
 ``extended_gan_tpu/train/dcgan_trainer.py``).
 
-One train step keeps the reference's update order:
+The default train step keeps the reference's update order:
 
 1. FrameDiscriminator (FD) and TemporalDiscriminator (TD) gradients on the
    real batch, against label 1;
@@ -17,7 +17,9 @@ reference's torch code does and as the JAX package's ``dedup_g`` body does
 G's channel dropout draws one mask a step, and its BatchNorm running
 statistics take one update. FD's and TD's take three: real, detached fake,
 then the fake for G. Step 5 asks autograd for G's gradients alone, so it
-neither computes nor accumulates the discriminators'.
+neither computes nor accumulates the discriminators'. The JAX package's
+other bodies, ``fused_disc`` and ``fused_prop`` and the two together, are
+options of :func:`make_dcgan_train_step`.
 
 The JAX package pads a ragged last batch to a fixed shape and masks it; the
 port's single steps take it as it comes (its BatchNorm sees no padding).
@@ -57,7 +59,18 @@ def to_nchw(a: np.ndarray) -> np.ndarray:
     return a.squeeze(2) if a.ndim == 5 else a
 
 
-def make_dcgan_train_step(g, fd, td, g_opt, fd_opt, td_opt):
+def _add_grads(params, grads):
+    """Adds ``grads`` into the parameters' ``.grad`` (sets it where none is
+    there yet)."""
+    for p, grad in zip(params, grads):
+        if p.grad is None:
+            p.grad = grad
+        else:
+            p.grad.add_(grad)
+
+
+def make_dcgan_train_step(g, fd, td, g_opt, fd_opt, td_opt, *,
+                          fused_disc=False, fused_prop=False):
     """``step(x, y, mask=None) -> logs``: one adversarial step on a (B, nc,
     H, W) batch; ``mask`` (B,) holds 1 for a real sample and 0 for padding,
     whose losses and metrics then count for nothing (no mask: every sample
@@ -65,33 +78,95 @@ def make_dcgan_train_step(g, fd, td, g_opt, fd_opt, td_opt):
     tensors: the three losses ``errFD``, ``errTD``, ``errG`` and the (num,
     denom) pairs ``train_mse_nd``, ``fd_acc_nd`` and ``td_acc_nd``
     (predictions that round to the label, real and fake together). Nothing
-    in the step copies from the host, so a CUDA graph can capture it."""
+    in the step copies from the host, so a CUDA graph can capture it.
+
+    The body is picked here, once, as JAX picks its step body
+    (``dcgan_trainer.py:111-215``, ``:366-554``):
+
+    - default: the six stages of the module docstring;
+    - ``fused_disc``: one doubled-batch pass per discriminator over the
+      real rows, then the detached fake rows. Deviations, as in JAX: the
+      discriminators' BatchNorm statistics mix real and fake rows, and
+      their running statistics take one update where two were; TD's
+      dropout draws one mask over the 2B rows. The four BCE halves are
+      summed into one backward. Stage 5 is unchanged.
+    - ``fused_prop`` (FusedProp, arxiv 2004.03335): D on the real batch as
+      before, then one fake chain G -> FD, TD, not detached, and two pulls
+      back through it before any optimizer step: the fake rows' BCE
+      against 0 to the discriminators' parameters, against 1 to G's. So G
+      trains against the pre-update discriminators, FD's and TD's running
+      statistics take two updates (real, fake), and TD draws one mask for
+      the fake rows. As in the vanilla step (``train/adversarial.py``) the
+      port makes two ``autograd.grad`` pulls with ``retain_graph``, each
+      asking only for the leaves it needs, where JAX makes one vmapped
+      pull of two cotangents.
+    - both: one doubled-batch chain [real; fake] per discriminator, one
+      pull of the D losses (real against 1, fake against 0) to D's
+      parameters and one of the fake rows' G loss to G's.
+
+    JAX's ``dedup_g`` body (G's forward once, step 5 pulled back through
+    it) is the port's default body, so JAX's refusal of ``fused_prop``
+    with ``dedup_g`` (``:172-173``) has no counterpart here."""
     g_params = list(g.parameters())
+    d_params = list(fd.parameters()) + list(td.parameters())
+
+    def doubled(x, y, fake):
+        """(p_rf, p_rt, p_ff, p_ft) from one pass per discriminator over
+        [real rows; ``fake`` rows]."""
+        b = len(y)
+        p_f = fd(torch.cat([y, fake]))
+        p_t = td(torch.cat([torch.cat([x, y], 1), torch.cat([x, fake], 1)]))
+        return p_f[:b], p_t[:b], p_f[b:], p_t[b:]
 
     def step(x, y, mask=None):
         for net in (g, fd, td):
             net.train()
         fd_opt.zero_grad(set_to_none=True)
         td_opt.zero_grad(set_to_none=True)
-        # 1) real
-        p_rf, p_rt = fd(y), td(torch.cat([x, y], 1))
+        if fused_disc:
+            # 2) fake, then 1) and 3) as one doubled-batch pass
+            fake = g(x)
+            p_rf, p_rt, p_ff, p_ft = doubled(
+                x, y, fake if fused_prop else fake.detach())
+        else:
+            # 1) real
+            p_rf, p_rt = fd(y), td(torch.cat([x, y], 1))
         err_fd_real = bce(p_rf, 1.0, mask=mask)
         err_td_real = bce(p_rt, 1.0, mask=mask)
-        (err_fd_real + err_td_real).backward()
-        # 2) fake, 3) detached fake
-        fake = g(x)
-        fake_sg = fake.detach()
-        p_ff, p_ft = fd(fake_sg), td(torch.cat([x, fake_sg], 1))
+        if not fused_disc:
+            (err_fd_real + err_td_real).backward()
+            # 2) fake, 3) the fake rows (detached unless FusedProp)
+            fake = g(x)
+            fake_d = fake if fused_prop else fake.detach()
+            p_ff, p_ft = fd(fake_d), td(torch.cat([x, fake_d], 1))
         err_fd_fake = bce(p_ff, 0.0, mask=mask)
         err_td_fake = bce(p_ft, 0.0, mask=mask)
-        (err_fd_fake + err_td_fake).backward()
-        # 4)
-        fd_opt.step()
-        td_opt.step()
-        # 5) through the updated discriminators, 6)
-        err_g = (bce(fd(fake), 1.0, mask=mask)
-                 + bce(td(torch.cat([x, fake], 1)), 1.0, mask=mask))
-        for p, grad in zip(g_params, torch.autograd.grad(err_g, g_params)):
+        d_fake = err_fd_fake + err_td_fake
+        if fused_prop:
+            # both pulls before any optimizer step: G against the
+            # pre-update discriminators
+            err_g = bce(p_ff, 1.0, mask=mask) + bce(p_ft, 1.0, mask=mask)
+            d_loss = (err_fd_real + err_td_real + d_fake if fused_disc
+                      else d_fake)
+            _add_grads(d_params, torch.autograd.grad(d_loss, d_params,
+                                                     retain_graph=True))
+            g_grads = torch.autograd.grad(err_g, g_params)
+            fd_opt.step()
+            td_opt.step()
+        else:
+            if fused_disc:
+                (err_fd_real + err_td_real + d_fake).backward()
+            else:
+                d_fake.backward()
+            # 4)
+            fd_opt.step()
+            td_opt.step()
+            # 5) through the updated discriminators
+            err_g = (bce(fd(fake), 1.0, mask=mask)
+                     + bce(td(torch.cat([x, fake], 1)), 1.0, mask=mask))
+            g_grads = torch.autograd.grad(err_g, g_params)
+        # 6)
+        for p, grad in zip(g_params, g_grads):
             p.grad = grad
         g_opt.step()
         with torch.no_grad():
@@ -112,13 +187,17 @@ def make_dcgan_train_step(g, fd, td, g_opt, fd_opt, td_opt):
     return step
 
 
-def make_dcgan_megastep(g, fd, td, g_opt, fd_opt, td_opt, *, generators=()):
+def make_dcgan_megastep(g, fd, td, g_opt, fd_opt, td_opt, *, generators=(),
+                        fused_disc=False, fused_prop=False):
     """K adversarial steps a call (``megastep(xs, ys, masks) -> logs``, a
     leading K axis on each): one CUDA graph on the card, K eager steps on
-    the CPU; the step is JAX's ``dedup_g`` body, as the single step is.
-    ``generators``: the dropout's generators on the card. Logs: the three
-    losses of the last step, the ``*_nd`` pairs summed over the K."""
-    return Megastep(make_dcgan_train_step(g, fd, td, g_opt, fd_opt, td_opt),
+    the CPU; the step is :func:`make_dcgan_train_step`'s body, with its
+    ``fused_disc`` and ``fused_prop``. ``generators``: the dropout's
+    generators on the card. Logs: the three losses of the last step, the
+    ``*_nd`` pairs summed over the K."""
+    return Megastep(make_dcgan_train_step(g, fd, td, g_opt, fd_opt, td_opt,
+                                          fused_disc=fused_disc,
+                                          fused_prop=fused_prop),
                     optimizers=(g_opt, fd_opt, td_opt), generators=generators)
 
 

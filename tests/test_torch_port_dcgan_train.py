@@ -212,8 +212,6 @@ def test_cli_trains_on_the_cpu(tmp_path, monkeypatch):
 UNPORTED = [
     ("data_axis", 2, 9), ("model_axis", 2, 9), ("tp_min_channels", 64, 9),
     ("fsdp", True, 9), ("fsdp_min_size", 1, 9), ("spatial", True, 9),
-    ("fused_disc", True, 10), ("fused_prop", True, 10),
-    ("packed_g", True, 10),
 ]
 
 
@@ -235,8 +233,7 @@ def test_unported_keywords_at_their_off_values_pass(monkeypatch):
     offs = {k: v[0][0] if isinstance(v[0], tuple) else v[0]
             for k, v in dcgan_driver._NOT_PORTED.items()}
     with pytest.raises(RuntimeError, match="past the option checks"):
-        dcgan_driver.train(packed_g=False, **{k: v for k, v in offs.items()
-                                               if k != "packed_g"})
+        dcgan_driver.train(**offs)
     with pytest.raises(TypeError, match="bogus"):
         dcgan_driver.train(bogus=1)
 

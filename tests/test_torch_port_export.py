@@ -273,7 +273,7 @@ def test_format_1_artifacts_still_load(tmp_path, flax_gat):
 
 @pytest.mark.parametrize("argv,match", [
     (["--workload", "cyclegan"], "no checkpoints"),
-    (["--packed-g"], r"queue 1 item 10"),
+    (["--packed-g"], "dcgan/cyclegan generator workloads only"),
     (["--platforms", "cpu"], "StableHLO"),
     (["--fixed-batch", "2"], "StableHLO"),
     (["--quantize", "w8a8"], "weight-only --quantize w8"),

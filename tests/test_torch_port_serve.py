@@ -194,7 +194,7 @@ def test_export_cli_init_seed_defaults_to_config_size(tmp_path):
 
 
 @pytest.mark.parametrize("argv,match", [
-    (["--workload", "cyclegan", "--packed-g"], "ROADMAP"),
+    (["--packed-g"], "dcgan/cyclegan generator workloads only"),
     (["--rollout", "0"], "rollout"),
     (["--rollout-final"], "rollout-final"),
 ])

@@ -175,8 +175,7 @@ def test_unet_model_state_matches_the_flax_tree_leaf_for_leaf():
     assert state["unet.inc.dsc0.depthwise_weight"].shape == (8, 1, 3, 3)
 
 
-@pytest.mark.parametrize("kwargs", [dict(per_vertex_bn=True),
-                                    dict(moe_experts=4)])
+@pytest.mark.parametrize("kwargs", [dict(moe_experts=4)])
 def test_unported_unet_options_raise(kwargs):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         UnetModel(20, 20, 6, **kwargs)
