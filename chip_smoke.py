@@ -205,7 +205,30 @@ Phases, each fatal on failure (non-zero exit, no result line):
              ``UnetModel(per_vertex_bn=True)`` and the ``bilinear=False``
              SmaAt-UNet at final_smaatunet's width against the plain DSC
              (K3 18 a forward, 18 + 18 a step). K1 and K2 0 launches.
-16. report - the total time, the ``kernels`` JSON line, the card's name and
+16. moe     - the Switch-MoE SmaAt-UNet (``models/moe.py``; final_smaatunet's
+             geometry, 20x20, V 6, b=32, E = 8: 12,437,540 parameters): one
+             step on the card against float64 on the CPU per tensor, the
+             routing of every token equal, the gate left out of combine
+             (a planted fault) failing; ``per_vertex_bn`` (each vertex
+             routed apart) one step against the plain DSC; ms a step
+             eager and as a K=8 graph in f32 and bf16, busy ms, kernels a
+             step, peak MiB, and the UNet without the MoE beside it (the
+             MoE's own busy time); the graph against eager; ``python -m
+             extended_gan_torch.gat train --model-type unet --moe-experts
+             8`` streaming and ``--megastep 8 --resident``; a run cut by
+             a SIGTERM in a child process mid-epoch and resumed, against
+             uninterrupted runs;
+             ``serve export`` f32 and w8 with ``--check``, served over HTTP
+             at b = 1 and 5, each reply against a batch-1 forward on the
+             CPU. K3 18 + 18 a step (the MoE adds no launch); K1, K2 0.
+17. preprocess - the preprocessing tools feeding the card's trainers: a
+             synthetic ARAI archive through ``preprocess.arai`` (numpy
+             reader) then ``python -m extended_gan_torch.gat train
+             --dataset arai`` (K1 2 + 2 a step), a coastal ``.npy`` dump
+             through ``preprocess.coastal_sea`` then ``python -m
+             extended_gan_torch.cycle_gan``. The KNMI tool reads HDF5 (no
+             h5py on the card's machine): held on the CPU only.
+18. report - the total time, the ``kernels`` JSON line, the card's name and
              power limit, and the last line ``{"ok": true, "device":
              {...}}``.
 """
@@ -3301,7 +3324,7 @@ def _switched_build_model():
 
     def build(model_type, *, image_width, image_height, n_vertices,
               mapping_type, time_steps, use_pallas, device, generator,
-              dtype, conv_impl):
+              dtype, conv_impl, moe_experts=0):
         return GatModel(image_width, image_height, n_vertices, model_type,
                         mapping_type, time_steps, use_pallas=True,
                         generator=generator, use_pallas_mapping=True,
@@ -4534,11 +4557,12 @@ def phase_gan_variants(tmp, batch=32):
       body with ``packed_g``: one step's gradients and running statistics
       on the card against the same body in float64 on the CPU, each tensor
       within DCGAN_FLOOR or 10x roundoff's scale: what 1e-7 noise on the
-      batch moves float64, or what another row order of the
-      batch moves the card's own float32 result (G's first block under
+      batch moves float64, or what another row order of the batch (three
+      orders) moves the card's own float32 result (G's first block under
       ``fused_disc``: about 8e-4 of G's largest gradient entry, where the
       noise moves float64 9e-5); the fake rows taken against label 1 (a
-      planted fault) must miss those limits 10x; ms a step eager and as a K=8 CUDA
+      planted fault) must miss those limits 10x, and the same step in TF32
+      (a lower precision) must miss them; ms a step eager and as a K=8 CUDA
       graph (dropout 0.01), busy ms and kernels a step in a replay, peak
       MiB of an eager step; 16 steps as eager + graph against 16 eager
       steps (dropout off, cuDNN deterministic);
@@ -4596,20 +4620,33 @@ def phase_gan_variants(tmp, batch=32):
         return tuple((a * (1 + 1e-7 * rng.standard_normal(a.shape)))
                      .astype(np.float32) for a in real)
 
-    order = np.random.default_rng(0).permutation(batch)
+    # three row orders: one under-samples the card's roundoff at G's first
+    # block (fused_disc: one order moved it 8e-4 of G's largest gradient in
+    # one run, 8.7e-5 in another, where the card lay 1.6e-3 from float64)
+    orders = [np.random.default_rng(s).permutation(batch) for s in range(3)]
     rows = {}
     for name, (body, packed) in VARIANT_BODIES.items():
         t0 = time.perf_counter()
         _reset_launches()
         card_run = variant_step(states, real, dev, torch.float32, body,
                                 packed)
-        # the same batch in another row order: the same step, which the
+        # the same batch in other row orders: the same step, which the
         # card's float32 reductions round otherwise
-        reordered = variant_step(states, tuple(a[order] for a in real), dev,
-                                 torch.float32, body, packed)
+        reordered = [variant_step(states, tuple(a[order] for a in real), dev,
+                                  torch.float32, body, packed)
+                     for order in orders]
         with _fake_rows_against_1():
             fault = variant_step(states, real, dev, torch.float32, body,
                                  packed)
+        # a lower precision, which the limits below must refuse: TF32
+        torch.backends.cudnn.allow_tf32 = True
+        torch.backends.cuda.matmul.allow_tf32 = True
+        try:
+            tf32 = variant_step(states, real, dev, torch.float32, body,
+                                packed)
+        finally:
+            torch.backends.cudnn.allow_tf32 = False
+            torch.backends.cuda.matmul.allow_tf32 = False
         ref = variant_step(states, real, torch.device("cpu"), torch.float64,
                            body, packed)
         draws = [variant_step(states, noisy(0), torch.device("cpu"),
@@ -4620,7 +4657,7 @@ def phase_gan_variants(tmp, batch=32):
         check(rel.max() <= DCGAN_LOSS_TOL,
               f"gan_variants {name}: losses {card_run['losses']} vs float64 "
               f"{ref['losses']}")
-        worst, fault_worst = 0.0, 0.0
+        worst, fault_worst, tf32_worst = 0.0, 0.0, 0.0
         for what in ("grads", "stats"):
             for i, net in enumerate(("G", "FD", "TD")):
                 w = ref[what][i]
@@ -4628,10 +4665,10 @@ def phase_gan_variants(tmp, batch=32):
                     continue
                 gaps = _leaf_gaps(card_run[what][i], w)
                 # roundoff's scale: what 1e-7 noise moves float64, or what
-                # the row order moves the card's own float32 result
+                # a row order moves the card's own float32 result
                 sens = np.max([_leaf_gaps(d[what][i], w) for d in draws]
-                              + [_leaf_gaps(reordered[what][i],
-                                            card_run[what][i])], 0)
+                              + [_leaf_gaps(r[what][i], card_run[what][i])
+                                 for r in reordered], 0)
                 limits = np.maximum(DCGAN_FLOOR, DCGAN_SENS_FACTOR * sens)
                 at = int(np.argmax(gaps / limits))
                 check((gaps <= limits).all(),
@@ -4641,21 +4678,28 @@ def phase_gan_variants(tmp, batch=32):
                 worst = max(worst, float((gaps / limits).max()))
                 fault_worst = max(fault_worst, float(
                     (_leaf_gaps(fault[what][i], w) / limits).max()))
+                tf32_worst = max(tf32_worst, float(
+                    (_leaf_gaps(tf32[what][i], w) / limits).max()))
         check(fault_worst > 10,
               f"gan_variants {name}: the fake rows against label 1 stay "
               f"within {fault_worst:.2f} of the limits")
+        check(tf32_worst > 1,
+              f"gan_variants {name}: a TF32 step stays within "
+              f"{tf32_worst:.3f} of the limits")
         gap_ge, bitwise, replays = _variant_graph_vs_eager(body, packed,
                                                            inputs)
         check(gap_ge <= MEGA_LIMIT and replays == 1,
               f"gan_variants {name}: graph against eager {gap_ge:.3e} "
               f"(limit {MEGA_LIMIT}), {replays} replays")
         rows[name] = dict(loss_rel=float(rel.max()), worst_of_limit=worst,
-                          fault_of_limit=fault_worst, graph_vs_eager=gap_ge,
+                          fault_of_limit=fault_worst,
+                          tf32_of_limit=tf32_worst, graph_vs_eager=gap_ge,
                           bitwise=bitwise)
         print(f"[gan_variants] DCGAN b={batch} exact f32, body {name}: one "
               f"step vs CPU float64: losses {rel.max():.3e} relative, "
               f"gradients and statistics at most {worst:.3f} of their "
-              f"per-tensor limits, the planted fault {fault_worst:.1f}; 16 "
+              f"per-tensor limits, the planted fault {fault_worst:.1f}, a "
+              f"TF32 step {tf32_worst:.3f}; 16 "
               f"steps eager+graph vs eager {gap_ge:.3e}"
               f"{' (bitwise)' if bitwise else ''} ({ref_s:.1f} s for the "
               f"references)")
@@ -4831,6 +4875,630 @@ def phase_gan_variants(tmp, batch=32):
     secs = time.perf_counter() - t_phase
     print(f"[gan_variants] the phase took {secs:.1f} s")
     return dict(launches=by_path, rows=rows, unets=unets, secs=secs)
+
+
+MOE_E = 8
+MOE_PARAMS = 12_437_540  # the JAX package's count at E = 8 (probe_moe.py)
+MOE_AUX_W = 0.01
+
+
+def _moe_model(device, *, use_pallas=True, per_vertex=False, seed=0,
+               dtype=None, hw=20, v=6):
+    """final_smaatunet's model with the Switch-MoE bottleneck (E = 8) from
+    ``seed``, on ``device``, in train mode."""
+    import torch
+
+    from extended_gan_torch.models.unet_model import UnetModel
+
+    model = UnetModel(hw, hw, v, mapping_type="linear",
+                      per_vertex_bn=per_vertex, use_pallas=use_pallas,
+                      moe_experts=MOE_E,
+                      generator=torch.Generator().manual_seed(seed),
+                      dtype=dtype or torch.float32)
+    return model.to(device).train()
+
+
+def _moe_routing(model, x):
+    """One train-mode forward of ``model`` on ``x`` under ``sow_moe``, its
+    MoE input captured: (expert of each kept token or -1, kept mask, the
+    smallest top-1 router margin, tokens dropped, output)."""
+    import torch
+
+    from extended_gan_torch.models import moe
+
+    (layer,) = moe.moe_layers(model)
+    seen = []
+    hook = layer.register_forward_pre_hook(
+        lambda mod, args: seen.append(args[0].detach()))
+    try:
+        with torch.no_grad(), moe.sow_moe([layer]) as sown:
+            y = model(x)
+    finally:
+        hook.remove()
+    tokens = layer.grouped_tokens(seen[0])
+    cap = moe.expert_capacity(tokens.shape[1], MOE_E, layer.capacity_factor)
+    d, _, _ = moe.route_top1(tokens, layer.router, cap)
+    kept = d.sum(dim=(-2, -1)) > 0
+    expert = torch.where(kept, d.sum(-1).argmax(-1), -1)
+    probs = torch.softmax(tokens.double() @ layer.router.detach().double(),
+                          -1)
+    top2 = probs.topk(2, dim=-1).values
+    margin = float((top2[..., 0] - top2[..., 1]).min())
+    (_, load), = sown
+    return (expert.cpu(), kept.cpu(), margin,
+            int(tokens.shape[0] * tokens.shape[1] - load.sum().item()), y)
+
+
+def _moe_step(state, x, y, device, dtype, *, per_vertex=False, fault=False,
+              use_pallas=None):
+    """One train step (SGD at lr 0, ``moe_aux_weight`` 0.01) of the MoE
+    UNet from ``state`` on numpy (x, y), in ``dtype`` on ``device`` (the
+    kernels on the card unless ``use_pallas=False``, the plain DSC on the
+    CPU): its loss, gradients and running statistics (float64, on the
+    CPU), and its routing. ``fault`` plants the gate left out of
+    combine."""
+    import torch
+
+    from extended_gan_torch.models import moe
+    from extended_gan_torch.train.gat_trainer import make_gat_train_step
+
+    if use_pallas is None:
+        use_pallas = device.type == "cuda"
+    model = _moe_model(device, use_pallas=use_pallas, per_vertex=per_vertex)
+    model.load_state_dict(state)
+    model = model.to(dtype)
+    xt, yt = (torch.from_numpy(a).to(device, dtype) for a in (x, y))
+    routing = _moe_routing(model, xt)
+    model.load_state_dict(state)  # the routing pass moved the statistics
+    opt = torch.optim.SGD(model.parameters(), lr=0.0)
+    step = make_gat_train_step(model, opt, moe_aux_weight=MOE_AUX_W)
+    real = moe.route_top1
+    if fault:
+        def gateless(*a):
+            d, _, aux = real(*a)
+            return d, d, aux
+        moe.route_top1 = gateless
+    try:
+        loss, _ = step(xt, yt, torch.ones(len(x), device=device, dtype=dtype))
+    finally:
+        moe.route_top1 = real
+
+    def cpu(t):
+        return t.to("cpu", torch.float64, copy=True)
+
+    return dict(loss=float(loss),
+                grads=[cpu(p.grad) for p in model.parameters()],
+                stats=[cpu(b) for k, b in model.state_dict().items()
+                       if "running" in k], routing=routing[:4])
+
+
+def _moe_step_make(*, dense=False):
+    """make(dtype, remat) for ``_step_numbers``: the MoE UNet (or, with
+    ``dense``, the same UNet without it) from seed 369, capturable Adam."""
+    import torch
+
+    from extended_gan_torch.models.registry import build_model
+    from extended_gan_torch.train.gat_trainer import (
+        make_gat_megastep,
+        make_gat_train_step,
+    )
+
+    def make(dtype=torch.float32, remat=False):
+        model = build_model("unet", image_width=20, image_height=20,
+                            n_vertices=6, mapping_type="linear",
+                            device="cuda", dtype=dtype,
+                            generator=torch.Generator().manual_seed(369),
+                            moe_experts=0 if dense else MOE_E)
+        opt = torch.optim.Adam(model.parameters(), lr=1e-3,
+                               weight_decay=0.01, capturable=True)
+        aux = 0.0 if dense else MOE_AUX_W
+        step = make_gat_train_step(model, opt, remat=remat,
+                                   moe_aux_weight=aux)
+        return ((model,), lambda *a: [step(*a)[0]],
+                make_gat_megastep(model, opt, remat=remat,
+                                  moe_aux_weight=aux), (opt,))
+    return make
+
+
+def _moe_resume(tmp, knmi, stop_after=8):
+    """The MoE UNet through the conv-GAT driver (the KNMI archive
+    ``knmi``, 20x20, b=32, 2 epochs of 6 batches, checkpoints on): four
+    uninterrupted runs here (the three twins' gaps to the first give the
+    run-to-run floor: the upsampling's backward adds with atomics), the
+    cut run in a :class:`_Child` that gets a real SIGTERM once it has
+    printed ``stop_after`` steps (the driver then finishes the step it is
+    in: it stops after step ``stop_after + 1``, the 3rd of epoch 2), the
+    resume here, and a run whose 5th optimizer step is skipped (must
+    fail); held by ``utils.compare.held_to_reference``, the fault's margin
+    reported beside the bound."""
+    import torch
+
+    from extended_gan_torch import ops
+    from extended_gan_torch.train import gat_driver
+    from extended_gan_torch.utils.compare import (
+        drift,
+        held_to_reference,
+        widest,
+    )
+
+    kw = dict(model_type="unet", mapping_type="linear", dataset="kmni",
+              preprocessed_folder=knmi, downsample_size=(20, 20),
+              train_batch_size=32, epochs=2, max_batches=6,
+              checkpoint_every=10, moe_experts=MOE_E)
+    twins = ("twin", "twin2", "twin3")
+    outs = {k: os.path.join(tmp, "moe_" + k)
+            for k in ("ref", *twins, "run", "fault")}
+    child = _Child("moe resume", {
+        "kind": "gat", "kwargs": {**kw, "output_path": outs["run"]}},
+        stop_after)
+    with contextlib.redirect_stdout(io.StringIO()):
+        for k in ("ref", *twins):
+            gat_driver.train(output_path=outs[k], **kw)
+        cut = child.finish()
+        before = ops.launch_counts()
+        gat_driver.train(output_path=outs["run"], resume=True, **kw)
+        torch.cuda.synchronize()
+        launched = {n: c - before[n] for n, c in
+                    ops.launch_counts().items() if c != before[n]}
+        real_step = torch.optim.Adam.step
+        calls = [0]
+
+        def skip_one(self, *a, **k):
+            calls[0] += 1
+            return None if calls[0] == 5 else real_step(self, *a, **k)
+        torch.optim.Adam.step = skip_one
+        try:
+            gat_driver.train(output_path=outs["fault"], **kw)
+        finally:
+            torch.optim.Adam.step = real_step
+    check("stopped resumably mid-epoch 2" in "".join(child.tail),
+          "moe resume: no mid-epoch snapshot:\n" + "".join(child.tail))
+    check(cut["launches"].get("dsconv_bwd", 0) == 18 * (stop_after + 1),
+          f"moe resume: K3 launches in the cut run {cut['launches']}")
+    want = _float_leaves(outs["ref"])
+    floor = widest(drift(_float_leaves(outs[k]), want) for k in twins)
+    verdict = held_to_reference(_float_leaves(outs["run"]), want, floor)
+    fault = held_to_reference(_float_leaves(outs["fault"]), want, floor)
+    check(verdict["ok"] and not fault["ok"],
+          f"moe resume: resumed against uninterrupted {verdict}; a skipped "
+          f"optimizer step {fault}")
+    check(launched.get("dsconv_fwd", 0) > 0
+          and launched.get("dsconv_bwd", 0) == 18 * (11 - stop_after),
+          f"moe resume: K3 launches in the resumed run {launched}")
+    return dict(cut, verdict=verdict, fault=fault, launched=launched)
+
+
+def phase_moe(tmp, batch=32):
+    """The Switch-MoE SmaAt-UNet (``models/moe.py``) on the card, at
+    final_smaatunet's geometry (20x20, T 4, V 6, b=32) with E = 8 experts,
+    capacity factor 2.0, ``moe_aux_weight`` 0.01; outputs under ``tmp``:
+
+    - its parameter count, 12,437,540 (the JAX package's);
+    - ms a step eager and as a K=8 CUDA graph, exact f32 and bf16, busy ms
+      and kernels a step in a replay, peak MiB, K3's launches (18 + 18 a
+      step, by the counters), and the same for the UNet without the MoE,
+      whose gap is the MoE's own busy time; tokens dropped a step (the
+      ``load`` diagnostic);
+    - one step's loss, gradients and running statistics on the card
+      against float64 on the CPU, each tensor within TRAIN_GRAD_FLOOR or
+      10x what 1e-7 noise on the batch moves the card's own step, the
+      routing (expert and kept mask of every token) equal,
+      the smallest top-1 margin printed; the gate left out of combine (a
+      planted fault) must miss those limits;
+    - the graph against eager by ``graph_against_eager`` (atomics: within
+      10x eager's own run-to-run drift, planted faults failing);
+    - ``per_vertex_bn=True``: one step with K3 against the plain DSC on
+      the card (loss, gradients, routing by vertex);
+    - ``python -m extended_gan_torch.gat train --model-type unet
+      --moe-experts 8`` on a KNMI archive (4 files of 96 frames at 20x20),
+      streaming (4 batches) and ``--megastep 8 --resident`` (16 steps: 2
+      programs);
+    - a run cut by a real SIGTERM in a child process mid-epoch and
+      resumed here, against uninterrupted ones (``_moe_resume``);
+    - ``serve export`` of an MoE experiment, f32 and ``--quantize w8``,
+      with ``--check``, served over HTTP at b = 1 and 5, each sample's
+      reply held against a batch-1 forward of the artifact on the CPU.
+
+    K1 and K2 launch 0 times. Returns the launches by path and the rows."""
+    import numpy as np
+    import torch
+
+    from extended_gan_torch import ops
+    from extended_gan_torch.data.synthetic import make_kmni_dataset
+    from extended_gan_torch.gat.__main__ import main as gat_cli
+    from extended_gan_torch.serve.__main__ import main as serve_cli
+    from extended_gan_torch.serve.export import load_exported
+    from extended_gan_torch.train.state import param_count
+
+    t_phase = time.perf_counter()
+    card = card_line()
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev, cpu = torch.device("cuda"), torch.device("cpu")
+    by_path, rows = {}, {}
+
+    # 1. the model, and one step against float64 on the CPU
+    _reset_launches()
+    model = _moe_model(dev)
+    n_params = param_count(model)
+    check(n_params == MOE_PARAMS,
+          f"moe: {n_params} parameters, the JAX package counts {MOE_PARAMS}")
+    state = {k: v.cpu() for k, v in model.state_dict().items()}
+    del model
+    rng = np.random.default_rng(11)
+    x = rng.random((batch, 20, 20, 4, 6), np.float32)
+    y = rng.random((batch, 20, 20, 4, 6), np.float32)
+    noisy = (x * (1 + 1e-7 * rng.standard_normal(x.shape))).astype(np.float32)
+    t0 = time.perf_counter()
+    got = _moe_step(state, x, y, dev, torch.float32)
+    got_noisy = _moe_step(state, noisy, y, dev, torch.float32)
+    fault = _moe_step(state, x, y, dev, torch.float32, fault=True)
+    launched = ops.launch_counts()
+    ref = _moe_step(state, x, y, cpu, torch.float64)
+    ref_s = time.perf_counter() - t0
+    check(launched["dsconv_fwd"] == 3 * 2 * 18
+          and launched["dsconv_bwd"] == 3 * 18,
+          f"moe: K3 launches {launched} for 3 routing forwards and 3 steps")
+    by_path["moe: one step vs float64, 3 steps and their forwards"] = \
+        launched
+    (e_got, k_got, _, drop_got), (e_ref, k_ref, margin, drop_ref) = \
+        got["routing"], ref["routing"]
+    check(torch.equal(e_got, e_ref) and torch.equal(k_got, k_ref),
+          f"moe: routing on the card differs from float64's at "
+          f"{int((e_got != e_ref).sum())} tokens (smallest top-1 margin "
+          f"{margin:.3e})")
+    loss_rel = abs(got["loss"] - ref["loss"]) / abs(ref["loss"])
+    check(loss_rel <= TRAIN_LOSS_TOL, f"moe: loss {got['loss']} vs float64 "
+          f"{ref['loss']}")
+    worst = fault_worst = 0.0
+    for what in ("grads", "stats"):
+        w = ref[what]
+        # roundoff's scale: what 1e-7 noise on the batch moves the card's
+        # own float32 step (a float64 draw on the CPU as well cost 20 s)
+        sens = _leaf_gaps(got_noisy[what], got[what])
+        limits = np.maximum(TRAIN_GRAD_FLOOR, TRAIN_SENS_FACTOR * sens)
+        gaps = _leaf_gaps(got[what], w)
+        at = int(np.argmax(gaps / limits))
+        check((gaps <= limits).all(),
+              f"moe: {what}, card f32 vs CPU float64, tensor {at} "
+              f"{gaps[at]:.3e} of the largest entry (limit {limits[at]:.3e})")
+        worst = max(worst, float((gaps / limits).max()))
+        fault_worst = max(fault_worst, float(
+            (_leaf_gaps(fault[what], w) / limits).max()))
+    check(fault_worst > 10, f"moe: the gate left out of combine stays within "
+          f"{fault_worst:.2f} of the limits")
+    rows["float64"] = dict(loss_rel=loss_rel, worst_of_limit=worst,
+                           fault_of_limit=fault_worst, margin=margin,
+                           dropped=drop_got, ref_s=ref_s)
+    print(f"[moe] E={MOE_E}, {n_params} parameters, b={batch} exact f32: one "
+          f"step vs CPU float64: loss {loss_rel:.3e} relative, gradients and "
+          f"statistics at most {worst:.3f} of their per-tensor limits, the "
+          f"gate left out of combine {fault_worst:.1f}; routing equal at all "
+          f"{len(e_got.view(-1))} tokens (smallest top-1 margin "
+          f"{margin:.3e}), {drop_got} dropped ({drop_ref} in float64); "
+          f"{ref_s:.1f} s")
+
+    # 2. per_vertex_bn: each vertex routed apart, one step with K3 against
+    # the plain DSC on the card (the per-vertex UNet is held to JAX on the
+    # CPU; a float64 step here took 17 s of the host)
+    _reset_launches()
+    pv_state = {k: v.cpu() for k, v in
+                _moe_model(dev, per_vertex=True).state_dict().items()}
+    pv = _moe_step(pv_state, x, y, dev, torch.float32, per_vertex=True)
+    launched = ops.launch_counts()
+    pv_ref = _moe_step(pv_state, x, y, dev, torch.float32, per_vertex=True,
+                       use_pallas=False)
+    pv_noisy = _moe_step(pv_state, noisy, y, dev, torch.float32,
+                         per_vertex=True, use_pallas=False)
+    pv_rel = abs(pv["loss"] - pv_ref["loss"]) / abs(pv_ref["loss"])
+    pv_grad = _net_gap(pv["grads"], pv_ref["grads"])
+    # what 1e-7 noise on the batch moves the plain step: roundoff's scale
+    pv_tol = max(TRAIN_GRAD_FLOOR, TRAIN_SENS_FACTOR * _net_gap(
+        pv_noisy["grads"], pv_ref["grads"]))
+    check(pv_rel <= TRAIN_LOSS_TOL and pv_grad <= pv_tol
+          and torch.equal(pv["routing"][0], pv_ref["routing"][0])
+          and pv["routing"][0].shape == (6, batch)
+          and launched["dsconv_bwd"] == 18,
+          f"moe per_vertex_bn: loss {pv['loss']} vs the plain DSC's "
+          f"{pv_ref['loss']}, gradients {pv_grad:.3e} of the largest entry "
+          f"(limit {pv_tol:.3e}), "
+          f"routing shape {tuple(pv['routing'][0].shape)} equal "
+          f"{torch.equal(pv['routing'][0], pv_ref['routing'][0])} (margin "
+          f"{pv_ref['routing'][2]:.3e}), launches {launched}")
+    by_path["moe: per_vertex_bn step"] = launched
+    rows["per_vertex_bn"] = dict(loss_rel=pv_rel, grad_gap=pv_grad,
+                                 dropped=pv["routing"][3],
+                                 margin=pv_ref["routing"][2])
+    print(f"[moe] per_vertex_bn: 6 groups of {batch} tokens, one step with K3 "
+          f"vs the plain DSC on the card (exact f32): loss {pv_rel:.3e} "
+          f"relative, gradients {pv_grad:.3e} of the largest entry (limit "
+          f"{pv_tol:.3e}), routing "
+          f"equal (smallest margin {pv_ref['routing'][2]:.3e}), "
+          f"{pv['routing'][3]} dropped; K3 18 + 18")
+
+    # 3. times: f32 and bf16 with the MoE, f32 without; graph vs eager
+    gen = torch.Generator(device=dev).manual_seed(7)
+    inputs = (torch.rand(batch, 20, 20, 4, 6, device=dev, generator=gen),
+              torch.rand(batch, 20, 20, 4, 6, device=dev, generator=gen),
+              torch.ones(batch, device=dev))
+    _reset_launches()
+    for label, make, dtype in (
+            ("f32", _moe_step_make(), torch.float32),
+            ("bf16", _moe_step_make(), torch.bfloat16),
+            ("dense f32", _moe_step_make(dense=True), torch.float32)):
+        torch.cuda.synchronize()
+        held = torch.cuda.memory_allocated()  # what the runs before hold
+        r = _step_numbers(make, inputs, dtype, k=MEGA_K)
+        # this model's own peak: weights, Adam's state and an eager step
+        r["own_peak_mib"] = r["peak_mib"] - held / 2**20
+        check(r["launches_a_step"] == {"dsconv_fwd": 18, "dsconv_bwd": 18}
+              and r["graph_launches"] == {"dsconv_fwd": 18 * MEGA_K,
+                                          "dsconv_bwd": 18 * MEGA_K},
+              f"moe {label}: K3 launches {r['launches_a_step']} a step, "
+              f"{r['graph_launches']} a graph")
+        r.pop("mods")
+        rows[label] = r
+    by_path["moe: step times f32, bf16, dense"] = ops.launch_counts()
+    moe_busy = rows["f32"]["busy_ms"] - rows["dense f32"]["busy_ms"]
+    rows["moe_busy_ms"] = moe_busy
+    for label in ("f32", "bf16", "dense f32"):
+        r = rows[label]
+        print(f"[moe] {card}: {label} b={batch}: {r['eager_ms']:.3f} ms a "
+              f"step eager, {r['graph_ms']:.3f} ms as a K={MEGA_K} graph (host "
+              f"clock), busy {r['busy_ms']:.4f} ms and "
+              f"{r['kernels_a_step']:.1f} kernels a step in a replay, peak "
+              f"{r['own_peak_mib']:.1f} MiB of its own in an eager step "
+              f"({r['peak_step_mib']:.1f} above its state); K3 18 + 18 a "
+              "step")
+    print(f"[moe] the MoE's own busy time: {moe_busy:.4f} ms a step "
+          f"({100 * moe_busy / rows['f32']['busy_ms']:.1f}% of the f32 step's "
+          f"{rows['f32']['busy_ms']:.4f} ms); {card}")
+    staged = [tuple(t + 0.01 * i for t in inputs[:2]) + (inputs[2],)
+              for i in range(3)]
+    programs = [tuple(torch.stack([t] * MEGA_K) for t in p) for p in staged]
+
+    def make_graph():
+        mods, _, mega, opts = _moe_step_make()(torch.float32)
+        return mega, mods, opts
+
+    _reset_launches()
+    rows["graph"] = graph_against_eager("moe final_smaatunet E=8", make_graph,
+                                        programs, card, atomics=True,
+                                        profile_eager=False)
+    by_path["moe: graph against eager, 3 programs"] = \
+        rows["graph"]["launched"]
+
+    # 4. the CLI, streaming and --megastep 8 --resident, on a KNMI archive
+    # of 4 train files of 96 frames (89 windows each)
+    knmi = make_kmni_dataset(os.path.join(tmp, "knmi"), n_train_files=4,
+                             frames_per_file=96, hw=20)
+    cli = {}
+    for mode, extra in (("streaming", ["--max-batches", "4"]),
+                        ("resident", ["--megastep", "8", "--resident",
+                                      "--max-batches", "16"])):
+        _reset_launches()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()) as log:
+            cli_model, history = gat_cli([
+                "train", "--model-type", "unet", "--mapping-type", "linear",
+                "--dataset", "kmni", "--preprocessed-folder", knmi,
+                "--downsample-size", "20", "20",
+                "--epochs", "1", "--moe-experts", str(MOE_E), *extra])
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        launched = ops.launch_counts()
+        # 4 steps; 2 programs of K = 8 (--max-batches counts steps; the
+        # second program's padded steps launch too)
+        steps = 4 if mode == "streaming" else 2 * MEGA_K
+        check(_finite(v[0] for v in history.values())
+              and next(cli_model.parameters()).is_cuda
+              and param_count(cli_model) == MOE_PARAMS
+              and launched["dsconv_bwd"] == 18 * steps
+              and launched["dsconv_fwd"] > 18 * steps
+              and (mode != "resident" or "[resident]" in log.getvalue())
+              and not launched["gat_attention_fwd"],
+              f"moe CLI {mode}: {history}, launches {launched}:\n"
+              f"{log.getvalue()[-1500:]}")
+        by_path[f"moe: gat CLI --moe-experts 8 {mode}"] = launched
+        cli[mode] = dict(seconds=secs, launches=launched,
+                         train_loss=history["train_loss"][0])
+    print("[moe] python -m extended_gan_torch.gat train --model-type unet "
+          "--moe-experts 8 on a KNMI archive of 4 x 96 frames at 20x20: "
+          + "; ".join(f"{m} {c['seconds']:.2f} s, train loss "
+                      f"{c['train_loss']:.5f}, K3 "
+                      f"{c['launches']['dsconv_fwd']}"
+                      f" + {c['launches']['dsconv_bwd']}"
+                      for m, c in cli.items()))
+
+    # 5. preempted and resumed, against uninterrupted runs
+    _reset_launches()
+    t0 = time.perf_counter()
+    resume = _moe_resume(tmp, knmi)
+    by_path["moe: resume (6 driver runs here)"] = ops.launch_counts()
+    v = resume["verdict"]
+    fault = resume["fault"]
+    print(f"[moe] a child cut by a SIGTERM after step 9 of 12 (snapshot at "
+          f"step {resume['snapshot_step']}, {resume['snapshot_bytes']} "
+          f"bytes, signal to exit {resume['signal_to_exit_ms']:.1f} ms) and "
+          f"resumed here: against the uninterrupted run {v['gap']:.3e} "
+          f"(bitwise: {'yes' if v['bitwise'] else 'no'}), {v['worst']:.3f} "
+          f"of its bound (run-to-run floor {v['floor']:.3e}, the widest of "
+          f"3 twins); a skipped optimizer step at {fault['worst']:.2f} x "
+          f"its bound (gap {fault['gap']:.3e}); "
+          f"{time.perf_counter() - t0:.1f} s")
+
+    # 6. serving: export f32 and w8 with --check, HTTP at b = 1 and 5
+    exp = os.path.join(tmp, "moe_experiment")
+    os.makedirs(exp)
+    src = os.path.join(REPO, "convolutional_gat", "experiments",
+                       "final_smaatunet", "config.py")
+    with open(src) as f, open(os.path.join(exp, "config.py"), "w") as g:
+        g.write(f.read() + f"\nMOE_EXPERTS = {MOE_E}\n")
+    served = {}
+    for quant in ("", "w8"):
+        _reset_launches()
+        path = os.path.join(tmp, f"moe{quant or '_f32'}.pt")
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            info = serve_cli(["export", exp, "--init-seed", "0", "--out", path,
+                              "--check"]
+                             + (["--quantize", quant] if quant else []))
+        text = buf.getvalue()
+        check("check OK" in text and info["spec"]["moe_experts"] == MOE_E,
+              f"moe export {quant or 'f32'}: {text[-600:]}")
+        cpu_art = load_exported(path, device="cpu")
+        gaps = []
+
+        def per_sample(xs, ys, cpu_fn=cpu_art.fn, gaps=gaps):
+            check(ys.shape == xs.shape and bool(np.isfinite(ys).all()),
+                  f"moe serve: reply {ys.shape}")
+            with torch.no_grad():
+                want = np.concatenate([cpu_fn(torch.from_numpy(
+                    xs[i:i + 1])).numpy() for i in range(len(xs))])
+            scale = max(1.0, float(np.abs(want).max()))
+            gaps.append(float(np.abs(ys - want).max()) / scale)
+            check(gaps[-1] <= 1e-5, f"moe serve b={len(xs)}: a reply differs "
+                  f"from its batch-1 CPU forward by {gaps[-1]:.3e}")
+        p50, _ = http_round(path, (1, 5), 3, per_sample)
+        launched = ops.launch_counts()
+        check(launched["dsconv_fwd"] > 0 and not launched["dsconv_bwd"],
+              f"moe serve {quant or 'f32'}: launches {launched}")
+        by_path[f"moe: export --check and serve {quant or 'f32'}"] = launched
+        served[quant or "f32"] = dict(p50=p50, gap=max(gaps),
+                                      nbytes=info["nbytes"])
+    print("[moe] serve export of final_smaatunet + MOE_EXPERTS = 8 "
+          "(--init-seed 0, --check on the card), HTTP replies at b = 1 and 5 "
+          "against batch-1 forwards on the CPU: "
+          + "; ".join(f"{q} {s['nbytes']} bytes, p50 "
+                      + ", ".join(f"b={b} {ms:.2f} ms" for b, ms in
+                                  s["p50"].items())
+                      + f", worst {s['gap']:.3e} of the largest entry"
+                      for q, s in served.items()) + f"; {card}")
+    secs = time.perf_counter() - t_phase
+    print(f"[moe] the phase took {secs:.1f} s")
+    return dict(launches=by_path, rows=rows, cli=cli, resume=resume,
+                served=served, secs=secs)
+
+
+def _arai_archive(root, regions=5, hw=40):
+    """A synthetic MAI archive: ``root/R<r>/{training,validation}/<day>/
+    CRR/<stamp>.nc``, one float32 .npy frame a 15-minute slot, with a gap
+    and a run across midnight."""
+    import numpy as np
+
+    from extended_gan_torch.preprocess.arai import get_time_range
+
+    grid = get_time_range()
+    days = {"training": {"1": range(40, 96), "2": range(0, 30)},
+            "validation": {"5": range(10, 40)}}
+    rng = np.random.default_rng(4)
+    for r in range(1, regions + 1):
+        for cond, by_day in days.items():
+            for day, slots in by_day.items():
+                d = os.path.join(root, f"R{r}", cond, day, "CRR")
+                os.makedirs(d)
+                for s in slots:
+                    name = f"S_NWC_CRR_2021{int(day):04d}T{grid[s]:04d}00Z.nc"
+                    with open(os.path.join(d, name), "wb") as f:
+                        np.save(f, rng.random((1, hw, hw), np.float32))
+
+
+def phase_preprocess(tmp):
+    """The preprocessing tools' outputs feeding the card's trainers:
+
+    - a synthetic ARAI archive (5 regions, 40x40 frames, 86 + 30 slots)
+      through ``preprocess.arai.preprocess`` with a numpy reader, then
+      ``python -m extended_gan_torch.gat train --dataset arai`` of
+      final_temp_conv's model (K1 2 + 2 a step) for 3 batches at 32x32;
+    - a coastal-sea ``thetao`` dump (``.npy``) through
+      ``preprocess.coastal_sea.preprocess`` into train and test archives,
+      then ``python -m extended_gan_torch.cycle_gan`` on them for 3
+      batches.
+
+    KNMI's tool reads HDF5, and this machine has no h5py: it is held
+    against the JAX package's on the CPU only
+    (``tests/test_torch_port_preprocess.py``)."""
+    import numpy as np
+    import torch
+
+    from extended_gan_torch import ops
+    from extended_gan_torch.cycle_gan.__main__ import main as cyclegan_cli
+    from extended_gan_torch.gat.__main__ import main as gat_cli
+    from extended_gan_torch.preprocess import arai, coastal_sea
+
+    t_phase = time.perf_counter()
+    by_path = {}
+    src, out = os.path.join(tmp, "mai"), os.path.join(tmp, "arai")
+    _arai_archive(src)
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        meta = arai.preprocess(False, src, out, (("CRR", "crr"),),
+                               reader=lambda p, v: np.load(p))
+    arai_s = time.perf_counter() - t0
+    check(meta == {"n_regions": 5, "training": {"length": 86},
+                   "validation": {"length": 30}}, f"arai metadata {meta}")
+    _reset_launches()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()) as log:
+        model, history = gat_cli([
+            "train", "--model-type", "temporal", "--mapping-type", "conv",
+            "--dataset", "arai", "--preprocessed-folder", out,
+            "--downsample-size", "32", "32", "--train-batch-size", "16",
+            "--test-batch-size", "16", "--epochs", "1", "--max-batches",
+            "3"])
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    k1 = ops.launch_counts()
+    check(_finite(v[0] for v in history.values())
+          and next(model.parameters()).is_cuda
+          and k1["gat_attention_bwd"] == 2 * 3,
+          f"preprocess: arai training {history}, launches {k1}:\n"
+          f"{log.getvalue()[-1500:]}")
+    by_path["preprocess: arai archive -> gat CLI --dataset arai"] = k1
+
+    rng = np.random.default_rng(5)
+    data = os.path.join(tmp, "coastal")
+    shapes = {}
+    t0 = time.perf_counter()
+    for sub, frames in (("train", 48), ("test", 24)):
+        dump = os.path.join(tmp, f"thetao_{sub}.npy")
+        np.save(dump, (rng.standard_normal((frames, 3, 104, 90)) + 12)
+                .astype(np.float32))
+        os.makedirs(os.path.join(data, sub))
+        arr = coastal_sea.preprocess(
+            [dump],
+            os.path.join(data, sub, "coastal_sea_data_preprocessed.pt"))
+        shapes[sub] = arr.shape
+    coastal_s = time.perf_counter() - t0
+    check(shapes == {"train": (48, 1, 84, 65), "test": (24, 1, 84, 65)},
+          f"coastal shapes {shapes}")
+    _reset_launches()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()) as log:
+        nets, cg_hist = cyclegan_cli(["--data-location", data, "--epochs",
+                                      "1", "--max-batches", "3"])
+    torch.cuda.synchronize()
+    cg_s = time.perf_counter() - t0
+    launched = ops.launch_counts()
+    check(_finite(v[0] for v in cg_hist.history.values())
+          and "synthetic" not in log.getvalue()
+          and not any(launched.values()),
+          f"preprocess: cyclegan on the coastal archive {cg_hist.history}, "
+          f"launches {launched}:\n{log.getvalue()[-1500:]}")
+    by_path["preprocess: coastal archive -> cycle_gan CLI"] = launched
+    secs = time.perf_counter() - t_phase
+    print(f"[preprocess] arai.preprocess of 5 regions x 116 slots of 40x40: "
+          f"{arai_s:.2f} s, metadata {meta}; python -m extended_gan_torch.gat "
+          f"train --dataset arai (final_temp_conv's model, 32x32, 3 batches "
+          f"of 16): {train_s:.2f} s, train loss {history['train_loss'][0]:.5f}"
+          f", K1 {k1['gat_attention_fwd']} + {k1['gat_attention_bwd']}; "
+          f"coastal_sea.preprocess of two .npy "
+          f"dumps: {coastal_s:.2f} s, {shapes}; python -m "
+          f"extended_gan_torch.cycle_gan on them, 3 batches: {cg_s:.2f} s, "
+          f"finite; the KNMI tool needs h5py, absent on this machine: held "
+          f"on the CPU only (tests/test_torch_port_preprocess.py); the phase "
+          f"took {secs:.1f} s")
+    return dict(launches=by_path, secs=secs)
 
 
 PROFILE_KEYS = ("epoch_wall_s", "profiled_steps", "steps_per_sec",
@@ -5326,6 +5994,14 @@ def main() -> int:
             variants = phase_gan_variants(variants_tmp)
         finally:
             shutil.rmtree(variants_tmp, ignore_errors=True)
+        slice18 = {}
+        for name, phase in (("moe", phase_moe),
+                            ("preprocess", phase_preprocess)):
+            tmp = tempfile.mkdtemp(prefix=f"smoke_{name}_")
+            try:
+                slice18[name] = phase(tmp)
+            finally:
+                shutil.rmtree(tmp, ignore_errors=True)
         host_tmp = tempfile.mkdtemp(prefix="smoke_host_data_")
         try:
             host = run_host_data(host_tmp)
@@ -5545,6 +6221,14 @@ def main() -> int:
     for k in kernels:
         by_path = {path: counts[k["name"]]
                    for path, counts in variants["launches"].items()}
+        k["launches_by_path"].update(by_path)
+        k["launches"] += sum(by_path.values())
+    # the moe phase (K3 18 + 18 a step on the MoE UNet's paths) and the
+    # preprocess phase (K1 on the ARAI training run)
+    for k in kernels:
+        by_path = {path: counts.get(k["name"], 0)
+                   for result in slice18.values()
+                   for path, counts in result["launches"].items()}
         k["launches_by_path"].update(by_path)
         k["launches"] += sum(by_path.values())
     # the host_data phase's CLI epochs (slice 16): K1 2 + 2 a step, K2 and

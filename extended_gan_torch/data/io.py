@@ -69,5 +69,11 @@ def save_array(path: str, arr: np.ndarray):
         raise ValueError(f"unknown tensor file format: {path}")
 
 
+def listdir(folder: str) -> list[tuple[str, str]]:
+    """Sorted (name, path) pairs of ``folder``'s entries."""
+    return [(name, os.path.join(folder, name))
+            for name in sorted(os.listdir(folder))]
+
+
 def mkdir(path: str):
     os.makedirs(path, exist_ok=True)

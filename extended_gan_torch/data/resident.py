@@ -277,7 +277,8 @@ def _gather_windows(video, st, w, *, frame_axis_to: int):
 
 def make_gat_resident_megastep(model, optimizer, store: ResidentVideos, *,
                                time_steps: int = 4, criterion: str = "mse",
-                               remat: bool = False):
+                               remat: bool = False,
+                               moe_aux_weight: float = 0.0):
     """K conv-GAT train steps a call, their batches gathered from ``store``
     on its device: ``megastep(starts) -> logs`` with ``starts`` a (K, B)
     program of :meth:`ResidentVideos.epoch_programs`. The update is
@@ -285,7 +286,7 @@ def make_gat_resident_megastep(model, optimizer, store: ResidentVideos, *,
     video as an argument; here the graph reads ``store.video`` at its fixed
     address, so the store is bound when the megastep is made.)"""
     step = make_gat_train_step(model, optimizer, criterion=criterion,
-                               remat=remat)
+                               remat=remat, moe_aux_weight=moe_aux_weight)
     w = 2 * time_steps
 
     def body(st):

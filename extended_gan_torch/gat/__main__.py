@@ -9,7 +9,10 @@
       --mapping-type conv --dataset synthetic --output-path /tmp/run
 
 The actions and flags mirror ``python -m convolutional_gat``; the flags of
-its options that are not ported yet (mesh, MoE, pipeline) are absent.
+its options that are not ported yet (mesh, pipeline) are absent.
+``--moe-experts E`` gives the ``unet`` family its Switch-MoE bottleneck of E
+experts and ``--moe-aux-weight`` (default 0.01) weighs its load-balance
+loss (config keys MOE_EXPERTS and MOE_AUX_WEIGHT).
 ``--profile`` records each epoch's step timing into history.json,
 ``--profile-trace-dir`` also writes a ``torch.profiler`` trace of the first
 epoch there, and ``--conv-impl chanfirst`` runs the conv mapping in its
@@ -75,6 +78,14 @@ def main(argv=None):
     parser.add_argument("--no-use-pallas", dest="use_pallas",
                         action="store_false",
                         help="force the plain PyTorch versions")
+    parser.add_argument("--moe-experts", type=int, default=0,
+                        help="E>0: Switch-MoE bottleneck with E experts on "
+                             "the unet model family (config key "
+                             "MOE_EXPERTS)")
+    parser.add_argument("--moe-aux-weight", type=float, default=None,
+                        help="load-balance aux-loss weight for "
+                             "--moe-experts (config key MOE_AUX_WEIGHT; "
+                             "default 0.01)")
     parser.add_argument("--profile", action="store_true",
                         help="record per-epoch step timing (steps/sec, "
                              "dispatch latency) into history.json")
@@ -104,7 +115,10 @@ def main(argv=None):
             max_batches=args.max_batches, use_pallas=args.use_pallas,
             megastep=args.megastep, resident=args.resident,
             conv_impl=args.conv_impl, profile=args.profile,
-            profile_trace_dir=args.profile_trace_dir, device=args.device)
+            profile_trace_dir=args.profile_trace_dir,
+            moe_experts=args.moe_experts,
+            moe_aux_weight=0.01 if args.moe_aux_weight is None
+            else args.moe_aux_weight, device=args.device)
     if not args.exp_folder_name:
         parser.error("generate_experiment needs --exp_folder_name")
     return generate_experiment(
@@ -116,7 +130,8 @@ def main(argv=None):
         megastep=args.megastep or None, resident=args.resident or None,
         profile=args.profile or None,
         profile_trace_dir=args.profile_trace_dir or None,
-        conv_impl=args.conv_impl)
+        conv_impl=args.conv_impl, moe_experts=args.moe_experts or None,
+        moe_aux_weight=args.moe_aux_weight)
 
 
 if __name__ == "__main__":

@@ -25,8 +25,11 @@ joined with ``.``, and:
   gain a leading head axis of size 1.
 
 Everything else, the head axis of a vmapped block included, is kept as it
-is: the baseline layers' ``W``, ``a`` and ``B`` need no renaming. Leaves
-are numpy arrays (``jax.device_get`` of a flax tree gives them).
+is: the baseline layers' ``W``, ``a`` and ``B`` and the Switch-MoE's
+``moe/{router,w1,b1,w2,b2}`` (``unet.moe.*``, or ``shared.unet.moe.*``
+under ``per_vertex_bn``; ``models/moe.py`` keeps the flax layouts) need
+no renaming. Leaves are numpy arrays (``jax.device_get`` of a flax tree
+gives them).
 """
 
 from __future__ import annotations

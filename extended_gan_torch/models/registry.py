@@ -49,7 +49,8 @@ def build_model(model_type: str, *, image_width: int, image_height: int,
                 use_pallas: bool | None = None, device=None,
                 generator: torch.Generator | None = None,
                 dtype: torch.dtype = torch.float32,
-                conv_impl: str = "nhwc") -> torch.nn.Module:
+                conv_impl: str = "nhwc",
+                moe_experts: int = 0) -> torch.nn.Module:
     """Build a model on ``device`` (default: the CUDA card), in eval mode,
     with weights drawn from ``generator``, computing in ``dtype``
     (``core/precision.py``; the weights stay float32). ``use_pallas=None`` turns the
@@ -57,11 +58,15 @@ def build_model(model_type: str, *, image_width: int, image_height: int,
     sits on the card; families without a kernel ignore it, with the JAX
     registry's note when the caller asked for it. ``conv_impl`` (the conv
     mapping's form, ``"nhwc"`` or ``"chanfirst"``) goes to the constructors
-    that take it; the others ignore it, with the JAX registry's note."""
+    that take it; the others ignore it, with the JAX registry's note, and
+    so does ``moe_experts`` (the Switch-MoE bottleneck, ``models/moe.py``;
+    only ``unet`` has one)."""
     if model_type not in model_classes:
         raise KeyError(f"unknown model_type {model_type!r}; choose from "
                        f"{sorted(model_classes)}")
     ctor, takes_attention, has_kernel = model_classes[model_type]
+    params = inspect.signature(ctor).parameters
+    name = getattr(ctor, "__name__", model_type)
     dev = resolve_device(device)
     kwargs = dict(mapping_type=mapping_type, time_steps=time_steps,
                   generator=generator, dtype=dtype)
@@ -71,13 +76,17 @@ def build_model(model_type: str, *, image_width: int, image_height: int,
         kwargs["use_pallas"] = (dev.type == "cuda" if use_pallas is None
                                 else use_pallas)
     elif use_pallas:
-        name = getattr(ctor, "__name__", model_type)
         print(f"[registry] {name} has no Pallas path; use_pallas ignored")
     if conv_impl != "nhwc":
-        if "conv_impl" in inspect.signature(ctor).parameters:
+        if "conv_impl" in params:
             kwargs["conv_impl"] = conv_impl
         else:
-            name = getattr(ctor, "__name__", model_type)
             print(f"[registry] {name} has no conv_impl switch; ignored")
+    if moe_experts:
+        if "moe_experts" in params:
+            kwargs["moe_experts"] = moe_experts
+        else:
+            print(f"[registry] {name} has no MoE bottleneck; moe_experts "
+                  "ignored")
     model = ctor(image_width, image_height, n_vertices, **kwargs)
     return model.to(dev).eval()

@@ -8,7 +8,10 @@ reference's 4,032,548 parameters. ``bilinear=False`` (JAX
 ``smaat_unet.py:204-296``) upsamples with a 2x2 stride-2 transposed
 convolution (``upconv``, halving the channels) instead, and the decoder's
 widths double (``factor`` 1: a 16b-channel bottleneck); its double convs
-run K3 as the bilinear ones do.
+run K3 as the bilinear ones do. ``moe_experts`` > 0 puts a Switch-MoE
+residual FFN (``models/moe.py``, module ``moe``) over the bottleneck's
+tokens, between ``cbam5`` and ``up1`` (JAX ``smaat_unet.py:282-290``), with
+capacity factor ``moe_capacity_factor``; it adds no kernel launch.
 
 Modules take and return NCHW tensors, as torch's layers do. The
 depthwise-separable convs hand the fused kernel an NHWC view of their input
@@ -38,6 +41,7 @@ from torch import nn
 from ..core.precision import cast_to, to_float32
 from ..ops.dsconv import fused_dsconv, reference_dsc
 from .gat.layers import lecun_normal_
+from .moe import SwitchMoE
 
 
 def _conv(in_ch, out_ch, k, bias, generator):
@@ -221,12 +225,9 @@ class SmaAt_UNet(nn.Module):  # noqa: N801 - the JAX package's name
 
     def __init__(self, n_channels=4, n_classes=4, kernels_per_layer=2,
                  reduction_ratio=16, base=64, use_pallas=False, moe_experts=0,
-                 generator=None, dtype=torch.float32, bilinear=True):
+                 generator=None, dtype=torch.float32, bilinear=True,
+                 moe_capacity_factor=2.0):
         super().__init__()
-        if moe_experts:
-            raise NotImplementedError(
-                "the Switch-MoE bottleneck (moe_experts) is not ported yet "
-                "(ROADMAP: queue 1, parallelism and MoE)")
         self.dtype = dtype
         kw = dict(kernels_per_layer=kernels_per_layer, use_pallas=use_pallas,
                   generator=generator, dtype=dtype)
@@ -242,6 +243,10 @@ class SmaAt_UNet(nn.Module):  # noqa: N801 - the JAX package's name
         self.cbam4 = CBAM(8 * b, r, generator, dtype)
         self.down4 = DownDS(8 * b, 16 * b // f, **kw)
         self.cbam5 = CBAM(16 * b // f, r, generator, dtype)
+        self.moe = (SwitchMoE(16 * b // f, moe_experts,
+                              capacity_factor=moe_capacity_factor,
+                              generator=generator, dtype=dtype)
+                    if moe_experts else None)
         up = dict(kw, bilinear=bilinear)
         self.up1 = UpDS(16 * b // f, 8 * b, 8 * b // f, **up)
         self.up2 = UpDS(8 * b // f, 4 * b, 4 * b // f, **up)
@@ -254,8 +259,10 @@ class SmaAt_UNet(nn.Module):  # noqa: N801 - the JAX package's name
         x2 = self.down1(x1)
         x3 = self.down2(x2)
         x4 = self.down3(x3)
-        x5 = self.down4(x4)
-        x = self.up1(self.cbam5(x5), self.cbam4(x4))
+        x5 = self.cbam5(self.down4(x4))
+        if self.moe is not None:
+            x5 = self.moe(x5)
+        x = self.up1(x5, self.cbam4(x4))
         x = self.up2(x, self.cbam3(x3))
         x = self.up3(x, self.cbam2(x2))
         x = self.up4(x, self.cbam1(x1))

@@ -14,6 +14,17 @@ depthwise-separable conv is one K3 launch for all vertices (18 a forward).
   each BatchNorm a :class:`PerVertexBatchNorm2d`, whose running statistics
   are (V, C), as the flax tree's. The module is ``shared.unet``, as the
   flax tree's, and the (C,) affine parameters are shared by all vertices.
+
+``moe_experts`` > 0 gives the UNet its Switch-MoE bottleneck
+(``models/moe.py``) on both paths, and this module sets its routing groups
+(``SwitchMoE.group``) from the b-major layout: the whole B*V batch as one
+group by default (JAX's ``UnetModel``); under ``per_vertex_bn`` each
+vertex's B rows (every V-th row) as a group of its own, as JAX's vmapped
+UNet routes them, and the trainer sums the groups' losses as JAX sums the
+V sown values. :meth:`UnetModel.route_per_sample` (serving) routes each
+sample's V rows apart (each row alone under ``per_vertex_bn``), so every
+answer is the JAX batch-1 artifact's (``scripts/export_model.py:43-49``),
+whatever else shares the batch.
 """
 
 from __future__ import annotations
@@ -22,6 +33,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from .moe import moe_layers
 from .smaat_unet import SmaAt_UNet
 
 
@@ -77,12 +89,22 @@ class UnetModel(nn.Module):
                           kernels_per_layer=kernels_per_layer,
                           use_pallas=use_pallas, moe_experts=moe_experts,
                           generator=generator, dtype=dtype)
-        self.per_vertex_bn = per_vertex_bn
+        self.n_vertices, self.per_vertex_bn = n_vertices, per_vertex_bn
         if per_vertex_bn:
             _per_vertex(unet, n_vertices)
             self.shared = nn.ModuleDict({"unet": unet})
         else:
             self.unet = unet
+        self.route_per_sample(False)
+
+    def route_per_sample(self, on: bool = True) -> "UnetModel":
+        """Route the MoE's tokens of each sample apart (``on``) or as the
+        trainer does (the batch, or each vertex under ``per_vertex_bn``);
+        returns the model."""
+        stride = self.n_vertices if self.per_vertex_bn else 1
+        for moe in moe_layers(self):
+            moe.group = (stride, self.n_vertices // stride if on else 0)
+        return self
 
     def forward(self, x):
         b, h, w, t, v = x.shape

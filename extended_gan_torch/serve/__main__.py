@@ -82,10 +82,9 @@ def _export_gat(args, dev):
     from torch.func import functional_call
 
     from ..models.convert import load_flax_npz
-    from ..models.registry import build_model
     from ..train.checkpoint import load_model
     from ..utils.config import load_experiment_config
-    from .export import MODEL_KEYS
+    from .export import build_gat_model
     from .quantize import make_w8_apply, quantize_state_dict_w8
 
     cfg = load_experiment_config(args.experiment_dir)
@@ -98,11 +97,12 @@ def _export_gat(args, dev):
         "n_vertices": args.vertices,
         "time_steps": args.time_steps,
     }
+    if cfg.moe_experts:
+        spec["moe_experts"] = cfg.moe_experts
     generator = None
     if args.init_seed is not None:
         generator = torch.Generator().manual_seed(args.init_seed)
-    model = build_model(**{k: spec[k] for k in MODEL_KEYS}, device=dev,
-                        generator=generator)
+    model = build_gat_model(spec, dev, generator)
     if args.weights:
         source = args.weights
         model.load_state_dict(load_flax_npz(args.weights))

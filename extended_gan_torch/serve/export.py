@@ -9,8 +9,13 @@ ctypes-launched CUDA kernels.)
 
 The spec's ``workload`` says what the weights are:
 
-- ``gat``: a conv-GAT family model (registry key, mapping, geometry), its
-  ``state_dict``; with ``quantize="w8"`` the state_dict of
+- ``gat``: a conv-GAT family model (registry key, mapping, geometry and,
+  where it has one, ``moe_experts``, the Switch-MoE bottleneck), its
+  ``state_dict``; an MoE model routes each sample of a batch apart
+  (``models/unet_model.py::UnetModel.route_per_sample``), so every
+  answer is the one the JAX package's MoE artifact, pinned to batch 1,
+  gives, and padded or neighbouring rows take no expert capacity from it;
+  with ``quantize="w8"`` the state_dict of
   ``serve/quantize.py::quantize_state_dict_w8`` (int8 kernels beside
   their f32 scales), dequantised into the model once, at load, so the model
   runs its f32 forward with its kernels (K1, K3) as before.
@@ -42,6 +47,7 @@ from torch import nn
 
 from ..core.device import resolve_device
 from ..models.dcgan import Generator
+from ..models.moe import moe_layers
 from ..models.registry import build_model
 from ..train.checkpoint import tree_to_cpu
 from .quantize import dequantize_state_dict, generator_apply
@@ -135,6 +141,15 @@ def nhwc_generator(generator: nn.Module) -> Callable:
     return fwd
 
 
+def build_gat_model(spec: dict, device, generator=None) -> nn.Module:
+    """The ``gat`` spec's model on ``device``, an MoE bottleneck routing
+    each sample apart."""
+    model = build_model(**{k: spec[k] for k in MODEL_KEYS}, device=device,
+                        generator=generator,
+                        moe_experts=spec.get("moe_experts", 0))
+    return model.route_per_sample() if moe_layers(model) else model
+
+
 def build_forward(spec: dict, weights: dict, device
                   ) -> tuple[nn.Module | None, Callable]:
     """(the model or None, the one-step forward) of an artifact's spec and
@@ -144,7 +159,7 @@ def build_forward(spec: dict, weights: dict, device
         if quantize not in ("", "w8"):
             raise ValueError(f"gat artifacts take quantize '' or 'w8', not "
                              f"{quantize!r}")
-        model = build_model(**{k: spec[k] for k in MODEL_KEYS}, device=device)
+        model = build_gat_model(spec, device)
         model.load_state_dict(dequantize_state_dict(weights) if quantize
                               else weights)
         return model, model

@@ -71,7 +71,8 @@ def predict(args) -> dict:
     _, w, h, t, v = probe_x.shape
     model = build_model(cfg.model_type, image_width=w, image_height=h,
                         n_vertices=v, mapping_type=cfg.mapping_type,
-                        time_steps=t, device=dev)
+                        time_steps=t, device=dev,
+                        moe_experts=cfg.moe_experts)
     ckpt = os.path.join(args.experiment_dir, "model.pt")
     if not os.path.exists(ckpt):
         raise SystemExit(f"no checkpoint at {ckpt}; train the experiment "

@@ -23,7 +23,10 @@ GAT ``W`` (flax's layout, output channel last). Biases, BatchNorm, the
 attention vectors ``a``, the adjacency ``B`` and the SmaAt-UNet's
 ``depthwise_kernel`` and ``pointwise_kernel`` stay f32, as in JAX. Scales
 are grouped as JAX groups them: one for each output channel, shared across
-a vmapped head axis.
+a vmapped head axis. The Switch-MoE's stacked expert weights ``moe.w1``
+(E, C, H) and ``moe.w2`` (E, H, C) get one scale for each (expert, output
+channel), (E, 1, out); its router stays f32, as in JAX
+(``serve/quantize.py:113-128, 150-195``).
 
 Layouts at these functions are the JAX package's: the generator's
 activations NHWC and its folded kernels HWIO.
@@ -167,22 +170,34 @@ def _w8_out_axis(key: str, a: torch.Tensor) -> int | None:
     return 0 if a.dim() == 2 else a.dim() - 4  # Linear; conv (heads, O, ...)
 
 
+def _is_expert_weight(key: str, a: torch.Tensor) -> bool:
+    """A Switch-MoE's stacked ``w1`` or ``w2`` (``models/moe.py``)."""
+    parts = key.split(".")
+    return (parts[-2:] in (["moe", "w1"], ["moe", "w2"]) and a.dim() >= 3
+            and a.is_floating_point())
+
+
 def quantize_state_dict_w8(state_dict: dict) -> tuple[dict, dict]:
     """The weight-only int8 form of a state_dict: each quantised leaf
     becomes ``{"q": int8, "scale": f32}`` (the scale broadcast-ready, one
-    value an output channel), every other entry stays as it is. Returns
-    ``(packed, meta)``."""
+    value an output channel, or an (expert, output channel) of the MoE's
+    stacks), every other entry stays as it is. Returns ``(packed,
+    meta)``."""
     packed, n_q, bytes_q, bytes_f32 = {}, 0, 0, 0
     for key, a in state_dict.items():
         axis = _w8_out_axis(key, a)
-        if axis is None:
+        if _is_expert_weight(key, a):
+            q, s = quantize_weight_int8(a, keep_leading=True)
+            packed[key] = {"q": q, "scale": s}
+        elif axis is None:
             packed[key] = a
             continue
-        q, s = quantize_weight_int8(a.movedim(axis, -1))
-        shape = [1] * a.dim()
-        shape[axis] = s.numel()
-        packed[key] = {"q": q.movedim(-1, axis).contiguous(),
-                       "scale": s.reshape(shape)}
+        else:
+            q, s = quantize_weight_int8(a.movedim(axis, -1))
+            shape = [1] * a.dim()
+            shape[axis] = s.numel()
+            packed[key] = {"q": q.movedim(-1, axis).contiguous(),
+                           "scale": s.reshape(shape)}
         n_q += 1
         bytes_q += q.numel() + s.numel() * 4
         bytes_f32 += a.numel() * 4

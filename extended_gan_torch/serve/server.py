@@ -10,7 +10,8 @@ The same HTTP contract as the JAX package's server, on stdlib alone:
 power of two and slices the padded rows off the reply, as the JAX server
 does to bound its compiled executables: here it bounds the set of shapes
 that cuDNN picks algorithms for. Predictions are per sample, so padding
-cannot perturb the real rows.
+cannot perturb the real rows: an MoE artifact routes each sample apart
+(``serve/export.py``), so a padded row takes no expert capacity.
 """
 
 from __future__ import annotations

@@ -46,7 +46,14 @@ Host data, profiling and the mapping's form (JAX ``gat_driver.py:272-357,
 - ``conv_impl`` picks the conv mapping's form: ``"auto"`` is ``"nhwc"``
   (cuDNN), as in JAX, and ``"chanfirst"`` the positions-on-lanes form.
 
-The JAX driver's mesh, tensor/sequence/FSDP/pipeline parallelism, MoE and
+``moe_experts`` E > 0 builds the model with its Switch-MoE bottleneck
+(``models/moe.py``; the ``unet`` family has one, the others print the JAX
+registry's note) and ``moe_aux_weight`` weighs its load-balance loss in
+every train step (JAX ``gat_driver.py:283-284, 374``); with no experts the
+weight is 0. The JAX driver shards the experts over a data axis that
+divides E (``:421-432``); the port has no data axis yet.
+
+The JAX driver's mesh, tensor/sequence/FSDP/pipeline parallelism and
 plots are not ported yet: a config that sets one of them to anything but
 its default raises, naming the ROADMAP item that ports it.
 """
@@ -101,7 +108,6 @@ from .unported import refuse_unported
 _NOT_PORTED = {
     "data_axis": (None, 9), "model_axis": (1, 9), "tp_min_channels": (256, 9),
     "fsdp": (False, 9), "fsdp_min_size": (4096, 9), "spatial": (False, 9),
-    "moe_experts": (0, 9), "moe_aux_weight": (0.01, 9),
     "pipeline_stages": (0, 9), "pp_microbatches": (0, 9),
 }
 
@@ -185,7 +191,7 @@ def train(*, model_type: str = "temporal", optimizer: str = "adam",
           megastep: int = 0, resident: bool = False,
           shuffle_mode: str = "batch", conv_impl: str = "auto",
           profile: bool = False, profile_trace_dir: str = "", device=None,
-          **options):
+          moe_experts: int = 0, moe_aux_weight: float = 0.01, **options):
     """Train on ``device`` (default: the CUDA card). Takes the JAX driver's
     keyword arguments, every field of an experiment config among them;
     ``plot`` is accepted and ignored (plots are not ported). ``use_pallas=None`` runs the fused kernels exactly when
@@ -224,7 +230,8 @@ def train(*, model_type: str = "temporal", optimizer: str = "adam",
                         mapping_type=mapping_type, time_steps=steps,
                         use_pallas=use_pallas, device=dev,
                         generator=torch.Generator().manual_seed(seed),
-                        dtype=resolve_dtype(precision), conv_impl=conv_impl)
+                        dtype=resolve_dtype(precision), conv_impl=conv_impl,
+                        moe_experts=moe_experts)
     keys = KeySeq(seed)
     graphs = dev.type == "cuda" and (megastep > 1 or resident)
     opt = make_optimizer(optimizer, model.parameters(), learning_rate,
@@ -234,8 +241,10 @@ def train(*, model_type: str = "temporal", optimizer: str = "adam",
     print(f"Number of parameters: {param_count(model)}")
     print(f"Using mapping: {model.mapping_type}")
     profiler = epoch_profiler(profile, profile_trace_dir)
+    aux_w = moe_aux_weight if moe_experts else 0.0
     step = timed(make_gat_train_step(model, opt, criterion=criterion,
-                                     remat=remat), profiler)
+                                     remat=remat, moe_aux_weight=aux_w),
+                 profiler)
     eval_step = make_gat_eval_step(model)
     if resident:
         train_store, val_store = _resident_splits(
@@ -243,7 +252,7 @@ def train(*, model_type: str = "temporal", optimizer: str = "adam",
         resident_k = megastep if megastep > 1 else 8
         train_k = timed(make_gat_resident_megastep(
             model, opt, train_store, time_steps=steps, criterion=criterion,
-            remat=remat), profiler)
+            remat=remat, moe_aux_weight=aux_w), profiler)
         eval_k = make_gat_resident_eval(model, val_store, time_steps=steps)
         mb = (train_store.nbytes + val_store.nbytes) / 1e6
         print(f"[resident] {train_store.n_windows} train + "
@@ -252,7 +261,8 @@ def train(*, model_type: str = "temporal", optimizer: str = "adam",
               "index-only transfers")
     elif megastep > 1:
         megastep_fn = timed(make_gat_megastep(model, opt, criterion=criterion,
-                                              remat=remat), profiler)
+                                              remat=remat,
+                                              moe_aux_weight=aux_w), profiler)
         print(f"[megastep] {megastep} steps per CUDA graph")
 
     def epoch_feed(epoch, skip):

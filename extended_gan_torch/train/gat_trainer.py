@@ -29,6 +29,14 @@ statistics a second time, so the recompute normalises with the batch's
 statistics as the first pass did and leaves the running ones as the first
 pass left them (:func:`remat_forward`,
 ``state.running_stats_frozen``).
+
+``moe_aux_weight`` > 0 (a model with a Switch-MoE bottleneck,
+``models/moe.py``): the train step collects the load-balance loss of every
+MoE call of its forward (``moe.sow_moe``, JAX's mutable ``"losses"``) and
+adds ``moe_aux_weight`` times their sum to the loss, on the single-step,
+megastep, resident, remat and bf16 paths alike (JAX
+``gat_trainer.py:34-105``). At weight 0 nothing is collected, and the eval
+step adds nothing.
 """
 
 from __future__ import annotations
@@ -42,6 +50,7 @@ from torch.utils.checkpoint import checkpoint
 
 from ..core.device import to_device
 from ..data.streaming import Prefetcher
+from ..models.moe import moe_layers, sow_moe
 from .losses import CRITERIA
 from .megastep import Megastep
 from .state import batchnorms, running_stats_frozen
@@ -68,26 +77,32 @@ def remat_forward(model):
 
 
 def make_gat_train_step(model, optimizer, *, criterion: str = "mse",
-                        remat: bool = False):
+                        remat: bool = False, moe_aux_weight: float = 0.0):
     """``step(x, y, mask) -> (loss, running_nd)``: forward in train mode,
     backward, one optimizer step. ``criterion`` is "mse" or "l1";
     ``remat`` recomputes the forward during the backward
-    (:func:`remat_forward`,
-``state.running_stats_frozen``)."""
+    (:func:`remat_forward`, ``state.running_stats_frozen``);
+    ``moe_aux_weight`` > 0 adds that weight times the MoE layers'
+    load-balance losses."""
     if criterion not in CRITERIA:
         raise ValueError(
             f"unsupported criterion {criterion!r}; choose 'mse' or 'l1'")
     crit = CRITERIA[criterion]
     forward = remat_forward(model) if remat else model
+    moe = moe_layers(model) if moe_aux_weight else []
 
     def step(x, y, mask):
         model.train()
-        y_hat = forward(x)
+        with sow_moe(moe) as sown:
+            y_hat = forward(x)
         m = mask.reshape((-1,) + (1,) * (y.dim() - 1))
         n_valid = mask.sum()
         err = crit(y_hat, y, mask=mask)  # sum(err * m) / (n_valid * y[0].numel())
         mean_pred = (y_hat * m).sum() / (n_valid.clamp_min(1.0) * y[0].numel())
         loss = err - 0.0005 * mean_pred
+        if sown:
+            loss = loss + moe_aux_weight * torch.stack(
+                [aux for aux, _ in sown]).sum()
         optimizer.zero_grad(set_to_none=True)
         loss.backward()
         optimizer.step()
@@ -98,12 +113,12 @@ def make_gat_train_step(model, optimizer, *, criterion: str = "mse",
 
 
 def make_gat_megastep(model, optimizer, *, criterion: str = "mse",
-                      remat: bool = False):
+                      remat: bool = False, moe_aux_weight: float = 0.0):
     """K train steps a call (``megastep(xs, ys, masks) -> logs``, a leading
     K axis on each): one CUDA graph on the card, K eager steps on the CPU.
     Logs: ``loss`` of the last step, ``running_nd`` summed over the K."""
     step = make_gat_train_step(model, optimizer, criterion=criterion,
-                               remat=remat)
+                               remat=remat, moe_aux_weight=moe_aux_weight)
 
     def body(x, y, mask):
         loss, running_nd = step(x, y, mask)

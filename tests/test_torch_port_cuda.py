@@ -956,11 +956,11 @@ def test_resume_in_process_with_k1_and_k2_in_a_graph(cuda_device, tmp_path,
 
     def switched(model_type, *, image_width, image_height, n_vertices,
                  mapping_type, time_steps, use_pallas, device, generator,
-                 dtype):
+                 dtype, conv_impl, moe_experts=0):
         return GatModel(image_width, image_height, n_vertices, model_type,
                         mapping_type, time_steps, use_pallas=True,
                         generator=generator, use_pallas_mapping=True,
-                        dtype=dtype).to(device).eval()
+                        dtype=dtype, conv_impl=conv_impl).to(device).eval()
 
     class Counting:
         reads = 0

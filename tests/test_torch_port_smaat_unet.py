@@ -174,8 +174,3 @@ def test_unet_model_state_matches_the_flax_tree_leaf_for_leaf():
     assert flat["unet.inc.dsc0.depthwise_kernel"].shape == (3, 3, 1, 8)
     assert state["unet.inc.dsc0.depthwise_weight"].shape == (8, 1, 3, 3)
 
-
-@pytest.mark.parametrize("kwargs", [dict(moe_experts=4)])
-def test_unported_unet_options_raise(kwargs):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        UnetModel(20, 20, 6, **kwargs)

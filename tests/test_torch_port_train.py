@@ -308,7 +308,6 @@ def test_unported_driver_options_raise(kwargs, error):
 GAT_UNPORTED = [
     ("data_axis", 2, 9), ("model_axis", 2, 9), ("tp_min_channels", 64, 9),
     ("fsdp", True, 9), ("fsdp_min_size", 1, 9), ("spatial", True, 9),
-    ("moe_experts", 4, 9), ("moe_aux_weight", 0.1, 9),
     ("pipeline_stages", 2, 9), ("pp_microbatches", 2, 9),
 ]
 
