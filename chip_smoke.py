@@ -126,7 +126,7 @@ Phases, each fatal on failure (non-zero exit, no result line):
              final_temp_conv resident (K1 2 + 2 a step in the graph), the
              same with use_pallas_mapping=True (K2 2 + 2 too),
              final_smaatunet (K3 18 + 18), final_temp_smaat (K1 4 + 4, K =
-             4 steps a graph) and the published DCGAN resident with
+             2 steps a graph) and the published DCGAN resident with
              dropout 0; with dropout 0.01, two replays from one state
              differ; ``python -m extended_gan_torch.dcgan --resident
              --megastep 8`` on a 1,024-frame archive; both CLIs with
@@ -141,16 +141,16 @@ Phases, each fatal on failure (non-zero exit, no result line):
              gets a real SIGTERM after its Nth step or group; it writes a
              snapshot and exits 0; this process resumes it and holds it to
              an uninterrupted run: final_temp_conv's model with K1 and K2
-             (80x80, b=32) streaming and ``--resident --megastep 8``, the
+             (80x80, b=32) streaming and ``--resident --megastep 4``, the
              published DCGAN (dropout 0.01) through its CLI, streaming and
-             ``--resident --megastep 8``, bit for bit, cuDNN deterministic;
+             ``--resident --megastep 4``, bit for bit, cuDNN deterministic;
              final_smaatunet (K3) within ``utils/compare.py``'s bound of two
              more uninterrupted runs (a skipped optimizer step must fail
              it); the snapshot's bytes, the time to write it, the signal to
              the exit. bf16 against float32 on the DCGAN, final_temp_conv
              (K2 off and on) and final_smaatunet at b=32: ms a step eager
-             and as a K=8 graph, busy time and kernels a step, peak memory,
-             the kernels' launches (equal), 8 steps' losses from one state
+             and as a K=4 graph, busy time and kernels a step, peak memory,
+             the kernels' launches (equal), 4 steps' losses from one state
              (ROBUST_LOSS_REL), float32 parameters and moments. remat on
              final_temp_conv and final_smaatunet: peak memory and ms a step
              with and without, gradients equal (bitwise for GAT3D), each
@@ -228,7 +228,23 @@ Phases, each fatal on failure (non-zero exit, no result line):
              through ``preprocess.coastal_sea`` then ``python -m
              extended_gan_torch.cycle_gan``. The KNMI tool reads HDF5 (no
              h5py on the card's machine): held on the CPU only.
-18. report - the total time, the ``kernels`` JSON line, the card's name and
+18. figures - figures, plots and ``compare_models`` (the card's machine
+             has no matplotlib): final_smaatunet and final_temp_conv trained
+             for 2 steps through the CLI (each figure not drawn: one line),
+             ``python -m extended_gan_torch.compare_models`` over both
+             (4,032,548 and 43,936 parameters, metrics equal to the plain
+             versions' on the same checkpoints, K3 18 and K1 2 launches a
+             forward), the figures' panels against the plain path's,
+             ``create_plots``, the DCGAN and CycleGAN CLIs' figures.
+19. data_parallel - the conv-GAT trainer's data axis: two gloo ranks on
+             the one card (``--dp-child``), final_smaatunet (cross-rank
+             BatchNorm, K3 18 + 18 a step) and final_temp_conv (K1 2 + 2)
+             with 16 rows each of 3 batches of 32, against the same Adam
+             steps in one process in float64, a planted per-rank
+             BatchNorm that must miss; ``--multihost`` over a world of one
+             (NCCL) against the plain CLI, bit for bit; ``--data-axis 2``
+             on one card raises.
+20. report - the total time, the ``kernels`` JSON line, the card's name and
              power limit, and the last line ``{"ok": true, "device":
              {...}}``.
 """
@@ -2499,6 +2515,11 @@ def phase_serve_extras(out, batch=32, repeats=10):
 
 
 MEGA_K = 8
+# the megastep phase's timing: one graph and one eager run of one program
+# (the moe phase keeps its two programs in four turns), and final_temp_smaat
+# (about 0.4 s an eager step) at K = 2 steps a graph
+MEGA_TIMING = dict(rounds=("graph", "eager"), timed_programs=1)
+SMAAT_K = 2
 # graph against eager over the same programs: the same kernels in the same
 # order, so the gap should be 0; the limit, relative to each tensor's
 # largest entry
@@ -2634,7 +2655,9 @@ def _pool_bytes(pool):
 
 
 def graph_against_eager(label, make, programs, card, *, atomics=False,
-                        profile_eager=True):
+                        profile_eager=True,
+                        rounds=("eager", "graph", "graph", "eager"),
+                        timed_programs=2):
     """``make()`` -> (megastep, modules, optimizers), fresh from one seed.
 
     The same programs through a megastep (the first eager, the second
@@ -2652,8 +2675,8 @@ def graph_against_eager(label, make, programs, card, *, atomics=False,
     and twins with a fault planted in the first replayed program
     (:func:`_planted_faults`) must fail that same test. Then, on a fresh
     copy captured under the default flags (exact f32): the ms a step
-    eager against graph (two programs at a time, in turns: eager, graph,
-    graph, eager), one replay and (with ``profile_eager``) one eager
+    eager against graph (``timed_programs`` programs at a time, in the
+    turns ``rounds``), one replay and (with ``profile_eager``) one eager
     program profiled (busy time, kernels, the port's kernels by name), the
     port's kernels among the graph's own nodes held equal to the launch
     counters and the profiler's records to at most them, and the graph
@@ -2668,6 +2691,7 @@ def graph_against_eager(label, make, programs, card, *, atomics=False,
     )
 
     k = programs[0][0].shape[0]
+    t_call = time.perf_counter()
 
     def nd_logs(logs):
         return [logs[n] for n in logs if n.endswith("_nd")]
@@ -2708,7 +2732,7 @@ def graph_against_eager(label, make, programs, card, *, atomics=False,
 
         want = eager_from(make, len(programs))
         # the run-to-run drift: four more twins, every replayed program,
-        # the widest of the eight samples tensor by tensor (state and logs;
+        # the widest of their samples tensor by tensor (state and logs;
         # fewer let a small tensor's floor read far below its typical size)
         floors = (None, None)
         if atomics:
@@ -2768,14 +2792,15 @@ def graph_against_eager(label, make, programs, card, *, atomics=False,
         torch.cuda.synchronize()
         capture_s = time.perf_counter() - t0
         peak = torch.cuda.max_memory_allocated()
-        for kind in ("eager", "graph", "graph", "eager"):
+        for kind in rounds:
             fn = mega.eager if kind == "eager" else mega
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            for p in programs[:2]:
+            for p in programs[:timed_programs]:
                 fn(*p)
             torch.cuda.synchronize()
-            times[kind].append((time.perf_counter() - t0) * 1e3 / (2 * k))
+            times[kind].append((time.perf_counter() - t0) * 1e3
+                               / (timed_programs * k))
         entry = mega.graphs[_shapes(programs[0])]
         per_replay = dict(entry.launches)
         before = ops.launch_counts()
@@ -2821,9 +2846,10 @@ def graph_against_eager(label, make, programs, card, *, atomics=False,
           f"{len(programs)} programs: state {gap:.3e}, logs {log_gap:.3e} "
           f"(limit {MEGA_LIMIT:.0e}; bitwise equal: "
           f"{'yes' if same else 'no'}{floor_note}); ms a step eager "
-          f"{eager_ms:.3f} ({times['eager'][0]:.3f}, {times['eager'][1]:.3f}),"
-          f" graph {graph_ms:.3f} ({times['graph'][0]:.3f}, "
-          f"{times['graph'][1]:.3f}); device busy {prof_g['busy_ms']:.4f} ms "
+          f"{eager_ms:.3f} ({', '.join(f'{t:.3f}' for t in times['eager'])}),"
+          f" graph {graph_ms:.3f} ("
+          f"{', '.join(f'{t:.3f}' for t in times['graph'])}); device busy "
+          f"{prof_g['busy_ms']:.4f} ms "
           f"a step in a replay ("
           + (f"{prof_e['busy_ms']:.4f}" if prof_e else "not profiled")
           + f" eager), {prof_g['kernels']} kernels a replay ("
@@ -2835,7 +2861,8 @@ def graph_against_eager(label, make, programs, card, *, atomics=False,
              if len(sessions) > 1 else "") + "; graph "
           f"pool {'not measured' if pool is None else f'{pool / 2**20:.1f} MiB'}"
           f", peak allocated {peak / 2**20:.1f} MiB; capture and first "
-          f"replay {capture_s:.2f} s; {card}")
+          f"replay {capture_s:.2f} s; {time.perf_counter() - t_call:.1f} s "
+          f"in all; {card}")
     return dict(launched=launched, in_graph=in_graph,
                 profiled=recorded, gap=gap, log_gap=log_gap,
                 bitwise=same, floor=st["floor"],
@@ -2968,11 +2995,11 @@ def phase_megastep(tmp, batch=32, hw=80):
     _reset_launches()
     results["final_temp_conv"] = graph_against_eager(
         f"final_temp_conv resident b={batch}", gat_maker(False), gat_progs,
-        card)
+        card, **MEGA_TIMING)
     _reset_launches()
     results["final_temp_conv switched"] = graph_against_eager(
         f"final_temp_conv resident b={batch} use_pallas_mapping=True",
-        gat_maker(True), gat_progs, card)
+        gat_maker(True), gat_progs, card, **MEGA_TIMING)
     check(results["final_temp_conv"]["per_replay"] == {
         "gat_attention_fwd": 2 * k, "gat_attention_bwd": 2 * k},
           f"final_temp_conv replay: {results['final_temp_conv']['per_replay']}")
@@ -3007,14 +3034,14 @@ def phase_megastep(tmp, batch=32, hw=80):
     _reset_launches()
     results["final_smaatunet"] = graph_against_eager(
         f"final_smaatunet b={batch}", unet_maker("adam"), unet_progs, card,
-        atomics=True)
+        atomics=True, profile_eager=False, **MEGA_TIMING)
     check(results["final_smaatunet"]["per_replay"] == {
         "dsconv_fwd": 18 * k, "dsconv_bwd": 18 * k},
           f"final_smaatunet replay: {results['final_smaatunet']['per_replay']}")
 
     # final_temp_smaat: the most host-bound published path (about 15,000
     # kernels a step), K1 once a head (4 + 4 a step), UNets in its mapping;
-    # K = 4 and no profile of its eager steps keep the phase short (a
+    # K = 2 and no profile of its eager steps keep the phase short (a
     # profile of 120,000 kernels takes about a minute)
     def smaat_maker(optimizer):
         def make():
@@ -3029,10 +3056,10 @@ def phase_megastep(tmp, batch=32, hw=80):
     _reset_launches()
     results["final_temp_smaat"] = graph_against_eager(
         f"final_temp_smaat b={batch}", smaat_maker("adam"),
-        [tuple(t[:4] for t in p) for p in unet_progs], card,
-        atomics=True, profile_eager=False)
+        [tuple(t[:SMAAT_K] for t in p) for p in unet_progs], card,
+        atomics=True, profile_eager=False, **MEGA_TIMING)
     check(results["final_temp_smaat"]["per_replay"] == {
-        "gat_attention_fwd": 16, "gat_attention_bwd": 16},
+        "gat_attention_fwd": 4 * SMAAT_K, "gat_attention_bwd": 4 * SMAAT_K},
           "final_temp_smaat replay: "
           f"{results['final_temp_smaat']['per_replay']}")
 
@@ -3056,7 +3083,7 @@ def phase_megastep(tmp, batch=32, hw=80):
     _reset_launches()
     results["dcgan"] = graph_against_eager(
         f"DCGAN resident b={batch}, dropout 0", dcgan_maker(0.0), dc_progs,
-        card)
+        card, profile_eager=False, **MEGA_TIMING)
     check(results["dcgan"]["per_replay"] == {},
           f"DCGAN replay launched the port's kernels "
           f"{results['dcgan']['per_replay']}")
@@ -3222,12 +3249,15 @@ def _megastep_watch(*, eager=False):
         Megastep.__call__, Megastep._capture = call, capture
 
 
-ROBUST_K = 8
-# bf16 against float32 over 8 train steps from one state (predicted before
-# the first card run): each step's loss within this share of the float32
-# step's, or within ROBUST_LOSS_ABS
+ROBUST_K = 4
+# bf16 against float32 over ROBUST_LOSS_STEPS train steps from one state
+# (predicted before the first card run): each step's loss within this
+# share of the float32 step's, or within ROBUST_LOSS_ABS
 ROBUST_LOSS_REL = 0.05
 ROBUST_LOSS_ABS = 2e-3
+ROBUST_LOSS_STEPS = 4
+# the bf16 and remat timings: eager steps, then K-step graph replays
+ROBUST_TIMING = dict(eager_steps=4, graph_groups=2)
 
 
 def robustness_child(spec_json):
@@ -3450,13 +3480,8 @@ def _float_leaves(out_dir):
 
 def _robust_gat_path(tmp, label, knmi, extra, stop_after, hw=80, batch=32):
     """final_temp_conv's model with K1 and K2 on, through the conv-GAT
-    driver: the uninterrupted run here, the cut run in a child, the resume
-    here; bitwise."""
-    import torch
-
-    from extended_gan_torch import ops
-    from extended_gan_torch.train import gat_driver
-
+    driver: starts the cut run in a child and returns the rest, the
+    uninterrupted run here, the resume here; bitwise."""
     kw = dict(model_type="temporal", mapping_type="conv", dataset="kmni",
               preprocessed_folder=knmi, downsample_size=(hw, hw),
               train_batch_size=batch, test_batch_size=64, epochs=2,
@@ -3464,6 +3489,15 @@ def _robust_gat_path(tmp, label, knmi, extra, stop_after, hw=80, batch=32):
     ref, run = os.path.join(tmp, label + "_ref"), os.path.join(tmp, label)
     child = _Child(label, {"kind": "gat", "switched": True,
                            "kwargs": {**kw, "output_path": run}}, stop_after)
+    return lambda: _robust_gat_finish(label, kw, ref, run, child)
+
+
+def _robust_gat_finish(label, kw, ref, run, child):
+    import torch
+
+    from extended_gan_torch import ops
+    from extended_gan_torch.train import gat_driver
+
     real_build = gat_driver.build_model
     gat_driver.build_model = _switched_build_model()
     try:
@@ -3497,12 +3531,8 @@ def _robust_gat_path(tmp, label, knmi, extra, stop_after, hw=80, batch=32):
 
 def _robust_dcgan_path(tmp, label, h5, extra, stop_after):
     """The published DCGAN through ``python -m extended_gan_torch.dcgan``
-    (dropout 0.01): uninterrupted here, cut in a child, ``--resume`` here;
-    bitwise."""
-    import torch
-
-    from extended_gan_torch.dcgan.__main__ import main as dcgan_cli
-
+    (dropout 0.01): starts the cut run in a child and returns the rest,
+    uninterrupted here, ``--resume`` here; bitwise."""
     # --save-epoch past the last epoch: a snapshot at the end and at a
     # SIGTERM only
     argv = ["--data-location", h5, "--epochs", "2", "--save-epoch", "10",
@@ -3510,6 +3540,14 @@ def _robust_dcgan_path(tmp, label, h5, extra, stop_after):
     ref, run = os.path.join(tmp, label + "_ref"), os.path.join(tmp, label)
     child = _Child(label, {"kind": "dcgan",
                            "argv": argv + ["--out-dir", run]}, stop_after)
+    return lambda: _robust_dcgan_finish(label, argv, ref, run, child)
+
+
+def _robust_dcgan_finish(label, argv, ref, run, child):
+    import torch
+
+    from extended_gan_torch.dcgan.__main__ import main as dcgan_cli
+
     with torch.backends.cudnn.flags(enabled=True, allow_tf32=False,
                                     deterministic=True), \
             contextlib.redirect_stdout(io.StringIO()):
@@ -3521,11 +3559,22 @@ def _robust_dcgan_path(tmp, label, h5, extra, stop_after):
 
 
 def _robust_smaat(tmp, stop_after):
-    """final_smaatunet (K3) through ``generate_experiment``: two
-    uninterrupted runs here (their gap is the run-to-run floor: the
-    upsampling's backward adds with atomics), the cut run in a child, the
-    resume here; held by ``utils.compare.held_to_reference``, with a twin
-    whose one optimizer step is skipped shown to fail it."""
+    """final_smaatunet (K3) through ``generate_experiment``: starts the cut
+    run in a child and returns the rest: two uninterrupted runs here
+    (their gap is the run-to-run floor: the upsampling's backward adds
+    with atomics), the resume here; held by
+    ``utils.compare.held_to_reference``, with a twin whose one optimizer
+    step is skipped shown to fail it."""
+    kw = dict(epochs=2, max_batches=8, checkpoint_every=10)
+    outs = {k: os.path.join(tmp, "smaat_" + k)
+            for k in ("ref", "twin", "twin2", "run", "fault")}
+    child = _Child("final_smaatunet", {
+        "kind": "experiment", "name": "final_smaatunet",
+        "kwargs": {**kw, "output_path": outs["run"]}}, stop_after)
+    return lambda: _robust_smaat_finish(kw, outs, child)
+
+
+def _robust_smaat_finish(kw, outs, child):
     import torch
 
     from extended_gan_torch import ops
@@ -3536,12 +3585,6 @@ def _robust_smaat(tmp, stop_after):
         widest,
     )
 
-    kw = dict(epochs=2, max_batches=8, checkpoint_every=10)
-    outs = {k: os.path.join(tmp, "smaat_" + k)
-            for k in ("ref", "twin", "twin2", "run", "fault")}
-    child = _Child("final_smaatunet", {
-        "kind": "experiment", "name": "final_smaatunet",
-        "kwargs": {**kw, "output_path": outs["run"]}}, stop_after)
     with contextlib.redirect_stdout(io.StringIO()):
         for k in ("ref", "twin", "twin2"):
             generate_experiment("final_smaatunet", output_path=outs[k], **kw)
@@ -3642,12 +3685,13 @@ def _bf16_case(name, batch, hw):
     return make, inputs
 
 
-def _step_numbers(make, inputs, dtype, *, remat=False, k=ROBUST_K):
-    """Eager ms a step (8 steps after 2), peak MiB of an eager step, the
-    port's kernels launched by one eager step, and ms a step as K = k steps
-    a CUDA graph (after the eager warm-up group and the capture), its busy
-    ms and kernels a step (one replay profiled) and the port's kernels in
-    the graph."""
+def _step_numbers(make, inputs, dtype, *, remat=False, k=ROBUST_K,
+                  eager_steps=8, graph_groups=3):
+    """Eager ms a step (``eager_steps`` steps after 2), peak MiB of an
+    eager step, the port's kernels launched by one eager step, and ms a
+    step as K = k steps a CUDA graph (``graph_groups`` replays after the
+    eager warm-up group and the capture), its busy ms and kernels a step
+    (one replay profiled) and the port's kernels in the graph."""
     import torch
 
     from extended_gan_torch import ops
@@ -3666,20 +3710,20 @@ def _step_numbers(make, inputs, dtype, *, remat=False, k=ROBUST_K):
     peak = torch.cuda.max_memory_allocated() / 2**20
     above = peak - base / 2**20
     t0 = time.perf_counter()
-    for _ in range(8):
+    for _ in range(eager_steps):
         step(*inputs)
     torch.cuda.synchronize()
-    out = dict(eager_ms=(time.perf_counter() - t0) * 1e3 / 8,
+    out = dict(eager_ms=(time.perf_counter() - t0) * 1e3 / eager_steps,
                peak_mib=peak, peak_step_mib=above, launches_a_step=per_step)
     staged = tuple(torch.stack([t] * k) for t in inputs)
     mega(*staged)  # the warm-up group, eager
     mega(*staged)  # captured, then replayed
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    for _ in range(3):
+    for _ in range(graph_groups):
         mega(*staged)
     torch.cuda.synchronize()
-    out["graph_ms"] = (time.perf_counter() - t0) * 1e3 / (3 * k)
+    out["graph_ms"] = (time.perf_counter() - t0) * 1e3 / (graph_groups * k)
     prof = _profile_call(lambda: mega(*staged), k)
     (entry,) = mega.graphs.values()
     out.update(busy_ms=prof["busy_ms"], kernels_a_step=prof["kernels"] / k,
@@ -3687,7 +3731,7 @@ def _step_numbers(make, inputs, dtype, *, remat=False, k=ROBUST_K):
     return out
 
 
-def _bf16_losses(make, inputs, n=8):
+def _bf16_losses(make, inputs, n=ROBUST_LOSS_STEPS):
     """n train steps in float32 and in bf16 from the same state: (float32
     losses, bf16 losses, whether every bf16 parameter stayed float32)."""
     import torch
@@ -3786,26 +3830,35 @@ def phase_robustness(tmp, batch=32):
                              frames_test=64, h=64, w=64)
     ensure_synthetic_kmni()  # final_smaatunet's fallback, before any child
     _reset_launches()  # the main path starts here: every launch below
-    # 12 streaming steps an epoch: the SIGTERM after epoch 1 and 4 more;
-    # resident, 3 programs of 8 an epoch: after 4 programs;
-    # final_smaatunet's synthetic archive: 3 steps an epoch, after 4
-    paths = {
+    # 6 streaming steps an epoch: the SIGTERM after epoch 1 and 2 more;
+    # resident, 2 programs of 4 an epoch: sent after 2 programs, seen after
+    # the 3rd (a child's next program runs while the signal lands);
+    # final_smaatunet's synthetic archive: 3 steps an epoch, after 4.
+    # Every child starts first, so their start-ups overlap
+    starts = {
         "gat streaming": lambda: _robust_gat_path(
-            tmp, "gat_stream", knmi, dict(max_batches=12), 16),
+            tmp, "gat_stream", knmi, dict(max_batches=6), 8),
         "gat resident": lambda: _robust_gat_path(
-            tmp, "gat_resident", knmi, dict(max_batches=24, resident=True,
-                                            megastep=ROBUST_K), 4),
+            tmp, "gat_resident", knmi, dict(max_batches=2 * ROBUST_K,
+                                            resident=True,
+                                            megastep=ROBUST_K), 2),
         "dcgan streaming": lambda: _robust_dcgan_path(
-            tmp, "dcgan_stream", h5, ["--max-batches", "12"], 16),
+            tmp, "dcgan_stream", h5, ["--max-batches", "6"], 8),
         "dcgan resident": lambda: _robust_dcgan_path(
-            tmp, "dcgan_resident", h5, ["--max-batches", "24", "--resident",
-                                        "--megastep", str(ROBUST_K)], 4),
+            tmp, "dcgan_resident", h5, ["--max-batches", str(2 * ROBUST_K),
+                                        "--resident", "--megastep",
+                                        str(ROBUST_K)], 2),
         "final_smaatunet": lambda: _robust_smaat(tmp, 4),
     }
+    t0 = time.perf_counter()
+    finishes = {label: start() for label, start in starts.items()}
     results = {}
-    for label, run in paths.items():
-        r = results[label] = run()
-        print(f"[robustness] {label}: SIGTERM after step {r['steps_seen']} "
+    for label, finish in finishes.items():
+        r = results[label] = finish()
+        r["seconds"] = time.perf_counter() - t0  # since the children began
+        print(f"[robustness] {label} (done {r['seconds']:.1f} s after the "
+              "children began): SIGTERM after "
+              f"step {r['steps_seen']} "
               f"seen, snapshot step {r['snapshot_step']} of "
               f"{r['snapshot_bytes']} bytes written in {r['save_ms']:.3f} "
               f"ms, signal to handler {r['signal_to_caught_ms']:.3f} ms, to "
@@ -3825,8 +3878,8 @@ def phase_robustness(tmp, batch=32):
         make, inputs = _bf16_case(name, batch, hw)
         row = {}
         for dtype in (torch.float32, torch.bfloat16):
-            row[str(dtype).split(".")[-1]] = _step_numbers(make, inputs,
-                                                           dtype)
+            row[str(dtype).split(".")[-1]] = _step_numbers(
+                make, inputs, dtype, **ROBUST_TIMING)
         l32, l16, params_f32 = _bf16_losses(make, inputs)
         f32, b16 = row["float32"], row["bfloat16"]
         gaps = [abs(a - b) for a, b in zip(l16, l32)]
@@ -3851,7 +3904,8 @@ def phase_robustness(tmp, batch=32):
               f"peak MiB {f32['peak_mib']:.1f} / {b16['peak_mib']:.1f} "
               f"(a step's own {f32['peak_step_mib']:.1f} / "
               f"{b16['peak_step_mib']:.1f}); the port's kernels a step "
-              f"{b16['launches_a_step'] or 'none'} (= f32's); 8 steps' "
+              f"{b16['launches_a_step'] or 'none'} (= f32's); "
+              f"{ROBUST_LOSS_STEPS} steps' "
               f"largest loss gap {max(gaps):.3e} (bound "
               f"{ROBUST_LOSS_REL} of the loss); {card}")
 
@@ -3860,7 +3914,8 @@ def phase_robustness(tmp, batch=32):
                      ("final_smaatunet", 20)):
         make, inputs = _bf16_case(name, batch, hw)
         verdict, launched = _remat_case(make, inputs, name)
-        rows = {flag: _step_numbers(make, inputs, torch.float32, remat=flag)
+        rows = {flag: _step_numbers(make, inputs, torch.float32, remat=flag,
+                                    **ROBUST_TIMING)
                 for flag in (False, True)}
         in_graph = rows[True]["graph_launches"]
         check(in_graph == {n: ROBUST_K * c for n, c in launched.items()},
@@ -5926,6 +5981,554 @@ def run_host_data(tmp, timeout=600):
     return result
 
 
+# the figures phase: compare_models' metrics with K1 and K3 against the same
+# checkpoints through the plain versions (only the summation order differs,
+# and a thresholded precision or recall can move by one element), each
+# within this share of the plain value (or 1e-7); the figures' panels
+# computed on the card within this share of each panel's largest entry
+FIG_METRIC_RTOL = 1e-4
+FIG_PANEL_TOL = 1e-5
+FIG_EXPERIMENTS = ("final_smaatunet", "final_temp_conv")
+FIG_PARAMS = {"final_smaatunet": 4_032_548, "final_temp_conv": 43_936}
+
+
+def _not_drawn(text):
+    """The paths of the ``[viz] ... not drawn`` lines of ``text``."""
+    prefix = "[viz] matplotlib is not installed: "
+    return [ln[len(prefix):-len(" not drawn")] for ln in text.splitlines()
+            if ln.startswith(prefix) and ln.endswith(" not drawn")]
+
+
+def _model_forwards(classes):
+    """A forward hook counting the forwards of each class in ``classes``:
+    (the counts by class, the hook's handle)."""
+    import torch
+
+    counts = dict.fromkeys(classes, 0)
+
+    def count(module, args, output):
+        if type(module) in counts:
+            counts[type(module)] += 1
+
+    return counts, torch.nn.modules.module.register_module_forward_hook(count)
+
+
+def phase_figures(tmp):
+    """Figures, plots and ``compare_models`` on the card (no matplotlib on
+    its machine): final_smaatunet and final_temp_conv trained for an epoch
+    of 2 steps through ``python -m extended_gan_torch.gat
+    generate_experiment`` (each run's ``pred_1.png`` and
+    ``history_1.png`` not drawn, one line each), their ``config.py`` and
+    ``model.pt`` as experiment directories; ``python -m
+    extended_gan_torch.compare_models`` over both (synthetic fallback,
+    20x20): ``results.json`` with 4,032,548 and 43,936 parameters, finite
+    metrics equal to the same checkpoints' through the plain versions
+    (FIG_METRIC_RTOL), K3 18 and K1 2 launches a forward of their model
+    (eval passes and figure panels), ``results.html``, and
+    ``multi_model_plot.png`` and ``pred_0.png`` not drawn; the panels
+    computed on the card against the plain path's (FIG_PANEL_TOL);
+    ``create_plots``; the DCGAN and CycleGAN CLIs for a batch with
+    ``--out-dir``: one line a figure the JAX package draws, nothing else
+    written."""
+    import numpy as np
+    import torch
+
+    from extended_gan_torch import ops
+    from extended_gan_torch.compare_models import __main__ as compare
+    from extended_gan_torch.create_plots import create_comparison_plot
+    from extended_gan_torch.cycle_gan.__main__ import main as cyclegan_cli
+    from extended_gan_torch.dcgan.__main__ import main as dcgan_cli
+    from extended_gan_torch.gat.__main__ import main as gat_cli
+    from extended_gan_torch.models.gat.gat3d import Model as GatModel
+    from extended_gan_torch.models.unet_model import UnetModel
+    from extended_gan_torch.train.gat_trainer import (
+        make_gat_eval_step,
+        predict_batch,
+        test,
+    )
+    from extended_gan_torch.utils.viz import gat_prediction_panels
+
+    t_phase = time.perf_counter()
+    card = card_line()
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda")
+    base = os.path.join(tmp, "experiments")
+    launches = {}
+
+    # 1. the conv-GAT CLI: its two figures an epoch
+    for name in FIG_EXPERIMENTS:
+        run = os.path.join(tmp, "runs", name)
+        text = io.StringIO()
+        _reset_launches()
+        with contextlib.redirect_stdout(text):
+            gat_cli(["generate_experiment", "--exp_folder_name", name,
+                     "--output-path", run, "--epochs", "1", "--max-batches",
+                     "2"])
+        launches[f"figures: train {name} (2 steps, eval, figure)"] = \
+            ops.launch_counts()
+        out = text.getvalue()
+        missed = _not_drawn(out)
+        want = [os.path.join(run, "history_1.png")]
+        if "Raininess threshold too strict" not in out:
+            want.insert(0, os.path.join(run, "pred_1.png"))
+        check(missed == want and sorted(os.listdir(run)) == [
+            "history.json", "model.pt"],
+            f"figures: {name} CLI printed {missed} not drawn (expected "
+            f"{want}) and wrote {sorted(os.listdir(run))}")
+        exp = os.path.join(base, name)
+        os.makedirs(exp)
+        shutil.copy(os.path.join(REPO, "convolutional_gat", "experiments",
+                                 name, "config.py"), exp)
+        shutil.copy(os.path.join(run, "model.pt"), exp)
+
+    # 2. compare_models: the main path starts here
+    out_path = os.path.join(tmp, "compare")
+    forwards, hook = _model_forwards((UnetModel, GatModel))
+    text = io.StringIO()
+    _reset_launches()
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(text):
+            entries = compare.main(["--base-folder", base, "--folders",
+                                    *FIG_EXPERIMENTS, "--out-path", out_path])
+        torch.cuda.synchronize()
+    finally:
+        hook.remove()
+    cmp_s = time.perf_counter() - t0
+    got = ops.launch_counts()
+    launches["figures: compare_models"] = got
+    forwards = {"GAT3D": forwards[GatModel], "UnetModel": forwards[UnetModel]}
+    expected = {"gat_attention_fwd": 2 * forwards["GAT3D"],
+                "dsconv_fwd": 18 * forwards["UnetModel"]}
+    check({n: c for n, c in got.items() if c} == expected
+          and all(forwards.values()),
+          f"compare_models: launches {got} for {forwards} forwards; "
+          f"expected {expected}")
+    with open(os.path.join(out_path, "results.json")) as f:
+        results = json.load(f)
+    check(list(results) == list(FIG_EXPERIMENTS)
+          and {n: r["n_parameters"] for n, r in results.items()}
+          == FIG_PARAMS
+          and all(_finite(r.values()) for r in results.values()),
+          f"compare_models: results.json {results}")
+    drawn = {os.path.basename(p) for p in _not_drawn(text.getvalue())}
+    written = sorted(os.listdir(out_path))
+    check(written == ["results.html", "results.json"],
+          f"compare_models wrote {written}")
+
+    # 3. the same checkpoints through the plain versions
+    shape = dict(image_width=20, image_height=20, n_vertices=6, time_steps=4,
+                 device=dev)
+    plain = {}
+    for name in FIG_EXPERIMENTS:
+        m = compare.load_experiment_model(os.path.join(base, name), **shape)
+        for mod in m.modules():  # the kernels' switches off
+            if hasattr(mod, "use_pallas"):
+                mod.use_pallas = False
+        plain[name] = m
+
+    def loader(batch):
+        return compare.loaders("", "synthetic", (20, 20), 369, batch)[1]
+
+    metric_gap = 0.0
+    for name, model in plain.items():
+        want = test(make_gat_eval_step(model), loader(100), dev)
+        for k, v in want.items():
+            got_v = results[name][k]
+            gap = abs(got_v - v) / max(abs(v), 1e-7 / FIG_METRIC_RTOL)
+            metric_gap = max(metric_gap, gap)
+            check(gap <= FIG_METRIC_RTOL,
+                  f"compare_models {name} {k}: {got_v} with the kernels, "
+                  f"{v} plain")
+    # the panels each figure shows, kernels against plain
+    panel_gap = 0.0
+    figs = {"multi_model_plot.png": [
+        compare.multi_model_panels(loader(2), src, dev)
+        for src in (entries, plain)]}
+    figs["pred_0.png"] = [gat_prediction_panels(
+        lambda xb, m=m: predict_batch(m, xb, dev), loader(2))
+        for m in (entries["final_smaatunet"], plain["final_smaatunet"])]
+    for fig, (a, b) in figs.items():
+        check((a is None) == (b is None)
+              and (fig in drawn) == (a is not None),
+              f"figures: {fig} panels found {a is not None} with the "
+              f"kernels, {b is not None} plain; printed not drawn: {drawn}")
+        for pa, pb in zip(a or [], b or []):
+            gap = float(np.abs(pa - pb).max() / max(np.abs(pb).max(), 1e-30))
+            panel_gap = max(panel_gap, gap)
+            check(gap <= FIG_PANEL_TOL, f"figures: {fig} panel {gap:.3e} "
+                                        "of its largest entry off plain")
+
+    # 4. create_plots
+    text = io.StringIO()
+    _reset_launches()
+    with contextlib.redirect_stdout(text):
+        cp = create_comparison_plot(
+            [os.path.join(base, n) for n in FIG_EXPERIMENTS],
+            out_file=os.path.join(tmp, "comparison_plot.png"))
+    launches["figures: create_plots"] = ops.launch_counts()
+    check(cp is None and not os.path.exists(os.path.join(
+        tmp, "comparison_plot.png")) and _not_drawn(text.getvalue()) == (
+        [os.path.join(tmp, "comparison_plot.png")]
+        if figs["multi_model_plot.png"][0] is not None else []),
+        f"create_plots: returned {cp}, printed {text.getvalue()[-600:]}")
+
+    # 5. the GAN CLIs: their figures not drawn, nothing else written
+    gans = {}
+    for name, cli, argv in (
+            ("dcgan", dcgan_cli, ["--epochs", "1", "--max-batches", "1",
+                                  "--synthetic", "--save-epoch", "1"]),
+            ("cyclegan", cyclegan_cli, ["--epochs", "1", "--max-batches",
+                                        "1", "--synthetic", "--save-epoch",
+                                        "1"])):
+        out = os.path.join(tmp, name)
+        text = io.StringIO()
+        with contextlib.redirect_stdout(text):
+            _, hist = cli(argv + ["--out-dir", out])
+        plots = [os.path.join(out, "training_plots",
+                              (hist.groups[i] or "metrics") + ".png")
+                 for i, g in enumerate(hist.key_groups()) if g]
+        want = [os.path.join(out, "imgs", "pred.png")] + plots
+        gans[name] = _not_drawn(text.getvalue())
+        check(gans[name] == want and sorted(os.listdir(out)) == [
+            "checkpoints", "history.json"],
+            f"figures: {name} CLI printed {gans[name]} not drawn (expected "
+            f"{want}) and wrote {sorted(os.listdir(out))}")
+    seconds = time.perf_counter() - t_phase
+    print(f"[figures] compare_models over {', '.join(FIG_EXPERIMENTS)} "
+          f"(20x20, synthetic): {results}; launches {expected} for forwards "
+          f"{forwards}; metrics against the plain versions within "
+          f"{metric_gap:.3e} (limit {FIG_METRIC_RTOL:.0e} relative); panels "
+          f"within {panel_gap:.3e} of their largest entry (limit "
+          f"{FIG_PANEL_TOL:.0e}); not drawn: {sorted(drawn)}, the CLIs' "
+          f"{[os.path.basename(p) for g in gans.values() for p in g]}; "
+          f"compare_models {cmp_s:.2f} s; phase {seconds:.1f} s; {card}")
+    return dict(launches=launches, seconds=seconds, results=results,
+                metric_gap=metric_gap, panel_gap=panel_gap,
+                compare_s=cmp_s)
+
+
+# the data_parallel phase: 3 Adam steps, 2 ranks of 16 rows against one
+# process of 32; the model's batches from this seed
+DP_STEPS = 3
+DP_SEED = 11
+DP_MODELS = {"final_smaatunet": ("unet", "linear", 20),
+             "final_temp_conv": ("temporal", "conv", 80)}
+
+
+def _dp_run(name, device, axis=None, *, fault=False, permute=False,
+            float64=False):
+    """DP_STEPS Adam steps of ``name``'s model from seed 0 on DP_STEPS
+    global batches of 32 (this rank's rows on ``axis``; ``permute``: each
+    batch's rows in another order; ``fault``: each rank's BatchNorm with
+    its own rows' statistics; ``float64``: the plain versions in float64),
+    cuDNN exact and deterministic: (the state on the CPU, ``{"weights":
+    the parameters and Adam's moments after the last step, "statistics":
+    the buffers after it and the losses as one more tensor, "first step":
+    the buffers and the loss after the first step}``; the kernels launched
+    by each step; the ms of each step and of its collectives, host clock,
+    synchronised)."""
+    import numpy as np
+    import torch
+
+    from extended_gan_torch import ops
+    from extended_gan_torch.models.registry import build_model
+    from extended_gan_torch.parallel import attach_data_axis
+    from extended_gan_torch.train.gat_trainer import (
+        make_gat_train_step,
+        to_device_batch,
+    )
+    from extended_gan_torch.train.optim import make_optimizer
+    from extended_gan_torch.train.state import batchnorms
+
+    model_type, mapping, hw = DP_MODELS[name]
+    model = build_model(model_type, image_width=hw, image_height=hw,
+                        n_vertices=6, mapping_type=mapping, device=device,
+                        generator=torch.Generator().manual_seed(0),
+                        use_pallas=not float64)
+    dtype = torch.float64 if float64 else torch.float32
+    model.to(dtype)
+    clock = {"collective_ms": 0.0}
+    if axis is not None:
+        attach_data_axis(model, axis)
+        axis.broadcast_module(model)
+        if fault:
+            for bn in batchnorms(model):
+                bn.axis = None
+        all_reduce = axis.all_reduce
+
+        def timed_all_reduce(t):  # the wait for the other rank included
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            all_reduce(t)
+            torch.cuda.synchronize()
+            clock["collective_ms"] += (time.perf_counter() - t0) * 1e3
+            return t
+        axis.all_reduce = timed_all_reduce
+    opt = make_optimizer("adam", model.parameters(), 1e-3,
+                         weight_decay=0.01)
+    step = make_gat_train_step(model, opt, axis=axis)
+    rng = np.random.default_rng(DP_SEED)
+    losses, per_step, step_ms, collective_ms = [], [], [], []
+    with torch.backends.cudnn.flags(enabled=True, allow_tf32=False,
+                                    deterministic=True):
+        for _ in range(DP_STEPS):
+            x, y = (rng.random((32, hw, hw, 4, 6), np.float32)
+                    for _ in range(2))
+            if permute:
+                order = np.random.default_rng(5).permutation(32)
+                x, y = x[order], y[order]
+            if axis is not None:
+                rows = axis.rows(32)
+                x, y = x[rows], y[rows]
+            batch = tuple(t.to(dtype) for t in to_device_batch(x, y, device))
+            torch.cuda.synchronize()
+            before, c0 = ops.launch_counts(), clock["collective_ms"]
+            t0 = time.perf_counter()
+            loss, _ = step(*batch)
+            torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+            collective_ms.append(clock["collective_ms"] - c0)
+            losses.append(loss)
+            if len(losses) == 1:  # before Adam's steps amplify roundoff
+                first = [t.detach().cpu().clone()
+                         for t in itertools.chain(model.buffers(), [loss])]
+            per_step.append({n: c - before[n] for n, c in
+                             ops.launch_counts().items() if c != before[n]})
+    weights = list(model.parameters()) + [
+        v for st in opt.state.values() for v in st.values()
+        if torch.is_tensor(v)]
+    stats = list(model.buffers()) + [torch.stack(losses)]
+    if axis is not None:
+        axis.all_reduce = all_reduce
+    return ({"weights": [t.detach().cpu().clone() for t in weights],
+             "statistics": [t.detach().cpu().clone() for t in stats],
+             "first step": first},
+            per_step, {"step_ms": step_ms, "collective_ms": collective_ms})
+
+
+def dp_child(spec_json):
+    """One gloo rank of :func:`phase_data_parallel` on ``cuda:0``: each
+    model's DP_STEPS steps on its rows, and the planted fault, saved to
+    ``<out>.<rank>``."""
+    import torch
+    import torch.distributed as dist
+
+    from extended_gan_torch import ops
+    from extended_gan_torch.parallel import DataAxis
+
+    spec = json.loads(spec_json)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dist.init_process_group("gloo", init_method="file://" + spec["store"],
+                            rank=spec["rank"], world_size=spec["size"])
+    try:
+        axis = DataAxis(torch.device("cuda", 0), dist.group.WORLD)
+        out = {}
+        for name in DP_MODELS:
+            _reset_launches()  # this rank's main path
+            out[name] = _dp_run(name, axis.device, axis)
+            out[name] += (ops.launch_counts(),)
+        out["final_smaatunet fault"] = _dp_run("final_smaatunet",
+                                               axis.device, axis, fault=True)
+        torch.save(out, f"{spec['out']}.{spec['rank']}")
+    finally:
+        dist.destroy_process_group()
+    return 0
+
+
+def dp_cli_child(spec_json):
+    """The conv-GAT CLI in this process, cuDNN deterministic: ``argv``,
+    then the process group's backend and size (``none`` without one) and
+    the kernels' launches as ``[child]`` lines."""
+    import torch
+    import torch.distributed as dist
+
+    from extended_gan_torch import ops
+    from extended_gan_torch.gat.__main__ import main as gat_cli
+
+    spec = json.loads(spec_json)
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    _reset_launches()
+    gat_cli(spec["argv"])
+    torch.cuda.synchronize()
+    group = (f"{dist.get_backend()} {dist.get_world_size()}"
+             if dist.is_initialized() else "none")
+    print(f"[child] group {group}", flush=True)
+    print(f"[child] launches {json.dumps(ops.launch_counts())}", flush=True)
+    if dist.is_initialized():
+        dist.destroy_process_group()
+    return 0
+
+
+def _spawn(flag, spec, env=None):
+    return subprocess.Popen(
+        [sys.executable, "-u", os.path.abspath(__file__), flag,
+         json.dumps(spec)], cwd=REPO, env={**os.environ, **(env or {})},
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+
+
+def _finished(proc, label, timeout=300):
+    try:
+        text, _ = proc.communicate(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.communicate()
+        raise SmokeFailure(f"{label}: the child outlived {timeout} s")
+    check(proc.returncode == 0,
+          f"{label}: exited {proc.returncode}:\n{text[-3000:]}")
+    return text
+
+
+def phase_data_parallel(tmp):
+    """The conv-GAT trainer's data axis on the one card:
+
+    - two ranks over gloo, both on ``cuda:0`` (``chip_smoke.py
+      --dp-child``), each with 16 rows of every global batch of 32:
+      final_smaatunet (K3, cross-rank BatchNorm, 20x20) and
+      final_temp_conv (K1, 80x80), DP_STEPS Adam steps from seed 0,
+      held (parameters, buffers, Adam's moments and the losses) to the
+      same steps in one process in float64 (the plain versions) by
+      ``utils/compare.py``, the weights (and moments) and the statistics
+      (and losses) apart, and the statistics and loss of the first step:
+      each within 10x the widest distance from it of the one-process
+      float32 b=32 run with the kernels and of its twin with each batch's
+      rows in another order (float32 roundoff, the reduction order and
+      the UNet upsampling's atomics, which Adam's steps amplify); the
+      ranks end equal; each rank launches K3 18 + 18 and K1
+      2 + 2 a step; per-rank BatchNorm statistics (the planted fault) must
+      miss the bound;
+    - a world of one over NCCL through the CLI: ``--multihost`` under a
+      launcher environment of one rank against the same CLI run without
+      it (final_temp_conv, 3 steps), history and weights bit for bit;
+    - ``--data-axis 2`` with one card raises, naming 2 cards and 1."""
+    import torch
+
+    from extended_gan_torch.gat.__main__ import main as gat_cli
+    from extended_gan_torch.utils.compare import (
+        drift,
+        held_to_reference,
+        widest,
+    )
+
+    t_phase = time.perf_counter()
+    card = card_line()
+    dev = torch.device("cuda")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    out = os.path.join(tmp, "dp")
+    ranks = [_spawn("--dp-child", dict(rank=r, size=2, out=out,
+                                       store=os.path.join(tmp, "store")))
+             for r in range(2)]
+    cli_argv = ["generate_experiment", "--exp_folder_name", "final_temp_conv",
+                "--epochs", "1", "--max-batches", "3", "--output-path"]
+    launcher = dict(RANK="0", WORLD_SIZE="1", LOCAL_RANK="0",
+                    MASTER_ADDR="127.0.0.1", MASTER_PORT="0")
+    clis = {"plain": _spawn("--dp-cli-child", dict(
+                argv=cli_argv + [os.path.join(tmp, "plain")])),
+            "multihost": _spawn("--dp-cli-child", dict(
+                argv=cli_argv + [os.path.join(tmp, "multihost"),
+                                 "--multihost"]), env=launcher)}
+    # the one-process runs, while the ranks run: float64, float32 and the
+    # float32 twin
+    refs = {}
+    for name in DP_MODELS:
+        want = _dp_run(name, dev, float64=True)[0]
+        one, per_step, one_clock = _dp_run(name, dev)
+        twin = _dp_run(name, dev, permute=True)[0]
+        refs[name] = (want, {g: widest(drift(t[g], want[g])
+                                       for t in (one, twin))
+                             for g in want}, per_step, one_clock)
+
+    def held(got, name):
+        want, floors, _, _ = refs[name]
+        return {g: held_to_reference(got[g], want[g], floors[g])
+                for g in want}
+    for r, p in enumerate(ranks):
+        _finished(p, f"data_parallel rank {r}")
+    got = [torch.load(f"{out}.{r}", weights_only=False) for r in range(2)]
+    verdicts, rank_launches = {}, {}
+    times = {}
+    for name, (_, _, per_step, one_clock) in refs.items():
+        (s0, steps0, clock0, total0), (s1, _, _, total1) = \
+            got[0][name], got[1][name]
+        # past the first step (the kernels' and cuDNN's first calls)
+        times[name] = dict(
+            one_ms=statistics.mean(one_clock["step_ms"][1:]),
+            two_ms=statistics.mean(clock0["step_ms"][1:]),
+            collective_ms=statistics.mean(clock0["collective_ms"][1:]))
+        check(all(torch.equal(a, b) for g in s0 for a, b in zip(s0[g], s1[g])),
+              f"data_parallel {name}: the two ranks' states differ")
+        verdicts[name] = held(s0, name)
+        check(all(v["ok"] for v in verdicts[name].values()),
+              f"data_parallel {name}: two ranks against one process "
+              f"{verdicts[name]}")
+        each = {"final_smaatunet": {"dsconv_fwd": 18, "dsconv_bwd": 18},
+                "final_temp_conv": {"gat_attention_fwd": 2,
+                                    "gat_attention_bwd": 2}}[name]
+        check(all(s == each for s in steps0) and per_step[0] == each,
+              f"data_parallel {name}: launches a step {steps0} on rank 0, "
+              f"{per_step[0]} in one process; expected {each}")
+        rank_launches[name] = (total0, total1)
+    fault = held(got[0]["final_smaatunet fault"][0], "final_smaatunet")
+    check(not fault["first step"]["ok"],
+          f"data_parallel: per-rank BatchNorm statistics pass the bound: "
+          f"{fault}")
+    cli_text = {k: _finished(p, f"data_parallel CLI {k}")
+                for k, p in clis.items()}
+    groups = {k: next((ln.split(" ", 2)[2] for ln in t.splitlines()
+                       if ln.startswith("[child] group ")), "")
+              for k, t in cli_text.items()}
+    cli_launches = {k: json.loads(next(
+        ln.split(" ", 2)[2] for ln in t.splitlines()
+        if ln.startswith("[child] launches "))) for k, t in cli_text.items()}
+    hists = {}
+    for k in clis:
+        with open(os.path.join(tmp, k, "history.json")) as f:
+            hists[k] = json.load(f)
+    weights = {k: torch.load(os.path.join(tmp, k, "model.pt"),
+                             weights_only=True) for k in clis}
+    check(groups == {"plain": "none", "multihost": "nccl 1"}
+          and hists["plain"] == hists["multihost"]
+          and all(torch.equal(weights["plain"][n], weights["multihost"][n])
+                  for n in weights["plain"])
+          and cli_launches["plain"] == cli_launches["multihost"],
+          f"data_parallel: --multihost over a world of one ({groups}) "
+          f"against the plain CLI: history {hists}, launches {cli_launches}")
+    try:
+        gat_cli(cli_argv[:-1] + ["--data-axis", "2"])
+        raised = ""
+    except ValueError as e:
+        raised = str(e)
+    check(raised == "--data-axis 2 needs 2 cards, have 1",
+          f"data_parallel: --data-axis 2 on one card raised {raised!r}")
+    seconds = time.perf_counter() - t_phase
+    print(f"[data_parallel] two gloo ranks on cuda:0, 16 rows each of "
+          f"{DP_STEPS} batches of 32, against one process in float64: "
+          + "; ".join(f"{n} {g} gap {v['gap']:.3e}, {v['worst']:.3f} of "
+                      f"its bound (floor {v['floor']:.3e})"
+                      for n, vs in verdicts.items() for g, v in vs.items())
+          + "; ms a step (host clock, synchronised, steps 2 and 3): "
+          + "; ".join(f"{n} one process b=32 {t['one_ms']:.3f}, two ranks "
+                      f"sharing the card {t['two_ms']:.3f} of which "
+                      f"collectives {t['collective_ms']:.3f} (waits "
+                      "included)" for n, t in times.items())
+          + f"; per-rank BatchNorm statistics at "
+          f"{fault['first step']['worst']:.1f}x their bound after the first "
+          f"step ({fault['statistics']['worst']:.2f}x after the last, the "
+          f"weights {fault['weights']['worst']:.2f}x); launches each rank "
+          f"{rank_launches}; --multihost world of "
+          f"one ({groups['multihost']}) equals the plain CLI bit for bit, "
+          f"launches {cli_launches['plain']}; --data-axis 2: {raised}; "
+          f"phase {seconds:.1f} s; {card}")
+    return dict(verdicts=verdicts, fault=fault["first step"]["worst"],
+                times=times,
+                rank_launches=rank_launches, cli_launches=cli_launches,
+                seconds=seconds)
+
+
 def card_line():
     res = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -5954,6 +6557,10 @@ def main() -> int:
         return robustness_child(sys.argv[2])
     if sys.argv[1:2] == ["--host-data-child"]:
         return host_data_child(sys.argv[2])
+    if sys.argv[1:2] == ["--dp-child"]:
+        return dp_child(sys.argv[2])
+    if sys.argv[1:2] == ["--dp-cli-child"]:
+        return dp_cli_child(sys.argv[2])
     t0 = time.perf_counter()
     try:
         build_logs = phase_build()
@@ -6000,6 +6607,14 @@ def main() -> int:
             tmp = tempfile.mkdtemp(prefix=f"smoke_{name}_")
             try:
                 slice18[name] = phase(tmp)
+            finally:
+                shutil.rmtree(tmp, ignore_errors=True)
+        slice19 = {}
+        for name, phase in (("figures", phase_figures),
+                            ("data_parallel", phase_data_parallel)):
+            tmp = tempfile.mkdtemp(prefix=f"smoke_{name}_")
+            try:
+                slice19[name] = phase(tmp)
             finally:
                 shutil.rmtree(tmp, ignore_errors=True)
         host_tmp = tempfile.mkdtemp(prefix="smoke_host_data_")
@@ -6229,6 +6844,24 @@ def main() -> int:
         by_path = {path: counts.get(k["name"], 0)
                    for result in slice18.values()
                    for path, counts in result["launches"].items()}
+        k["launches_by_path"].update(by_path)
+        k["launches"] += sum(by_path.values())
+    # the figures phase (K3 and K1 forwards of compare_models' evals and
+    # panels, create_plots and the short CLI epochs) and the data_parallel
+    # phase (each gloo rank's own steps: K3 18 + 18 and K1 2 + 2 a step; the
+    # NCCL world of one through the CLI)
+    dp = slice19["data_parallel"]
+    for k in kernels:
+        by_path = {path: counts.get(k["name"], 0) for path, counts in
+                   slice19["figures"]["launches"].items()}
+        for name, (r0, r1) in dp["rank_launches"].items():
+            by_path[f"data_parallel: {name}, gloo rank 0 of 2"] = \
+                r0.get(k["name"], 0)
+            by_path[f"data_parallel: {name}, gloo rank 1 of 2"] = \
+                r1.get(k["name"], 0)
+        by_path["data_parallel: train final_temp_conv --multihost, NCCL "
+                "world of one"] = dp["cli_launches"]["multihost"].get(
+                    k["name"], 0)
         k["launches_by_path"].update(by_path)
         k["launches"] += sum(by_path.values())
     # the host_data phase's CLI epochs (slice 16): K1 2 + 2 a step, K2 and

@@ -34,6 +34,7 @@ import torch
 
 from ..train import cyclegan_trainer
 from ..train.dcgan_trainer import (
+    draw_batch,
     eval_results,
     make_dcgan_eval_step,
     make_dcgan_train_step,
@@ -384,6 +385,23 @@ def make_dcgan_resident_eval(g, fd, td, store: ResidentVideos, *,
         return total
 
     return eval_k
+
+
+def draw_first_eval_batch(eval_step, store: ResidentVideos, *,
+                          in_seq_len: int, out_seq_len: int,
+                          batch_size: int, epoch: int, img_path: str):
+    """The resident eval's figure: the first eval batch of at most 8
+    windows gathered on the device, ``eval_step(x, y, mask) -> (fake,
+    logs)`` on it, and its real rows drawn (``dcgan_trainer.draw_batch``;
+    JAX ``dcgan_driver.py:366-395``, ``cyclegan_driver.py:391-418``)."""
+    st0 = store.eval_programs(1, min(8, batch_size), min_batch=1)[0][0, 0]
+    wins, mask = _gather_windows(store.video, st0,
+                                 in_seq_len + out_seq_len, frame_axis_to=1)
+    x = wins[:, :in_seq_len].contiguous()
+    y = wins[:, in_seq_len:].contiguous()
+    fake, _ = eval_step(x, y, mask)
+    n = int((st0 >= 0).sum())
+    draw_batch(x[:n], y[:n], fake[:n], epoch, img_path)
 
 
 def resident_dcgan_test(eval_k, store: ResidentVideos, *, k: int = 8,

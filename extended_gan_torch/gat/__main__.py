@@ -9,7 +9,15 @@
       --mapping-type conv --dataset synthetic --output-path /tmp/run
 
 The actions and flags mirror ``python -m convolutional_gat``; the flags of
-its options that are not ported yet (mesh, pipeline) are absent.
+its options that are not ported yet (the model axis, FSDP, spatial and
+pipeline parallelism) are absent. ``--data-axis N`` (config key
+DATA_AXIS) trains each global batch over N ranks: without a launcher
+environment the CLI starts N processes itself, one a card over NCCL (N
+gloo processes with ``--device cpu``), and passes a SIGTERM on to them;
+under torchrun each process is one rank, and ``--multihost`` makes that
+explicit (it raises without a launcher environment). The default, one
+card without a process group, is the JAX CLI's only where one device is
+visible: JAX's default is every device.
 ``--moe-experts E`` gives the ``unet`` family its Switch-MoE bottleneck of E
 experts and ``--moe-aux-weight`` (default 0.01) weighs its load-balance
 loss (config keys MOE_EXPERTS and MOE_AUX_WEIGHT).
@@ -31,7 +39,12 @@ to a synthetic one.
 from __future__ import annotations
 
 import argparse
+import sys
 
+import torch.distributed as dist
+
+from ..parallel.launch import spawn_ranks
+from ..parallel.mesh import _multihost_env_configured, initialize_distributed
 from ..train.gat_driver import train
 from .generate_experiment import generate_experiment
 
@@ -97,10 +110,27 @@ def main(argv=None):
                         help="conv-mapping form: nhwc = cuDNN convs; "
                              "chanfirst = positions-on-lanes products; auto "
                              "currently = nhwc")
+    parser.add_argument("--data-axis", type=int, default=None,
+                        help="N: data parallelism over N ranks, one card "
+                             "each (gloo processes with --device cpu); "
+                             "default one card (config key DATA_AXIS)")
+    parser.add_argument("--multihost", action="store_true",
+                        help="join the process group the launcher's "
+                             "environment describes (torchrun); raises "
+                             "without one")
     parser.add_argument("--device", default=None,
                         help="default: the CUDA card; 'cpu' to train on the "
                              "CPU")
     args = parser.parse_args(argv)
+    if args.action == "generate_experiment" and not args.exp_folder_name:
+        parser.error("generate_experiment needs --exp_folder_name")
+    if args.multihost or _multihost_env_configured():
+        # --multihost is explicit intent: failures raise
+        initialize_distributed(require=args.multihost, device=args.device)
+    elif (args.data_axis or 1) > 1 and not dist.is_initialized():
+        return spawn_ranks("extended_gan_torch.gat.__main__:main",
+                           sys.argv[1:] if argv is None else argv,
+                           args.data_axis, args.device)
     if args.action == "train":
         return train(
             model_type=args.model_type, mapping_type=args.mapping_type,
@@ -118,9 +148,8 @@ def main(argv=None):
             profile_trace_dir=args.profile_trace_dir,
             moe_experts=args.moe_experts,
             moe_aux_weight=0.01 if args.moe_aux_weight is None
-            else args.moe_aux_weight, device=args.device)
-    if not args.exp_folder_name:
-        parser.error("generate_experiment needs --exp_folder_name")
+            else args.moe_aux_weight, data_axis=args.data_axis,
+            device=args.device)
     return generate_experiment(
         args.exp_folder_name, output_path=args.output_path,
         device=args.device, train_batch_size=args.train_batch_size,
@@ -131,7 +160,7 @@ def main(argv=None):
         profile=args.profile or None,
         profile_trace_dir=args.profile_trace_dir or None,
         conv_impl=args.conv_impl, moe_experts=args.moe_experts or None,
-        moe_aux_weight=args.moe_aux_weight)
+        moe_aux_weight=args.moe_aux_weight, data_axis=args.data_axis)
 
 
 if __name__ == "__main__":

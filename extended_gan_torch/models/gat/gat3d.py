@@ -164,7 +164,7 @@ class _Mapping(nn.Module):
             xb = x.permute(0, 4, 1, 2, 3).reshape(b * v, h, w, t)
             y = self.unet(xb.permute(0, 3, 1, 2))  # (B*V, T', H, W)
             # a view: plane-major, which K1 reads in place
-            return y.view(b, v, -1, h, w).permute(0, 3, 4, 2, 1)[None]
+            return y.view(b, v, y.shape[1], h, w).permute(0, 3, 4, 2, 1)[None]
         params = (self.conv1.weight, self.conv1.bias, self.conv2.weight,
                   self.conv2.bias, self.conv3.weight, self.conv3.bias)
         if self.use_pallas_mapping and x.shape[1] == x.shape[2]:

@@ -275,7 +275,7 @@ class SmaAt_UNet(nn.Module):  # noqa: N801 - the JAX package's name
         y = cast_to(self.outc.weight[:, :, 0, 0], dt) @ cast_to(x, dt).permute(
             0, 2, 3, 1).reshape(n, h * w, c).transpose(1, 2)
         return to_float32((y + cast_to(self.outc.bias[:, None], dt)).view(
-            n, -1, h, w))
+            n, y.shape[1], h, w))
 
 
 def dsc_shapes(batch=32, hw=20, vertices=6, device="cuda"):

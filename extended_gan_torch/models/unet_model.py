@@ -30,9 +30,9 @@ whatever else shares the batch.
 from __future__ import annotations
 
 import torch
-import torch.nn.functional as F
 from torch import nn
 
+from ..parallel.batch_norm import batch_norm
 from .moe import moe_layers
 from .smaat_unet import SmaAt_UNet
 
@@ -45,6 +45,8 @@ class PerVertexBatchNorm2d(nn.BatchNorm2d):
     ``num_batches_tracked`` behave as BatchNorm2d's (so
     ``train/state.py::running_stats_frozen`` freezes it too)."""
 
+    axis = None  # a data axis: statistics over its global batch
+
     def __init__(self, num_features, n_vertices, eps=1e-5, momentum=0.1):
         super().__init__(num_features, eps=eps, momentum=momentum)
         self.n_vertices = n_vertices
@@ -56,11 +58,10 @@ class PerVertexBatchNorm2d(nn.BatchNorm2d):
         v = self.n_vertices
         if self.training and self.num_batches_tracked is not None:
             self.num_batches_tracked.add_(1)
-        y = F.batch_norm(x.reshape(n // v, v * c, h, w),
-                         self.running_mean.view(-1),
-                         self.running_var.view(-1), self.weight.repeat(v),
-                         self.bias.repeat(v), self.training, self.momentum,
-                         self.eps)
+        y = batch_norm(x.reshape(n // v, v * c, h, w),
+                       self.running_mean.view(-1), self.running_var.view(-1),
+                       self.weight.repeat(v), self.bias.repeat(v),
+                       self.training, self.momentum, self.eps, self.axis)
         return y.reshape(n, c, h, w)
 
 

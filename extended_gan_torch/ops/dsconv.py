@@ -225,6 +225,12 @@ def _launch(x, dw, dwb, pw, pwb, *, keep_d=False, ks=None):
     """(out, d or None). ``ks``: channels a slice of CK in place of
     :func:`_split_plan`'s."""
     global launch_count
+    if x.numel() == 0:
+        # no rows (a data-parallel rank without any): nothing to launch
+        n, h, w, _ = x.shape
+        ckpl, cout = dw.shape[-1], pw.shape[-1]
+        return (x.new_empty((n, h, w, cout)),
+                x.new_empty((n, h, w, ckpl)) if keep_d else None)
     out, d, _ws, args = fwd_args(x, dw, dwb, pw, pwb, keep_d=keep_d, ks=ks)
     call(_lib().dsconv_fwd, x.device, args)
     launch_count += 1
@@ -234,6 +240,10 @@ def _launch(x, dw, dwb, pw, pwb, *, keep_d=False, ks=None):
 def _launch_bwd(gd, x, dw, *, need_dx):
     """(dx or None, ddw (3, 3, CK), ddwb (CK,)) from gd (N, H, W, CK)."""
     global bwd_launch_count
+    if x.numel() == 0:
+        # no rows: an empty dx, and the sums over them are zero
+        return (torch.empty_like(x) if need_dx else None,
+                torch.zeros_like(dw), dw.new_zeros(dw.shape[-1]))
     dx, grads, _part, args = bwd_args(gd, x, dw, need_dx=need_dx)
     call(_lib().dsconv_bwd, x.device, args)
     bwd_launch_count += 1

@@ -301,6 +301,9 @@ def _launch_fwd(x, a, adj_norm, alpha):
     if not 1 <= mm <= _MAX_M:
         raise ValueError(f"the kernel takes 1 <= M <= {_MAX_M}, got M={mm}")
     att0, att, pos = (x.new_empty((nh, b, mm, mm)) for _ in range(3))
+    if x.numel() == 0:
+        # no element (a data-parallel rank without rows): nothing to launch
+        return torch.empty_like(x), att0, att, pos
     plan = _cluster_plan(nh, b, s, mm * g)
     lib = _lib()
     with torch.cuda.device(x.device):
@@ -334,6 +337,10 @@ def _launch_bwd(x, g, a, adj_norm, att0, att, pos, alpha):
     global bwd_launch_count
     nh, b, s, mm, gg = x.shape
     _check((("g", g),), x.device)
+    if x.numel() == 0:
+        # no element: an empty dx, and the batch's sums are zero
+        return torch.empty_like(x), torch.zeros_like(a), \
+            torch.zeros_like(adj_norm)
     # On GAT3D's paths g comes in one of the two layouts (K2's mapping:
     # pixel-major at both blocks; the cuDNN mapping: plane-major, but
     # pixel-major at the output block, from the sigmoid), so no copy runs

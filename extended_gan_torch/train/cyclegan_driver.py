@@ -20,8 +20,13 @@ driver's default is the repo's own ``cycle_gan/``). A SIGTERM
 (``train/preempt.py``) stops the epoch after the current step or group of
 K and writes a mid-epoch snapshot; ``resume=True`` restores the latest
 checkpoint and continues bit for bit as the uninterrupted run would.
-``precision="bf16"`` builds the nets with ``dtype=torch.bfloat16``. The
-prediction figures and plots are not ported.
+``precision="bf16"`` builds the nets with ``dtype=torch.bfloat16``. With
+``out_dir``, each epoch's eval draws its first batch as
+``<out_dir>/imgs/pred.png`` (on the resident path, the first eval batch
+gathered on the device) and the end of the run the history's plots under
+``<out_dir>/training_plots`` (JAX ``cyclegan_trainer.py:224-231``,
+``cyclegan_driver.py:412-418, 456``; without matplotlib each prints one
+line and nothing is drawn).
 
 ``megastep=K`` (K > 1) runs K steps a CUDA graph (``train/megastep.py``);
 ``resident=True`` copies the train and test splits to the device once
@@ -59,6 +64,7 @@ from ..core.precision import resolve_dtype
 from ..core.prng import KeySeq
 from ..data.resident import (
     ResidentVideos,
+    draw_first_eval_batch,
     epoch_seed,
     make_cyclegan_resident_eval,
     make_cyclegan_resident_megastep,
@@ -188,6 +194,10 @@ def train(*, data_location: str | None = None, epochs: int = 10,
             profiler)
         print(f"[megastep] {megastep} steps per CUDA graph")
 
+    # the figures go under out_dir only (JAX draws into its default
+    # out_dir, the repo's own folder)
+    img_path = os.path.join(out_dir, "imgs") if out_dir else None
+
     def epoch_feed(epoch, skip):
         """(the epoch's train logs, (a step's or a group's logs, the
         batches it counts) each, from batch ``skip`` on; its eval)."""
@@ -197,10 +207,18 @@ def train(*, data_location: str | None = None, epochs: int = 10,
                 train_store, train_k, epoch_seed(seed, epoch), resident_k,
                 train_batch_size, max_batches=max_batches,
                 start=skip // resident_k)
-            return (((logs, resident_k) for logs, _ in programs),
-                    lambda: resident_cyclegan_test(
-                        eval_k, test_store, k=resident_k,
-                        batch_size=test_batch_size))
+            def evaluate():
+                results = resident_cyclegan_test(
+                    eval_k, test_store, k=resident_k,
+                    batch_size=test_batch_size)
+                if img_path is not None:
+                    draw_first_eval_batch(
+                        eval_step, test_store, in_seq_len=nc, out_seq_len=nc,
+                        batch_size=test_batch_size, epoch=epoch,
+                        img_path=img_path)
+                return results
+
+            return ((logs, resident_k) for logs, _ in programs), evaluate
         train_loader, test_loader = get_coastal_loaders(
             data_location, train_batch_size, test_batch_size, seq_len=nc,
             crop=imsize, seed=seed + epoch)
@@ -220,7 +238,8 @@ def train(*, data_location: str | None = None, epochs: int = 10,
         else:
             logs = step_logs(batches, step, dev, log_every=log_every,
                              labels=LOSS_LABELS)
-        return logs, lambda: test(test_loader, eval_step, dev)
+        return logs, lambda: test(test_loader, eval_step, dev,
+                                  img_path=img_path, epoch=epoch)
 
     # restored before any graph is captured: a graph names the tensors it
     # was captured with
@@ -240,4 +259,7 @@ def train(*, data_location: str | None = None, epochs: int = 10,
                        hist_path=hist_path, start_epoch=start_epoch,
                        epochs=epochs, save_epoch=save_epoch, mid=mid,
                        profiler=profiler)
+    if out_dir:
+        history.save_path = os.path.join(out_dir, "training_plots")
+        history.plot()
     return nets, history

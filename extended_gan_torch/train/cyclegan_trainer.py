@@ -42,7 +42,7 @@ from __future__ import annotations
 import torch
 
 from ..utils.metrics import IncrementalTuple
-from .dcgan_trainer import dcgan_feed, fetch_nd
+from .dcgan_trainer import dcgan_feed, draw_batch, fetch_nd
 from .losses import bce, l1
 from .megastep import Megastep
 from .state import batchnorms, running_stats_frozen
@@ -160,12 +160,17 @@ def eval_results(pending: list[dict]) -> dict:
     return {"pred_mse": pred.item(), "cycle_l1": cycle.item()}
 
 
-def test(dataloader, eval_step, device):
+def test(dataloader, eval_step, device, *, img_path=None, epoch=None):
     """The eval over one loader pass: ``{"pred_mse", "cycle_l1"}``, the
-    sums fetched once (the JAX package's prediction figure is not
-    ported)."""
-    return eval_results([eval_step(x, y)[1]
-                         for x, y in dcgan_feed(dataloader, device)])
+    sums fetched once; with ``img_path``, the first batch's figure (JAX
+    ``cyclegan_trainer.py:224-231``)."""
+    pending = []
+    for i, (x, y) in enumerate(dcgan_feed(dataloader, device)):
+        fake_y, logs = eval_step(x, y)
+        pending.append(logs)
+        if i == 0 and img_path is not None:
+            draw_batch(x, y, fake_y, epoch, img_path)
+    return eval_results(pending)
 
 
 # the console line of every ``log_every``-th step

@@ -19,8 +19,12 @@ after the current step or group of K and writes a mid-epoch snapshot;
 ``resume=True`` restores the latest checkpoint (a cut epoch is redone from
 its consumed batches, replayed) and continues bit for bit as the
 uninterrupted run would. ``precision="bf16"`` builds the nets with
-``dtype=torch.bfloat16`` (``core/precision.py``). The figures and plots are
-not ported.
+``dtype=torch.bfloat16`` (``core/precision.py``). With ``out_dir``, each
+epoch's eval draws its first batch as ``<out_dir>/imgs/pred.png`` (on the
+resident path, the first eval batch gathered on the device) and the end of
+the run the history's plots under ``<out_dir>/training_plots`` (JAX
+``dcgan_trainer.py:832-842``, ``dcgan_driver.py:389-395, 435``; without
+matplotlib each prints one line and nothing is drawn).
 
 ``megastep=K`` (K > 1) runs K adversarial steps a CUDA graph
 (``train/megastep.py``); ``resident=True`` copies the train and test splits
@@ -60,6 +64,7 @@ from ..data.resident import (
     ResidentVideos,
     epoch_seed,
     make_dcgan_resident_eval,
+    draw_first_eval_batch,
     make_dcgan_resident_megastep,
     program_logs,
     resident_dcgan_test,
@@ -209,6 +214,10 @@ def train(*, data_location: str | None = None, epochs: int | None = None,
                             profiler)
         print(f"[megastep] {megastep} steps per CUDA graph")
 
+    # the figures go under out_dir only (JAX draws into its default
+    # out_dir, the repo's own folder)
+    img_path = os.path.join(out_dir, "imgs") if out_dir else None
+
     def epoch_feed(epoch, skip):
         """(the epoch's train logs, (a step's or a group's logs, the
         batches it counts) each, from batch ``skip`` on; its test pass)."""
@@ -218,10 +227,18 @@ def train(*, data_location: str | None = None, epochs: int | None = None,
                 train_store, train_k, epoch_seed(seed, epoch), resident_k,
                 train_batch_size, max_batches=max_batches,
                 start=skip // resident_k)
-            return (((logs, resident_k) for logs, _ in programs),
-                    lambda: resident_dcgan_test(eval_k, test_store,
-                                                k=resident_k,
-                                                batch_size=test_batch_size))
+            def evaluate():
+                results = resident_dcgan_test(eval_k, test_store,
+                                              k=resident_k,
+                                              batch_size=test_batch_size)
+                if img_path is not None:
+                    draw_first_eval_batch(
+                        eval_step, test_store, in_seq_len=params["nc"],
+                        out_seq_len=params["nc"], batch_size=test_batch_size,
+                        epoch=epoch, img_path=img_path)
+                return results
+
+            return ((logs, resident_k) for logs, _ in programs), evaluate
         train_loader, test_loader = get_h5_loaders(
             data_location, train_batch_size, test_batch_size,
             crop=params["imsize"], in_seq_len=params["nc"],
@@ -241,7 +258,8 @@ def train(*, data_location: str | None = None, epochs: int | None = None,
                                  train_batch_size)
         else:
             logs = step_logs(batches, step, dev)
-        return logs, lambda: test(test_loader, eval_step, dev)
+        return logs, lambda: test(test_loader, eval_step, dev,
+                                  img_path=img_path, epoch=epoch)
 
     save_epoch = int(params.get("save_epoch") or 0)
     # restored before any graph is captured: a graph names the tensors it
@@ -262,4 +280,7 @@ def train(*, data_location: str | None = None, epochs: int | None = None,
                        hist_path=hist_path, start_epoch=start_epoch,
                        epochs=params["nepochs"], save_epoch=save_epoch,
                        mid=mid, profiler=profiler)
+    if out_dir:
+        history.save_path = os.path.join(out_dir, "training_plots")
+        history.plot()
     return nets, history

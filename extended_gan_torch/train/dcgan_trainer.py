@@ -47,6 +47,7 @@ from ..utils.metrics import (
     masked_batch_metrics,
     masked_rounded_match_nd,
 )
+from ..utils.viz import visualize_predictions
 from .gat_trainer import pad_batch
 from .losses import bce
 from .megastep import Megastep
@@ -378,8 +379,21 @@ def eval_results(pending: list[dict]) -> dict:
     return fd_m.results() | td_m.results() | pred.results()
 
 
-def test(dataloader, eval_step, device):
-    """Eval metrics over ``dataloader`` (:func:`eval_results`; the
-    reference's figure of the first batch is not ported)."""
-    return eval_results([eval_step(x, y)[1]
-                         for x, y in dcgan_feed(dataloader, device)])
+def draw_batch(x, y, fake, epoch, img_path):
+    """``<img_path>/pred.png`` of a batch of (N, T, H, W) tensors (frames as
+    channels), brought to the host (``utils/viz.py``)."""
+    visualize_predictions(*(t.float().cpu().numpy() for t in (x, y, fake)),
+                          epoch, img_path)
+
+
+def test(dataloader, eval_step, device, *, img_path=None, epoch=None):
+    """Eval metrics over ``dataloader`` (:func:`eval_results`); with
+    ``img_path``, the first batch's figure (JAX ``dcgan_trainer.py:
+    832-842``)."""
+    pending = []
+    for i, (x, y) in enumerate(dcgan_feed(dataloader, device)):
+        fake, logs = eval_step(x, y)
+        pending.append(logs)
+        if i == 0 and img_path is not None:
+            draw_batch(x, y, fake, epoch, img_path)
+    return eval_results(pending)

@@ -50,12 +50,30 @@ Host data, profiling and the mapping's form (JAX ``gat_driver.py:272-357,
 (``models/moe.py``; the ``unet`` family has one, the others print the JAX
 registry's note) and ``moe_aux_weight`` weighs its load-balance loss in
 every train step (JAX ``gat_driver.py:283-284, 374``); with no experts the
-weight is 0. The JAX driver shards the experts over a data axis that
-divides E (``:421-432``); the port has no data axis yet.
+weight is 0.
 
-The JAX driver's mesh, tensor/sequence/FSDP/pipeline parallelism and
-plots are not ported yet: a config that sets one of them to anything but
-its default raises, naming the ROADMAP item that ports it.
+With ``output_path``, after each epoch the driver draws the prediction
+figure ``pred_{epoch}.png`` (the first rainy sample of a batch-2 loader,
+predicted by the model on the device) and ``history_{epoch}.png`` (JAX
+``gat_driver.py:673-684``; ``utils/viz.py``: without matplotlib each
+prints one line and nothing is drawn). ``plot`` is accepted and ignored,
+as in JAX, where only ``output_path`` decides.
+
+``data_axis`` N > 1 trains each global batch over the N ranks of a
+process group (``parallel/``: started by the CLI, or by torchrun with
+``--multihost``): every rank builds the same loaders from the same seed
+and takes its contiguous rows of each batch; the train step sums the
+gradients over the ranks, BatchNorm's statistics run over the global
+batch, the validation sums are added over the ranks, a SIGTERM to any
+rank stops every rank after the same step, and rank 0 alone writes
+``history.json``, ``model.pt``, checkpoints and figures (every rank
+restores on resume). ``None`` and 1 are one device without a group: the
+path above, unchanged. The JAX driver's ``None`` is every device; the
+port keeps one card until the data axis covers ``megastep``,
+``resident`` and the MoE (JAX shards the experts over the data axis,
+``:421-432``), which it refuses, with tensor, sequence, FSDP and pipeline
+parallelism: a config that sets one of them to anything but its default
+raises, naming the ROADMAP item that ports it.
 """
 
 from __future__ import annotations
@@ -66,8 +84,8 @@ import math
 import os
 
 import torch
+import torch.distributed as dist
 
-from ..core.device import resolve_device
 from ..core.precision import resolve_dtype
 from ..core.prng import KeySeq
 from ..data.resident import (
@@ -82,14 +100,17 @@ from ..data.streaming import get_loaders
 from ..data.synthetic import ensure_synthetic_kmni
 from ..models.registry import build_model
 from ..ops import launch_counts
-from ..utils.history import save_history_json, update_history
+from ..parallel import attach_data_axis, data_axis_for
+from ..utils.history import plot_history, save_history_json, update_history
 from ..utils.profiling import epoch_profiler, timed
+from ..utils.viz import visualize_gat_predictions
 from .gat_trainer import (
     gat_megastep_logs,
     gat_step_logs,
     make_gat_eval_step,
     make_gat_megastep,
     make_gat_train_step,
+    predict_batch,
     test,
 )
 from .checkpoint import (
@@ -99,14 +120,14 @@ from .checkpoint import (
     empty_gat_mid,
 )
 from .optim import current_lr, make_optimizer, make_scheduler, scheduler_step
-from .preempt import GracefulShutdown
+from .preempt import AnyRankShutdown, GracefulShutdown
 from .state import NetState, param_count
 from .unported import refuse_unported
 
 # experiment-config keys and keywords of JAX driver options the port does
 # not have yet: (the value that means "off", the ROADMAP queue 1 item)
 _NOT_PORTED = {
-    "data_axis": (None, 9), "model_axis": (1, 9), "tp_min_channels": (256, 9),
+    "model_axis": (1, 9), "tp_min_channels": (256, 9),
     "fsdp": (False, 9), "fsdp_min_size": (4096, 9), "spatial": (False, 9),
     "pipeline_stages": (0, 9), "pp_microbatches": (0, 9),
 }
@@ -191,12 +212,25 @@ def train(*, model_type: str = "temporal", optimizer: str = "adam",
           megastep: int = 0, resident: bool = False,
           shuffle_mode: str = "batch", conv_impl: str = "auto",
           profile: bool = False, profile_trace_dir: str = "", device=None,
-          moe_experts: int = 0, moe_aux_weight: float = 0.01, **options):
-    """Train on ``device`` (default: the CUDA card). Takes the JAX driver's
-    keyword arguments, every field of an experiment config among them;
-    ``plot`` is accepted and ignored (plots are not ported). ``use_pallas=None`` runs the fused kernels exactly when
-    the model sits on the card. Returns ``(model, history)``."""
+          moe_experts: int = 0, moe_aux_weight: float = 0.01,
+          data_axis: int | None = None, **options):
+    """Train on ``device`` (default: the CUDA card, ``cuda:{LOCAL_RANK}``
+    on a data axis over NCCL). Takes the JAX driver's keyword arguments,
+    every field of an experiment config among them; ``plot`` is accepted
+    and ignored, as in JAX. ``use_pallas=None`` runs the fused kernels
+    exactly when the model sits on the card. Returns ``(model,
+    history)``."""
     refuse_unported(options, _NOT_PORTED)
+    ranks = data_axis or (dist.get_world_size() if dist.is_initialized()
+                          else 1)
+    for flag, on in (("megastep", megastep > 1), ("resident", resident),
+                     ("moe_experts", moe_experts)):
+        if on and ranks > 1:
+            raise NotImplementedError(
+                f"data_axis={ranks} with {flag} is not ported yet (ROADMAP "
+                "queue 1 item 9); the port's data axis runs single train "
+                "steps over streamed batches")
+    axis = data_axis_for(data_axis, device)
     if conv_impl == "auto":
         # chanfirst becomes the pick only after an A/B on the card shows a
         # win, as in JAX
@@ -204,9 +238,11 @@ def train(*, model_type: str = "temporal", optimizer: str = "adam",
     if resident and dataset not in ("kmni", "synthetic", "arai"):
         raise ValueError(f"--resident supports the kmni/synthetic/arai "
                          f"datasets, not {dataset!r}")
-    dev = resolve_device(device)
+    dev = axis.device
     downsample_size = tuple(downsample_size)
     print(f"Using device: {dev}")
+    if axis.parallel:
+        print(f"Using data axis: {axis.size} ranks (rank {axis.rank})")
     if dataset == "kmni" and not os.path.isdir(
             os.path.join(preprocessed_folder, "train")):
         print(f"[conv_gat] dataset not found at {preprocessed_folder!r}; "
@@ -232,6 +268,9 @@ def train(*, model_type: str = "temporal", optimizer: str = "adam",
                         generator=torch.Generator().manual_seed(seed),
                         dtype=resolve_dtype(precision), conv_impl=conv_impl,
                         moe_experts=moe_experts)
+    if axis.parallel:
+        attach_data_axis(model, axis)
+        axis.broadcast_module(model)
     keys = KeySeq(seed)
     graphs = dev.type == "cuda" and (megastep > 1 or resident)
     opt = make_optimizer(optimizer, model.parameters(), learning_rate,
@@ -243,8 +282,8 @@ def train(*, model_type: str = "temporal", optimizer: str = "adam",
     profiler = epoch_profiler(profile, profile_trace_dir)
     aux_w = moe_aux_weight if moe_experts else 0.0
     step = timed(make_gat_train_step(model, opt, criterion=criterion,
-                                     remat=remat, moe_aux_weight=aux_w),
-                 profiler)
+                                     remat=remat, moe_aux_weight=aux_w,
+                                     axis=axis), profiler)
     eval_step = make_gat_eval_step(model)
     if resident:
         train_store, val_store = _resident_splits(
@@ -294,8 +333,8 @@ def train(*, model_type: str = "temporal", optimizer: str = "adam",
             steps_ = gat_megastep_logs(batches, megastep_fn, dev, megastep,
                                        train_batch_size)
         else:
-            steps_ = gat_step_logs(batches, step, dev)
-        return steps_, lambda: test(eval_step, val_loader, dev)
+            steps_ = gat_step_logs(batches, step, dev, axis=axis)
+        return steps_, lambda: test(eval_step, val_loader, dev, axis=axis)
 
     state = NetState(model, opt, scheduler)
 
@@ -328,19 +367,26 @@ def train(*, model_type: str = "temporal", optimizer: str = "adam",
                     history = json.load(f)
     if test_first:
         tr_l, _, te_l = loader_factory()
-        history["train_loss"].append(test(eval_step, tr_l, dev)["val_loss"])
-        result = test(eval_step, te_l, dev)
+        history["train_loss"].append(
+            test(eval_step, tr_l, dev, axis=axis)["val_loss"])
+        result = test(eval_step, te_l, dev, axis=axis)
         print(f"Test loss (without any training): {result['val_loss']:.6f}")
         update_history(history, result)
         print(json.dumps(result, indent=4))
-    with GracefulShutdown() as shutdown:
+    # rank 0 alone writes the run's files; every rank restored above
+    writes = output_path if axis.is_main else ""
+    if not axis.is_main:
+        ckpt_mgr = None
+    with GracefulShutdown() as local_shutdown:
+        shutdown = AnyRankShutdown(local_shutdown, axis) if axis.parallel \
+            else local_shutdown
         for epoch in range(start_epoch, epochs + 1):
             skip = int(mid["batch"]) if epoch == start_epoch else 0
             train_steps, evaluate = epoch_feed(epoch, skip)
             _, mid_out = train_single_epoch(
                 epoch=epoch, model=model, train_steps=train_steps,
                 evaluate=evaluate, scheduler=scheduler, history=history,
-                output_path=output_path, keys=keys, shutdown=shutdown,
+                output_path=writes, keys=keys, shutdown=shutdown,
                 start_batch=skip,
                 init_running=(float(mid["loss"]), int(mid["total"]))
                 if skip else (0.0, 0), profiler=profiler)
@@ -351,13 +397,22 @@ def train(*, model_type: str = "temporal", optimizer: str = "adam",
                                   snapshot(epoch, mid_out))
                     print(f"[preempt] stopped resumably mid-epoch {epoch} "
                           f"({int(mid_out['batch'])} batches in)")
-                else:
+                elif axis.is_main:
                     print(f"[preempt] stopped mid-epoch {epoch} WITHOUT a "
                           "snapshot: no checkpointing configured (set "
                           "CHECKPOINT_EVERY / checkpoint_every); progress is "
                           "lost")
                 break
             mid = empty_gat_mid()
+            if writes:
+                _, viz_loader, _ = loader_factory(2, 2)
+                visualize_gat_predictions(
+                    lambda xb: predict_batch(model, xb, dev), viz_loader,
+                    epoch=epoch, path=writes,
+                    power=float(getattr(viz_loader, "power", 1.0)))
+                plot_history(history, title="Training History", save=True,
+                             filename=os.path.join(writes,
+                                                   f"history_{epoch}.png"))
             # read once: a SIGTERM between "save?" and "stop?" must not
             # stop without the snapshot
             preempted = shutdown.requested
@@ -369,7 +424,7 @@ def train(*, model_type: str = "temporal", optimizer: str = "adam",
                               snapshot(epoch, empty_gat_mid()))
             if preempted:
                 print(f"[preempt] stopped after epoch {epoch}"
-                      + ("" if ckpt_mgr is not None else
+                      + ("" if ckpt_mgr is not None or not axis.is_main else
                          " WITHOUT a snapshot: no checkpointing configured "
                          "(set CHECKPOINT_EVERY / checkpoint_every)"))
                 break

@@ -43,6 +43,7 @@ from __future__ import annotations
 
 import contextlib
 import itertools
+import math
 
 import numpy as np
 import torch
@@ -51,6 +52,7 @@ from torch.utils.checkpoint import checkpoint
 from ..core.device import to_device
 from ..data.streaming import Prefetcher
 from ..models.moe import moe_layers, sow_moe
+from ..parallel.mesh import DataAxis, pad_to_batch_multiple
 from .losses import CRITERIA
 from .megastep import Megastep
 from .state import batchnorms, running_stats_frozen
@@ -77,37 +79,57 @@ def remat_forward(model):
 
 
 def make_gat_train_step(model, optimizer, *, criterion: str = "mse",
-                        remat: bool = False, moe_aux_weight: float = 0.0):
+                        remat: bool = False, moe_aux_weight: float = 0.0,
+                        axis: DataAxis | None = None):
     """``step(x, y, mask) -> (loss, running_nd)``: forward in train mode,
     backward, one optimizer step. ``criterion`` is "mse" or "l1";
     ``remat`` recomputes the forward during the backward
     (:func:`remat_forward`, ``state.running_stats_frozen``);
     ``moe_aux_weight`` > 0 adds that weight times the MoE layers'
-    load-balance losses."""
+    load-balance losses.
+
+    With a data ``axis`` of more than one rank, (x, y, mask) are this
+    rank's rows of the global batch (``DataAxis.rows``; maybe none) and
+    the model's BatchNorm reads the axis (``parallel.attach_data_axis``).
+    Each rank's loss divides by the global valid count, and the gradients
+    and the loss are summed over the ranks in one all-reduce before the
+    optimizer step: JAX's psum of the global-mean loss's gradient, exact
+    for a ragged batch. The returned loss and ``running_nd`` are the
+    global ones."""
     if criterion not in CRITERIA:
         raise ValueError(
             f"unsupported criterion {criterion!r}; choose 'mse' or 'l1'")
     crit = CRITERIA[criterion]
     forward = remat_forward(model) if remat else model
     moe = moe_layers(model) if moe_aux_weight else []
+    dp = axis is not None and axis.parallel
+    params = list(model.parameters())
 
     def step(x, y, mask):
         model.train()
+        n_valid = mask.sum()
+        # the samples the loss's mean runs over: the global batch's
+        count = axis.all_reduce(n_valid.clone()) if dp else n_valid
         with sow_moe(moe) as sown:
             y_hat = forward(x)
         m = mask.reshape((-1,) + (1,) * (y.dim() - 1))
-        n_valid = mask.sum()
-        err = crit(y_hat, y, mask=mask)  # sum(err * m) / (n_valid * y[0].numel())
-        mean_pred = (y_hat * m).sum() / (n_valid.clamp_min(1.0) * y[0].numel())
+        per_sample = math.prod(y.shape[1:])
+        # sum(err * m) / (count * per_sample)
+        err = crit(y_hat, y, mask=mask, count=count if dp else None)
+        mean_pred = (y_hat * m).sum() / (count.clamp_min(1.0) * per_sample)
         loss = err - 0.0005 * mean_pred
         if sown:
             loss = loss + moe_aux_weight * torch.stack(
                 [aux for aux, _ in sown]).sum()
         optimizer.zero_grad(set_to_none=True)
         loss.backward()
+        loss, err = loss.detach(), err.detach()
+        if dp:
+            loss, err = axis.all_reduce_grads(
+                params, torch.stack([loss, err])).unbind()
         optimizer.step()
-        # running_loss contribution: sum(err) / y[0].numel()
-        return loss.detach(), torch.stack([err.detach() * n_valid, n_valid])
+        # running_loss contribution: sum(err) / per_sample
+        return loss, torch.stack([err * count, count])
 
     return step
 
@@ -133,7 +155,7 @@ def _eval_metrics(y_hat, y, mask, threshold, normalizing_max, power):
     y_p = y ** inv if power != 1.0 else y
     y_hat_p = y_hat.clamp_min(0.0) ** inv if power != 1.0 else y_hat
     m = mask.reshape((-1,) + (1,) * (y.dim() - 1))
-    per_sample = float(y[0].numel())
+    per_sample = float(math.prod(y.shape[1:]))
     n_valid = mask.sum()
     sq = (((y_p - y_hat_p) ** 2) * m).sum()
     denorm_sq = ((((y_p - y_hat_p) * normalizing_max) ** 2) * m).sum()
@@ -152,6 +174,7 @@ def _eval_metrics(y_hat, y, mask, threshold, normalizing_max, power):
         "prec": tp / (tp + fp) * n_valid,
         "rec": tp / (tp + fn) * n_valid,
         "n": n_valid,
+        "tp": tp, "fp": fp, "fn": fn,
     }
 
 
@@ -172,6 +195,16 @@ def make_gat_eval_step(model):
     return eval_step
 
 
+def predict_batch(model, x, device):
+    """The model's eval-mode prediction of the numpy batch ``x`` on
+    ``device``, as numpy (the figures' ``predict_fn``; JAX
+    ``gat_driver.py:720``)."""
+    model.eval()
+    with torch.no_grad():
+        return model(to_device(np.asarray(x, np.float32), device)) \
+            .float().cpu().numpy()
+
+
 def to_device_batch(x, y, device):
     """Numpy (x, y) -> (x, y, mask) float32 tensors on ``device``; the copy
     is asynchronous from pinned memory when the device is the card."""
@@ -179,14 +212,21 @@ def to_device_batch(x, y, device):
             torch.ones(len(x), device=device))
 
 
-def gat_feed(loader, device, *, depth=2):
+def gat_feed(loader, device, *, axis: DataAxis | None = None, depth=2):
     """Background feed: yields ``(n_samples, (x, y, mask))`` with the batch
     on ``device``, or ``(n, None)`` for a batch of at most one sample, which
-    the caller skips."""
+    the caller skips. With a data ``axis``, the batch is this rank's rows
+    of the global one (``DataAxis.rows``) and ``n_samples`` the global
+    batch's."""
     def prepare(item):
         x, y = item
         n = len(x)
-        return (n, None) if n <= 1 else (n, to_device_batch(x, y, device))
+        if n <= 1:
+            return n, None
+        if axis is not None:
+            rows = axis.rows(n)
+            x, y = x[rows], y[rows]
+        return n, to_device_batch(x, y, device)
 
     return Prefetcher(iter(loader), depth=depth, transfer=prepare)
 
@@ -194,13 +234,7 @@ def gat_feed(loader, device, *, depth=2):
 def pad_batch(x, y, batch_size):
     """(x, y, mask) with ``batch_size`` rows: the missing ones zeros, their
     mask entries 0 (JAX's ``MeshContext.pad_to_batch_multiple``)."""
-    n = len(x)
-    mask = np.zeros((batch_size,), np.float32)
-    mask[:n] = 1.0
-    if n < batch_size:
-        x, y = (np.concatenate([a, np.zeros((batch_size - n,) + a.shape[1:],
-                                            a.dtype)]) for a in (x, y))
-    return x, y, mask
+    return pad_to_batch_multiple(x, y, batch_size=batch_size)
 
 
 def gat_megafeed(loader, device, k: int, *, batch_size=None, depth=2):
@@ -236,11 +270,13 @@ def gat_megafeed(loader, device, k: int, *, batch_size=None, depth=2):
     return Prefetcher(grouped(), depth=depth, transfer=prepare)
 
 
-def gat_step_logs(loader, step, device, *, max_batches: int = 0):
+def gat_step_logs(loader, step, device, *, max_batches: int = 0,
+                  axis: DataAxis | None = None):
     """Single train steps over the first ``max_batches`` (all: 0) loader
     batches: (running_nd, samples, 1 loader batch, 1 train step) a step;
-    a batch of at most one sample is skipped, as (None, 0, 1, 0)."""
-    for i, (n, batch) in enumerate(gat_feed(loader, device)):
+    a batch of at most one sample is skipped, as (None, 0, 1, 0). With a
+    data ``axis`` each step takes this rank's rows (:func:`gat_feed`)."""
+    for i, (n, batch) in enumerate(gat_feed(loader, device, axis=axis)):
         if max_batches and i >= max_batches:
             break
         if n <= 1:
@@ -264,10 +300,16 @@ def gat_megastep_logs(loader, megastep, device, k: int, batch_size: int, *,
 
 
 _METRICS = ("loss_num", "denorm_num", "acc", "prec", "rec")
+# a batch's sums over its samples: what the ranks of a data axis add up
+_SUMS = ("loss_num", "denorm_num", "acc", "tp", "fp", "fn", "n")
 
 
-def test(eval_step, loader, device):
-    """Validation-set evaluation (the reference's ``test``)."""
+def test(eval_step, loader, device, *, axis: DataAxis | None = None):
+    """Validation-set evaluation (the reference's ``test``). With a data
+    ``axis``, each batch's threshold comes from the whole global batch
+    (every rank holds it), each rank evaluates its rows, and the batch's
+    sums (``_SUMS``) are added over the ranks before its precision and
+    recall are formed: those are not sums over shards."""
     power = float(getattr(loader, "power", 1.0))
     norm_max = float(getattr(loader, "normalizing_max", 1.0))
 
@@ -278,6 +320,9 @@ def test(eval_step, loader, device):
             return n, None, None
         unique = np.unique(np.asarray(y, np.float32) ** (1.0 / power))
         threshold = float(unique[int(len(unique) * 0.5)])
+        if axis is not None:
+            rows = axis.rows(n)
+            x, y = x[rows], y[rows]
         return n, threshold, to_device_batch(x, y, device)
 
     pending, total = [], 0  # metric sums stay on the card; one fetch
@@ -286,10 +331,19 @@ def test(eval_step, loader, device):
         if n <= 1:
             continue
         out = eval_step(*batch, threshold, norm_max, power=power)
-        pending.append(torch.stack([out[k] for k in _METRICS]))
+        pending.append(torch.stack([out[k] for k in _SUMS]))
         total += n
+    rows = []
+    if pending:
+        sums = torch.stack(pending)
+        if axis is not None:
+            axis.all_reduce(sums)
+        loss_num, denorm_num, acc, tp, fp, fn, n_valid = sums.unbind(1)
+        rows = torch.stack([loss_num, denorm_num, acc,
+                            tp / (tp + fp) * n_valid,
+                            tp / (tp + fn) * n_valid], 1).tolist()
     sums = dict.fromkeys(_METRICS, 0.0)
-    for row in (torch.stack(pending).tolist() if pending else []):
+    for row in rows:
         for k, v in zip(_METRICS, row):
             undefined = k in ("prec", "rec") and np.isnan(v)
             sums[k] += 0.0 if undefined else v  # the reference drops them

@@ -7,24 +7,31 @@ padded samples add nothing and the mean runs over the real ones.
 
 from __future__ import annotations
 
+import math
+
 import torch
 
 
-def _masked_mean(per: torch.Tensor, mask: torch.Tensor | None):
+def _masked_mean(per: torch.Tensor, mask: torch.Tensor | None,
+                 count: torch.Tensor | None = None):
     if mask is None:
         return per.mean()
     m = mask.reshape((-1,) + (1,) * (per.dim() - 1)).expand_as(per)
-    return (per * m).sum() / m.sum().clamp_min(1.0)
+    if count is None:
+        return (per * m).sum() / m.sum().clamp_min(1.0)
+    return (per * m).sum() / (count.clamp_min(1.0) * math.prod(per.shape[1:]))
 
 
-def mse(y_hat, y, *, mask=None):
-    """== torch.nn.MSELoss on the real samples."""
-    return _masked_mean((y_hat - y) ** 2, mask)
+def mse(y_hat, y, *, mask=None, count=None):
+    """== torch.nn.MSELoss on the real samples. ``count``: the samples the
+    mean runs over, where these rows are one rank's share of them."""
+    return _masked_mean((y_hat - y) ** 2, mask, count)
 
 
-def l1(y_hat, y, *, mask=None):
-    """== torch.nn.L1Loss on the real samples."""
-    return _masked_mean((y_hat - y).abs(), mask)
+def l1(y_hat, y, *, mask=None, count=None):
+    """== torch.nn.L1Loss on the real samples (``count`` as for
+    :func:`mse`)."""
+    return _masked_mean((y_hat - y).abs(), mask, count)
 
 
 # torch.nn.BCELoss clamps the log at -100. Its backward at a saturated p (0

@@ -50,3 +50,18 @@ class GracefulShutdown:
             signal.signal(s, prev)
         self._prev.clear()
         return False
+
+
+class AnyRankShutdown:
+    """A :class:`GracefulShutdown` seen by every rank of a data axis
+    (``parallel.DataAxis``): ``requested`` is set on all of them as soon
+    as any rank caught the signal, so every rank stops after the same
+    step. Each read is one all-reduce, and every rank reads at the same
+    points of the loop."""
+
+    def __init__(self, shutdown: GracefulShutdown, axis):
+        self.shutdown, self.axis = shutdown, axis
+
+    @property
+    def requested(self) -> bool:
+        return self.axis.any(self.shutdown.requested)

@@ -174,7 +174,8 @@ def test_dcgan_driver_checkpoints_every_save_epoch_and_the_last(tmp_path):
         "--device", "cpu", "--epochs", "3", "--max-batches", "1",
         "--synthetic", "--out-dir", str(out), "--save-epoch", "2",
         "--train-batch-size", "4", "--test-batch-size", "32"])
-    assert sorted(os.listdir(out)) == ["checkpoints", "history.json"]
+    assert sorted(os.listdir(out)) == ["checkpoints", "history.json",
+                                       "imgs", "training_plots"]
     mgr = ckpt.CheckpointManager(str(out / "checkpoints"))
     # epochs 2 (save_epoch) and 3 (the last), each the start of the next
     assert mgr.all_steps() == [ckpt.ckpt_step(3), ckpt.ckpt_step(4)]

@@ -326,7 +326,8 @@ def test_driver_trains_on_each_path(tmp_path, jax_keys, path):
         **PATHS[path])
     assert sorted(history.history) == jax_keys == KEYS
     assert all(np.isfinite(v[0]) for v in history.history.values())
-    assert sorted(os.listdir(out)) == ["checkpoints", "history.json"]
+    assert sorted(os.listdir(out)) == ["checkpoints", "history.json",
+                                       "imgs", "training_plots"]
     assert all(p.isfinite().all() and p.dtype == torch.float32
                for n in nets for p in n.parameters())
     step, tree = latest(out)

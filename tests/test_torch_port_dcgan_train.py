@@ -200,7 +200,8 @@ def test_cli_trains_on_the_cpu(tmp_path, monkeypatch):
                for v in history.history.values())
     assert "pred_mse" in history.history and "train_mse" in history.history
     assert sorted(os.listdir(tmp_path)) == ["out"]
-    assert sorted(os.listdir(out)) == ["checkpoints", "history.json"]
+    assert sorted(os.listdir(out)) == ["checkpoints", "history.json",
+                                       "imgs", "training_plots"]
     saved = TrainingHistory.from_json(str(out / "history.json")).history
     assert saved == history.history
     assert _tree_digest(os.path.join(REPO, "dcgan")) == before

@@ -392,4 +392,5 @@ def test_cli_trains_every_option_on_the_cpu(tmp_path, monkeypatch, extra):
     assert nets[0].packed
     assert all(len(v) == 1 and np.isfinite(v[0])
                for v in history.history.values())
-    assert sorted(os.listdir(out)) == ["checkpoints", "history.json"]
+    assert sorted(os.listdir(out)) == ["checkpoints", "history.json",
+                                       "imgs", "training_plots"]

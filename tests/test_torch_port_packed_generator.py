@@ -338,7 +338,8 @@ def test_cyclegan_cli_trains_packed_generators(tmp_path, monkeypatch):
         "--packed-g"])
     assert nets[0].packed and nets[1].packed
     assert all(np.isfinite(v[0]) for v in history.history.values())
-    assert sorted(os.listdir(out)) == ["checkpoints", "history.json"]
+    assert sorted(os.listdir(out)) == ["checkpoints", "history.json",
+                                       "imgs", "training_plots"]
     # the packed run's checkpoint exports as either layout, with the same
     # outputs
     arts = {}

@@ -306,7 +306,7 @@ def test_unported_driver_options_raise(kwargs, error):
 # every option the conv-GAT driver refuses, a value that is not "off", and
 # the ROADMAP queue 1 item that ports it
 GAT_UNPORTED = [
-    ("data_axis", 2, 9), ("model_axis", 2, 9), ("tp_min_channels", 64, 9),
+    ("model_axis", 2, 9), ("tp_min_channels", 64, 9),
     ("fsdp", True, 9), ("fsdp_min_size", 1, 9), ("spatial", True, 9),
     ("pipeline_stages", 2, 9), ("pp_microbatches", 2, 9),
 ]
