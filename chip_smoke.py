@@ -114,11 +114,7 @@ Phases, each fatal on failure (non-zero exit, no result line):
              --max-batches 16`` (2 programs, launches by the replay rule);
              in process, graph against eager over 3 programs (final state
              and, apart, ``*_nd`` logs, each tensor within MEGA_LIMIT of
-             its scale, cuDNN deterministic on both sides; where the
-             UNet's upsampling adds with atomics, within 10x the eager
-             runs' own drift, and eager runs with a planted fault, a
-             replayed program's first or last optimizer step skipped or
-             its last BatchNorm update missed, must fail that test; each
+             its scale, cuDNN deterministic on both sides; each
              replayed program from the graph's own state before it), ms a
              step eager against graph, one replay
              profiled (busy time, kernels, the port's kernels by name equal
@@ -244,7 +240,19 @@ Phases, each fatal on failure (non-zero exit, no result line):
              BatchNorm that must miss; ``--multihost`` over a world of one
              (NCCL) against the plain CLI, bit for bit; ``--data-axis 2``
              on one card raises.
-20. report - the total time, the ``kernels`` JSON line, the card's name and
+20. gan_data_parallel - the DCGAN and CycleGAN over the data axis, and
+             graphs under it: two gloo ranks on the one card
+             (``--gan-dp-child``) train the published DCGAN (3 Adam steps)
+             and CycleGAN (2) with 16 rows each of batches of 32, dropout
+             on, against one process in float64; per-rank dropout masks
+             and unreduced D gradients planted, each missing by 10x;
+             cross-rank BatchNorm alone against float64, a mean rounded to
+             float32 planted, missing by 10x; the
+             gat (final_smaatunet K3 144 + 144, final_temp_conv K1 16 + 16),
+             dcgan and cycle_gan CLIs with ``--megastep 8 --resident`` as
+             an NCCL world of one (``--gan-dp-cli-child``) against the
+             plain CLI; graphs over gloo on the card raise, naming NCCL.
+21. report - the total time, the ``kernels`` JSON line, the card's name and
              power limit, and the last line ``{"ok": true, "device":
              {...}}``.
 """
@@ -2526,15 +2534,6 @@ SMAAT_K = 2
 MEGA_LIMIT = 1e-6
 
 
-def _planted_faults(k):
-    """The faults planted in the first replayed program (its K steps are
-    train steps K + 1 to 2K) to show that the test a graph is held to
-    catches them: (kind, step) for :func:`_planted`."""
-    return {"its first optimizer step skipped": ("step", k + 1),
-            "its last optimizer step skipped": ("step", 2 * k),
-            "its last BatchNorm update missed": ("bn", 2 * k)}
-
-
 # the port's kernels by their profiler names, one main kernel a launch
 KERNEL_NAMES = {
     "gat_attention_fwd": ("gat_attention_cluster_fwd_kernel",
@@ -2566,30 +2565,6 @@ def _train_state(modules, opts):
 
 def _shapes(inputs):
     return tuple(tuple(x.shape) for x in inputs)
-
-
-def _planted(make, fault, n):
-    """``make()`` with a fault planted in its ``n``-th train step:
-    ``"step"`` skips that step's optimizer step, ``"bn"`` leaves every
-    BatchNorm's running statistics as they were before it."""
-    import torch
-
-    mega, mods, opts = make()
-    bns = [m for mod in mods for m in mod.modules()
-           if isinstance(m, torch.nn.modules.batchnorm._BatchNorm)]
-    for opt in opts:
-        calls = [0]
-
-        def step(*args, _step=opt.step, _calls=calls, **kw):
-            _calls[0] += 1
-            if fault == "bn" and _calls[0] == n - 1:
-                for m in bns:
-                    m.momentum = 0.0
-            if fault == "step" and _calls[0] == n:
-                return None
-            return _step(*args, **kw)
-        opt.step = step
-    return mega, mods, opts
 
 
 def _profile_call(fn, steps):
@@ -2654,8 +2629,7 @@ def _pool_bytes(pool):
                if tuple(s["segment_pool_id"]) == tuple(pool))
 
 
-def graph_against_eager(label, make, programs, card, *, atomics=False,
-                        profile_eager=True,
+def graph_against_eager(label, make, programs, card, *, profile_eager=True,
                         rounds=("eager", "graph", "graph", "eager"),
                         timed_programs=2):
     """``make()`` -> (megastep, modules, optimizers), fresh from one seed.
@@ -2666,14 +2640,7 @@ def graph_against_eager(label, make, programs, card, *, atomics=False,
     it, cuDNN deterministic. After each program the parameters, buffers
     and optimizer state, and apart from them the program's ``*_nd`` logs,
     are held by ``utils.compare.held_to_reference`` to MEGA_LIMIT, each
-    tensor in units of its scale. With ``atomics`` (the model has an op
-    that adds with atomics in a run-dependent order, so that two runs
-    drift apart step by step) four more twins give the eager path's own
-    run-to-run drift over the same K steps, the widest of their samples
-    each tensor's and the whole state's, and the graph is held to 10 times
-    that where it is larger;
-    and twins with a fault planted in the first replayed program
-    (:func:`_planted_faults`) must fail that same test. Then, on a fresh
+    tensor in units of its scale. Then, on a fresh
     copy captured under the default flags (exact f32): the ms a step
     eager against graph (``timed_programs`` programs at a time, in the
     turns ``rounds``), one replay and (with ``profile_eager``) one eager
@@ -2684,11 +2651,7 @@ def graph_against_eager(label, make, programs, card, *, atomics=False,
     import torch
 
     from extended_gan_torch import ops
-    from extended_gan_torch.utils.compare import (
-        drift,
-        held_to_reference,
-        widest,
-    )
+    from extended_gan_torch.utils.compare import held_to_reference
 
     k = programs[0][0].shape[0]
     t_call = time.perf_counter()
@@ -2731,54 +2694,20 @@ def graph_against_eager(label, make, programs, card, *, atomics=False,
             return out
 
         want = eager_from(make, len(programs))
-        # the run-to-run drift: four more twins, every replayed program,
-        # the widest of their samples tensor by tensor (state and logs;
-        # fewer let a small tensor's floor read far below its typical size)
-        floors = (None, None)
-        if atomics:
-            runs = [eager_from(make, len(programs)) for _ in range(4)]
-            floors = tuple(widest(drift(run[i][j], want[i][j])
-                                  for run in runs for i in range(len(want)))
-                           for j in (0, 1))
-        verdicts = [[held_to_reference(g, w, f, limit=MEGA_LIMIT)
-                     for g, w, f in zip((after[i + 1], logs_g[i + 1]), wi,
-                                        floors)]
+        verdicts = [[held_to_reference(g, w, limit=MEGA_LIMIT)
+                     for g, w in zip((after[i + 1], logs_g[i + 1]), wi)]
                     for i, wi in enumerate(want)]
-        planted = {}
-        if atomics:  # in the first replayed program
-            for fault, (kind, n) in _planted_faults(k).items():
-                (bad, _), = eager_from(
-                    lambda kind=kind, n=n: _planted(make, kind, n), 2)
-                planted[fault] = held_to_reference(bad, want[0][0],
-                                                   floors[0],
-                                                   limit=MEGA_LIMIT)
     check(all(bool(t.isfinite().all()) for t in after[-1]),
           f"{label}: non-finite state after the graph's steps")
     check(all(v["ok"] for pair in verdicts for v in pair),
           f"{label}: graph against eager, each replayed program from the "
           f"same state: {verdicts} (state, logs; worst: the largest gap "
-          f"over its bound; limit {MEGA_LIMIT:.0e}"
-          + (", or 10x eager against eager" if atomics else "") + ")")
-    for fault, v in planted.items():
-        check(not v["ok"], f"{label}: eager with a planted fault ({fault}) "
-                           f"passes the test the graph is held to: {v}")
+          f"over its bound; limit {MEGA_LIMIT:.0e})")
     st = {key: max(pair[0][key] for pair in verdicts)
-          for key in ("gap", "worst", "floor")}
-    lg = {key: max(pair[1][key] for pair in verdicts)
-          for key in ("gap", "worst", "floor")}
+          for key in ("gap", "worst")}
     same = all(v["bitwise"] for pair in verdicts for v in pair)
-    gap, log_gap = st["gap"], lg["gap"]
-    floor_note = ""
-    if atomics:
-        floor_note = (
-            f"; eager against eager, the run-to-run floor: {st['floor']:.3e}"
-            f" (state), {lg['floor']:.3e} (logs), each tensor held to 10x "
-            f"its own and the whole's: the graph at {st['worst']:.3f} "
-            f"(state), {lg['worst']:.3f} (logs) of its bound; planted "
-            "faults at "
-            + ", ".join(f"{v['worst']:.1f} ({f})"
-                        for f, v in planted.items())
-            + " of theirs")
+    gap = st["gap"]
+    log_gap = max(pair[1]["gap"] for pair in verdicts)
     del after, want
     times = {"eager": [], "graph": []}
     with torch.backends.cudnn.flags(enabled=True, allow_tf32=False):
@@ -2845,7 +2774,7 @@ def graph_against_eager(label, make, programs, card, *, atomics=False,
     print(f"[megastep] {label}, K={k}: graph against eager over "
           f"{len(programs)} programs: state {gap:.3e}, logs {log_gap:.3e} "
           f"(limit {MEGA_LIMIT:.0e}; bitwise equal: "
-          f"{'yes' if same else 'no'}{floor_note}); ms a step eager "
+          f"{'yes' if same else 'no'}); ms a step eager "
           f"{eager_ms:.3f} ({', '.join(f'{t:.3f}' for t in times['eager'])}),"
           f" graph {graph_ms:.3f} ("
           f"{', '.join(f'{t:.3f}' for t in times['graph'])}); device busy "
@@ -2865,9 +2794,7 @@ def graph_against_eager(label, make, programs, card, *, atomics=False,
           f"in all; {card}")
     return dict(launched=launched, in_graph=in_graph,
                 profiled=recorded, gap=gap, log_gap=log_gap,
-                bitwise=same, floor=st["floor"],
-                worst=st["worst"],
-                planted={f: v["worst"] for f, v in planted.items()},
+                bitwise=same, worst=st["worst"],
                 eager_ms=eager_ms,
                 graph_ms=graph_ms, busy_ms=prof_g["busy_ms"],
                 kernels=prof_g["kernels"], per_replay=per_replay,
@@ -3027,14 +2954,10 @@ def phase_megastep(tmp, batch=32, hw=80):
             return make_gat_megastep(model, opt), (model,), (opt,)
         return make
 
-    # the bilinear upsampling's backward adds with atomics, in an order that
-    # changes from run to run: the graph is held to eager beside the eager
-    # path's own run-to-run gap (Adam turns a gradient that is zero up to
-    # roundoff into a step of +-lr, which each tensor's own gap absorbs)
     _reset_launches()
     results["final_smaatunet"] = graph_against_eager(
         f"final_smaatunet b={batch}", unet_maker("adam"), unet_progs, card,
-        atomics=True, profile_eager=False, **MEGA_TIMING)
+        profile_eager=False, **MEGA_TIMING)
     check(results["final_smaatunet"]["per_replay"] == {
         "dsconv_fwd": 18 * k, "dsconv_bwd": 18 * k},
           f"final_smaatunet replay: {results['final_smaatunet']['per_replay']}")
@@ -3057,7 +2980,7 @@ def phase_megastep(tmp, batch=32, hw=80):
     results["final_temp_smaat"] = graph_against_eager(
         f"final_temp_smaat b={batch}", smaat_maker("adam"),
         [tuple(t[:SMAAT_K] for t in p) for p in unet_progs], card,
-        atomics=True, profile_eager=False, **MEGA_TIMING)
+        profile_eager=False, **MEGA_TIMING)
     check(results["final_temp_smaat"]["per_replay"] == {
         "gat_attention_fwd": 4 * SMAAT_K, "gat_attention_bwd": 4 * SMAAT_K},
           "final_temp_smaat replay: "
@@ -3561,8 +3484,8 @@ def _robust_dcgan_finish(label, argv, ref, run, child):
 def _robust_smaat(tmp, stop_after):
     """final_smaatunet (K3) through ``generate_experiment``: starts the cut
     run in a child and returns the rest: two uninterrupted runs here
-    (their gap is the run-to-run floor: the upsampling's backward adds
-    with atomics), the resume here; held by
+    (their gap is the run-to-run floor), the resume here, cuDNN
+    deterministic as in the child; held by
     ``utils.compare.held_to_reference``, with a twin whose one optimizer
     step is skipped shown to fail it."""
     kw = dict(epochs=2, max_batches=8, checkpoint_every=10)
@@ -3585,7 +3508,9 @@ def _robust_smaat_finish(kw, outs, child):
         widest,
     )
 
-    with contextlib.redirect_stdout(io.StringIO()):
+    with contextlib.redirect_stdout(io.StringIO()), \
+            torch.backends.cudnn.flags(enabled=True, allow_tf32=False,
+                                       deterministic=True):
         for k in ("ref", "twin", "twin2"):
             generate_experiment("final_smaatunet", output_path=outs[k], **kw)
         cut = child.finish()
@@ -3753,17 +3678,14 @@ def _grads(mods):
 
 def _remat_case(make, inputs, name):
     """One train step with and without remat from one state: gradients
-    bitwise (GAT3D) or held to the plain step's own run-to-run drift (the
-    UNet's upsampling adds with atomics), and the forward kernels launched
-    twice as often with remat."""
+    bit for bit, and the forward kernels launched twice as often with
+    remat."""
     import torch
 
     from extended_gan_torch import ops
-    from extended_gan_torch.utils.compare import drift, held_to_reference
 
     grads, launches = {}, {}
-    for label, remat in (("plain", False), ("plain again", False),
-                         ("remat", True)):
+    for label, remat in (("plain", False), ("remat", True)):
         mods, step, _, _ = make(torch.float32, remat)
         before = ops.launch_counts()
         with torch.backends.cudnn.flags(enabled=True, allow_tf32=False,
@@ -3773,17 +3695,11 @@ def _remat_case(make, inputs, name):
         launches[label] = {n: c - before[n] for n, c in
                            ops.launch_counts().items() if c != before[n]}
         grads[label] = _grads(mods)
-    if name == "final_smaatunet":
-        floor = drift(grads["plain again"], grads["plain"])
-        verdict = held_to_reference(grads["remat"], grads["plain"], floor)
-        ok = verdict["ok"]
-    else:
-        verdict = all(torch.equal(a, b) for a, b in zip(grads["remat"],
-                                                        grads["plain"]))
-        ok = verdict
+    verdict = all(torch.equal(a, b) for a, b in zip(grads["remat"],
+                                                    grads["plain"]))
     twice = {n: (2 * c if n.endswith("fwd") else c)
              for n, c in launches["plain"].items()}
-    check(ok and launches["remat"] == twice and twice,
+    check(verdict and launches["remat"] == twice and twice,
           f"remat {name}: gradients {verdict}; launches {launches['remat']} "
           f"with remat, {launches['plain']} without")
     return verdict, launches["remat"]
@@ -3924,9 +3840,7 @@ def phase_robustness(tmp, batch=32):
         for r in rows.values():
             r.pop("mods")
         remat[name] = dict(plain=rows[False], remat=rows[True],
-                           launches=launched,
-                           grads=verdict if isinstance(verdict, bool)
-                           else verdict["gap"])
+                           launches=launched, grads=verdict)
         print(f"[robustness] remat {name} b={batch}: peak MiB "
               f"{rows[False]['peak_mib']:.1f} plain / "
               f"{rows[True]['peak_mib']:.1f} remat (a step's own "
@@ -3934,8 +3848,7 @@ def phase_robustness(tmp, batch=32):
               f"{rows[True]['peak_step_mib']:.1f}); ms a step eager "
               f"{rows[False]['eager_ms']:.3f} / {rows[True]['eager_ms']:.3f},"
               f" as a K={ROBUST_K} graph {rows[False]['graph_ms']:.3f} / "
-              f"{rows[True]['graph_ms']:.3f}; gradients "
-              f"{'bitwise' if verdict is True else verdict}; launches a "
+              f"{rows[True]['graph_ms']:.3f}; gradients bitwise; launches a "
               f"remat step {launched}, in its graph {in_graph}; {card}")
     main_path = {n: c for n, c in ops.launch_counts().items() if c}
     for name in ("gat_attention_fwd", "gat_attention_bwd", "dsconv_fwd",
@@ -5059,7 +4972,7 @@ def _moe_resume(tmp, knmi, stop_after=8):
     """The MoE UNet through the conv-GAT driver (the KNMI archive
     ``knmi``, 20x20, b=32, 2 epochs of 6 batches, checkpoints on): four
     uninterrupted runs here (the three twins' gaps to the first give the
-    run-to-run floor: the upsampling's backward adds with atomics), the
+    run-to-run floor), the
     cut run in a :class:`_Child` that gets a real SIGTERM once it has
     printed ``stop_after`` steps (the driver then finishes the step it is
     in: it stops after step ``stop_after + 1``, the 3rd of epoch 2), the
@@ -5140,8 +5053,7 @@ def phase_moe(tmp, batch=32):
       routing (expert and kept mask of every token) equal,
       the smallest top-1 margin printed; the gate left out of combine (a
       planted fault) must miss those limits;
-    - the graph against eager by ``graph_against_eager`` (atomics: within
-      10x eager's own run-to-run drift, planted faults failing);
+    - the graph against eager by ``graph_against_eager``;
     - ``per_vertex_bn=True``: one step with K3 against the plain DSC on
       the card (loss, gradients, routing by vertex);
     - ``python -m extended_gan_torch.gat train --model-type unet
@@ -5318,7 +5230,7 @@ def phase_moe(tmp, batch=32):
 
     _reset_launches()
     rows["graph"] = graph_against_eager("moe final_smaatunet E=8", make_graph,
-                                        programs, card, atomics=True,
+                                        programs, card,
                                         profile_eager=False)
     by_path["moe: graph against eager, 3 programs"] = \
         rows["graph"]["launched"]
@@ -6396,8 +6308,8 @@ def phase_data_parallel(tmp):
       (and losses) apart, and the statistics and loss of the first step:
       each within 10x the widest distance from it of the one-process
       float32 b=32 run with the kernels and of its twin with each batch's
-      rows in another order (float32 roundoff, the reduction order and
-      the UNet upsampling's atomics, which Adam's steps amplify); the
+      rows in another order (float32 roundoff and the reduction order,
+      which Adam's steps amplify); the
       ranks end equal; each rank launches K3 18 + 18 and K1
       2 + 2 a step; per-rank BatchNorm statistics (the planted fault) must
       miss the bound;
@@ -6529,6 +6441,458 @@ def phase_data_parallel(tmp):
                 seconds=seconds)
 
 
+# the gan_data_parallel phase: Adam steps of the published GANs, 2 gloo
+# ranks of 16 rows against one process of 32; the batches from this seed
+GAN_DP_STEPS = {"dcgan": 3, "cyclegan": 2}
+GAN_DP_SEED = 13
+
+
+def _plant_gan_fault(fault, nets, axis):
+    """``"dropout"``: each rank draws its own rows' masks; ``"d_unreduced"``:
+    the step's first all-reduce (D's) sums its losses alone."""
+    from extended_gan_torch.models.dcgan import ConvBlock
+
+    if fault == "dropout":
+        for net in nets:
+            for m in net.modules():
+                if isinstance(m, ConvBlock):
+                    m.axis = None
+    elif fault == "d_unreduced":
+        reduce, calls = axis.all_reduce_grads, []
+
+        def unreduced(params, extra):
+            calls.append(1)
+            return reduce([] if len(calls) == 1 else params, extra)
+
+        axis.all_reduce_grads = unreduced
+
+
+# the layer check: cross-rank BatchNorm on a global batch whose mean is
+# large against its spread, every value exact in float32 (the grid's step,
+# 2**-8, is a whole number of float32 steps at GAN_BN_SHIFT), rank 1's rows
+# 0.25 above rank 0's
+GAN_BN_SHIFT = 1000.0
+GAN_BN_SHAPE = (32, 64, 32, 32)
+
+
+def _mean_rounded(d, shift, mean, invstd):
+    """Cross-rank BatchNorm's x_hat from its mean rounded to float32: a past
+    fault, planted to show the layer check sees it."""
+    mean32 = mean.to(d.dtype).reshape(1, -1, 1, 1)
+    return (d - (mean32 - shift.reshape(1, -1, 1, 1))) \
+        * invstd.to(d.dtype).reshape(1, -1, 1, 1)
+
+
+def _bn_layer(device, axis=None, *, dtype=None, shift=0.0, fault=False):
+    """Train-mode BatchNorm (momentum 0.1) forward and backward of the
+    layer check's batch less ``shift`` (which moves none of its outputs):
+    over ``axis``'s ranks, each with its rows (``fault``: the mean rounded
+    to float32), or ``F.batch_norm`` in one process in ``dtype``. Returns
+    y, dx, the weight's and bias's gradients and the running statistics,
+    all of the global batch, as float64 on the CPU."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+
+    from extended_gan_torch.parallel import BatchNorm2d
+    from extended_gan_torch.parallel import batch_norm as bn_module
+
+    n, c = GAN_BN_SHAPE[:2]
+    rng = np.random.default_rng(GAN_DP_SEED)
+    x = (GAN_BN_SHIFT + rng.integers(0, 64, GAN_BN_SHAPE) / 256
+         + 0.25 * (np.arange(n) >= n // 2)[:, None, None, None])
+    x, dy = (torch.from_numpy(a.astype(np.float32)).to(device)
+             for a in (x, rng.standard_normal(GAN_BN_SHAPE)))
+    w = torch.from_numpy(rng.uniform(0.5, 1.5, c).astype(np.float32))
+    b = torch.from_numpy(rng.standard_normal(c).astype(np.float32))
+    if axis is None:
+        x, dy, w, b = (t.to(device, dtype) for t in (x - shift, dy, w, b))
+        x.requires_grad_(True)
+        w.requires_grad_(True)
+        b.requires_grad_(True)
+        rm, rv = torch.zeros_like(w), torch.ones_like(w)
+        y = F.batch_norm(x, rm, rv, w, b, True, 0.1, 1e-5)
+        y.backward(dy)
+        out = [y, x.grad, w.grad, b.grad, rm + 0.1 * shift, rv]
+    else:
+        bn = BatchNorm2d(c).to(device)
+        with torch.no_grad():
+            bn.weight.copy_(w)
+            bn.bias.copy_(b)
+        bn.axis = axis
+        normalise = bn_module._normalise
+        if fault:
+            bn_module._normalise = _mean_rounded
+        try:
+            xs = axis.shard(x).clone().requires_grad_(True)
+            y = bn(xs)
+            y.backward(axis.shard(dy))
+        finally:
+            bn_module._normalise = normalise
+        grads = axis.all_reduce(torch.stack([bn.weight.grad, bn.bias.grad]))
+        out = [axis.gather_rows(y.detach()).flatten(0, 1),
+               axis.gather_rows(xs.grad).flatten(0, 1), grads[0], grads[1],
+               bn.running_mean, bn.running_var]
+    return [t.detach().double().cpu() for t in out]
+
+
+def _bn_layer_verdict(got, want, shifted, plain):
+    """The worst of each output's gap from float64 (``want``) over 10x the
+    plain path's own: ``F.batch_norm`` in float32 on the batch less
+    GAN_BN_SHIFT (``shifted``: as precise as float32 can give them, no
+    mean's size to lose) for the outputs and gradients, on the batch
+    itself (``plain``) for the running statistics."""
+    def gap(a, b):
+        return ((a - b).abs().max() / b.abs().max()).item()
+
+    return max(gap(g, w) / (10 * max(gap(t, w), 1e-9))
+               for g, w, t in zip(got, want, shifted[:4] + plain[4:]))
+
+
+def _gan_dp_run(kind, device, axis=None, *, fault=None, float64=False,
+                perturb=False):
+    """GAN_DP_STEPS[kind] Adam steps of the published ``kind`` ("dcgan": nc
+    4, ndf 64, 64x64, default body; "cyclegan": nc 4, ndf 64) from seed 0,
+    dropout 0.01 from a generator on the card seeded 0, on global batches
+    of 32 (this rank's rows on ``axis``; ``perturb``: each batch scaled by
+    1 + 1e-7 noise; ``float64``: in float64), cuDNN exact and
+    deterministic: ``{"weights": parameters and Adam's moments after the
+    last step, "statistics": the buffers after it and the losses, "first
+    step": the buffers and the losses after the first step}`` on the CPU,
+    and the ms of each step (host clock, synchronised)."""
+    import numpy as np
+    import torch
+
+    from extended_gan_torch.core.prng import KeySeq
+    from extended_gan_torch.parallel import join_data_axis
+    from extended_gan_torch.train import cyclegan_trainer, dcgan_trainer
+    from extended_gan_torch.train.cyclegan_driver import build_cyclegan
+    from extended_gan_torch.train.dcgan_driver import (
+        DEFAULT_PARAMS,
+        build_dcgan,
+    )
+
+    keys = KeySeq(0, device=device)
+    if kind == "dcgan":
+        nets, opts = build_dcgan(DEFAULT_PARAMS, seed=0, device=device,
+                                 keys=keys)
+        loss_keys = ("errFD", "errTD", "errG")
+    else:
+        nets, opts = build_cyclegan(seed=0, device=device, keys=keys)
+        loss_keys = cyclegan_trainer.LOSS_KEYS
+    dtype = torch.float64 if float64 else torch.float32
+    for net in nets:
+        net.to(dtype)
+    if axis is not None:
+        join_data_axis(axis, *nets)
+        if fault:
+            _plant_gan_fault(fault, nets, axis)
+    if kind == "dcgan":
+        step = dcgan_trainer.make_dcgan_train_step(*nets, *opts, axis=axis)
+    else:
+        step = cyclegan_trainer.make_cyclegan_train_step(*nets, *opts,
+                                                         axis=axis)
+    rng = np.random.default_rng(GAN_DP_SEED)
+    noise = np.random.default_rng(99)
+    losses, step_ms, first = [], [], None
+    with torch.backends.cudnn.flags(enabled=True, allow_tf32=False,
+                                    deterministic=True):
+        for _ in range(GAN_DP_STEPS[kind]):
+            x, y = (rng.random((32, 4, 64, 64), np.float32)
+                    for _ in range(2))
+            if perturb:
+                x, y = ((a * (1 + 1e-7 * noise.standard_normal(a.shape)))
+                        .astype(np.float32) for a in (x, y))
+            if axis is not None:
+                rows = axis.rows(32)
+                x, y = x[rows], y[rows]
+            x, y = (torch.from_numpy(a).to(device, dtype) for a in (x, y))
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            logs = step(x, y) if axis is None else step(x, y, None, 32)
+            torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+            losses.append(torch.stack([logs[k] for k in loss_keys]))
+            if first is None:  # before Adam's steps amplify roundoff
+                first = [t.detach().cpu().clone() for t in itertools.chain(
+                    (b for n in nets for b in n.buffers()), [losses[0]])]
+    if axis is not None:
+        axis.__dict__.pop("all_reduce_grads", None)
+    weights = [p for n in nets for p in n.parameters()] + [
+        v for opt in opts for st in opt.state.values() for v in st.values()
+        if torch.is_tensor(v)]
+    stats = [b for n in nets for b in n.buffers()] + [torch.stack(losses)]
+    return ({"weights": [t.detach().cpu().clone() for t in weights],
+             "statistics": [t.detach().cpu().clone() for t in stats],
+             "first step": first}, step_ms)
+
+
+def gan_dp_child(spec_json):
+    """One gloo rank of :func:`phase_gan_data_parallel` on ``cuda:0``: the
+    DCGAN's and the CycleGAN's steps on its rows, the two planted faults,
+    the BatchNorm layer check with and without its planted fault, and the
+    driver's answer to ``--megastep 8`` over this gloo group on
+    the card; saved to ``<out>.<rank>``."""
+    import torch
+    import torch.distributed as dist
+
+    from extended_gan_torch.parallel import DataAxis
+    from extended_gan_torch.train import dcgan_driver
+
+    spec = json.loads(spec_json)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dist.init_process_group("gloo", init_method="file://" + spec["store"],
+                            rank=spec["rank"], world_size=spec["size"])
+    try:
+        axis = DataAxis(torch.device("cuda", 0), dist.group.WORLD)
+        out = {kind: _gan_dp_run(kind, axis.device, axis)
+               for kind in GAN_DP_STEPS}
+        for fault in ("dropout", "d_unreduced"):
+            out[f"dcgan {fault}"] = _gan_dp_run("dcgan", axis.device, axis,
+                                                fault=fault)
+        out["bn"] = [_bn_layer(axis.device, axis, fault=f)
+                     for f in (False, True)]
+        try:
+            with contextlib.redirect_stdout(io.StringIO()):
+                dcgan_driver.train(device="cuda", data_axis=2, megastep=8,
+                                   synthetic=True, epochs=1,
+                                   max_batches=16, train_batch_size=16)
+            out["refusal"] = ""
+        except RuntimeError as e:
+            out["refusal"] = str(e)
+        torch.save(out, f"{spec['out']}.{spec['rank']}")
+    finally:
+        dist.destroy_process_group()
+    return 0
+
+
+def gan_dp_cli_child(spec_json):
+    """A training CLI (``spec["cli"]``: gat, dcgan or cycle_gan) in this
+    process, cuDNN deterministic: ``argv``, then the process group's
+    backend and size (``none`` without one) and the kernels' launches as
+    ``[child]`` lines; the train state it ends with saved to
+    ``spec["save"]``."""
+    import importlib
+
+    import torch
+    import torch.distributed as dist
+
+    from extended_gan_torch import ops
+
+    spec = json.loads(spec_json)
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    main = importlib.import_module(
+        f"extended_gan_torch.{spec['cli']}.__main__").main
+    _reset_launches()
+    nets, history = main(spec["argv"])
+    torch.cuda.synchronize()
+    nets = nets if isinstance(nets, tuple) else (nets,)
+    torch.save({"state": [t.detach().cpu() for n in nets
+                          for t in n.state_dict().values()],
+                "history": history if isinstance(history, dict)
+                else history.history}, spec["save"])
+    group = (f"{dist.get_backend()} {dist.get_world_size()}"
+             if dist.is_initialized() else "none")
+    print(f"[child] group {group}", flush=True)
+    print(f"[child] launches {json.dumps(ops.launch_counts())}", flush=True)
+    if dist.is_initialized():
+        dist.destroy_process_group()
+    return 0
+
+
+def phase_gan_data_parallel(tmp):
+    """The DCGAN and the CycleGAN over the data axis, and ``--megastep`` with
+    ``--resident`` under it, on the one card:
+
+    - (a), (b) two ranks over gloo, both on ``cuda:0`` (``chip_smoke.py
+      --gan-dp-child``), each with 16 rows of every global batch of 32:
+      the published DCGAN (default body, 3 Adam steps) and CycleGAN (2),
+      dropout 0.01 on, held to one process in float64 by
+      ``utils/compare.py`` (the weights and Adam's moments, the
+      statistics and losses, the first step apart), each within 10x the
+      widest distance from it of the one-process float32 run and of its
+      twin with every batch under 1e-7 noise (the plain path alone, so a
+      fault in the axis's code cannot widen its own bound); the ranks end
+      equal, bit for bit; two planted faults, per-rank dropout masks and
+      D's gradients left unreduced, must each miss the bound by more than
+      10x; and cross-rank BatchNorm alone (64 channels, 16 rows a rank of
+      32x32, a mean 1000 against a spread of 0.13), forward and backward,
+      within 10x of float32 ``F.batch_norm``'s own distance from float64,
+      while its mean rounded to float32 (a past fault) misses by more
+      than 10x;
+    - (c) the gat (final_smaatunet's and final_temp_conv's models),
+      dcgan and cycle_gan CLIs with ``--megastep 8 --resident`` (2
+      programs of 8 steps: the first eager, the second captured and
+      replayed) as an NCCL world of one (``--multihost`` under a launcher
+      environment of one rank), each held to the same CLI run without it
+      bit for bit, history and train state; the launches equal, K3's backward 144 + 144 and K1's 16 + 16;
+    - (d) ``--megastep 8`` over the two gloo ranks on the card raises,
+      naming NCCL.
+
+    One card cannot host two NCCL ranks, so no collective is captured
+    here: the four-card run of ``python -m
+    extended_gan_torch.parallel.probe --megastep 8`` is that evidence."""
+    import torch
+
+    from extended_gan_torch.data.synthetic import make_kmni_dataset
+    from extended_gan_torch.utils.compare import (
+        drift,
+        held_to_reference,
+        widest,
+    )
+
+    t_phase = time.perf_counter()
+    card = card_line()
+    dev = torch.device("cuda")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    out = os.path.join(tmp, "gan_dp")
+    ranks = [_spawn("--gan-dp-child", dict(rank=r, size=2, out=out,
+                                           store=os.path.join(tmp, "store")))
+             for r in range(2)]
+    knmi = make_kmni_dataset(os.path.join(tmp, "knmi"), n_train_files=20,
+                             n_test_files=2, frames_per_file=96, hw=80)
+    k = 8
+    graphs = ["--resident", "--megastep", str(k), "--max-batches",
+              str(2 * k)]
+    gat = ["train", "--dataset", "kmni", "--preprocessed-folder", knmi,
+           "--train-batch-size", "32", "--test-batch-size", "64",
+           "--epochs", "1"] + graphs
+    gan = ["--synthetic", "--epochs", "1", "--train-batch-size", "16",
+           "--save-epoch", "1"] + graphs
+    clis = {
+        "final_smaatunet": ("gat", gat + [
+            "--model-type", "unet", "--mapping-type", "linear",
+            "--downsample-size", "20", "20"], "--output-path"),
+        "final_temp_conv": ("gat", gat + [
+            "--model-type", "temporal", "--mapping-type", "conv",
+            "--downsample-size", "80", "80"], "--output-path"),
+        "dcgan": ("dcgan", gan, "--out-dir"),
+        "cycle_gan": ("cycle_gan", gan, "--out-dir"),
+    }
+    launcher = dict(RANK="0", WORLD_SIZE="1", LOCAL_RANK="0",
+                    MASTER_ADDR="127.0.0.1", MASTER_PORT="0")
+    runs = [(name, how) for name in clis for how in ("plain", "multihost")]
+    children = {}
+    for name, how in runs:
+        cli, argv, out_flag = clis[name]
+        where = os.path.join(tmp, f"{name} {how}".replace(" ", "_"))
+        children[name, how] = _spawn("--gan-dp-cli-child", dict(
+            cli=cli, save=where + ".pt", argv=argv + [out_flag, where] + (
+                ["--multihost"] if how == "multihost" else [])),
+            env=launcher if how == "multihost" else None)
+    # the one-process runs, while the children run: float64, float32 and
+    # the float32 twin on a perturbed input
+    refs = {}
+    for kind in GAN_DP_STEPS:
+        want = _gan_dp_run(kind, dev, float64=True)[0]
+        one, one_ms = _gan_dp_run(kind, dev)
+        twin = _gan_dp_run(kind, dev, perturb=True)[0]
+        refs[kind] = (want, {g: widest(drift(t[g], want[g])
+                                       for t in (one, twin))
+                             for g in want}, one_ms)
+
+    def held(got, kind):
+        want, floors, _ = refs[kind]
+        return {g: held_to_reference(got[g], want[g], floors[g])
+                for g in want}
+
+    for r, p in enumerate(ranks):
+        _finished(p, f"gan_data_parallel rank {r}")
+    got = [torch.load(f"{out}.{r}", weights_only=False) for r in range(2)]
+    verdicts, times = {}, {}
+    for kind in GAN_DP_STEPS:
+        (s0, ms0), (s1, _) = got[0][kind], got[1][kind]
+        check(all(torch.equal(a, b) for g in s0 for a, b in zip(s0[g], s1[g])),
+              f"gan_data_parallel {kind}: the two ranks' states differ")
+        verdicts[kind] = held(s0, kind)
+        check(all(v["ok"] for v in verdicts[kind].values()),
+              f"gan_data_parallel {kind}: two ranks against one process "
+              f"{verdicts[kind]}")
+        times[kind] = dict(one_ms=statistics.mean(refs[kind][2][1:]),
+                           two_ms=statistics.mean(ms0[1:]))
+    faults = {}
+    for fault in ("dropout", "d_unreduced"):
+        v = held(got[0][f"dcgan {fault}"][0], "dcgan")
+        faults[fault] = max(x["worst"] for x in v.values())
+        check(faults[fault] > 10.0,
+              f"gan_data_parallel: the planted fault {fault} misses the "
+              f"bound by only {faults[fault]:.2f}x: {v}")
+    bn_refs = [_bn_layer(dev, dtype=torch.float64),
+               _bn_layer(dev, dtype=torch.float32, shift=GAN_BN_SHIFT),
+               _bn_layer(dev, dtype=torch.float32)]
+    bn = [_bn_layer_verdict(g, *bn_refs) for g in got[0]["bn"]]
+    faults["bn_mean_f32"] = bn[1]
+    check(bn[0] <= 1.0 and bn[1] > 10.0,
+          f"gan_data_parallel: cross-rank BatchNorm at {bn[0]:.3f} of its "
+          f"bound (at most 1), its mean rounded to float32 at {bn[1]:.3f} "
+          f"(over 10)")
+    refusals = [g["refusal"] for g in got]
+    check(all("needs NCCL" in r and "gloo" in r for r in refusals),
+          f"gan_data_parallel: --megastep 8 over gloo on the card: "
+          f"{refusals}")
+    texts = {key: _finished(p, f"gan_data_parallel CLI {key}")
+             for key, p in children.items()}
+    groups = {key: next((ln.split(" ", 2)[2] for ln in t.splitlines()
+                         if ln.startswith("[child] group ")), "")
+              for key, t in texts.items()}
+    launches = {key: json.loads(next(
+        ln.split(" ", 2)[2] for ln in t.splitlines()
+        if ln.startswith("[child] launches "))) for key, t in texts.items()}
+    saved = {key: torch.load(os.path.join(
+        tmp, f"{key[0]} {key[1]}".replace(" ", "_") + ".pt"),
+        weights_only=False) for key in children}
+    cli_verdicts = {}
+    for name in clis:
+        plain, multi = saved[name, "plain"], saved[name, "multihost"]
+        check(groups[name, "plain"] == "none"
+              and groups[name, "multihost"] == "nccl 1"
+              and launches[name, "plain"] == launches[name, "multihost"],
+              f"gan_data_parallel CLI {name}: groups "
+              f"{groups[name, 'plain']}, {groups[name, 'multihost']}, "
+              f"launches {launches[name, 'plain']} and "
+              f"{launches[name, 'multihost']}")
+        v = cli_verdicts[name] = held_to_reference(multi["state"],
+                                                   plain["state"])
+        check(v["bitwise"] and multi["history"] == plain["history"],
+              f"gan_data_parallel CLI {name}: --multihost world of one "
+              f"against the plain CLI: {v}, histories {plain['history']} "
+              f"and {multi['history']}")
+    per_replay = {"final_smaatunet": ("dsconv_bwd", 18 * k),
+                  "final_temp_conv": ("gat_attention_bwd", 2 * k)}
+    for name, (kernel, n) in per_replay.items():
+        check(launches[name, "multihost"].get(kernel) == 2 * n,
+              f"gan_data_parallel CLI {name}: {kernel} launched "
+              f"{launches[name, 'multihost'].get(kernel)}, expected {n} "
+              f"(eager) + {n} (a replay)")
+    seconds = time.perf_counter() - t_phase
+    print(f"[gan_data_parallel] two gloo ranks on cuda:0, 16 rows each of "
+          f"batches of 32, dropout 0.01, against one process in float64: "
+          + "; ".join(f"{n} {g} gap {v['gap']:.3e}, {v['worst']:.3f} of its "
+                      f"bound (floor {v['floor']:.3e})"
+                      for n, vs in verdicts.items() for g, v in vs.items())
+          + "; ms a step (host clock, synchronised, past the first): "
+          + "; ".join(f"{n} one process b=32 {t['one_ms']:.3f}, two ranks "
+                      f"sharing the card {t['two_ms']:.3f}"
+                      for n, t in times.items())
+          + f"; planted faults at {faults['dropout']:.1f}x (per-rank "
+          f"dropout masks) and {faults['d_unreduced']:.1f}x (D's gradients "
+          f"unreduced) their bound; cross-rank BatchNorm alone "
+          f"{bn[0]:.3f} of its bound, its mean rounded to float32 "
+          f"{bn[1]:.1f}x; --megastep 8 over gloo on the card: "
+          f"{refusals[0][:60]!r}...; --megastep 8 --resident as an NCCL "
+          f"world of one against the plain CLI: "
+          + "; ".join(f"{n} {'bit for bit' if v['bitwise'] else 'within ' + format(v['worst'], '.3f') + ' of its bound'}"
+                      for n, v in cli_verdicts.items())
+          + f"; launches {({n: launches[n, 'multihost'] for n in clis})}; "
+          f"phase {seconds:.1f} s; {card}")
+    return dict(verdicts=verdicts, faults=faults, times=times,
+                cli_launches={n: launches[n, "multihost"] for n in clis},
+                seconds=seconds)
+
+
 def card_line():
     res = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -6561,6 +6925,10 @@ def main() -> int:
         return dp_child(sys.argv[2])
     if sys.argv[1:2] == ["--dp-cli-child"]:
         return dp_cli_child(sys.argv[2])
+    if sys.argv[1:2] == ["--gan-dp-child"]:
+        return gan_dp_child(sys.argv[2])
+    if sys.argv[1:2] == ["--gan-dp-cli-child"]:
+        return gan_dp_cli_child(sys.argv[2])
     t0 = time.perf_counter()
     try:
         build_logs = phase_build()
@@ -6611,7 +6979,8 @@ def main() -> int:
                 shutil.rmtree(tmp, ignore_errors=True)
         slice19 = {}
         for name, phase in (("figures", phase_figures),
-                            ("data_parallel", phase_data_parallel)):
+                            ("data_parallel", phase_data_parallel),
+                            ("gan_data_parallel", phase_gan_data_parallel)):
             tmp = tempfile.mkdtemp(prefix=f"smoke_{name}_")
             try:
                 slice19[name] = phase(tmp)
@@ -6862,6 +7231,12 @@ def main() -> int:
         by_path["data_parallel: train final_temp_conv --multihost, NCCL "
                 "world of one"] = dp["cli_launches"]["multihost"].get(
                     k["name"], 0)
+        # the gan_data_parallel phase: the CLIs' --megastep 8 --resident
+        # runs as an NCCL world of one (an eager program, a replayed one)
+        for name, counts in slice19["gan_data_parallel"][
+                "cli_launches"].items():
+            by_path[f"gan_data_parallel: {name} --megastep 8 --resident, "
+                    "NCCL world of one"] = counts.get(k["name"], 0)
         k["launches_by_path"].update(by_path)
         k["launches"] += sum(by_path.values())
     # the host_data phase's CLI epochs (slice 16): K1 2 + 2 a step, K2 and

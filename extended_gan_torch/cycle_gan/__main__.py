@@ -5,8 +5,12 @@
 
 The flags and defaults are ``python -m cycle_gan``'s, plus ``--device``
 (the CUDA card by default, ``cpu`` on request). The JAX options that are
-not ported yet (the mesh axes, FSDP, SP) are taken and refused by the
-driver unless they are off; ``--multihost`` is refused here.
+not ported yet (the model axis, FSDP, SP) are taken and refused by the
+driver unless they are off. ``--data-axis N`` trains each global batch
+over N ranks: without a launcher environment the CLI starts N processes
+itself, one a card over NCCL (N gloo processes with ``--device cpu``);
+under torchrun each process is one rank, and ``--multihost`` makes that
+explicit (it raises without a launcher environment).
 ``--packed-g`` computes both generators in the 2x2 space-to-depth layout
 (off by default, as in JAX). ``--precision bf16`` computes in bfloat16
 with float32 weights; ``--megastep K`` runs K steps a CUDA graph and
@@ -25,6 +29,7 @@ from __future__ import annotations
 
 import argparse
 
+from ..parallel.launch import start_ranks
 from ..train.cyclegan_driver import train
 
 
@@ -55,8 +60,9 @@ def main(argv=None):
                         help="capture a torch.profiler trace of the first "
                              "epoch into this directory (implies --profile)")
     parser.add_argument("--data-axis", type=int, default=None,
-                        help="mesh data-parallel axis size: not ported yet, "
-                             "refused")
+                        help="N: data parallelism over N ranks, one card "
+                             "each (gloo processes with --device cpu); "
+                             "default one card")
     parser.add_argument("--model-axis", type=int, default=1,
                         help="mesh tensor-parallel axis size: not ported "
                              "yet, refused unless 1")
@@ -84,14 +90,17 @@ def main(argv=None):
     parser.add_argument("--no-packed-g", dest="packed_g",
                         action="store_false")
     parser.add_argument("--multihost", action="store_true",
-                        help="not ported yet: refused")
+                        help="join the process group the launcher's "
+                             "environment describes (torchrun); raises "
+                             "without one")
     parser.add_argument("--device", default=None,
                         help="default: the CUDA card; 'cpu' to train on the "
                              "CPU")
     args = parser.parse_args(argv)
-    if args.multihost:
-        raise SystemExit("--multihost is not ported yet (ROADMAP queue 1 "
-                         "item 9)")
+    if start_ranks("extended_gan_torch.cycle_gan.__main__:main", argv,
+                   data_axis=args.data_axis, multihost=args.multihost,
+                   device=args.device):
+        return None
     return train(
         data_location=args.data_location, epochs=args.epochs,
         train_batch_size=args.train_batch_size,

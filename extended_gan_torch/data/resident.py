@@ -22,6 +22,16 @@ windows differs from the JAX package's for the same seed.
 ``from_pt_frames`` holds the CycleGAN's coastal-sea frames; its train
 megastep and eval gather in NCHW with the frames as channels, as the
 DCGAN's do.
+
+Under a data axis (``parallel.DataAxis``) the store is whole on every card,
+as JAX's ``put_replicated`` puts it, and every rank builds the same
+programs (the same seed and the same device kind, so the same
+permutation); each rank gathers its contiguous rows of every program
+(``DataAxis.shard`` over the batch axis, the shard JAX's ``device_put``
+over the data axis gives its device, ``:236-239``). A train program's
+batch divides by the axis (the drivers check it, as JAX's do), so each
+rank's share is even and each rank captures the same graph; an eval
+program's may not, and the evals add their sums over the ranks.
 """
 
 from __future__ import annotations
@@ -32,6 +42,7 @@ import os
 import numpy as np
 import torch
 
+from ..parallel.mesh import DataAxis
 from ..train import cyclegan_trainer
 from ..train.dcgan_trainer import (
     draw_batch,
@@ -249,14 +260,18 @@ class ResidentVideos:
 
 
 def program_logs(store: ResidentVideos, megastep, seed: int, k: int,
-                 batch: int, *, max_batches: int = 0, start: int = 0):
+                 batch: int, *, max_batches: int = 0, start: int = 0,
+                 axis=None):
     """One train epoch from ``store``: its programs (shuffled with
     ``seed``) from program ``start`` on (a resumed epoch: the order is the
     epoch's, so the programs before ``start`` are the ones already run)
     through ``megastep``, yielding (logs, real windows) a program; with
     ``max_batches`` (counted in train steps) at most ``ceil(max_batches /
-    k)`` programs in the epoch."""
+    k)`` programs in the epoch. With a data ``axis``, this rank's rows of
+    each program (the real windows stay the global count)."""
     progs = store.epoch_programs(seed, k, batch)
+    if axis is not None:
+        progs = axis.shard(progs, -1)
     counts = store.program_sample_counts(len(progs), k, batch)
     n_prog = len(progs)
     if max_batches:
@@ -279,15 +294,17 @@ def _gather_windows(video, st, w, *, frame_axis_to: int):
 def make_gat_resident_megastep(model, optimizer, store: ResidentVideos, *,
                                time_steps: int = 4, criterion: str = "mse",
                                remat: bool = False,
-                               moe_aux_weight: float = 0.0):
+                               moe_aux_weight: float = 0.0, axis=None):
     """K conv-GAT train steps a call, their batches gathered from ``store``
     on its device: ``megastep(starts) -> logs`` with ``starts`` a (K, B)
-    program of :meth:`ResidentVideos.epoch_programs`. The update is
-    ``make_gat_megastep``'s; only the batch source differs. (JAX passes the
-    video as an argument; here the graph reads ``store.video`` at its fixed
-    address, so the store is bound when the megastep is made.)"""
+    program of :meth:`ResidentVideos.epoch_programs` (this rank's columns
+    of it on a data ``axis``). The update is ``make_gat_megastep``'s; only
+    the batch source differs. (JAX passes the video as an argument; here
+    the graph reads ``store.video`` at its fixed address, so the store is
+    bound when the megastep is made.)"""
     step = make_gat_train_step(model, optimizer, criterion=criterion,
-                               remat=remat, moe_aux_weight=moe_aux_weight)
+                               remat=remat, moe_aux_weight=moe_aux_weight,
+                               axis=axis)
     w = 2 * time_steps
 
     def body(st):
@@ -296,7 +313,7 @@ def make_gat_resident_megastep(model, optimizer, store: ResidentVideos, *,
                                 wins[..., time_steps:, :].contiguous(), mask)
         return {"loss": loss, "running_nd": running_nd}
 
-    return Megastep(body, optimizers=(optimizer,))
+    return Megastep(body, optimizers=(optimizer,), axis=axis)
 
 
 def _median_of_uniques(vals):
@@ -315,36 +332,53 @@ def _median_of_uniques(vals):
 
 
 def make_gat_resident_eval(model, store: ResidentVideos, *,
-                           time_steps: int = 4):
+                           time_steps: int = 4, axis=None):
     """``eval_k(starts) -> (6,)``: the sums [loss_num, denorm_num, acc,
     prec, rec, n] over the K eval batches of a program of
     :meth:`ResidentVideos.eval_programs`, each batch's threshold the median
     of the unique target values of its real rows (padded rows repeat row
     0's values, which changes no set of unique values), an undefined
-    precision or recall counted as 0, as the streaming eval drops it."""
+    precision or recall counted as 0, as the streaming eval drops it.
+
+    With a data ``axis`` (None: the axis of one), ``starts`` is the whole
+    program: every rank takes each batch's threshold from the whole
+    batch's targets, runs the model on its rows alone, and the batches'
+    sums (with tp, fp and fn) are added over the ranks before precision
+    and recall are formed, as ``gat_trainer.test`` does; every rank
+    returns the same sums."""
     w = 2 * time_steps
     power, norm_max = store.power, store.normalizing_max
+    axis = axis or DataAxis(store.video.device)
+    keys = ("loss_num", "denorm_num", "acc", "tp", "fp", "fn", "n")
 
     @torch.no_grad()
     def eval_k(starts):
         model.eval()
-        acc = torch.zeros(6, device=store.video.device)
+        rows = []
         for st in starts:
             wins, mask = _gather_windows(store.video, st, w, frame_axis_to=3)
-            x = wins[..., :time_steps, :].contiguous()
-            y = wins[..., time_steps:, :].contiguous()
-            y_hat = model(x)
-            y_p = y ** (1.0 / power) if power != 1.0 else y
-            m = mask.reshape((-1,) + (1,) * (y.dim() - 1))
-            thr = _median_of_uniques(torch.where(m > 0, y_p, y_p[0:1]))
-            out = _eval_metrics(y_hat, y, mask, thr, norm_max, power)
-            acc += torch.stack([
-                out["loss_num"], out["denorm_num"], out["acc"],
-                torch.nan_to_num(out["prec"]), torch.nan_to_num(out["rec"]),
-                out["n"]])
-        return acc
+            thr = _threshold(wins[..., time_steps:, :], mask, power)
+            wins, mask = axis.shard(wins), axis.shard(mask)
+            out = _eval_metrics(model(wins[..., :time_steps, :].contiguous()),
+                                wins[..., time_steps:, :].contiguous(), mask,
+                                thr, norm_max, power)
+            rows.append(torch.stack([out[k] for k in keys]))
+        loss_num, denorm_num, acc, tp, fp, fn, n = axis.all_reduce(
+            torch.stack(rows)).unbind(1)
+        return torch.stack([
+            loss_num, denorm_num, acc,
+            torch.nan_to_num(tp / (tp + fp) * n),
+            torch.nan_to_num(tp / (tp + fn) * n), n], 1).sum(0)
 
     return eval_k
+
+
+def _threshold(y, mask, power):
+    """The resident eval's threshold of one batch: the median of the
+    unique values of its real rows' targets (``y ** (1 / power)``)."""
+    y_p = y ** (1.0 / power) if power != 1.0 else y
+    m = mask.reshape((-1,) + (1,) * (y.dim() - 1))
+    return _median_of_uniques(torch.where(m > 0, y_p, y_p[0:1]))
 
 
 def resident_gat_test(eval_k, store: ResidentVideos, *, k: int = 8,
@@ -405,24 +439,30 @@ def draw_first_eval_batch(eval_step, store: ResidentVideos, *,
 
 
 def resident_dcgan_test(eval_k, store: ResidentVideos, *, k: int = 8,
-                        batch_size: int = 64) -> dict:
-    """``dcgan_trainer.test`` over a resident split: the same keys."""
+                        batch_size: int = 64, axis=None) -> dict:
+    """``dcgan_trainer.test`` over a resident split: the same keys. With a
+    data ``axis`` each rank evaluates its rows of every program and the
+    sums are added over the ranks (``dcgan_trainer.eval_results``)."""
     programs, _ = store.eval_programs(k, batch_size, min_batch=1)
-    return eval_results([eval_k(p) for p in programs])
+    if axis is not None:
+        programs = axis.shard(programs, -1)
+    return eval_results([eval_k(p) for p in programs], axis)
 
 
 def make_dcgan_resident_megastep(g, fd, td, g_opt, fd_opt, td_opt,
                                  store: ResidentVideos, *,
                                  in_seq_len: int = 4, out_seq_len: int = 4,
                                  generators=(), fused_disc=False,
-                                 fused_prop=False):
+                                 fused_prop=False, axis=None):
     """K adversarial steps a call, their batches gathered from ``store``
     (``from_h5``'s (sum_T, H, W)) on its device: ``megastep(starts) ->
     logs``. The update is ``make_dcgan_megastep``'s, with its
-    ``fused_disc`` and ``fused_prop`` (JAX ``data/resident.py:601-617``);
+    ``fused_disc``, ``fused_prop`` and data ``axis`` (``starts`` this
+    rank's columns of the program; JAX ``data/resident.py:601-617``);
     ``generators`` the dropout's generators on the card."""
     step = make_dcgan_train_step(g, fd, td, g_opt, fd_opt, td_opt,
-                                 fused_disc=fused_disc, fused_prop=fused_prop)
+                                 fused_disc=fused_disc, fused_prop=fused_prop,
+                                 axis=axis)
     w = in_seq_len + out_seq_len
 
     def body(st):
@@ -431,21 +471,22 @@ def make_dcgan_resident_megastep(g, fd, td, g_opt, fd_opt, td_opt,
                     wins[:, in_seq_len:].contiguous(), mask)
 
     return Megastep(body, optimizers=(g_opt, fd_opt, td_opt),
-                    generators=generators)
+                    generators=generators, axis=axis)
 
 
 def make_cyclegan_resident_megastep(g_xy, g_yx, d_x, d_y, g_xy_opt, g_yx_opt,
                                     d_x_opt, d_y_opt, store: ResidentVideos,
                                     *, seq_len: int = 4,
                                     cycle_lambda: float = 10.0,
-                                    generators=()):
+                                    generators=(), axis=None):
     """K CycleGAN steps a call, their batches gathered from ``store``
     (``from_pt_frames``'s (sum_T, H, W)) on its device: ``megastep(starts)
-    -> logs``. The update is ``make_cyclegan_megastep``'s; ``generators``
-    the dropout's generators on the card."""
+    -> logs``. The update is ``make_cyclegan_megastep``'s, over the data
+    ``axis`` (``starts`` this rank's columns of the program);
+    ``generators`` the dropout's generators on the card."""
     opts = (g_xy_opt, g_yx_opt, d_x_opt, d_y_opt)
     step = cyclegan_trainer.make_cyclegan_train_step(
-        g_xy, g_yx, d_x, d_y, *opts, cycle_lambda=cycle_lambda)
+        g_xy, g_yx, d_x, d_y, *opts, cycle_lambda=cycle_lambda, axis=axis)
     w = 2 * seq_len
 
     def body(st):
@@ -453,7 +494,7 @@ def make_cyclegan_resident_megastep(g_xy, g_yx, d_x, d_y, g_xy_opt, g_yx_opt,
         return step(wins[:, :seq_len].contiguous(),
                     wins[:, seq_len:].contiguous(), mask)
 
-    return Megastep(body, optimizers=opts, generators=generators)
+    return Megastep(body, optimizers=opts, generators=generators, axis=axis)
 
 
 def make_cyclegan_resident_eval(g_xy, g_yx, store: ResidentVideos, *,
@@ -478,8 +519,11 @@ def make_cyclegan_resident_eval(g_xy, g_yx, store: ResidentVideos, *,
 
 
 def resident_cyclegan_test(eval_k, store: ResidentVideos, *, k: int = 8,
-                           batch_size: int = 64) -> dict:
+                           batch_size: int = 64, axis=None) -> dict:
     """``cyclegan_trainer.test`` over a resident split: the same keys. Every
-    batch counts (``min_batch=1``): the metrics are masked sums."""
+    batch counts (``min_batch=1``): the metrics are masked sums, which a
+    data ``axis``'s ranks each take over their rows and add up."""
     programs, _ = store.eval_programs(k, batch_size, min_batch=1)
-    return cyclegan_trainer.eval_results([eval_k(p) for p in programs])
+    if axis is not None:
+        programs = axis.shard(programs, -1)
+    return cyclegan_trainer.eval_results([eval_k(p) for p in programs], axis)

@@ -3,7 +3,12 @@
   python -m extended_gan_torch.dcgan --epochs 1 --synthetic --out-dir /tmp/run
 
 The flags mirror ``python -m dcgan``'s; those of its options that are not
-ported yet (mesh, FSDP, SP, multi-host) are absent. ``--fused-disc`` and
+ported yet (the model axis, FSDP, SP) are absent. ``--data-axis N`` trains
+each global batch over N ranks: without a launcher environment the CLI
+starts N processes itself, one a card over NCCL (N gloo processes with
+``--device cpu``); under torchrun each process is one rank, and
+``--multihost`` makes that explicit (it raises without a launcher
+environment). ``--fused-disc`` and
 ``--fused-prop`` pick the step body and ``--packed-g`` the generator's 2x2
 space-to-depth layout, all off by default, as in JAX.
 ``--profile`` records each epoch's step timing into its results, and
@@ -23,6 +28,7 @@ from __future__ import annotations
 
 import argparse
 
+from ..parallel.launch import start_ranks
 from ..train.dcgan_driver import train
 
 
@@ -83,10 +89,22 @@ def main(argv=None):
     parser.add_argument("--profile-trace-dir", type=str, default="",
                         help="capture a torch.profiler trace of the first "
                              "epoch into this directory (implies --profile)")
+    parser.add_argument("--data-axis", type=int, default=None,
+                        help="N: data parallelism over N ranks, one card "
+                             "each (gloo processes with --device cpu); "
+                             "default one card")
+    parser.add_argument("--multihost", action="store_true",
+                        help="join the process group the launcher's "
+                             "environment describes (torchrun); raises "
+                             "without one")
     parser.add_argument("--device", default=None,
                         help="default: the CUDA card; 'cpu' to train on the "
                              "CPU")
     args = parser.parse_args(argv)
+    if start_ranks("extended_gan_torch.dcgan.__main__:main", argv,
+                   data_axis=args.data_axis, multihost=args.multihost,
+                   device=args.device):
+        return None
     return train(
         data_location=args.data_location, epochs=args.epochs,
         train_batch_size=args.train_batch_size,
@@ -99,7 +117,7 @@ def main(argv=None):
         params=({"save_epoch": args.save_epoch}
                 if args.save_epoch is not None else None),
         profile=args.profile, profile_trace_dir=args.profile_trace_dir,
-        device=args.device)
+        data_axis=args.data_axis, device=args.device)
 
 
 if __name__ == "__main__":

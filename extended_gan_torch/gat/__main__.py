@@ -39,12 +39,8 @@ to a synthetic one.
 from __future__ import annotations
 
 import argparse
-import sys
 
-import torch.distributed as dist
-
-from ..parallel.launch import spawn_ranks
-from ..parallel.mesh import _multihost_env_configured, initialize_distributed
+from ..parallel.launch import start_ranks
 from ..train.gat_driver import train
 from .generate_experiment import generate_experiment
 
@@ -124,13 +120,10 @@ def main(argv=None):
     args = parser.parse_args(argv)
     if args.action == "generate_experiment" and not args.exp_folder_name:
         parser.error("generate_experiment needs --exp_folder_name")
-    if args.multihost or _multihost_env_configured():
-        # --multihost is explicit intent: failures raise
-        initialize_distributed(require=args.multihost, device=args.device)
-    elif (args.data_axis or 1) > 1 and not dist.is_initialized():
-        return spawn_ranks("extended_gan_torch.gat.__main__:main",
-                           sys.argv[1:] if argv is None else argv,
-                           args.data_axis, args.device)
+    if start_ranks("extended_gan_torch.gat.__main__:main", argv,
+                   data_axis=args.data_axis, multihost=args.multihost,
+                   device=args.device):
+        return None
     if args.action == "train":
         return train(
             model_type=args.model_type, mapping_type=args.mapping_type,

@@ -28,7 +28,11 @@ outputs are float32. Parameters stay float32.
 
 Channel dropout (the reference's 0.01) zeroes whole channels of a sample,
 as ``torch.nn.Dropout2d`` does, drawing from ``dropout_generator`` when one
-is given.
+is given. Under a data axis (``parallel.attach_data_axis`` gives each
+``ConvBlock`` its ``axis``) a block draws the masks of the whole global
+batch and keeps this rank's rows (``DataAxis.draw_rows``): the ranks
+together apply the masks one process applies, as JAX's one key over the
+sharded batch does.
 
 ``Generator(packed=True)`` computes the same function in the 2x2
 space-to-depth layout (``ops/space_to_depth.py``; JAX ``dcgan.py:175-253``):
@@ -50,6 +54,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..core.precision import cast_to, to_float32
+from ..parallel.batch_norm import BatchNorm2d
 from ..ops.space_to_depth import (
     pack2,
     pack_conv_weights,
@@ -93,12 +98,15 @@ def _conv(chin, chout, k, stride, padding, bias, generator):
     return conv
 
 
-class _PackedBN(nn.BatchNorm2d):
+class _PackedBN(BatchNorm2d):
     """BatchNorm2d(C) of a packed (B, 4C, H/2, W/2) map: it normalises the
     free view (4B, C, H/2, W/2), whose (batch, H/2, W/2) reduction is the
     (batch, phase, H/2, W/2) set of JAX's ``_PackedBN`` (``dcgan.py:69-108``)
     and the unpacked map's (batch, H, W): the same statistics, the same
-    unbiased count, (C,) tensors."""
+    unbiased count, (C,) tensors. It is the data axis's
+    ``parallel.BatchNorm2d`` (``nn.BatchNorm2d``'s forward without an
+    axis), so under a data axis its statistics run over the global
+    batch."""
 
     def forward(self, xp):
         b, c4, h, w = xp.shape
@@ -111,6 +119,8 @@ class ConvBlock(nn.Module):
     ``padding`` is "same" or a symmetric int. ``packed=True`` (the
     stride-1 "same" 4x4 block only) takes and returns the 2x2-packed map
     (``ops/space_to_depth.py``) and computes the same function."""
+
+    axis = None  # a data axis: dropout masks drawn over its global batch
 
     def __init__(self, chin, chout, kernel_size=4, stride=1, padding=0,
                  use_bias=True, dropout=0.01, act="relu", batchnorm=True, *,
@@ -159,8 +169,14 @@ class ConvBlock(nn.Module):
             # the unpacked block's (B, C, 1, 1) draw, tiled over the four
             # phases of a packed map
             c = x.shape[1] // 4 if self.packed else x.shape[1]
-            draw = torch.rand((x.shape[0], c, 1, 1), device=x.device,
-                              generator=self.dropout_generator)
+
+            def rand(n):
+                return torch.rand((n, c, 1, 1), device=x.device,
+                                  generator=self.dropout_generator)
+
+            draw = None if self.axis is None else self.axis.draw_rows(rand)
+            if draw is None:
+                draw = rand(x.shape[0])
             mask = (draw < keep).to(x.dtype)
             x = x * (mask.repeat(1, 4, 1, 1) if self.packed else mask) / keep
         return self.act(x)

@@ -53,6 +53,56 @@ def _conv(in_ch, out_ch, k, bias, generator):
     return conv
 
 
+_INTERP: dict = {}
+
+
+def _interp_matrix(n: int, like: torch.Tensor) -> torch.Tensor:
+    """(2n, n): row i samples position ``i * (n-1)/(2n-1)`` of a length-n
+    axis linearly (``align_corners=True``), the weights computed in float64
+    and rounded to ``like``'s type. Kept per (n, device, dtype) once built
+    outside a CUDA graph capture (a capture records the build and runs it
+    at every replay)."""
+    key = (n, like.device, like.dtype)
+    m = _INTERP.get(key)
+    if m is None:
+        with torch.no_grad():
+            u = torch.linspace(0.0, n - 1.0, 2 * n, device=like.device,
+                               dtype=torch.float64)
+            i0 = u.floor().clamp(0, max(n - 2, 0))
+            w = (u - i0)[:, None]
+            j = torch.arange(n, device=like.device)[None]
+            i0 = i0[:, None]
+            m = ((j == i0) * (1 - w) + (j == i0 + 1) * w).to(like.dtype)
+        if not (like.is_cuda and torch.cuda.is_current_stream_capturing()):
+            _INTERP[key] = m
+    return m
+
+
+class _Upsample2x(torch.autograd.Function):
+    """``F.interpolate``'s bilinear forward; its backward as two products
+    with the interpolation matrices, which repeat bit for bit, where
+    ``F.interpolate``'s own backward adds with atomics on the card in an
+    order that changes from run to run."""
+
+    @staticmethod
+    def forward(ctx, x):
+        h, w = x.shape[-2:]
+        return F.interpolate(x, size=(2 * h, 2 * w), mode="bilinear",
+                             align_corners=True)
+
+    @staticmethod
+    def backward(ctx, g):
+        h, w = g.shape[-2] // 2, g.shape[-1] // 2
+        return _interp_matrix(h, g).T @ g @ _interp_matrix(w, g)
+
+
+def upsample2x(x: torch.Tensor) -> torch.Tensor:
+    """(N, C, h, w) -> (N, C, 2h, 2w): the published
+    ``nn.Upsample(scale_factor=2, mode="bilinear", align_corners=True)``,
+    with a backward that repeats bit for bit (:class:`_Upsample2x`)."""
+    return _Upsample2x.apply(x)
+
+
 def _linear(x, fc, dtype):
     """``fc(x)`` with the input and the weights in ``dtype``."""
     return F.linear(cast_to(x, dtype), cast_to(fc.weight, dtype),
@@ -206,8 +256,7 @@ class UpDS(nn.Module):
     def forward(self, x1, x2):
         h, w = x1.shape[2], x1.shape[3]
         if self.upconv is None:
-            x1 = F.interpolate(x1, size=(2 * h, 2 * w), mode="bilinear",
-                               align_corners=True)
+            x1 = upsample2x(x1)
         else:  # in dtype; concatenated in float32, as JAX promotes
             dt, up = self.dtype, self.upconv
             x1 = to_float32(F.conv_transpose2d(

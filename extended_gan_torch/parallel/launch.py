@@ -1,7 +1,9 @@
 """Data-axis ranks started by a CLI: ``--data-axis N`` without a launcher
 environment runs the CLI again in N processes, one rank each (a process
 group that meets through a file in a temporary directory, so no port is
-taken), and waits for them."""
+taken), and waits for them. Each NCCL rank sets what capturing its
+collectives into CUDA graphs needs before its group starts
+(``mesh.prepare_nccl_capture``)."""
 
 from __future__ import annotations
 
@@ -11,11 +13,18 @@ import multiprocessing
 import os
 import shutil
 import signal
+import sys
 import tempfile
 import threading
 
 import torch
 import torch.distributed as dist
+
+from .mesh import (
+    _multihost_env_configured,
+    initialize_distributed,
+    prepare_nccl_capture,
+)
 
 
 def _rank_main(entry, argv, rank, size, init_method, backend):
@@ -25,6 +34,7 @@ def _rank_main(entry, argv, rank, size, init_method, backend):
     main = getattr(importlib.import_module(module), name)
     if backend == "nccl":
         torch.cuda.set_device(rank)
+        prepare_nccl_capture()
     else:
         torch.set_num_threads(max(1, torch.get_num_threads() // size))
     dist.init_process_group(backend, init_method=init_method, rank=rank,
@@ -37,6 +47,24 @@ def _rank_main(entry, argv, rank, size, init_method, backend):
             main(argv)
     finally:
         dist.destroy_process_group()
+
+
+def start_ranks(entry: str, argv, *, data_axis: int | None,
+                multihost: bool, device=None) -> bool:
+    """A CLI's data axis: under a launcher environment (or with
+    ``multihost``, which raises without one) this process joins the
+    launcher's group and the CLI goes on as its rank (False); a
+    ``data_axis`` > 1 without one runs the CLI in that many processes
+    (:func:`spawn_ranks`) and returns True once they have exited 0, and
+    the CLI returns; otherwise nothing (False)."""
+    if multihost or _multihost_env_configured():
+        # --multihost is explicit intent: failures raise
+        initialize_distributed(require=multihost, device=device)
+    elif (data_axis or 1) > 1 and not dist.is_initialized():
+        spawn_ranks(entry, sys.argv[1:] if argv is None else argv,
+                    data_axis, device)
+        return True
+    return False
 
 
 def spawn_ranks(entry: str, argv, size: int, device=None):

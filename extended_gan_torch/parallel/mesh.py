@@ -11,9 +11,11 @@ cards, gloo on the CPU) and does the same by hand:
   (JAX ``mesh.py:33-87``);
 - :class:`DataAxis` is the group seen from one rank: its size, its rank,
   this rank's device, the contiguous rows of a global batch this rank
-  takes (JAX's ``put_batch`` over a padded batch, ``:224-234``) and the
-  collectives the trainer needs; :func:`pad_to_batch_multiple` pads a
-  batch as JAX's does (``:297-321``);
+  takes (JAX's ``put_batch`` over a padded batch, ``:224-234``), of a
+  K-stacked group and of a resident program, the draws over the global
+  batch that every rank makes alike (the channel dropout's masks) and
+  the collectives the trainer needs; :func:`pad_to_batch_multiple` pads
+  a batch as JAX's does (``:297-321``);
 - :func:`data_axis_for` resolves a driver's ``data_axis`` against the
   group (the JAX mesh's "needs K devices, have n", ``:108-112``).
 
@@ -23,6 +25,7 @@ the single-card path runs unchanged.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import itertools
 import math
@@ -78,6 +81,19 @@ def launcher_rank(environ=None) -> tuple[int, int, int]:
     return rank, world, local
 
 
+# what NCCL needs set before its process group starts for its collectives
+# to be captured into CUDA graphs (torch's notes on CUDA graphs with
+# DistributedDataParallel): asynchronous error handling off (the older
+# name, NCCL_ASYNC_ERROR_HANDLING, only draws a deprecation warning)
+NCCL_CAPTURE_ENV = {"TORCH_NCCL_ASYNC_ERROR_HANDLING": "0"}
+
+
+def prepare_nccl_capture():
+    """Sets :data:`NCCL_CAPTURE_ENV` in this process, before an NCCL group
+    starts (``--megastep`` and ``--resident`` capture its collectives)."""
+    os.environ.update(NCCL_CAPTURE_ENV)
+
+
 def initialize_distributed(require: bool = False, *, device=None) -> bool:
     """Joins the process group the launcher's environment describes: NCCL
     when ``device`` is the card (the default), gloo for ``"cpu"``. Returns
@@ -102,6 +118,7 @@ def initialize_distributed(require: bool = False, *, device=None) -> bool:
     if dev.type == "cuda":
         dev = rank_device(local)
         torch.cuda.set_device(dev)
+        prepare_nccl_capture()
     dist.init_process_group("nccl" if dev.type == "cuda" else "gloo",
                             init_method="env://", rank=rank,
                             world_size=world)
@@ -124,6 +141,10 @@ class DataAxis:
 
     device: torch.device
     group: dist.ProcessGroup | None = None
+    # (rows of the global batch a draw covers, this rank's slices of
+    # them), set by :meth:`global_batch` around a train step
+    _draw: tuple | None = dataclasses.field(default=None, init=False,
+                                            repr=False, compare=False)
 
     @property
     def size(self) -> int:
@@ -156,6 +177,50 @@ class DataAxis:
         d = self.size
         return ((batch_size + d - 1) // d) * d
 
+    def shard(self, t, dim: int = 0):
+        """This rank's rows (:meth:`rows`) of ``t`` along ``dim``: of a
+        global batch (dim 0), of a K-stacked group (dim 1) or of a resident
+        program's (K, B) starts (dim -1)."""
+        if not self.parallel:
+            return t
+        rows = self.rows(t.shape[dim])
+        index = [slice(None)] * t.ndim
+        index[dim] = rows
+        return t[tuple(index)]
+
+    @contextlib.contextmanager
+    def global_batch(self, n: int, copies: int = 1):
+        """Within: this rank's tensors are its rows of a global batch of
+        ``n`` (``copies`` of them stacked: the discriminators' doubled
+        [real; fake] batch), for :meth:`draw_rows`."""
+        rows = self.rows(n)
+        prev = self._draw
+        self._draw = (copies * n, [slice(rows.start + c * n, rows.stop + c * n)
+                                   for c in range(copies)])
+        try:
+            yield
+        finally:
+            self._draw = prev
+
+    def draw_rows(self, draw):
+        """``draw(N)`` is a draw of N rows from a generator that every rank
+        seeded alike; returns this rank's rows of the draw over the global
+        batch of :meth:`global_batch`, so the ranks together apply the
+        masks one process applies to the whole batch, and every rank's
+        generator advances alike (a rank with no rows draws too). None on
+        an axis of one: the caller draws for its own batch. Outside
+        :meth:`global_batch` on a wider axis it raises: a draw of this
+        rank's rows alone would differ from one process's."""
+        if not self.parallel:
+            return None
+        if self._draw is None:
+            raise RuntimeError("a random draw under a data axis needs "
+                               "DataAxis.global_batch around the step")
+        n, slices = self._draw
+        full = draw(n)
+        return full[slices[0]] if len(slices) == 1 else torch.cat(
+            [full[s] for s in slices])
+
     # -------------------------------------------------------- collectives
     def all_reduce(self, t: torch.Tensor) -> torch.Tensor:
         """Sums ``t`` over the ranks, in place; returns it."""
@@ -187,12 +252,51 @@ class DataAxis:
             at += g.numel()
         return flat[at:].view_as(extra).to(extra.dtype)
 
+    def check_capturable(self):
+        """Raises unless this axis's collectives can be captured into a
+        CUDA graph: gloo's run on the host, so a data axis over gloo on the
+        card cannot run ``--megastep`` or ``--resident``. NCCL's run on the
+        card, and an axis of one has none."""
+        if self.parallel and dist.get_backend(self.group) != "nccl":
+            raise RuntimeError(
+                f"--megastep and --resident on the card capture the data "
+                f"axis's collectives into CUDA graphs, which needs NCCL; "
+                f"this process group runs {dist.get_backend(self.group)}, "
+                "whose collectives run on the host (start one rank a card "
+                "over NCCL: --data-axis N without --device cpu, or torchrun)")
+
     def any(self, flag: bool) -> bool:
         """Whether ``flag`` is set on any rank."""
         if self.group is None:
             return bool(flag)
         t = torch.tensor([float(flag)], device=self.device)
         return bool(self.all_reduce(t).item() > 0)
+
+    def check_in_sync(self, modules=(), optimizers=()) -> int:
+        """Raises unless every rank holds the same parameters, buffers and
+        optimizer state, bit for bit (two integer checksums of each
+        tensor's bits, compared across the ranks in one all-reduce);
+        returns how many tensors were compared (0 on an axis of one)."""
+        if not self.parallel:
+            return 0
+        tensors = [t for m in modules for t in itertools.chain(
+            m.parameters(), m.buffers())] + [
+            v for opt in optimizers for st in opt.state.values()
+            for v in st.values() if torch.is_tensor(v)]
+        ints = {1: torch.uint8, 2: torch.int16, 4: torch.int32,
+                8: torch.int64}
+        sums = []
+        for t in tensors:
+            bits = t.detach().reshape(-1).to(self.device).view(
+                ints[t.element_size()]).to(torch.int64)
+            weight = torch.arange(bits.numel(), device=self.device) % 1021 + 1
+            sums.append(torch.stack([bits.sum(), (bits * weight).sum()]))
+        slots = self.gather_rows(torch.stack(sums))
+        if not all(torch.equal(slots[0], s) for s in slots[1:]):
+            raise RuntimeError(
+                f"the data axis's ranks diverged: {len(tensors)} tensors "
+                "of the train state are not the same on every rank")
+        return len(tensors)
 
     def broadcast_module(self, module: torch.nn.Module):
         """Rank 0's parameters and buffers on every rank, as DDP starts."""
@@ -233,15 +337,24 @@ def pad_to_batch_multiple(*arrays: np.ndarray, batch_size: int):
     return (*padded, mask)
 
 
-def data_axis_for(data_axis: int | None, device=None) -> DataAxis:
+def data_axis_for(data_axis: int | None, device=None, *,
+                  resident_batch: int | None = None) -> DataAxis:
     """The driver's ``data_axis`` against the process group: with a group
     up, ``None`` is every rank of it and any other size must equal it;
     without one, ``None`` and 1 are the axis of one and a larger size
     raises (the CLI starts the processes, or torchrun does). Under NCCL a
     rank's device is ``cuda:{LOCAL_RANK}``; ``device`` overrides it (the
-    gloo ranks of a test, or two ranks sharing one card)."""
+    gloo ranks of a test, or two ranks sharing one card).
+    ``resident_batch``: a resident train batch, which must divide by the
+    axis (resident programs shard it; JAX's drivers check the same)."""
     if data_axis is not None and data_axis < 1:
         raise ValueError(f"data_axis must be >= 1, got {data_axis}")
+    ranks = data_axis or (dist.get_world_size() if dist.is_initialized()
+                          else 1)
+    if resident_batch is not None and resident_batch % ranks:
+        raise ValueError(
+            f"train_batch_size {resident_batch} not divisible by the data "
+            f"axis {ranks} (resident programs shard the batch over it)")
     if not dist.is_initialized():
         if (data_axis or 1) > 1:
             raise RuntimeError(

@@ -46,9 +46,20 @@ the epoch's results; ``profile_trace_dir`` also traces the first epoch with
 (``models/dcgan.py``; the same weights and state_dict), off by default as
 in JAX (``None`` is off).
 
-The JAX driver's mesh and tensor/sequence/FSDP parallelism are not ported
-yet: a keyword that sets one of them raises, naming the ROADMAP item that
-ports it.
+``data_axis`` N > 1 trains each global batch over the N ranks of a
+process group, as the DCGAN driver does (``train/dcgan_driver.py``; JAX
+``cyclegan_driver.py:92-223``): the four nets read the axis, rank 0's
+weights go to every rank, each rank takes its rows of every batch, the
+step sums the generators' and the discriminators' gradients over the
+ranks (``cyclegan_trainer``), the eval sums are added over the ranks, a
+SIGTERM to any rank stops every rank after the same step, and rank 0
+alone writes; ``megastep`` and ``resident`` run under the axis with the
+NCCL collectives inside each rank's CUDA graphs, and a resident train
+batch must divide by the axis (JAX ``:165-169``).
+
+The JAX driver's tensor/sequence/FSDP parallelism is not ported yet: a
+keyword that sets one of them raises, naming the ROADMAP item that ports
+it.
 """
 
 from __future__ import annotations
@@ -74,6 +85,7 @@ from ..data.resident import (
 from ..data.streaming import get_coastal_loaders
 from ..data.synthetic import ensure_synthetic_coastal
 from ..models.dcgan import FrameDiscriminator, Generator
+from ..parallel import data_axis_for, join_data_axis
 from ..utils.history import TrainingHistory
 from ..utils.profiling import epoch_profiler, timed
 from .checkpoint import (
@@ -93,7 +105,8 @@ from .cyclegan_trainer import (
 )
 from .dcgan_trainer import megastep_logs, step_logs
 from .dcgan_trainer import train_single_epoch as gan_epoch
-from .preempt import GracefulShutdown
+from .preempt import GracefulShutdown, any_rank_shutdown
+from .state import report_in_sync
 from .unported import refuse_unported
 
 DEFAULT_DATA = "./datasets/data"
@@ -103,7 +116,7 @@ train_single_epoch = functools.partial(gan_epoch, keys=TRAIN_SUMS)
 # keywords of JAX driver options the port does not have yet: (the value
 # that means "off", the ROADMAP queue 1 item)
 _NOT_PORTED = {
-    "data_axis": (None, 9), "model_axis": (1, 9), "tp_min_channels": (256, 9),
+    "model_axis": (1, 9), "tp_min_channels": (256, 9),
     "fsdp": (False, 9), "fsdp_min_size": (4096, 9), "spatial": (False, 9),
 }
 
@@ -147,12 +160,18 @@ def train(*, data_location: str | None = None, epochs: int = 10,
           save_epoch: int = 0, resume: bool = False, megastep: int = 0,
           resident: bool = False, packed_g: bool | None = None,
           profile: bool = False, profile_trace_dir: str = "", device=None,
-          **options):
-    """Train on ``device`` (default: the CUDA card). Takes the JAX driver's
-    keyword arguments. Returns ``((G_xy, G_yx, D_x, D_y), history)``."""
+          data_axis: int | None = None, **options):
+    """Train on ``device`` (default: the CUDA card, ``cuda:{LOCAL_RANK}``
+    on a data axis over NCCL). Takes the JAX driver's keyword arguments.
+    Returns ``((G_xy, G_yx, D_x, D_y), history)``."""
     refuse_unported(options, _NOT_PORTED)
-    dev = resolve_device(device)
+    axis = data_axis_for(data_axis, device,
+                         resident_batch=train_batch_size if resident else None)
+    dev = axis.device
+    graphs = dev.type == "cuda" and (megastep > 1 or resident)
     print(f"Using device: {dev}")
+    if axis.parallel:
+        print(f"Using data axis: {axis.size} ranks (rank {axis.rank})")
     data_location = data_location or DEFAULT_DATA
     if synthetic or not os.path.isdir(data_location):
         print(f"[cycle_gan] data not found at {data_location}; using "
@@ -164,13 +183,13 @@ def train(*, data_location: str | None = None, epochs: int = 10,
         print("[packed-g] generators in 2x2 space-to-depth layout")
     keys = KeySeq(seed, device=dev)  # the channel dropout's stream
     nets, opts = build_cyclegan(nc=nc, ndf=ndf, lr=lr, precision=precision,
-                                seed=seed, device=dev,
-                                capturable=dev.type == "cuda"
-                                and (megastep > 1 or resident), keys=keys,
-                                packed_g=packed_g)
+                                seed=seed, device=dev, capturable=graphs,
+                                keys=keys, packed_g=packed_g)
+    join_data_axis(axis, *nets)
     profiler = epoch_profiler(profile, profile_trace_dir)
     step = timed(make_cyclegan_train_step(*nets, *opts,
-                                          cycle_lambda=cycle_lambda), profiler)
+                                          cycle_lambda=cycle_lambda,
+                                          axis=axis), profiler)
     eval_step = make_cyclegan_eval_step(nets[0], nets[1])
     generators = (keys.generator,)  # registered with each CUDA graph
     if resident:
@@ -180,7 +199,7 @@ def train(*, data_location: str | None = None, epochs: int = 10,
         resident_k = megastep if megastep > 1 else 8
         train_k = timed(make_cyclegan_resident_megastep(
             *nets, *opts, train_store, seq_len=nc, cycle_lambda=cycle_lambda,
-            generators=generators), profiler)
+            generators=generators, axis=axis), profiler)
         eval_k = make_cyclegan_resident_eval(nets[0], nets[1], test_store,
                                              seq_len=nc)
         mb = (train_store.nbytes + test_store.nbytes) / 1e6
@@ -190,13 +209,14 @@ def train(*, data_location: str | None = None, epochs: int = 10,
               "index-only transfers")
     elif megastep > 1:
         megastep_fn = timed(make_cyclegan_megastep(
-            *nets, *opts, cycle_lambda=cycle_lambda, generators=generators),
-            profiler)
+            *nets, *opts, cycle_lambda=cycle_lambda, generators=generators,
+            axis=axis), profiler)
         print(f"[megastep] {megastep} steps per CUDA graph")
 
     # the figures go under out_dir only (JAX draws into its default
-    # out_dir, the repo's own folder)
-    img_path = os.path.join(out_dir, "imgs") if out_dir else None
+    # out_dir, the repo's own folder), from rank 0
+    img_path = (os.path.join(out_dir, "imgs") if out_dir and axis.is_main
+                else None)
 
     def epoch_feed(epoch, skip):
         """(the epoch's train logs, (a step's or a group's logs, the
@@ -206,11 +226,11 @@ def train(*, data_location: str | None = None, epochs: int = 10,
             programs = program_logs(
                 train_store, train_k, epoch_seed(seed, epoch), resident_k,
                 train_batch_size, max_batches=max_batches,
-                start=skip // resident_k)
+                start=skip // resident_k, axis=axis)
             def evaluate():
                 results = resident_cyclegan_test(
                     eval_k, test_store, k=resident_k,
-                    batch_size=test_batch_size)
+                    batch_size=test_batch_size, axis=axis)
                 if img_path is not None:
                     draw_first_eval_batch(
                         eval_step, test_store, in_seq_len=nc, out_seq_len=nc,
@@ -234,17 +254,18 @@ def train(*, data_location: str | None = None, epochs: int = 10,
             batches = itertools.islice(batches, max(max_batches - skip, 0))
         if megastep > 1:
             logs = megastep_logs(batches, megastep_fn, dev, megastep,
-                                 train_batch_size)
+                                 train_batch_size, axis=axis)
         else:
             logs = step_logs(batches, step, dev, log_every=log_every,
-                             labels=LOSS_LABELS)
+                             labels=LOSS_LABELS,
+                             axis=axis if axis.parallel else None)
         return logs, lambda: test(test_loader, eval_step, dev,
-                                  img_path=img_path, epoch=epoch)
+                                  img_path=img_path, epoch=epoch, axis=axis)
 
     # restored before any graph is captured: a graph names the tensors it
     # was captured with
     ckpt_mgr, start_epoch, history, mid = setup_gan_checkpointing(
-        out_dir, resume=resume, save_epoch=save_epoch,
+        out_dir, resume=resume, save_epoch=save_epoch if axis.is_main else 0,
         states=gan_net_states(nets, opts, CYCLEGAN_NETS), keys=keys,
         history=TrainingHistory())
     hist_path = os.path.join(out_dir, "history.json") if out_dir else None
@@ -253,13 +274,16 @@ def train(*, data_location: str | None = None, epochs: int = 10,
         return {"states": gan_states(nets, opts, CYCLEGAN_NETS),
                 "epoch": epoch, "key": keys.state, "mid": mid_tree}
 
-    with GracefulShutdown() as shutdown:
-        run_gan_epochs(epoch_feed, train_single_epoch, shutdown=shutdown,
-                       ckpt_mgr=ckpt_mgr, snapshot=snapshot, history=history,
+    with GracefulShutdown() as local_shutdown:
+        run_gan_epochs(epoch_feed, train_single_epoch,
+                       shutdown=any_rank_shutdown(local_shutdown, axis),
+                       ckpt_mgr=ckpt_mgr if axis.is_main else None,
+                       snapshot=snapshot, history=history,
                        hist_path=hist_path, start_epoch=start_epoch,
                        epochs=epochs, save_epoch=save_epoch, mid=mid,
                        profiler=profiler)
-    if out_dir:
+    report_in_sync(axis, nets, opts)
+    if out_dir and axis.is_main:
         history.save_path = os.path.join(out_dir, "training_plots")
         history.plot()
     return nets, history

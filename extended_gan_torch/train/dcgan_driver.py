@@ -45,9 +45,24 @@ generator in the 2x2 space-to-depth layout (``models/dcgan.py``), each on
 the single-step, megastep and resident paths; all three are off by
 default, as in JAX (``packed_g=None`` is off).
 
-The JAX driver's mesh and tensor/sequence/FSDP parallelism are not ported
-yet: a keyword that sets one of them raises, naming the ROADMAP item that
-ports it.
+``data_axis`` N > 1 trains each global batch over the N ranks of a
+process group (``parallel/``: started by the CLI, or by torchrun with
+``--multihost``; JAX ``dcgan_driver.py:92-245``): G, FD and TD read the
+axis (cross-rank BatchNorm, dropout masks drawn over the global batch),
+rank 0's weights go to every rank, every rank builds the same loaders
+from the same seed and takes its contiguous rows of each batch, the step
+sums D's and G's gradients over the ranks (``dcgan_trainer``), the eval
+sums are added over the ranks, a SIGTERM to any rank stops every rank
+after the same step, and rank 0 alone writes ``history.json``, the
+checkpoints and the figures (every rank restores on resume).
+``megastep`` and ``resident`` run under the axis with the steps' NCCL
+collectives inside each rank's CUDA graphs; a resident train batch must
+divide by the axis, as in JAX (``:216-220``). ``None`` and 1 are one
+device without a group.
+
+The JAX driver's tensor/sequence/FSDP parallelism is not ported yet: a
+keyword that sets one of them raises, naming the ROADMAP item that ports
+it.
 """
 
 from __future__ import annotations
@@ -72,6 +87,7 @@ from ..data.resident import (
 from ..data.streaming import get_h5_loaders
 from ..data.synthetic import ensure_synthetic_h5
 from ..models.dcgan import FrameDiscriminator, Generator, TemporalDiscriminator
+from ..parallel import data_axis_for, join_data_axis
 from ..utils.history import TrainingHistory
 from ..utils.profiling import epoch_profiler, timed
 from .checkpoint import (
@@ -89,7 +105,8 @@ from .dcgan_trainer import (
     test,
     train_single_epoch,
 )
-from .preempt import GracefulShutdown
+from .preempt import GracefulShutdown, any_rank_shutdown
+from .state import report_in_sync
 from .unported import refuse_unported
 
 DEFAULT_PARAMS = {
@@ -109,7 +126,7 @@ DEFAULT_DATA = "/mnt/tmp/multi_channel_train_test"
 # keywords of JAX driver options the port does not have yet: (the value
 # that means "off", the ROADMAP queue 1 item)
 _NOT_PORTED = {
-    "data_axis": (None, 9), "model_axis": (1, 9), "tp_min_channels": (256, 9),
+    "model_axis": (1, 9), "tp_min_channels": (256, 9),
     "fsdp": (False, 9), "fsdp_min_size": (4096, 9), "spatial": (False, 9),
 }
 
@@ -152,15 +169,21 @@ def train(*, data_location: str | None = None, epochs: int | None = None,
           resident: bool = False, fused_disc: bool = False,
           fused_prop: bool = False, packed_g: bool | None = None,
           profile: bool = False, profile_trace_dir: str = "", device=None,
-          **options):
-    """Train on ``device`` (default: the CUDA card). Takes the JAX driver's
-    keyword arguments. Returns ``((G, FD, TD), history)``."""
+          data_axis: int | None = None, **options):
+    """Train on ``device`` (default: the CUDA card, ``cuda:{LOCAL_RANK}``
+    on a data axis over NCCL). Takes the JAX driver's keyword arguments.
+    Returns ``((G, FD, TD), history)``."""
     refuse_unported(options, _NOT_PORTED)
     params = {**DEFAULT_PARAMS, **(params or {})}
     if epochs is not None:
         params["nepochs"] = epochs
-    dev = resolve_device(device)
+    axis = data_axis_for(data_axis, device,
+                         resident_batch=train_batch_size if resident else None)
+    dev = axis.device
+    graphs = dev.type == "cuda" and (megastep > 1 or resident)
     print(f"Using device: {dev}")
+    if axis.parallel:
+        print(f"Using data axis: {axis.size} ranks (rank {axis.rank})")
     data_location = data_location or DEFAULT_DATA
     if synthetic or not os.path.isdir(data_location):
         print(f"[dcgan] data not found at {data_location}; using the "
@@ -174,17 +197,16 @@ def train(*, data_location: str | None = None, epochs: int | None = None,
         print("[packed-g] generator in 2x2 space-to-depth layout")
     keys = KeySeq(seed, device=dev)  # the channel dropout's stream
     nets, opts = build_dcgan(params, seed=seed, device=dev,
-                             capturable=dev.type == "cuda"
-                             and (megastep > 1 or resident),
-                             precision=precision, keys=keys,
-                             packed_g=packed_g)
+                             capturable=graphs, precision=precision,
+                             keys=keys, packed_g=packed_g)
+    join_data_axis(axis, *nets)
     if fused_disc:
         print("[fused-disc] doubled-batch discriminator passes "
               "(mixed real+fake BN statistics)")
     if fused_prop:
         print("[fused-prop] shared fake G->D pass, 2-cotangent backward "
               "(G trains against the PRE-update discriminators)")
-    body = dict(fused_disc=fused_disc, fused_prop=fused_prop)
+    body = dict(fused_disc=fused_disc, fused_prop=fused_prop, axis=axis)
     profiler = epoch_profiler(profile, profile_trace_dir)
     step = timed(make_dcgan_train_step(*nets, *opts, **body), profiler)
     eval_step = make_dcgan_eval_step(*nets)
@@ -215,8 +237,9 @@ def train(*, data_location: str | None = None, epochs: int | None = None,
         print(f"[megastep] {megastep} steps per CUDA graph")
 
     # the figures go under out_dir only (JAX draws into its default
-    # out_dir, the repo's own folder)
-    img_path = os.path.join(out_dir, "imgs") if out_dir else None
+    # out_dir, the repo's own folder), from rank 0
+    img_path = (os.path.join(out_dir, "imgs") if out_dir and axis.is_main
+                else None)
 
     def epoch_feed(epoch, skip):
         """(the epoch's train logs, (a step's or a group's logs, the
@@ -226,11 +249,12 @@ def train(*, data_location: str | None = None, epochs: int | None = None,
             programs = program_logs(
                 train_store, train_k, epoch_seed(seed, epoch), resident_k,
                 train_batch_size, max_batches=max_batches,
-                start=skip // resident_k)
+                start=skip // resident_k, axis=axis)
             def evaluate():
                 results = resident_dcgan_test(eval_k, test_store,
                                               k=resident_k,
-                                              batch_size=test_batch_size)
+                                              batch_size=test_batch_size,
+                                              axis=axis)
                 if img_path is not None:
                     draw_first_eval_batch(
                         eval_step, test_store, in_seq_len=params["nc"],
@@ -255,17 +279,18 @@ def train(*, data_location: str | None = None, epochs: int | None = None,
             batches = itertools.islice(batches, max(max_batches - skip, 0))
         if megastep > 1:
             logs = megastep_logs(batches, megastep_fn, dev, megastep,
-                                 train_batch_size)
+                                 train_batch_size, axis=axis)
         else:
-            logs = step_logs(batches, step, dev)
+            logs = step_logs(batches, step, dev,
+                             axis=axis if axis.parallel else None)
         return logs, lambda: test(test_loader, eval_step, dev,
-                                  img_path=img_path, epoch=epoch)
+                                  img_path=img_path, epoch=epoch, axis=axis)
 
     save_epoch = int(params.get("save_epoch") or 0)
     # restored before any graph is captured: a graph names the tensors it
     # was captured with
     ckpt_mgr, start_epoch, history, mid = setup_gan_checkpointing(
-        out_dir, resume=resume, save_epoch=save_epoch,
+        out_dir, resume=resume, save_epoch=save_epoch if axis.is_main else 0,
         states=gan_net_states(nets, opts), keys=keys,
         history=TrainingHistory())
     hist_path = os.path.join(out_dir, "history.json") if out_dir else None
@@ -274,13 +299,16 @@ def train(*, data_location: str | None = None, epochs: int | None = None,
         return {"states": gan_states(nets, opts), "epoch": epoch,
                 "key": keys.state, "mid": mid_tree}
 
-    with GracefulShutdown() as shutdown:
-        run_gan_epochs(epoch_feed, train_single_epoch, shutdown=shutdown,
-                       ckpt_mgr=ckpt_mgr, snapshot=snapshot, history=history,
+    with GracefulShutdown() as local_shutdown:
+        run_gan_epochs(epoch_feed, train_single_epoch,
+                       shutdown=any_rank_shutdown(local_shutdown, axis),
+                       ckpt_mgr=ckpt_mgr if axis.is_main else None,
+                       snapshot=snapshot, history=history,
                        hist_path=hist_path, start_epoch=start_epoch,
                        epochs=params["nepochs"], save_epoch=save_epoch,
                        mid=mid, profiler=profiler)
-    if out_dir:
+    report_in_sync(axis, nets, opts)
+    if out_dir and axis.is_main:
         history.save_path = os.path.join(out_dir, "training_plots")
         history.plot()
     return nets, history

@@ -67,13 +67,18 @@ gradients over the ranks, BatchNorm's statistics run over the global
 batch, the validation sums are added over the ranks, a SIGTERM to any
 rank stops every rank after the same step, and rank 0 alone writes
 ``history.json``, ``model.pt``, checkpoints and figures (every rank
-restores on resume). ``None`` and 1 are one device without a group: the
+restores on resume). ``megastep`` and ``resident`` run under the axis
+too: each rank's K steps are one CUDA graph with the steps' NCCL
+collectives captured inside it (``train/megastep.py``); the streamed
+groups are padded to a multiple of the axis and each rank takes its
+even share, and a resident train batch must divide by the axis, as in
+JAX (``:494-497``). ``None`` and 1 are one device without a group: the
 path above, unchanged. The JAX driver's ``None`` is every device; the
-port keeps one card until the data axis covers ``megastep``,
-``resident`` and the MoE (JAX shards the experts over the data axis,
-``:421-432``), which it refuses, with tensor, sequence, FSDP and pipeline
-parallelism: a config that sets one of them to anything but its default
-raises, naming the ROADMAP item that ports it.
+port keeps one card until the data axis covers the MoE (JAX shards the
+experts over the data axis, ``:421-432``), which it refuses, with
+tensor, sequence, FSDP and pipeline parallelism: a config that sets one
+of them to anything but its default raises, naming the ROADMAP item that
+ports it.
 """
 
 from __future__ import annotations
@@ -100,7 +105,7 @@ from ..data.streaming import get_loaders
 from ..data.synthetic import ensure_synthetic_kmni
 from ..models.registry import build_model
 from ..ops import launch_counts
-from ..parallel import attach_data_axis, data_axis_for
+from ..parallel import data_axis_for, join_data_axis
 from ..utils.history import plot_history, save_history_json, update_history
 from ..utils.profiling import epoch_profiler, timed
 from ..utils.viz import visualize_gat_predictions
@@ -120,8 +125,8 @@ from .checkpoint import (
     empty_gat_mid,
 )
 from .optim import current_lr, make_optimizer, make_scheduler, scheduler_step
-from .preempt import AnyRankShutdown, GracefulShutdown
-from .state import NetState, param_count
+from .preempt import GracefulShutdown, any_rank_shutdown
+from .state import NetState, param_count, report_in_sync
 from .unported import refuse_unported
 
 # experiment-config keys and keywords of JAX driver options the port does
@@ -223,14 +228,12 @@ def train(*, model_type: str = "temporal", optimizer: str = "adam",
     refuse_unported(options, _NOT_PORTED)
     ranks = data_axis or (dist.get_world_size() if dist.is_initialized()
                           else 1)
-    for flag, on in (("megastep", megastep > 1), ("resident", resident),
-                     ("moe_experts", moe_experts)):
-        if on and ranks > 1:
-            raise NotImplementedError(
-                f"data_axis={ranks} with {flag} is not ported yet (ROADMAP "
-                "queue 1 item 9); the port's data axis runs single train "
-                "steps over streamed batches")
-    axis = data_axis_for(data_axis, device)
+    if moe_experts and ranks > 1:
+        raise NotImplementedError(
+            f"data_axis={ranks} with moe_experts is not ported yet (ROADMAP "
+            "queue 1 item 9): JAX shards the experts over the data axis")
+    axis = data_axis_for(data_axis, device,
+                         resident_batch=train_batch_size if resident else None)
     if conv_impl == "auto":
         # chanfirst becomes the pick only after an A/B on the card shows a
         # win, as in JAX
@@ -239,6 +242,7 @@ def train(*, model_type: str = "temporal", optimizer: str = "adam",
         raise ValueError(f"--resident supports the kmni/synthetic/arai "
                          f"datasets, not {dataset!r}")
     dev = axis.device
+    graphs = dev.type == "cuda" and (megastep > 1 or resident)
     downsample_size = tuple(downsample_size)
     print(f"Using device: {dev}")
     if axis.parallel:
@@ -268,11 +272,8 @@ def train(*, model_type: str = "temporal", optimizer: str = "adam",
                         generator=torch.Generator().manual_seed(seed),
                         dtype=resolve_dtype(precision), conv_impl=conv_impl,
                         moe_experts=moe_experts)
-    if axis.parallel:
-        attach_data_axis(model, axis)
-        axis.broadcast_module(model)
+    join_data_axis(axis, model)
     keys = KeySeq(seed)
-    graphs = dev.type == "cuda" and (megastep > 1 or resident)
     opt = make_optimizer(optimizer, model.parameters(), learning_rate,
                          weight_decay=weight_decay, capturable=graphs)
     scheduler = make_scheduler(opt, reduce_lr_on_plateau=reduce_lr_on_plateau,
@@ -291,8 +292,9 @@ def train(*, model_type: str = "temporal", optimizer: str = "adam",
         resident_k = megastep if megastep > 1 else 8
         train_k = timed(make_gat_resident_megastep(
             model, opt, train_store, time_steps=steps, criterion=criterion,
-            remat=remat, moe_aux_weight=aux_w), profiler)
-        eval_k = make_gat_resident_eval(model, val_store, time_steps=steps)
+            remat=remat, moe_aux_weight=aux_w, axis=axis), profiler)
+        eval_k = make_gat_resident_eval(model, val_store, time_steps=steps,
+                                        axis=axis)
         mb = (train_store.nbytes + val_store.nbytes) / 1e6
         print(f"[resident] {train_store.n_windows} train + "
               f"{val_store.n_windows} val windows / {mb:.0f} MB live in "
@@ -301,7 +303,8 @@ def train(*, model_type: str = "temporal", optimizer: str = "adam",
     elif megastep > 1:
         megastep_fn = timed(make_gat_megastep(model, opt, criterion=criterion,
                                               remat=remat,
-                                              moe_aux_weight=aux_w), profiler)
+                                              moe_aux_weight=aux_w,
+                                              axis=axis), profiler)
         print(f"[megastep] {megastep} steps per CUDA graph")
 
     def epoch_feed(epoch, skip):
@@ -311,7 +314,8 @@ def train(*, model_type: str = "temporal", optimizer: str = "adam",
         if resident:
             programs = program_logs(
                 train_store, train_k, epoch_seed(seed, epoch), resident_k,
-                train_batch_size, max_batches=max_batches, start=skip)
+                train_batch_size, max_batches=max_batches, start=skip,
+                axis=axis)
             return (((logs["running_nd"], n, 1, resident_k)
                      for logs, n in programs),
                     lambda: resident_gat_test(eval_k, val_store,
@@ -331,7 +335,7 @@ def train(*, model_type: str = "temporal", optimizer: str = "adam",
             batches = itertools.islice(batches, max(max_batches - skip, 0))
         if megastep > 1:
             steps_ = gat_megastep_logs(batches, megastep_fn, dev, megastep,
-                                       train_batch_size)
+                                       train_batch_size, axis=axis)
         else:
             steps_ = gat_step_logs(batches, step, dev, axis=axis)
         return steps_, lambda: test(eval_step, val_loader, dev, axis=axis)
@@ -378,8 +382,7 @@ def train(*, model_type: str = "temporal", optimizer: str = "adam",
     if not axis.is_main:
         ckpt_mgr = None
     with GracefulShutdown() as local_shutdown:
-        shutdown = AnyRankShutdown(local_shutdown, axis) if axis.parallel \
-            else local_shutdown
+        shutdown = any_rank_shutdown(local_shutdown, axis)
         for epoch in range(start_epoch, epochs + 1):
             skip = int(mid["batch"]) if epoch == start_epoch else 0
             train_steps, evaluate = epoch_feed(epoch, skip)
@@ -428,6 +431,7 @@ def train(*, model_type: str = "temporal", optimizer: str = "adam",
                          " WITHOUT a snapshot: no checkpointing configured "
                          "(set CHECKPOINT_EVERY / checkpoint_every)"))
                 break
+    report_in_sync(axis, [model], [opt])
     print(json.dumps({"kernel_launches": launch_counts()}))
     return model, history
 

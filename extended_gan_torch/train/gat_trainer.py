@@ -135,18 +135,23 @@ def make_gat_train_step(model, optimizer, *, criterion: str = "mse",
 
 
 def make_gat_megastep(model, optimizer, *, criterion: str = "mse",
-                      remat: bool = False, moe_aux_weight: float = 0.0):
+                      remat: bool = False, moe_aux_weight: float = 0.0,
+                      axis: DataAxis | None = None):
     """K train steps a call (``megastep(xs, ys, masks) -> logs``, a leading
     K axis on each): one CUDA graph on the card, K eager steps on the CPU.
-    Logs: ``loss`` of the last step, ``running_nd`` summed over the K."""
+    Logs: ``loss`` of the last step, ``running_nd`` summed over the K. With
+    a data ``axis`` each row of the inputs is this rank's share of a padded
+    global batch (:func:`gat_megafeed`), and the steps' collectives are in
+    the graph."""
     step = make_gat_train_step(model, optimizer, criterion=criterion,
-                               remat=remat, moe_aux_weight=moe_aux_weight)
+                               remat=remat, moe_aux_weight=moe_aux_weight,
+                               axis=axis)
 
     def body(x, y, mask):
         loss, running_nd = step(x, y, mask)
         return {"loss": loss, "running_nd": running_nd}
 
-    return Megastep(body, optimizers=(optimizer,))
+    return Megastep(body, optimizers=(optimizer,), axis=axis)
 
 
 def _eval_metrics(y_hat, y, mask, threshold, normalizing_max, power):
@@ -237,14 +242,17 @@ def pad_batch(x, y, batch_size):
     return pad_to_batch_multiple(x, y, batch_size=batch_size)
 
 
-def gat_megafeed(loader, device, k: int, *, batch_size=None, depth=2):
+def gat_megafeed(loader, device, k: int, *, batch_size=None,
+                 axis: DataAxis | None = None, depth=2):
     """Background feed of K loader batches a yield, for
     :func:`make_gat_megastep`: ``(consumed, n_samples, k_actual, (xs, ys,
     masks))``, each with a leading axis of ``k_actual`` (K, or fewer at the
     epoch's tail), on ``device``. Batches of at most one sample are dropped,
     as the single steps skip them; ``consumed`` counts them too. Each batch
     is padded to ``max(batch_size, the group's largest)`` rows by
-    :func:`pad_batch`."""
+    :func:`pad_batch`; with a data ``axis``, to the next multiple of its
+    size, and each rank takes its even share of every batch
+    (``n_samples`` stays the global count)."""
 
     def grouped():
         buf, consumed = [], 0
@@ -262,9 +270,14 @@ def gat_megafeed(loader, device, k: int, *, batch_size=None, depth=2):
     def prepare(item):
         consumed, buf = item
         rows = max(batch_size or 0, max(len(x) for x, _ in buf))
+        if axis is not None:
+            rows = axis.padded_batch_size(rows)
         padded = [pad_batch(np.asarray(x, np.float32),
                             np.asarray(y, np.float32), rows) for x, y in buf]
-        staged = tuple(to_device(np.stack(a), device) for a in zip(*padded))
+        stacked = (np.stack(a) for a in zip(*padded))
+        if axis is not None:
+            stacked = (axis.shard(a, 1) for a in stacked)
+        staged = tuple(to_device(a, device) for a in stacked)
         return consumed, sum(len(x) for x, _ in buf), len(buf), staged
 
     return Prefetcher(grouped(), depth=depth, transfer=prepare)
@@ -287,15 +300,17 @@ def gat_step_logs(loader, step, device, *, max_batches: int = 0,
 
 
 def gat_megastep_logs(loader, megastep, device, k: int, batch_size: int, *,
-                      max_batches: int = 0):
+                      max_batches: int = 0, axis: DataAxis | None = None):
     """Groups of K of the first ``max_batches`` (all: 0) loader batches
-    (:func:`gat_megafeed`) through ``megastep``: (running_nd, samples,
-    loader batches consumed, train steps) a group."""
+    (:func:`gat_megafeed`; with a data ``axis``, this rank's rows) through
+    ``megastep``: (running_nd, samples, loader batches consumed, train
+    steps) a group."""
     batches = iter(loader)
     if max_batches:
         batches = itertools.islice(batches, max_batches)
     for consumed, n, steps, staged in gat_megafeed(batches, device, k,
-                                                   batch_size=batch_size):
+                                                   batch_size=batch_size,
+                                                   axis=axis):
         yield megastep(*staged)["running_nd"], n, consumed, steps
 
 

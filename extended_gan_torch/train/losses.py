@@ -47,11 +47,12 @@ def _clamped_log(x):
                        torch.log(x.clamp_min(_MIN_NORMAL)))
 
 
-def bce(p, target, *, mask=None):
+def bce(p, target, *, mask=None, count=None):
     """Binary cross-entropy on probabilities (after the sigmoid), mean over
-    the real samples; ``target`` a number or a tensor of p's shape."""
+    the real samples; ``target`` a number or a tensor of p's shape
+    (``count`` as for :func:`mse`)."""
     per = -(target * _clamped_log(p) + (1.0 - target) * _clamped_log(1.0 - p))
-    return _masked_mean(per, mask)
+    return _masked_mean(per, mask, count)
 
 
 CRITERIA = {"mse": mse, "l1": l1}

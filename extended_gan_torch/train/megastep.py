@@ -30,6 +30,20 @@ On the card (:class:`Megastep`):
   dropout) advance across replays once the generator is registered with
   the graph (``generators``); the default generator is registered by torch.
 - A capture or a replay that fails raises: there is no eager fallback.
+- Under a data axis (``parallel.DataAxis``) the body's NCCL collectives
+  (the gradient all-reduces, cross-rank BatchNorm, the global counts) are
+  captured into the graph with the rest, so each rank replays its K steps
+  and their collectives in one launch. The eager first group is every
+  collective's first run, after the driver's broadcast of the weights
+  made each communicator (NCCL cannot start one inside a capture); the
+  launcher turns NCCL's asynchronous error handling off before the group
+  starts (``parallel/launch.py``), as torch's notes on capturing NCCL ask.
+  Every rank captures the same graphs in the same order: the groups'
+  shapes, the learning rates and the padded tail are the same on every
+  rank, since each runs the same loader or program list and the same
+  scheduler on the same all-reduced losses. A gloo group on the card
+  raises (``DataAxis.check_capturable``): its collectives run on the
+  host, where no graph can record them.
 - The kernel wrappers count a launch when their Python code runs, which a
   capture does once and a replay never: the runner takes back what the
   capture counted and adds it again at every replay
@@ -72,10 +86,12 @@ class Megastep:
     the inputs, which share a leading K axis; the logs aggregated by
     :func:`aggregate_logs`. ``optimizers`` are the ones ``body`` steps (their
     learning rates key the captured graphs), ``generators`` the
-    ``torch.Generator`` s on the card that it draws from."""
+    ``torch.Generator`` s on the card that it draws from, ``axis`` the data
+    axis whose collectives ``body`` runs."""
 
-    def __init__(self, body, *, optimizers=(), generators=()):
+    def __init__(self, body, *, optimizers=(), generators=(), axis=None):
         self.body = body
+        self.axis = axis
         self.optimizers = tuple(optimizers)
         self.generators = tuple(generators)
         # keep each captured graph's node list (for ``graph.debug_dump``)
@@ -96,6 +112,8 @@ class Megastep:
         device = inputs[0].device
         if device.type != "cuda":
             return self.eager(*inputs)
+        if self.axis is not None:
+            self.axis.check_capturable()
         if self._stream is None:
             self._stream = torch.cuda.Stream(device)
         caller = torch.cuda.current_stream(device)

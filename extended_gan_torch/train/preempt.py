@@ -65,3 +65,9 @@ class AnyRankShutdown:
     @property
     def requested(self) -> bool:
         return self.axis.any(self.shutdown.requested)
+
+
+def any_rank_shutdown(shutdown: GracefulShutdown, axis):
+    """``shutdown`` seen by every rank of ``axis`` (:class:`AnyRankShutdown`);
+    ``shutdown`` itself on an axis of one."""
+    return AnyRankShutdown(shutdown, axis) if axis.parallel else shutdown

@@ -58,6 +58,16 @@ def load_optimizer_state(opt: torch.optim.Optimizer, saved: dict):
     opt.load_state_dict({**saved, "param_groups": groups})
 
 
+def report_in_sync(axis, modules, optimizers):
+    """On a data axis of more than one rank: raises unless every rank ends
+    with the same train state, bit for bit (``DataAxis.check_in_sync``),
+    and prints how much was compared."""
+    if axis.parallel:
+        n = axis.check_in_sync(modules, optimizers)
+        print(f"[data axis] {axis.size} ranks in sync: {n} tensors of the "
+              "train state bit for bit")
+
+
 def param_count(module: torch.nn.Module) -> int:
     return sum(p.numel() for p in module.parameters())
 

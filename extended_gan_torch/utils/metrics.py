@@ -14,6 +14,8 @@ same device, so a train or eval step keeps them there; only
 
 from __future__ import annotations
 
+import math
+
 import numpy as np
 import torch
 
@@ -29,7 +31,7 @@ def masked_batch_metrics(names: tuple[str, ...], y, y_hat, mask=None, *,
     m = mask.reshape((-1,) + (1,) * (y.dim() - 1)).float().expand_as(y)
     dy = (y < discretizing_threshold).float()
     dyh = (y_hat < discretizing_threshold).float()
-    per_sample = torch.tensor(float(y[0].numel()), device=y.device)
+    per_sample = torch.tensor(float(math.prod(y.shape[1:])), device=y.device)
     out = {}
     for name in names:
         if name == "mse":

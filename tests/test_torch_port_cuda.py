@@ -665,12 +665,11 @@ def test_captured_train_steps_equal_eager_steps(cuda_device, kernels):
     replayed, the third replayed); each replayed group against 3 eager
     steps on a twin from the state the graph had before it, SGD, cuDNN
     deterministic: K1 (GAT3D), K1 and K2 (use_pallas_mapping=True) bit for
-    bit; K3 (the SmaAt-UNet, whose bilinear upsampling adds its gradient
-    with atomics in a run-dependent order) by
-    ``utils.compare.held_to_reference``: the weights and buffers, and
-    apart from them the logs, each tensor within 1e-6 of its scale or 10x
-    the widest drift of four more twins (its own, or the whole state's); a
-    twin whose last optimizer step is skipped fails that test."""
+    bit; K3 (the SmaAt-UNet) by ``utils.compare.held_to_reference``: the
+    weights and buffers, and apart from them the logs, each tensor within
+    1e-6 of its scale or 10x the widest drift of four more twins (its own,
+    or the whole state's); a twin whose last optimizer step is skipped
+    fails that test."""
     from extended_gan_torch import ops
     from extended_gan_torch.models.gat.gat3d import Model as GatModel
     from extended_gan_torch.utils.compare import (

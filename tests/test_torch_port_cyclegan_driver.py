@@ -22,7 +22,8 @@ the CPU, at ndf 8, 64x64, B 4, dropout off where the JAX side is compared.
   ``resume``: the last checkpoint's tree and ``history.json`` equal an
   uninterrupted run's, bit for bit (dropout on: its stream comes back).
 - The JAX keywords the port does not have are refused, naming their
-  ROADMAP item; ``--multihost`` too; the CLI passes its flags through.
+  ROADMAP item; a data axis without its processes raises; the CLI passes
+  its flags through, ``--multihost`` into a launcher's group of one.
 - ``serve export --workload cyclegan`` in both directions (f32 and w8a8,
   ``--check``): each artifact is its generator from the checkpoint, and
   the HTTP server answers with it.
@@ -39,12 +40,14 @@ import numpy as np
 import optax
 import pytest
 import torch
+import torch.distributed as dist
 
 from extended_gan_tpu.data import resident as jax_resident
 from extended_gan_tpu.train import cyclegan_driver as jax_driver
 from extended_gan_tpu.train import cyclegan_trainer as jax_trainer
 from extended_gan_torch.cycle_gan.__main__ import main as cli
 from extended_gan_torch.data import resident, synthetic
+from extended_gan_torch.parallel.mesh import LAUNCHER_VARS
 from extended_gan_torch.serve import load_exported, make_server
 from extended_gan_torch.serve.__main__ import main as serve_cli
 from extended_gan_torch.train import cyclegan_driver, cyclegan_trainer
@@ -362,11 +365,18 @@ def test_a_preempted_run_resumes_bit_for_bit(tmp_path, monkeypatch, coastal,
 
 
 @pytest.mark.parametrize("key,value,item", [
-    ("data_axis", 2, 9), ("model_axis", 2, 9), ("tp_min_channels", 8, 9),
+    ("model_axis", 2, 9), ("tp_min_channels", 8, 9),
     ("fsdp", True, 9), ("fsdp_min_size", 1, 9), ("spatial", True, 9)])
 def test_unported_keywords_are_refused(key, value, item):
     with pytest.raises(NotImplementedError, match=f"queue 1 item {item}"):
         cyclegan_driver.train(**{key: value}, **RUN)
+
+
+def test_a_data_axis_without_its_processes_raises():
+    with pytest.raises(RuntimeError, match="needs 2 processes"):
+        cyclegan_driver.train(data_axis=2, **RUN)
+    with pytest.raises(ValueError, match="not divisible by the data axis 3"):
+        cyclegan_driver.train(data_axis=3, resident=True, **RUN)
 
 
 def test_off_values_unknown_keywords_and_the_cli(monkeypatch):
@@ -388,8 +398,23 @@ def test_off_values_unknown_keywords_and_the_cli(monkeypatch):
     off = {k: v[0] for k, v in cyclegan_driver._NOT_PORTED.items()}
     assert {k: seen[k] for k in off} == off
     assert seen["packed_g"] is None  # JAX's default: off
-    with pytest.raises(SystemExit, match="queue 1 item 9"):
+    assert seen["data_axis"] is None
+    # --multihost joins the launcher's group (here a gloo world of one)
+    # and passes on to the driver; without a launcher it raises
+    for k in LAUNCHER_VARS + ("SLURM_NTASKS", "OMPI_COMM_WORLD_SIZE"):
+        monkeypatch.delenv(k, raising=False)
+    with pytest.raises(RuntimeError, match="launcher environment"):
         cli(["--multihost"])
+    for k, v in dict(RANK="0", WORLD_SIZE="1", LOCAL_RANK="0",
+                     MASTER_ADDR="127.0.0.1", MASTER_PORT="0").items():
+        monkeypatch.setenv(k, v)
+    seen.clear()
+    try:
+        cli(["--device", "cpu", "--multihost"])
+        assert dist.is_initialized() and dist.get_world_size() == 1
+    finally:
+        dist.destroy_process_group()
+    assert seen["device"] == "cpu" and seen["data_axis"] is None
 
 
 @pytest.fixture(scope="module")

@@ -17,8 +17,9 @@ CPU.
   ``nn.BatchNorm2d`` bit for bit.
 - Refusals: ``--multihost`` without a launcher environment, a partial or
   garbled one, a data axis larger than the visible cards, a data axis
-  without its processes, and the data axis with ``--megastep``,
-  ``--resident`` or ``--moe-experts`` (ROADMAP queue 1 item 9).
+  without its processes, and the data axis with ``--moe-experts``
+  (ROADMAP queue 1 item 9); ``--megastep`` and ``--resident`` pass the
+  data axis's checks (a resident batch must divide by it).
 """
 
 import json
@@ -148,12 +149,26 @@ def test_a_data_axis_without_its_processes_raises(no_launcher):
         train(dataset="synthetic", device="cpu", data_axis=0)
 
 
-@pytest.mark.parametrize("option", [dict(megastep=2), dict(resident=True),
-                                    dict(moe_experts=8)])
+@pytest.mark.parametrize("option", [dict(moe_experts=8)])
 def test_the_data_axis_refuses_what_item_9_ports(option, no_launcher):
     with pytest.raises(NotImplementedError,
                        match=r"not ported yet \(ROADMAP queue 1 item 9\)"):
         train(dataset="synthetic", device="cpu", data_axis=2, **option)
+
+
+@pytest.mark.parametrize("option", [dict(megastep=2), dict(resident=True),
+                                    dict(megastep=8, resident=True)])
+def test_graphs_and_resident_data_take_the_data_axis(option, no_launcher):
+    """Past the option checks to the process group's."""
+    with pytest.raises(RuntimeError, match="needs 2 processes"):
+        train(dataset="synthetic", device="cpu", data_axis=2, **option)
+
+
+def test_a_resident_batch_must_divide_by_the_data_axis(no_launcher):
+    with pytest.raises(ValueError, match="train_batch_size 5 not divisible "
+                                         "by the data axis 2"):
+        train(dataset="synthetic", device="cpu", data_axis=2, resident=True,
+              train_batch_size=5)
 
 
 class _Axis(DataAxis):

@@ -15,8 +15,8 @@
 - ``python -m extended_gan_torch.dcgan`` on the CPU: finite results,
   ``history.json`` and ``checkpoints/`` under ``--out-dir`` and nowhere
   else (``tests/test_torch_port_checkpoint.py`` reads them); the JAX driver's
-  unported keywords raise, naming their ROADMAP item; without a card the
-  default device raises.
+  unported keywords raise, naming their ROADMAP item; a data axis without
+  its processes raises; without a card the default device raises.
 """
 
 import hashlib
@@ -211,7 +211,7 @@ def test_cli_trains_on_the_cpu(tmp_path, monkeypatch):
 # the JAX driver's keywords the port refuses, a value that is not "off", and
 # the ROADMAP queue 1 item that ports each
 UNPORTED = [
-    ("data_axis", 2, 9), ("model_axis", 2, 9), ("tp_min_channels", 64, 9),
+    ("model_axis", 2, 9), ("tp_min_channels", 64, 9),
     ("fsdp", True, 9), ("fsdp_min_size", 1, 9), ("spatial", True, 9),
 ]
 
@@ -230,13 +230,21 @@ def test_unported_keywords_at_their_off_values_pass(monkeypatch):
     def stopped(*args, **kwargs):
         raise stop
 
-    monkeypatch.setattr(dcgan_driver, "resolve_device", stopped)
+    monkeypatch.setattr(dcgan_driver, "data_axis_for", stopped)
     offs = {k: v[0][0] if isinstance(v[0], tuple) else v[0]
             for k, v in dcgan_driver._NOT_PORTED.items()}
     with pytest.raises(RuntimeError, match="past the option checks"):
         dcgan_driver.train(**offs)
     with pytest.raises(TypeError, match="bogus"):
         dcgan_driver.train(bogus=1)
+
+
+def test_a_data_axis_without_its_processes_raises():
+    with pytest.raises(RuntimeError, match="needs 2 processes"):
+        dcgan_driver.train(device="cpu", data_axis=2)
+    with pytest.raises(ValueError, match="not divisible by the data axis 3"):
+        dcgan_driver.train(device="cpu", data_axis=3, resident=True,
+                           train_batch_size=32)
 
 
 def test_default_device_without_a_card_raises(monkeypatch, tmp_path):

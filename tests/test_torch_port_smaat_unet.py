@@ -23,10 +23,11 @@ import torch
 from flax import traverse_util
 
 from extended_gan_tpu.models.smaat_unet import SmaAt_UNet as FlaxUNet
+from extended_gan_tpu.models.smaat_unet import _resize as jax_resize
 from extended_gan_tpu.models.unet_model import UnetModel as FlaxUnetModel
 from extended_gan_torch.models.convert import from_flax_params
 from extended_gan_torch.models.registry import build_model
-from extended_gan_torch.models.smaat_unet import SmaAt_UNet
+from extended_gan_torch.models.smaat_unet import SmaAt_UNet, upsample2x
 from extended_gan_torch.models.unet_model import UnetModel
 
 TOL = 2e-5
@@ -174,3 +175,32 @@ def test_unet_model_state_matches_the_flax_tree_leaf_for_leaf():
     assert flat["unet.inc.dsc0.depthwise_kernel"].shape == (3, 3, 1, 8)
     assert state["unet.inc.dsc0.depthwise_weight"].shape == (8, 1, 3, 3)
 
+
+
+@pytest.mark.parametrize("h,w", [(1, 1), (2, 3), (5, 5), (10, 10)])
+def test_upsampling_and_its_backward_match_jax(h, w):
+    """``upsample2x``: the forward is ``F.interpolate``'s bit for bit; the
+    forward and the backward (products with the interpolation matrices)
+    within TOL of JAX's ``_resize`` and its VJP in float32, and the
+    backward within 1e-12 of ``F.interpolate``'s in float64."""
+    rng = np.random.default_rng(h * 10 + w)
+    x = rng.standard_normal((2, 3, h, w)).astype(np.float32)
+    g = rng.standard_normal((2, 3, 2 * h, 2 * w)).astype(np.float32)
+    want, vjp = jax.vjp(lambda a: jax_resize(a, 2 * h, 2 * w),
+                        jnp.asarray(x.transpose(0, 2, 3, 1)))
+    (want_dx,) = vjp(jnp.asarray(g.transpose(0, 2, 3, 1)))
+    xt = torch.from_numpy(x).requires_grad_(True)
+    y = upsample2x(xt)
+    (dx,) = torch.autograd.grad(y, xt, torch.from_numpy(g))
+    assert torch.equal(y.detach(), torch.nn.functional.interpolate(
+        xt.detach(), size=(2 * h, 2 * w), mode="bilinear",
+        align_corners=True))
+    _close(y.detach().numpy(), np.asarray(want).transpose(0, 3, 1, 2), TOL)
+    _close(dx.numpy(), np.asarray(want_dx).transpose(0, 3, 1, 2), TOL)
+    x64 = torch.from_numpy(x).double().requires_grad_(True)
+    g64 = torch.from_numpy(g).double()
+    (dx64,) = torch.autograd.grad(upsample2x(x64), x64, g64)
+    (ref64,) = torch.autograd.grad(torch.nn.functional.interpolate(
+        x64, size=(2 * h, 2 * w), mode="bilinear", align_corners=True),
+        x64, g64)
+    _close(dx64.numpy(), ref64.numpy(), 1e-12)
