@@ -1357,7 +1357,8 @@ def model_pair(model_type, mapping_type, hw):
 
 
 def compare_train_steps(model_type, fused, plain, hw, opt_name, counts,
-                        per_step, batch=32, steps=3, rounds=1):
+                        per_step, batch=32, steps=3, rounds=1,
+                        profiled=3):
     """One step's gradients and three train steps with the kernels and
     with the plain versions, from the same weights on the same batches
     (exact f32: TF32 off), then the step time of each path and a profile of
@@ -1365,8 +1366,8 @@ def compare_train_steps(model_type, fused, plain, hw, opt_name, counts,
     kernels under test and ``per_step`` what one train step adds to each.
     ``rounds`` > 1: that many alternating rounds of kernel and plain steps
     (exact f32), each printed, their medians kept, and the plain path's
-    step profiled too. Returns the kernel path's launches and the step
-    times."""
+    step profiled too; ``profiled``: the steps a profile spans. Returns
+    the kernel path's launches and the step times."""
     import numpy as np
     import torch
 
@@ -1492,7 +1493,7 @@ def compare_train_steps(model_type, fused, plain, hw, opt_name, counts,
             fn = make_gat_train_step(*pair)
             profiles[path] = profile_window(
                 lambda: fn(*batches[0]), f"{model_type} {hw}x{hw} b={batch} "
-                f"{path} path, exact f32", "train step", n=3)
+                f"{path} path, exact f32", "train step", n=profiled)
     print(f"[train] {model_type} {hw}x{hw} b={batch}, {opt_name}: losses "
           f"kernel vs plain {losses}, worst rel {loss_err:.3e}; one step's "
           f"gradients within {grad_err:.3e} of the largest entry, roundoff "
@@ -1905,6 +1906,7 @@ def phase_family(batch=32, hw=20):
     with torch.inference_mode():
         fwd_profile = profile_window(lambda: fused(x),
                                      f"final_temp_smaat b={batch}", "forward",
+                                     n=2,
                                      counter=("gat_attention_cluster_fwd",
                                               lambda: k1.launch_count))
     # compared under SGD, as the UNet is: the pre-BatchNorm biases'
@@ -1913,7 +1915,8 @@ def phase_family(batch=32, hw=20):
         "temporal smaat_unet", fused, plain, hw, "sgd",
         lambda: {"gat_attention_fwd": k1.launch_count,
                  "gat_attention_bwd": k1.bwd_launch_count},
-        {"gat_attention_fwd": 4, "gat_attention_bwd": 4}, batch=batch)
+        {"gat_attention_fwd": 4, "gat_attention_bwd": 4}, batch=batch,
+        profiled=1)  # 13,935 kernels a step: the trace's handling is slow
     adam_ms = adam_step_ms(fused, batch)
     print(f"[family] final_temp_smaat b={batch}: {adam_ms:.3f} ms a train "
           "step with Adam (the config's optimizer), K1 path")
@@ -2140,7 +2143,9 @@ def phase_dcgan(out, batch=32):
     t0 = time.perf_counter()
     card_run = dcgan_steps(nets, batches, torch.device("cuda"), torch.float32)
     ref = dcgan_steps(nets, batches, torch.device("cpu"), torch.float64)
-    moved = dcgan_steps(nets, perturbed, torch.device("cpu"), torch.float64)
+    # the noise's effect in float64 on the card (its roundoff, 1e-16, is
+    # far below it); the reference above stays the CPU's
+    moved = dcgan_steps(nets, perturbed, torch.device("cuda"), torch.float64)
     with torch.backends.cudnn.flags(enabled=True, allow_tf32=True):
         tf32_fwd = dcgan_steps(nets, batches[:1], torch.device("cuda"),
                                torch.float32)["fwd"]
@@ -2537,7 +2542,8 @@ MEGA_LIMIT = 1e-6
 # the port's kernels by their profiler names, one main kernel a launch
 KERNEL_NAMES = {
     "gat_attention_fwd": ("gat_attention_cluster_fwd_kernel",
-                          "gat_attention_fwd_kernel"),
+                          "gat_attention_fwd_kernel",
+                          "gat_attention_fwd_any_kernel"),
     "gat_attention_bwd": ("gat_attention_cluster_bwd_kernel",),
     "dsconv_fwd": ("dsconv_fwd_kernel",),
     "dsconv_bwd": ("dsconv_bwd_kernel",),
@@ -3909,8 +3915,10 @@ def cyclegan_steps(nets, batches, device, dtype):
 
 def _robust_cyclegan_path(tmp, label, data, extra, stop_after):
     """The published CycleGAN through ``python -m
-    extended_gan_torch.cycle_gan`` (dropout 0.01): uninterrupted here, cut
-    in a child by a SIGTERM, ``--resume`` here; bitwise."""
+    extended_gan_torch.cycle_gan`` (dropout 0.01): cut in a child by a
+    SIGTERM, which starts now; the returned ``finish()`` runs it
+    uninterrupted here, waits for the child, runs ``--resume`` here and
+    holds the two bit for bit."""
     import torch
 
     from extended_gan_torch.cycle_gan.__main__ import main as cyclegan_cli
@@ -3920,17 +3928,21 @@ def _robust_cyclegan_path(tmp, label, data, extra, stop_after):
     ref, run = os.path.join(tmp, label + "_ref"), os.path.join(tmp, label)
     child = _Child(label, {"kind": "cyclegan",
                            "argv": argv + ["--out-dir", run]}, stop_after)
-    with torch.backends.cudnn.flags(enabled=True, allow_tf32=False,
-                                    deterministic=True), \
-            contextlib.redirect_stdout(io.StringIO()):
-        t0 = time.perf_counter()
-        cyclegan_cli(argv + ["--out-dir", ref])
-        torch.cuda.synchronize()
-        ref_s = time.perf_counter() - t0
-        cut = child.finish()
-        cyclegan_cli(argv + ["--out-dir", run, "--resume"])
-        torch.cuda.synchronize()
-    return dict(cut, leaves=_same_run(ref, run, label), ref_s=ref_s)
+
+    def finish():
+        with torch.backends.cudnn.flags(enabled=True, allow_tf32=False,
+                                        deterministic=True), \
+                contextlib.redirect_stdout(io.StringIO()):
+            t0 = time.perf_counter()
+            cyclegan_cli(argv + ["--out-dir", ref])
+            torch.cuda.synchronize()
+            ref_s = time.perf_counter() - t0
+            cut = child.finish()
+            cyclegan_cli(argv + ["--out-dir", run, "--resume"])
+            torch.cuda.synchronize()
+        return dict(cut, leaves=_same_run(ref, run, label), ref_s=ref_s)
+
+    return finish
 
 
 def phase_cyclegan(tmp, batch=32):
@@ -4025,14 +4037,16 @@ def phase_cyclegan(tmp, batch=32):
     ref = cyclegan_steps(nets, batches, torch.device("cpu"), torch.float64)
     # roundoff's scale: what 1e-7 noise on both halves of the first batch
     # moves float64, the most of three draws (noise on the context alone
-    # leaves D_x's gradients nearly still, far below their roundoff)
+    # leaves D_x's gradients nearly still, far below their roundoff); the
+    # draws run in float64 on the card, whose own roundoff (1e-16) is far
+    # below the noise's effect
 
     def noisy(seed):
         rng = np.random.default_rng(seed)
         return [tuple((a * (1 + 1e-7 * rng.standard_normal(a.shape)))
                       .astype(np.float32) for a in batches[0])]
 
-    draws = [cyclegan_steps(nets, noisy(seed), torch.device("cpu"),
+    draws = [cyclegan_steps(nets, noisy(seed), torch.device("cuda"),
                             torch.float64) for seed in range(3)]
     # a lower precision, which the limits below must refuse: TF32
     # convolutions and products on the card
@@ -4147,6 +4161,7 @@ def phase_cyclegan(tmp, batch=32):
     # 4. preempt and resume, bitwise
     # streaming: 12 steps an epoch, the SIGTERM after epoch 1 and 4 more;
     # resident: 3 programs of 8 an epoch, after 4 programs
+    # both children start at once
     cuts = {
         "streaming": _robust_cyclegan_path(
             tmp, "cg_stream", data, ["--max-batches", "12"], 16),
@@ -4154,6 +4169,7 @@ def phase_cyclegan(tmp, batch=32):
             tmp, "cg_resident", data, ["--max-batches", "24", "--resident",
                                        "--megastep", str(CYCLEGAN_K)], 4),
     }
+    cuts = {label: finish() for label, finish in cuts.items()}
     for label, r in cuts.items():
         print(f"[cyclegan] preempt {label}: SIGTERM after step "
               f"{r['steps_seen']} seen, snapshot step {r['snapshot_step']} "
@@ -4617,8 +4633,9 @@ def phase_gan_variants(tmp, batch=32):
             torch.backends.cuda.matmul.allow_tf32 = False
         ref = variant_step(states, real, torch.device("cpu"), torch.float64,
                            body, packed)
-        draws = [variant_step(states, noisy(0), torch.device("cpu"),
-                              torch.float64, body, packed)]
+        # the noise's effect in float64 on the card
+        draws = [variant_step(states, noisy(0), dev, torch.float64, body,
+                              packed)]
         ref_s = time.perf_counter() - t0
         rel = np.abs(np.array(card_run["losses"]) - ref["losses"]) / np.abs(
             ref["losses"])
@@ -6130,7 +6147,7 @@ DP_MODELS = {"final_smaatunet": ("unet", "linear", 20),
 
 
 def _dp_run(name, device, axis=None, *, fault=False, permute=False,
-            float64=False):
+            float64=False, moe=0, ep_fault=None, perturb=False):
     """DP_STEPS Adam steps of ``name``'s model from seed 0 on DP_STEPS
     global batches of 32 (this rank's rows on ``axis``; ``permute``: each
     batch's rows in another order; ``fault``: each rank's BatchNorm with
@@ -6140,13 +6157,28 @@ def _dp_run(name, device, axis=None, *, fault=False, permute=False,
     the buffers after it and the losses as one more tensor, "first step":
     the buffers and the loss after the first step}``; the kernels launched
     by each step; the ms of each step and of its collectives, host clock,
-    synchronised)."""
+    synchronised). ``moe`` E > 0: the model with its Switch-MoE bottleneck
+    of E experts (aux weight MOE_AUX_W), its experts sharded over
+    ``axis`` (``parallel/expert.py``), the weights holding all E, and
+    the clock's ``loads`` each step's tokens kept by each expert
+    (``perturb``: each batch under 1e-7 relative noise, a roundoff twin
+    that keeps the rows' order, which the routing's queues follow);
+    ``ep_fault="reduced"``: the expert shards' gradients also summed in
+    the flat all-reduce (a planted fault); the state then also holds the
+    ``"first gradients"``, every gradient of the first step."""
     import numpy as np
     import torch
 
     from extended_gan_torch import ops
+    from extended_gan_torch.models.moe import moe_layers
     from extended_gan_torch.models.registry import build_model
     from extended_gan_torch.parallel import attach_data_axis
+    from extended_gan_torch.parallel.expert import (
+        full_state,
+        gather_experts,
+        shard_tree_moe_ep,
+    )
+    from extended_gan_torch.train import gat_trainer
     from extended_gan_torch.train.gat_trainer import (
         make_gat_train_step,
         to_device_batch,
@@ -6158,13 +6190,18 @@ def _dp_run(name, device, axis=None, *, fault=False, permute=False,
     model = build_model(model_type, image_width=hw, image_height=hw,
                         n_vertices=6, mapping_type=mapping, device=device,
                         generator=torch.Generator().manual_seed(0),
-                        use_pallas=not float64)
+                        use_pallas=not float64, moe_experts=moe)
     dtype = torch.float64 if float64 else torch.float32
     model.to(dtype)
-    clock = {"collective_ms": 0.0}
+    clock = {"collective_ms": 0.0, "loads": []}
+    for layer in moe_layers(model):
+        layer.register_forward_hook(
+            lambda mod, args, out: clock["loads"].append(
+                mod.sown[-1][1].detach().cpu()))
     if axis is not None:
         attach_data_axis(model, axis)
         axis.broadcast_module(model)
+        shard_tree_moe_ep(model, axis)
         if fault:
             for bn in batchnorms(model):
                 bn.axis = None
@@ -6180,7 +6217,14 @@ def _dp_run(name, device, axis=None, *, fault=False, permute=False,
         axis.all_reduce = timed_all_reduce
     opt = make_optimizer("adam", model.parameters(), 1e-3,
                          weight_decay=0.01)
-    step = make_gat_train_step(model, opt, axis=axis)
+    replicated = gat_trainer.replicated_parameters
+    if ep_fault == "reduced":
+        gat_trainer.replicated_parameters = lambda m: list(m.parameters())
+    try:
+        step = make_gat_train_step(model, opt, axis=axis,
+                                   moe_aux_weight=MOE_AUX_W if moe else 0.0)
+    finally:
+        gat_trainer.replicated_parameters = replicated
     rng = np.random.default_rng(DP_SEED)
     losses, per_step, step_ms, collective_ms = [], [], [], []
     with torch.backends.cudnn.flags(enabled=True, allow_tf32=False,
@@ -6191,6 +6235,9 @@ def _dp_run(name, device, axis=None, *, fault=False, permute=False,
             if permute:
                 order = np.random.default_rng(5).permutation(32)
                 x, y = x[order], y[order]
+            if perturb:
+                x = x * (1 + 1e-7 * np.random.default_rng(6).standard_normal(
+                    x.shape)).astype(np.float32)
             if axis is not None:
                 rows = axis.rows(32)
                 x, y = x[rows], y[rows]
@@ -6206,18 +6253,39 @@ def _dp_run(name, device, axis=None, *, fault=False, permute=False,
             if len(losses) == 1:  # before Adam's steps amplify roundoff
                 first = [t.detach().cpu().clone()
                          for t in itertools.chain(model.buffers(), [loss])]
+                if moe:
+                    # every gradient, the experts' gathered from their
+                    # ranks (Adam's update hides a gradient's scale)
+                    grads = {n: p.grad for n, p in model.named_parameters()}
+                    if axis is not None:
+                        grads = gather_experts(grads, model, axis)
+                    first_grads = [g.detach().cpu().clone()
+                                   for g in grads.values()]
             per_step.append({n: c - before[n] for n, c in
                              ops.launch_counts().items() if c != before[n]})
     weights = list(model.parameters()) + [
         v for st in opt.state.values() for v in st.values()
         if torch.is_tensor(v)]
+    if moe:
+        # all E experts and their moments, gathered from their ranks
+        tree = {"model": dict(model.named_parameters()),
+                "optimizer": opt.state_dict()}
+        if axis is not None:
+            tree = full_state(tree, model, opt, axis)
+        weights = list(tree["model"].values()) + [
+            v for st in tree["optimizer"]["state"].values()
+            for v in st.values() if torch.is_tensor(v) and v.dim()]
     stats = list(model.buffers()) + [torch.stack(losses)]
     if axis is not None:
         axis.all_reduce = all_reduce
-    return ({"weights": [t.detach().cpu().clone() for t in weights],
+    state = {"weights": [t.detach().cpu().clone() for t in weights],
              "statistics": [t.detach().cpu().clone() for t in stats],
-             "first step": first},
-            per_step, {"step_ms": step_ms, "collective_ms": collective_ms})
+             "first step": first}
+    if moe:
+        state["first gradients"] = first_grads
+    return (state,
+            per_step, {"step_ms": step_ms, "collective_ms": collective_ms,
+                       "loads": clock["loads"]})
 
 
 def dp_child(spec_json):
@@ -6893,6 +6961,426 @@ def phase_gan_data_parallel(tmp):
                 seconds=seconds)
 
 
+# the expert_parallel phase: the MoE UNet's Adam steps (DP_STEPS of them on
+# batches from DP_SEED), 2 gloo ranks of 16 rows against one process of 32
+EP_RANKS = 2
+
+
+def _exchange_collectives(axis):
+    """Runs the EP exchange's three collectives (``parallel/expert.py``)
+    on CUDA tensors over this rank's process group; a refusal raises, and
+    fails the phase. Returns their names."""
+    import torch
+
+    from extended_gan_torch.parallel import expert
+
+    t = torch.arange(4.0, device=axis.device).reshape(axis.size, -1) \
+        + axis.rank
+    for fn in (expert.reduce_scatter, expert.all_gather, expert.all_to_all):
+        fn(t, axis)
+    torch.cuda.synchronize()
+    return ["reduce_scatter", "all_gather", "all_to_all"]
+
+
+def ep_child(spec_json):
+    """One gloo rank of :func:`phase_expert_parallel` on ``cuda:0``: the
+    exchange's three collectives on CUDA tensors (a refusal fails), the
+    MoE UNet's DP_STEPS steps on its rows with its experts sharded, its
+    shards' sizes, the launches, and the planted fault (the expert shards'
+    gradients also all-reduced); saved to ``<out>.<rank>``."""
+    import torch
+    import torch.distributed as dist
+
+    from extended_gan_torch import ops
+    from extended_gan_torch.models.moe import moe_layers
+    from extended_gan_torch.parallel import DataAxis
+
+    spec = json.loads(spec_json)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dist.init_process_group("gloo", init_method="file://" + spec["store"],
+                            rank=spec["rank"], world_size=spec["size"])
+    try:
+        axis = DataAxis(torch.device("cuda", 0), dist.group.WORLD)
+        out = {"collectives": _exchange_collectives(axis)}
+        _reset_launches()  # this rank's main path
+        out["run"] = _dp_run("final_smaatunet", axis.device, axis,
+                             moe=MOE_E)
+        out["launches"] = ops.launch_counts()
+        out["routes"] = ops.plain_routes()
+        from extended_gan_torch.models.registry import build_model
+        from extended_gan_torch.parallel.expert import shard_tree_moe_ep
+
+        model = build_model("unet", image_width=20, image_height=20,
+                            n_vertices=6, mapping_type="linear",
+                            device=axis.device, moe_experts=MOE_E)
+        shard_tree_moe_ep(model, axis)
+        (layer,) = moe_layers(model)
+        out["shards"] = dict(experts=list(layer.experts),
+                             w1=list(layer.w1.shape),
+                             router=list(layer.router.shape))
+        out["fault"] = _dp_run("final_smaatunet", axis.device, axis,
+                               moe=MOE_E, ep_fault="reduced")[0]
+        torch.save(out, f"{spec['out']}.{spec['rank']}")
+    finally:
+        dist.destroy_process_group()
+    return 0
+
+
+def phase_expert_parallel(tmp):
+    """The Switch-MoE UNet's expert parallelism on the one card:
+
+    - two ranks over gloo, both on ``cuda:0`` (``chip_smoke.py
+      --ep-child``), each with 16 rows of every global batch of 32 and 4
+      of the 8 experts (and their Adam moments): final_smaatunet's model
+      with its MoE (12,437,540 parameters), DP_STEPS Adam steps from seed
+      0 with the aux weight MOE_AUX_W, held to the same steps in one
+      process in float64 by ``utils/compare.py`` within 10x the widest
+      distance from it of the one-process float32 run and of its twin
+      with each batch under 1e-7 relative noise (the weights and moments,
+      the statistics and losses, the first step's statistics and its
+      gradients); the first step's routing (the tokens each expert kept)
+      equal to one process's; the ranks' state equal; K3 18 + 18 a step
+      on each rank; the expert shards' gradients also all-reduced (the
+      planted fault) must miss on the first step's gradients; first, the
+      exchange's three collectives on CUDA tensors over gloo (a refusal
+      fails the phase);
+    - the MoE CLI under ``--multihost``: the conv-GAT CLI with
+      ``--moe-experts 8 --megastep 8 --resident`` as an NCCL world of one
+      against the same CLI without ``--multihost``, bit for bit, K3's
+      backward 144 + 144. On an axis of one the experts are not sharded
+      (``shard_tree_moe_ep`` leaves them, ``SwitchMoE`` runs its dense
+      path), so this holds the CLI's multihost path and its graphs, not
+      the exchange: the exchange captured in CUDA graphs over NCCL is held
+      by ``python -m extended_gan_torch.parallel.probe --workload moe
+      --check`` on four cards alone."""
+    import torch
+
+    from extended_gan_torch.data.synthetic import make_kmni_dataset
+    from extended_gan_torch.utils.compare import (
+        drift,
+        held_to_reference,
+        widest,
+    )
+
+    t_phase = time.perf_counter()
+    card = card_line()
+    dev = torch.device("cuda")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    out = os.path.join(tmp, "ep")
+    ranks = [_spawn("--ep-child", dict(rank=r, size=EP_RANKS, out=out,
+                                       store=os.path.join(tmp, "store")))
+             for r in range(EP_RANKS)]
+    # 8 files of 89 windows: 22 batches of 32, two programs of K = 8
+    knmi = make_kmni_dataset(os.path.join(tmp, "knmi"), n_train_files=8,
+                             n_test_files=1, frames_per_file=96, hw=20)
+    k = 8
+    argv = ["train", "--dataset", "kmni", "--preprocessed-folder", knmi,
+            "--train-batch-size", "32", "--test-batch-size", "64",
+            "--epochs", "1", "--model-type", "unet", "--mapping-type",
+            "linear", "--downsample-size", "20", "20", "--moe-experts",
+            str(MOE_E), "--resident", "--megastep", str(k),
+            "--max-batches", str(2 * k)]
+    launcher = dict(RANK="0", WORLD_SIZE="1", LOCAL_RANK="0",
+                    MASTER_ADDR="127.0.0.1", MASTER_PORT="0")
+    children = {}
+    for how in ("plain", "multihost"):
+        where = os.path.join(tmp, f"moe_{how}")
+        children[how] = _spawn("--gan-dp-cli-child", dict(
+            cli="gat", save=where + ".pt", argv=argv + [
+                "--output-path", where] + (
+                ["--multihost"] if how == "multihost" else [])),
+            env=launcher if how == "multihost" else None)
+    # the one-process runs, while the children run
+    want, _, _ = _dp_run("final_smaatunet", dev, float64=True, moe=MOE_E)
+    one, one_steps, one_clock = _dp_run("final_smaatunet", dev, moe=MOE_E)
+    twin = _dp_run("final_smaatunet", dev, perturb=True, moe=MOE_E)[0]
+    floors = {g: widest(drift(t[g], want[g]) for t in (one, twin))
+              for g in want}
+
+    def held(got):
+        return {g: held_to_reference(got[g], want[g], floors[g])
+                for g in want}
+
+    for r, p in enumerate(ranks):
+        _finished(p, f"expert_parallel rank {r}", timeout=400)
+    got = [torch.load(f"{out}.{r}", weights_only=False)
+           for r in range(EP_RANKS)]
+    gloo = got[0]["collectives"]
+    (s0, steps0, clock0), (s1, _, _) = got[0]["run"], got[1]["run"]
+    check(all(torch.equal(a, b) for g in ("statistics", "first step")
+              for a, b in zip(s0[g], s1[g]))
+          and all(torch.equal(a, b)
+                  for a, b in zip(s0["weights"], s1["weights"])),
+          "expert_parallel: the two ranks' states differ")
+    verdict = held(s0)
+    check(all(v["ok"] for v in verdict.values()),
+          f"expert_parallel: two ranks against one process {verdict}")
+    # the first step's routing, from the same weights, is one
+    # process's; Adam's steps then move the weights apart by roundoff
+    # (a tiny gradient's sign sets a step of lr), so a later step's
+    # token within that of a tie may route elsewhere
+    loads_equal = [bool(torch.equal(a, b)) for a, b in
+                   zip(clock0["loads"], one_clock["loads"])]
+    check(loads_equal[:1] == [True] and len(loads_equal) == DP_STEPS,
+          f"expert_parallel: the tokens each expert kept, two ranks "
+          f"{[t.tolist() for t in clock0['loads']]}, one process "
+          f"{[t.tolist() for t in one_clock['loads']]}")
+    shards = [g["shards"] for g in got]
+    per = MOE_E // EP_RANKS
+    check([sh["experts"] for sh in shards]
+          == [[r * per, (r + 1) * per] for r in range(EP_RANKS)]
+          and all(sh["w1"][0] == per and sh["router"][1] == MOE_E
+                  for sh in shards),
+          f"expert_parallel: the ranks' expert shards {shards}")
+    each = {"dsconv_fwd": 18, "dsconv_bwd": 18}
+    check(all(s == each for s in steps0) and one_steps[0] == each,
+          f"expert_parallel: launches a step {steps0} on rank 0, "
+          f"{one_steps[0]} in one process; expected {each}")
+    rank_launches = [g["launches"] for g in got]
+    check(not any(v for g in got for v in g["routes"].values()),
+          f"expert_parallel: plain routes {[g['routes'] for g in got]}")
+    fv = held(got[0]["fault"])
+    fault = fv["first gradients"]["worst"]
+    check(fault > 1.0,
+          f"expert_parallel: the expert shards' gradients all-reduced "
+          f"too pass the bound ({fault:.2f}x): {fv}")
+    texts = {how: _finished(p, f"expert_parallel CLI {how}")
+             for how, p in children.items()}
+    groups = {how: next((ln.split(" ", 2)[2] for ln in t.splitlines()
+                         if ln.startswith("[child] group ")), "")
+              for how, t in texts.items()}
+    launches = {how: json.loads(next(
+        ln.split(" ", 2)[2] for ln in t.splitlines()
+        if ln.startswith("[child] launches "))) for how, t in texts.items()}
+    saved = {how: torch.load(os.path.join(tmp, f"moe_{how}.pt"),
+                             weights_only=False) for how in children}
+    cli = held_to_reference(saved["multihost"]["state"],
+                            saved["plain"]["state"])
+    check(groups == {"plain": "none", "multihost": "nccl 1"}
+          and launches["plain"] == launches["multihost"]
+          and cli["bitwise"]
+          and saved["plain"]["history"] == saved["multihost"]["history"],
+          f"expert_parallel CLI: --multihost world of one ({groups}) "
+          f"against the plain CLI: {cli}, launches {launches}")
+    check(launches["multihost"].get("dsconv_bwd") == 2 * 18 * k,
+          f"expert_parallel CLI: dsconv_bwd launched "
+          f"{launches['multihost'].get('dsconv_bwd')}, expected {18 * k} "
+          f"(eager) + {18 * k} (a replay)")
+    seconds = time.perf_counter() - t_phase
+    steps_line = (
+        "; ".join(f"{g} gap {v['gap']:.3e}, {v['worst']:.3f} of its bound "
+                  f"(floor {v['floor']:.3e})" for g, v in verdict.items())
+        + f"; routing equal to one process's in step 1 (steps 1 to "
+        f"{DP_STEPS}: {loads_equal}; kept a step "
+        f"{[int(t.sum()) for t in clock0['loads']]}); shards "
+        f"{shards}; ms a step (host clock, steps 2 and 3) one process "
+        f"{statistics.mean(one_clock['step_ms'][1:]):.3f}, two ranks "
+        f"sharing the card {statistics.mean(clock0['step_ms'][1:]):.3f} of "
+        f"which collectives {statistics.mean(clock0['collective_ms'][1:]):.3f}"
+        f"; expert gradients all-reduced too at {fault:.1f}x the bound; "
+        f"launches each rank {rank_launches}")
+    print(f"[expert_parallel] gloo runs {', '.join(gloo)} on CUDA tensors"
+          f"; two ranks on cuda:0, 16 rows and {MOE_E // EP_RANKS} "
+          f"experts each, {DP_STEPS} Adam steps of batches of 32, against "
+          f"one process in float64: {steps_line}; the MoE CLI under "
+          f"--multihost (--moe-experts {MOE_E} --megastep {k} --resident, "
+          f"an NCCL world of one: the experts unsharded, the dense MoE; the "
+          f"exchange in graphs is the four-card probe's) against the plain "
+          f"CLI: {'bit for bit' if cli['bitwise'] else cli}, launches "
+          f"{launches['multihost']}; phase {seconds:.1f} s; {card}",
+          flush=True)
+    return dict(verdict=verdict, fault=fault,
+                launches={"expert_parallel: gloo rank %d of 2" % r: c
+                          for r, c in enumerate(rank_launches)}
+                | {"expert_parallel: the MoE CLI --megastep 8 --resident "
+                   "under --multihost, NCCL world of one (experts "
+                   "unsharded)": launches["multihost"]},
+                seconds=seconds)
+
+
+# shapes past each limit of K3 and K1 (``ops/dsconv.py``,
+# ``ops/gat_attention.py``): the forward kernels take them (K3's reading
+# its taps unstaged past 333-pixel rows, K1's run-time-M kernel past M = 8),
+# the wrappers route the backwards the kernels cannot take to the plain
+# versions on the card, as the JAX package's backwards are plain:
+# (N, H, W, C, kpl, Cout)
+ROUTE_DSC = {"rows past the backward's 257 (kpl 2, C 64)": (2, 288, 288, 64,
+                                                             2, 64),
+             "rows past the forward's stages, 333 (unstaged; the backward "
+             "takes them)": (1, 336, 336, 4, 2, 64),
+             "kpl 33, past the backward's 32": (2, 16, 16, 2, 33, 8)}
+# (NH, B, M, G, S): M past the instanced 8; M * G past the backward's 128
+ROUTE_K1 = {"M = 9": (2, 4, 9, 6, 100), "M * G = 136": (2, 4, 8, 17, 64)}
+ROUTE_TOL = 1e-5  # card float32 against float64, of each tensor's largest
+ROUTE_UNETS = (288, 336)  # published UNet, one window of 6 vertices
+ROUTE_TIMING = dict(groups=8, warmup=3, per_group=5)  # the forwards' times
+
+
+def _route_counts():
+    from extended_gan_torch import ops
+
+    return {**{f"{n} kernel": c for n, c in ops.launch_counts().items()},
+            **{f"{n} plain": c for n, c in ops.plain_routes().items()}}
+
+
+def _routed(fn, *args):
+    """``fn(*args)`` on the card; returns (its result, the kernel launches
+    and plain routes it made)."""
+    before = _route_counts()
+    out = fn(*args)
+    import torch
+
+    torch.cuda.synchronize()
+    return out, {n: c - before[n] for n, c in _route_counts().items()
+                 if c != before[n]}
+
+
+def _fwd_bwd(fn, inputs, seed):
+    """``fn``'s output and the gradients of <output, a seeded cotangent>
+    with respect to every input, as float64 on the CPU."""
+    import torch
+
+    inputs = [t.detach().clone().requires_grad_(True) for t in inputs]
+    out = fn(*inputs)
+    g = torch.randn(out.shape, generator=torch.Generator().manual_seed(seed),
+                    dtype=torch.float64).to(out.device, out.dtype)
+    grads = torch.autograd.grad(out, inputs, g)
+    return [t.detach().to("cpu", torch.float64) for t in (out, *grads)]
+
+
+def _rel_err(got, want):
+    return max(float((a - b).abs().max()) / max(float(b.abs().max()), 1e-30)
+               for a, b in zip(got, want))
+
+
+def phase_shape_routes():
+    """K3 and K1 at shapes past each of their kernels' limits: the
+    forwards on their kernels (K3's unstaged taps, K1's run-time-M kernel),
+    the backwards the kernels cannot take routed to the plain versions on
+    the card (the JAX package's backwards are plain): each call's forward
+    and backward against float64 on the CPU within ROUTE_TOL of each
+    tensor's largest entry, its routes counted as the rules predict; the
+    published UNet (final_smaatunet's model, kpl 2) trains one SGD step at
+    288x288 and at 336x336, one window of 6 vertices: its 18 DSC forwards
+    on the kernel and its 18 backwards split between the kernel and plain
+    routes as ``dsconv.bwd_takes`` predicts from ``dsc_shapes``, its state
+    held to the plain twin's float64 step within 10x the plain twin's
+    float32-to-float64 distance."""
+    import torch
+
+    from extended_gan_torch.models.registry import build_model
+    from extended_gan_torch.models.smaat_unet import dsc_shapes
+    from extended_gan_torch.ops import dsconv as k3
+    from extended_gan_torch.ops import gat_attention as k1
+    from extended_gan_torch.train.gat_trainer import make_gat_train_step
+    from extended_gan_torch.utils.compare import drift, held_to_reference
+
+    t_phase = time.perf_counter()
+    card = card_line()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    results, times = {}, {}
+    for i, (label, (n, h, w, c, kpl, cout)) in enumerate(ROUTE_DSC.items()):
+        gen = torch.Generator().manual_seed(40 + i)
+        cpu = [torch.rand(shape, generator=gen, dtype=torch.float64) - 0.5
+               for shape in ((n, h, w, c), (3, 3, c * kpl), (c * kpl,),
+                             (c * kpl, cout), (cout,))]
+        want = _fwd_bwd(k3.fused_dsconv, cpu, i)
+        got, routes = _routed(_fwd_bwd, k3.fused_dsconv,
+                              [t.float().cuda() for t in cpu], i)
+        expect = {"dsconv_fwd kernel": 1,
+                  ("dsconv_bwd kernel" if k3.bwd_takes(n, h, w, c, c * kpl)
+                   else "dsconv_bwd plain"): 1}
+        err = _rel_err(got, want)
+        check(routes == expect and err <= ROUTE_TOL,
+              f"shape_routes K3 {label}: routes {routes} (expected "
+              f"{expect}), error {err:.3e} of the largest entry")
+        results[f"K3 {label}"] = (
+            routes | {"staged": k3.fwd_stages(w)}, err)
+        xs = [t.float().cuda() for t in cpu]
+        with torch.no_grad():
+            times[f"K3 {label}"] = (
+                time_ms(lambda: k3.fused_dsconv(*xs), **ROUTE_TIMING),
+                time_ms(lambda: k3.reference_dsc(*xs), **ROUTE_TIMING))
+    for i, (label, (nh, b, mm, g, sz)) in enumerate(ROUTE_K1.items()):
+        gen = torch.Generator().manual_seed(50 + i)
+        m = torch.rand((nh, b, mm, g * sz), generator=gen,
+                       dtype=torch.float64) - 0.5
+        a = torch.rand((nh, 2 * g), generator=gen, dtype=torch.float64) - 0.5
+        adj = torch.softmax(torch.rand((nh, mm, mm), generator=gen,
+                                       dtype=torch.float64), -1)
+
+        def attend(m, a, adj):
+            return k1.fused_gat_attention(m, a, adj, 0.2, sz)[0]
+
+        want = _fwd_bwd(attend, [m, a, adj], i)
+        got, routes = _routed(_fwd_bwd, attend,
+                              [t.float().cuda() for t in (m, a, adj)], i)
+        expect = {"gat_attention_fwd kernel": 1,
+                  ("gat_attention_bwd kernel" if k1.bwd_takes(mm, g)
+                   else "gat_attention_bwd plain"): 1}
+        err = _rel_err(got, want)
+        check(routes == expect and err <= ROUTE_TOL,
+              f"shape_routes K1 {label}: routes {routes} (expected "
+              f"{expect}), error {err:.3e} of the largest entry")
+        results[f"K1 {label}"] = (routes, err)
+        m32, a32, adj32 = (t.float().cuda() for t in (m, a, adj))
+        w1, w2 = k1._group_rows(a32, sz)
+        times[f"K1 {label}"] = (
+            time_ms(lambda: attend(m32, a32, adj32), **ROUTE_TIMING),
+            time_ms(lambda: k1.reference_impl(m32, w1, w2, adj32[:, None],
+                                              0.2, sz), **ROUTE_TIMING))
+    unets = {}
+    for hw in ROUTE_UNETS:
+        shapes = dsc_shapes(batch=1, hw=hw, vertices=6)
+        bwd = sum(k3.bwd_takes(*s[:5]) for s in shapes)
+        expect = {"dsconv_fwd kernel": 18, "dsconv_bwd kernel": bwd,
+                  "dsconv_bwd plain": 18 - bwd}
+        gen = torch.Generator().manual_seed(hw)
+        x, y = (torch.rand((1, hw, hw, 4, 6), generator=gen)
+                for _ in range(2))
+        states = {}
+        for kind, dtype, pallas in (("kernel", torch.float32, True),
+                                    ("plain", torch.float32, False),
+                                    ("plain f64", torch.float64, False)):
+            model = build_model("unet", image_width=hw, image_height=hw,
+                                n_vertices=6, mapping_type="linear",
+                                device="cuda", use_pallas=pallas,
+                                generator=torch.Generator().manual_seed(0))
+            model.to(dtype)
+            step = make_gat_train_step(
+                model, torch.optim.SGD(model.parameters(), lr=0.01))
+            (loss, _), routes = _routed(step, *(
+                t.to("cuda", dtype) for t in (x, y, torch.ones(1))))
+            check(math.isfinite(float(loss)),
+                  f"shape_routes UNet {hw}x{hw} {kind}: loss {loss}")
+            if kind == "kernel":
+                check({k: v for k, v in expect.items() if v} == routes,
+                      f"shape_routes UNet {hw}x{hw}: routes {routes}, "
+                      f"expected {expect}")
+                unets[hw] = routes
+            states[kind] = [t.detach().cpu().clone()
+                            for t in model.state_dict().values()
+                            if t.is_floating_point()]
+            del model, step
+        v = held_to_reference(states["kernel"], states["plain f64"],
+                              drift(states["plain"], states["plain f64"]))
+        check(v["ok"], f"shape_routes UNet {hw}x{hw}: kernel path against "
+                       f"the plain float64 step {v}")
+        results[f"UNet {hw}x{hw}"] = (unets[hw] | {"unstaged forwards": sum(
+            not k3.fwd_stages(sh[2]) for sh in shapes)}, v["worst"])
+    seconds = time.perf_counter() - t_phase
+    print("[shape_routes] past each limit, on the card, against float64 "
+          f"(error of the largest entry, limit {ROUTE_TOL:g}; the UNets' "
+          "state of their bound): "
+          + "; ".join(f"{k}: {r} {e:.3e}" for k, (r, e) in results.items())
+          + "; forward ms (device, median), kernel against the plain "
+          "version on the card: "
+          + "; ".join(f"{k}: {t[0]:.4f} against {t[1]:.4f}"
+                      for k, t in times.items())
+          + f"; phase {seconds:.1f} s; {card}", flush=True)
+    return dict(results=results, times=times, seconds=seconds)
+
+
 def card_line():
     res = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -6929,11 +7417,14 @@ def main() -> int:
         return gan_dp_child(sys.argv[2])
     if sys.argv[1:2] == ["--gan-dp-cli-child"]:
         return gan_dp_cli_child(sys.argv[2])
+    if sys.argv[1:2] == ["--ep-child"]:
+        return ep_child(sys.argv[2])
     t0 = time.perf_counter()
     try:
         build_logs = phase_build()
         rows, worst, k1_bwd_rows = phase_kernels(build_logs)
         dsc_rows, dsc_worst, dsc_bwd_worst = phase_dsconv()
+        routes = phase_shape_routes()
         k2_fwd_rows, k2_bwd_rows = phase_mapping(build_logs)
         launches, models = phase_serve()
         phase_forward(models)
@@ -6980,7 +7471,8 @@ def main() -> int:
         slice19 = {}
         for name, phase in (("figures", phase_figures),
                             ("data_parallel", phase_data_parallel),
-                            ("gan_data_parallel", phase_gan_data_parallel)):
+                            ("gan_data_parallel", phase_gan_data_parallel),
+                            ("expert_parallel", phase_expert_parallel)):
             tmp = tempfile.mkdtemp(prefix=f"smoke_{name}_")
             try:
                 slice19[name] = phase(tmp)
@@ -6991,6 +7483,16 @@ def main() -> int:
             host = run_host_data(host_tmp)
         finally:
             shutil.rmtree(host_tmp, ignore_errors=True)
+        # every plain route of this process was a shape_routes call: no
+        # published config's path took one
+        from extended_gan_torch import ops
+
+        routed = {n: sum(r.get(f"{n} plain", 0)
+                         for r, _ in routes["results"].values())
+                  for n in ops.plain_routes()}
+        check(ops.plain_routes() == routed,
+              f"plain routes in this process {ops.plain_routes()}, of "
+              f"which the shape_routes phase made {routed}")
         card = card_line()
     except SmokeFailure as e:
         print(f"chip_smoke: FAIL: {e}", file=sys.stderr)
@@ -7239,6 +7741,19 @@ def main() -> int:
                     "NCCL world of one"] = counts.get(k["name"], 0)
         k["launches_by_path"].update(by_path)
         k["launches"] += sum(by_path.values())
+    # the expert_parallel phase (each gloo rank's MoE UNet steps, K3 18 +
+    # 18 a step; the MoE CLI under --multihost, an NCCL world of one) and the
+    # shape_routes phase: its kernel launches, and the calls it routed to
+    # the plain versions (the only plain routes of the run)
+    for k in kernels:
+        by_path = {path: counts.get(k["name"], 0) for path, counts in
+                   slice19["expert_parallel"]["launches"].items()}
+        by_path["shape_routes: K3 and K1 past each limit, two UNet steps"] = \
+            sum(r.get(f"{k['name']} kernel", 0)
+                for r, _ in routes["results"].values())
+        k["launches_by_path"].update(by_path)
+        k["launches"] += sum(by_path.values())
+        k["plain_routes"] = routed.get(k["name"], 0)
     # the host_data phase's CLI epochs (slice 16): K1 2 + 2 a step, K2 and
     # K3 none; the DCGAN and CycleGAN --profile runs none
     for k in kernels:

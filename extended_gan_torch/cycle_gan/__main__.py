@@ -10,7 +10,8 @@ driver unless they are off. ``--data-axis N`` trains each global batch
 over N ranks: without a launcher environment the CLI starts N processes
 itself, one a card over NCCL (N gloo processes with ``--device cpu``);
 under torchrun each process is one rank, and ``--multihost`` makes that
-explicit (it raises without a launcher environment).
+explicit (it raises without a launcher environment); unset, it is every
+visible card (one with ``--device cpu``), as JAX's default is every device.
 ``--packed-g`` computes both generators in the 2x2 space-to-depth layout
 (off by default, as in JAX). ``--precision bf16`` computes in bfloat16
 with float32 weights; ``--megastep K`` runs K steps a CUDA graph and
@@ -62,7 +63,8 @@ def main(argv=None):
     parser.add_argument("--data-axis", type=int, default=None,
                         help="N: data parallelism over N ranks, one card "
                              "each (gloo processes with --device cpu); "
-                             "default one card")
+                             "default every visible card, one with --device "
+                             "cpu")
     parser.add_argument("--model-axis", type=int, default=1,
                         help="mesh tensor-parallel axis size: not ported "
                              "yet, refused unless 1")

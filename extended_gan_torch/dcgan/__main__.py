@@ -8,7 +8,8 @@ each global batch over N ranks: without a launcher environment the CLI
 starts N processes itself, one a card over NCCL (N gloo processes with
 ``--device cpu``); under torchrun each process is one rank, and
 ``--multihost`` makes that explicit (it raises without a launcher
-environment). ``--fused-disc`` and
+environment); unset, it is every visible card (one with ``--device cpu``),
+as JAX's default is every device. ``--fused-disc`` and
 ``--fused-prop`` pick the step body and ``--packed-g`` the generator's 2x2
 space-to-depth layout, all off by default, as in JAX.
 ``--profile`` records each epoch's step timing into its results, and
@@ -92,7 +93,8 @@ def main(argv=None):
     parser.add_argument("--data-axis", type=int, default=None,
                         help="N: data parallelism over N ranks, one card "
                              "each (gloo processes with --device cpu); "
-                             "default one card")
+                             "default every visible card, one with --device "
+                             "cpu")
     parser.add_argument("--multihost", action="store_true",
                         help="join the process group the launcher's "
                              "environment describes (torchrun); raises "

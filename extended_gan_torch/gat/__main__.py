@@ -15,9 +15,10 @@ DATA_AXIS) trains each global batch over N ranks: without a launcher
 environment the CLI starts N processes itself, one a card over NCCL (N
 gloo processes with ``--device cpu``), and passes a SIGTERM on to them;
 under torchrun each process is one rank, and ``--multihost`` makes that
-explicit (it raises without a launcher environment). The default, one
-card without a process group, is the JAX CLI's only where one device is
-visible: JAX's default is every device.
+explicit (it raises without a launcher environment). Unset, it is every
+visible card, as JAX's default is every device (one with ``--device
+cpu``). With ``--moe-experts`` over the axis each rank holds E/N experts
+(expert parallelism).
 ``--moe-experts E`` gives the ``unet`` family its Switch-MoE bottleneck of E
 experts and ``--moe-aux-weight`` (default 0.01) weighs its load-balance
 loss (config keys MOE_EXPERTS and MOE_AUX_WEIGHT).
@@ -109,7 +110,8 @@ def main(argv=None):
     parser.add_argument("--data-axis", type=int, default=None,
                         help="N: data parallelism over N ranks, one card "
                              "each (gloo processes with --device cpu); "
-                             "default one card (config key DATA_AXIS)")
+                             "default every visible card, one with --device "
+                             "cpu (config key DATA_AXIS)")
     parser.add_argument("--multihost", action="store_true",
                         help="join the process group the launcher's "
                              "environment describes (torchrun); raises "

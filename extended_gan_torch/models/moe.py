@@ -22,7 +22,9 @@ them). ``(1, 0)``, the default, routes the whole batch as one group; the
 model that holds the module sets the geometry of its own layout.
 
 Tokens are taken in (row, h, w) order within a group, as JAX flattens its
-NHWC map; the queue positions, and so the drops, follow that order.
+NHWC map; the queue positions, and so the drops, follow that order. Over a
+data axis a group spans the ranks' rows, in rank order
+(``parallel/expert.py``).
 
 bf16 (``core/precision.py``), op for op as in JAX: the router's product,
 softmax, argmax and the loss run in float32 (in float64 for float64
@@ -124,7 +126,15 @@ class SwitchMoE(nn.Module):
     sets it. Inside :func:`sow_moe` every forward appends ``(aux, load)``:
     its groups' summed loss and the tokens each expert kept. Under the
     float32 policy the experts run in the input's dtype (a float64 twin
-    stays float64), under another policy in that dtype."""
+    stays float64), under another policy in that dtype.
+
+    ``axis`` (a data axis of more than one rank, set by
+    ``parallel.attach_data_axis``): the input is this rank's rows of the
+    global batch, and the module computes what one process computes on
+    the global batch (``parallel/expert.py::moe_apply_global``), its
+    experts all E or, after ``shard_tree_moe_ep``, this rank's E/D."""
+
+    axis = None
 
     def __init__(self, channels, num_experts=8, hidden_mult=2,
                  capacity_factor=1.25, generator=None, dtype=torch.float32):
@@ -143,31 +153,52 @@ class SwitchMoE(nn.Module):
         lecun_normal_(self.w2, e * hid, generator)
         self.group = (1, 0)
         self.sown = None
+        # this rank's experts (first, last + 1) where a data axis shards
+        # them (``parallel/expert.py``), else None: all E
+        self.experts = None
+
+    def _groups(self, n):
+        """(row blocks, lanes, rows a group) of a batch of ``n`` rows."""
+        stride, span = self.group
+        span = span or n // stride
+        return (n // (stride * span) if span else 1), stride, span
 
     def grouped_tokens(self, x):
         """(N, C, h, w) -> (groups, tokens a group, C), each group's tokens
         in (row, h, w) order."""
         n, c, h, w = x.shape
-        stride, span = self.group
-        span = span or n // stride
-        t = x.permute(0, 2, 3, 1).reshape(n // (stride * span), span, stride,
-                                          h * w, c)
-        return t.transpose(1, 2).reshape(-1, span * h * w, c)
+        blocks, stride, span = self._groups(n)
+        t = x.permute(0, 2, 3, 1).reshape(blocks, span, stride, h * w, c)
+        return t.transpose(1, 2).reshape(blocks * stride, span * h * w, c)
 
     def forward(self, x):  # (N, C, h, w) -> (N, C, h, w)
         n, c, h, w = x.shape
         grouped = self.grouped_tokens(x)
-        cap = expert_capacity(grouped.shape[1], self.num_experts,
-                              self.capacity_factor)
-        params = {"router": self.router, "w1": self.w1, "b1": self.b1,
-                  "w2": self.w2, "b2": self.b2}
         dtype = x.dtype if self.dtype == torch.float32 else self.dtype
-        out, aux, load = moe_apply_dense(params, grouped, cap, dtype=dtype)
+        if self.axis is not None and self.axis.parallel:
+            if self.group[1]:
+                raise NotImplementedError(
+                    "routing each sample apart (serving) runs in one "
+                    "process, not over a data axis")
+            from ..parallel.expert import moe_apply_global
+
+            out, aux, load = moe_apply_global(self, grouped, self.axis,
+                                              dtype=dtype)
+        else:
+            if self.experts is not None:
+                raise RuntimeError("this SwitchMoE holds experts "
+                                   f"{self.experts} of {self.num_experts}: "
+                                   "it runs over its data axis only")
+            cap = expert_capacity(grouped.shape[1], self.num_experts,
+                                  self.capacity_factor)
+            params = {"router": self.router, "w1": self.w1, "b1": self.b1,
+                      "w2": self.w2, "b2": self.b2}
+            out, aux, load = moe_apply_dense(params, grouped, cap,
+                                             dtype=dtype)
         if self.sown is not None:
             self.sown.append((aux.sum(), load.sum(0)))
-        stride, span = self.group
-        span = span or n // stride
-        out = out.reshape(-1, stride, span, h * w, c).transpose(1, 2)
+        blocks, stride, span = self._groups(n)
+        out = out.reshape(blocks, stride, span, h * w, c).transpose(1, 2)
         out = out.reshape(n, h, w, c).to(x.dtype)
         return x + out.permute(0, 3, 1, 2)
 

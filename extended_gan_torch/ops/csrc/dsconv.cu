@@ -65,9 +65,13 @@
 // one pixel step of a warp after another, left each step waiting on a
 // load from device memory: the stage puts a block's loads in flight at once.
 //
-// The forward takes images up to about 330 pixels wide, the backward up to
-// 190 to 250 (their stages of 2W + 2 halo rows must fit a block's shared
-// memory); the wrappers raise beyond that.
+// The forward stages x for images up to about 330 pixels wide; wider ones
+// run the same kernel with its taps read from device memory through the
+// cache (STAGED false), so it takes every width, as the TPU kernels with
+// the JAX package's reference behind them do. The backward takes up to 190
+// to 250 (its stage of 2W + 2 halo rows must fit a block's shared memory);
+// the wrapper routes wider rows, and kpl past 32, to the plain version,
+// which is what the JAX package's backward is at every shape.
 
 #include <cuda_pipeline.h>
 #include <cuda_runtime.h>
@@ -91,6 +95,9 @@ __host__ __device__ inline int64_t fwd_stage_floats(int W) {
   return (int64_t)(kTM + 2 * W + 2) * kTK;
 }
 
+// STAGED: x staged in shared memory as above; else (rows too wide for the
+// stages) each depthwise tap is read from device memory through the cache.
+template <bool STAGED>
 __global__ void __launch_bounds__(kThreads, 2)
 dsconv_fwd_kernel(const float* __restrict__ x, const float* __restrict__ dw,
                   const float* __restrict__ dwb, const float* __restrict__ pw,
@@ -123,6 +130,7 @@ dsconv_fwd_kernel(const float* __restrict__ x, const float* __restrict__ dw,
   // x of a chunk's input channels at every staged pixel, by cp.async:
   // 16-byte copies where the channels come in whole float4s, else 4-byte
   auto stage = [&](int k0, float* xs) {
+    if constexpr (!STAGED) return;
     const int c_lo = k0 / kpl, nci = (min(k0 + kTK, k_hi) - 1) / kpl - c_lo + 1;
     const int vec = C % 4 == 0 && c_lo % 4 == 0 && nci % 4 == 0 ? 4 : 1;
     const int per_row = nci / vec;
@@ -159,10 +167,16 @@ dsconv_fwd_kernel(const float* __restrict__ x, const float* __restrict__ dw,
 #pragma unroll
     for (int t = 0; t < 9; ++t) wt[t] = kv ? __ldg(dw + (int64_t)t * CK + k) : 0.f;
     const float bias = kv ? __ldg(dwb + k) : 0.f;
-    __pipeline_wait_prior(0);
+    if constexpr (STAGED) __pipeline_wait_prior(0);
     __syncthreads();  // this chunk's x is staged; d_s, w_s and the other stage are free
     if (k0 + kTK < k_hi) stage(k0 + kTK, xs_s + (buf ^ 1) * fwd_stage_floats(W));
-    const float* const xs = xs_s + buf * fwd_stage_floats(W) + cl;
+    const float* const xs = xs_s + (STAGED ? buf * fwd_stage_floats(W) + cl : 0);
+    const int c = kv ? k / kpl : 0;
+    // x at the staged row r (pixel base + r) of the lane's channel; read
+    // only where the tap lies in the image
+    auto tap = [&](int r) {
+      return STAGED ? xs[r * kTK] : __ldg(x + (base + r) * C + c);
+    };
     // ---- depthwise outputs of channels k0 .. k0+31 -----------------------
     float win[3][3];
 #pragma unroll 1
@@ -182,12 +196,12 @@ dsconv_fwd_kernel(const float* __restrict__ x, const float* __restrict__ dw,
           const int rr = rp + (a - 1) * W;
           if (slide) {
             win[a][0] = win[a][1], win[a][1] = win[a][2];
-            win[a][2] = row_ok && w + 1 < W ? xs[(rr + 1) * kTK] : 0.f;
+            win[a][2] = row_ok && w + 1 < W ? tap(rr + 1) : 0.f;
           } else {
 #pragma unroll
             for (int b = 0; b < 3; ++b)
               win[a][b] = row_ok && w + b - 1 >= 0 && w + b - 1 < W
-                              ? xs[(rr + b - 1) * kTK] : 0.f;
+                              ? tap(rr + b - 1) : 0.f;
           }
         }
         float d = 0.f;
@@ -424,15 +438,18 @@ extern "C" int dsconv_fwd(const void* x, const void* dw, const void* dwb,
   const int S = (CK + KS - 1) / KS;
   if (S > 1 && ws == nullptr) return (int)cudaErrorInvalidValue;
   const int64_t tiles = (M + kTM - 1) / kTM;
-  const int64_t smem = 2 * fwd_stage_floats(W) * (int64_t)sizeof(float);
-  if (tiles > 0x7fffffff || S > 65535 || smem > kMaxFwdSmem)
-    return (int)cudaErrorInvalidValue;
+  if (tiles > 0x7fffffff || S > 65535) return (int)cudaErrorInvalidValue;
+  // the stages where they fit, else the taps from device memory
+  const int64_t staged = 2 * fwd_stage_floats(W) * (int64_t)sizeof(float);
+  const bool stages = staged <= kMaxFwdSmem;
+  const int64_t smem = stages ? staged : 0;
+  const auto kernel = stages ? dsconv_fwd_kernel<true> : dsconv_fwd_kernel<false>;
   cudaError_t err = cudaFuncSetAttribute(
-      dsconv_fwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((unsigned)tiles, (unsigned)((Cout + kTN - 1) / kTN), S);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  dsconv_fwd_kernel<<<grid, kThreads, (size_t)smem, s>>>(
+  kernel<<<grid, kThreads, (size_t)smem, s>>>(
       static_cast<const float*>(x), static_cast<const float*>(dw),
       static_cast<const float*>(dwb), static_cast<const float*>(pw),
       static_cast<const float*>(pwb), static_cast<float*>(S > 1 ? ws : out),

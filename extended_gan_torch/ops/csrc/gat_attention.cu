@@ -70,7 +70,10 @@
 // The one-block kernel (gat_attention_fwd) stays for the elements no
 // cluster can hold in shared memory (beyond about 190 x 190 pixels at
 // M = 4, G = 6): one block per (head, batch element) streams m twice,
-// (NH, B, M, P) contiguous only.
+// (NH, B, M, P) contiguous only. Past M = 8, where the kernels above have
+// no instance, its run-time-M form takes the forward at any M, as the TPU
+// kernel does; the backward there is the plain version (the JAX package's
+// backward is plain JAX at every shape).
 
 #include <cooperative_groups.h>
 #include <cuda_pipeline.h>
@@ -242,6 +245,97 @@ gat_attention_fwd_kernel(const float* __restrict__ m, const float* __restrict__ 
         ob[(size_t)i * P + q] = elu(o);
       }
     }
+  }
+}
+
+
+// Any M (the instances above stop at 8): the one-block kernel's steps with
+// M a run-time value, so no M x M tile lives in registers or shared
+// memory. A block a (head, batch element), m (M, P) contiguous. Each row's
+// s1 and s2 by a block reduction in turn, parked in att's M * M floats
+// (2M of them) until the scores are formed; the softmax a thread a row,
+// att = adj @ att0 a thread an entry, out a thread a value, the small
+// matrices read back from device memory (plain loads: they are written in
+// this launch, so not through the read-only cache).
+__global__ void __launch_bounds__(kThreads)
+gat_attention_fwd_any_kernel(const float* __restrict__ m,
+                             const float* __restrict__ a,
+                             const float* __restrict__ adj,
+                             float* __restrict__ out, float* att0_out,
+                             float* att_out, float* __restrict__ pos_out,
+                             int M, int batch, int P, int group_size,
+                             float alpha) {
+  __shared__ float red[kWarps][2];
+  const int blk = blockIdx.x, head = blk / batch;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const long long base = (long long)blk * M * P;
+  const float* mb = m + base;
+  float* ob = out + base;
+  const int G = P / group_size;
+  const float* a1 = a + (long long)head * 2 * G;
+  const float* a2 = a1 + G;
+  const long long small = (long long)blk * M * M;
+  float* const t = att_out + small;  // t1 (M), then t2 (M), until att
+  float* const att0 = att0_out + small;
+  const float inv_group = 1.f / (float)group_size;
+
+  for (int i = 0; i < M; ++i) {
+    float u = 0.f, v = 0.f;
+    for (int q = threadIdx.x; q < P; q += kThreads) {
+      const int g = q / group_size;
+      const float r = __ldg(mb + (long long)i * P + q);
+      u = fmaf(r, __ldg(a1 + g), u);
+      v = fmaf(r, __ldg(a2 + g), v);
+    }
+    u = warp_sum(u);
+    v = warp_sum(v);
+    if (lane == 0) red[warp][0] = u, red[warp][1] = v;
+    __syncthreads();
+    if (threadIdx.x == 0) {
+      float su = 0.f, sv = 0.f;
+      for (int w = 0; w < kWarps; ++w) su += red[w][0], sv += red[w][1];
+      t[i] = su * inv_group;
+      t[M + i] = sv * inv_group;
+    }
+    __syncthreads();
+  }
+
+  for (int i = threadIdx.x; i < M; i += kThreads) {
+    const float t1 = t[i];
+    auto score = [&](int j) {
+      const float x = t1 + t[M + j];
+      return x > 0.f ? x : alpha * x;  // leaky_relu keeps the sign
+    };
+    float mx = -INFINITY, sum = 0.f;
+    for (int j = 0; j < M; ++j) mx = fmaxf(mx, score(j));
+    for (int j = 0; j < M; ++j) sum += expf(score(j) - mx);
+    for (int j = 0; j < M; ++j) {
+      const float x = score(j);
+      pos_out[small + (long long)i * M + j] = x > 0.f ? 1.f : 0.f;
+      att0[(long long)i * M + j] = expf(x - mx) / sum;
+    }
+  }
+  __syncthreads();  // every score is formed: t's floats become att's
+
+  const float* adj_h = adj + (long long)head * M * M;
+  for (long long q = threadIdx.x; q < (long long)M * M; q += kThreads) {
+    const int i = (int)(q / M), j = (int)(q % M);
+    float acc = 0.f;
+    for (int k = 0; k < M; ++k)
+      acc = fmaf(__ldg(adj_h + (long long)i * M + k), att0[(long long)k * M + j],
+                 acc);
+    att_out[small + q] = acc;
+  }
+  __syncthreads();
+
+  const float* att = att_out + small;
+  for (long long q = threadIdx.x; q < (long long)M * P; q += kThreads) {
+    const int i = (int)(q / P);
+    const long long p = q % P;
+    float o = 0.f;
+    for (int k = 0; k < M; ++k)
+      o = fmaf(att[(long long)i * M + k], __ldg(mb + (long long)k * P + p), o);
+    ob[q] = elu(o);
   }
 }
 
@@ -985,6 +1079,7 @@ bool cluster_plan_ok(int n_heads, int batch, int M, int G, int S, int C,
 
 // m: (n_heads, batch, M, P); a: (n_heads, 2G); adj: (n_heads, M, M);
 // out like m; att0, att, pos: (n_heads, batch, M, M). All f32, contiguous.
+// M up to 8 runs its instance, any larger M the run-time-M kernel.
 // Returns cudaGetLastError() after the launch (0 on success).
 extern "C" int gat_attention_fwd(const void* m, const void* a, const void* adj,
                                  void* out, void* att0, void* att, void* pos,
@@ -1011,7 +1106,9 @@ extern "C" int gat_attention_fwd(const void* m, const void* a, const void* adj,
     GAT_CASE(5) GAT_CASE(6) GAT_CASE(7) GAT_CASE(8)
 #undef GAT_CASE
     default:
-      return (int)cudaErrorInvalidValue;
+      if (M < 1) return (int)cudaErrorInvalidValue;
+      gat_attention_fwd_any_kernel<<<blocks, kThreads, 0, s>>>(
+          mf, af, jf, of, a0, at, ps, M, batch, P, group_size, alpha);
   }
   return (int)cudaGetLastError();
 }

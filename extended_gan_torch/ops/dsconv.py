@@ -9,7 +9,8 @@ CUDA source for its design and bound. The TPU kernel's tile-order
 permutation and VMEM rules (``_tile_order``, ``_fits_vmem``, ``_pick_tile``)
 served the TPU's lane layout and memory and have no counterpart here: one
 CUDA kernel takes every shape, with the slices of the depthwise channels
-that :func:`_split_plan` picks.
+that :func:`_split_plan` picks (rows too wide for its shared-memory stages
+read their taps from device memory).
 
 - :func:`reference_dsc` is the plain PyTorch version (the JAX
   ``_reference_dsc``) and :func:`reference_dsc_backward` its gradient,
@@ -19,10 +20,19 @@ that :func:`_split_plan` picks.
 - :func:`fused_dsconv` runs the forward kernel for CUDA tensors and the
   plain version for CPU tensors; its backward runs the backward kernel
   with two matrix products on the card and :func:`reference_dsc_backward`
-  on the CPU. There is no fallback from one to the other.
+  on the CPU. There is no fallback on failure: a kernel that fails to build
+  or launch raises.
+
+The backward routes by shape, as the JAX package's backward is ``jax.vjp``
+of ``_reference_dsc`` at every shape (its ``dsconv.py:324``): on the card,
+a call whose shape the backward kernel cannot take runs the plain version
+there, decided before any launch by :func:`bwd_takes` (``kpl`` <= 32 and
+rows up to 191-257 pixels wide at the UNet's widths, more at few
+channels). A shape the kernel takes never reaches the plain version.
 
 ``launch_count`` and ``bwd_launch_count`` count the forward and backward
-kernels' launches (CPU calls do not count).
+kernels' launches, ``bwd_plain_count`` the card's backward calls routed to
+the plain version by shape (CPU calls count in none).
 """
 
 from __future__ import annotations
@@ -35,12 +45,14 @@ import torch.nn.functional as F
 
 launch_count = 0
 bwd_launch_count = 0
+bwd_plain_count = 0
 
 _CHUNK = 32  # depthwise channels of the forward's inner loop (kTK)
 _TILE = 128  # output pixels a forward block (kTM)
 _COLS = 64  # output channels a forward block (kTN)
 # The forward's two stages of x, (128 + 2W + 2) x 32 floats each, at most
-# kMaxFwdSmem: images up to about 330 pixels wide.
+# kMaxFwdSmem: images up to about 330 pixels wide (wider ones read their
+# taps from device memory).
 _FWD_SMEM = (227 - 28) * 1024
 # About two waves of forward blocks on an H100 SXM: 132 SMs, two blocks an
 # SM (``__launch_bounds__(256, 2)``).
@@ -123,13 +135,18 @@ class _FusedDSConv(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
+        global bwd_plain_count
         x, dw, dwb, pw, d = ctx.saved_tensors
         needs = ctx.needs_input_grad[:5]
         if x.device.type == "cpu":
             grads = reference_dsc_backward(x, dw, dwb, pw, g,
                                            need_dx=needs[0])
-        else:
+        elif bwd_takes(*x.shape, dw.shape[-1]):
             grads = _backward_cuda(x, dw, pw, d, g, needs)
+        else:
+            grads = reference_dsc_backward(x, dw, dwb, pw, g,
+                                           need_dx=needs[0])
+            bwd_plain_count += 1
         return tuple(t if n else None for t, n in zip(grads, needs)) + (None,)
 
 
@@ -191,6 +208,30 @@ def _split_plan(n, h, w, c, ck, cout):
     return per * _CHUNK
 
 
+def fwd_stages(w):
+    """Whether the forward kernel stages x in shared memory for rows ``w``
+    pixels wide, its two stages of (128 + 2W + 2) x 32 floats within
+    _FWD_SMEM; wider rows read their taps from device memory
+    (``dsconv_fwd`` makes the same choice)."""
+    return 2 * (_TILE + 2 * w + 2) * _CHUNK * 4 <= _FWD_SMEM
+
+
+def bwd_takes(n, h, w, c, ck):
+    """Whether the backward kernel takes x (N, H, W, C) with CK depthwise
+    channels: ``kpl`` = CK / C at most 32, and a block's staged run of at
+    least one pixel a lane within _BWD_SMEM (:func:`_bwd_plan`)."""
+    return ck // c <= 32 and _bwd_fit(w, c, ck) >= 1
+
+
+def _bwd_fit(w, c, ck):
+    """Pixels a lane that a backward block's staged run can hold."""
+    kpl = ck // c
+    cc = min(c, 32 // kpl)
+    slots = 32 // (cc * kpl)
+    rows = _BWD_SMEM // (4 * cc * (kpl + 1))
+    return (rows - 2 * w - 2) // (_BWD_WARPS * slots)
+
+
 def _bwd_plan(n, h, w, c, ck):
     """(cc, ppw, blocks) of the backward kernel: input channels a block
     (its cc * kpl depthwise channels fill at most a warp's 32 lanes), pixels
@@ -203,8 +244,7 @@ def _bwd_plan(n, h, w, c, ck):
     slots = 32 // (cc * kpl)
     runs = max(1, _BWD_BLOCKS // _cdiv(c, cc))
     m = n * h * w
-    rows = _BWD_SMEM // (4 * cc * (kpl + 1))
-    fit = (rows - 2 * w - 2) // (_BWD_WARPS * slots)
+    fit = _bwd_fit(w, c, ck)
     if fit < 1:
         raise ValueError(f"rows of width {w} are too wide for the backward "
                          f"kernel's staged taps ({_BWD_SMEM} bytes a block)")
@@ -262,9 +302,6 @@ def fwd_args(x, dw, dwb, pw, pwb, *, keep_d=False, ks=None):
     if x.numel() == 0:
         raise ValueError(f"x {tuple(x.shape)} is empty")
     ks = ks or _split_plan(n, h, w, c, ckpl, cout)
-    if 2 * (_TILE + 2 * w + 2) * _CHUNK * 4 > _FWD_SMEM:
-        raise ValueError(f"rows of width {w} are too wide for the forward "
-                         f"kernel's staged x ({_FWD_SMEM} bytes a block)")
     slices = _cdiv(ckpl, ks)
     out = x.new_empty((n, h, w, cout))
     d = x.new_empty((n, h, w, ckpl)) if keep_d else None

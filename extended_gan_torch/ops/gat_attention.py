@@ -25,9 +25,18 @@ For CUDA tensors the forward launches a kernel (one thread-block cluster
 per (head, batch element), or the first one-block kernel where no cluster
 holds an element: :func:`_cluster_plan` picks by shape) and the backward
 launches ``gat_attention_bwd``; for CPU tensors both run the plain
-versions. There is no fallback from one to the other: a refused launch
-raises. ``launch_count`` counts forward kernel launches, ``bwd_launch_count``
-backward ones (CPU calls do not count).
+versions. There is no fallback on failure: a refused launch raises.
+
+The forward takes any M on the card, as the JAX package's kernel does:
+M up to 8 runs the instanced kernels, a larger M the one-block kernel's
+run-time-M form. The backward routes by shape, as the JAX package's is
+plain JAX at every shape (``gat_attention.py:170-198``): on the card a call
+the backward kernel cannot take runs the plain version there, decided
+before any launch by :func:`bwd_takes` (M <= 8 and M * G <= 128, the
+cluster kernels' kMaxMG). A shape the kernel takes never reaches the plain
+version. ``launch_count`` counts forward kernel launches,
+``bwd_launch_count`` backward ones, ``bwd_plain_count`` the card's
+backward calls routed to the plain version (CPU calls count in none).
 """
 
 from __future__ import annotations
@@ -39,7 +48,8 @@ import torch
 
 launch_count = 0
 bwd_launch_count = 0
-_MAX_M = 8  # the CUDA entry points are instantiated for M = 1..8
+bwd_plain_count = 0
+_MAX_M = 8  # the kernels instanced for M = 1..8 (larger M: run-time M)
 _MAX_MG = 128  # M * G the cluster kernels take (kMaxMG)
 _HEADER_FLOATS = 1616  # the cluster kernels' shared-memory header (kHeader)
 _SMEM_LIMIT = 232448  # shared memory one block can have on Hopper
@@ -194,6 +204,13 @@ def _elements(rows, like):
     return out
 
 
+def bwd_takes(mm, g):
+    """Whether the backward kernel takes M = ``mm`` rows of G = ``g`` groups
+    (an instanced M and M * G <= kMaxMG; a chunk of at least 4 pixels then
+    always fits)."""
+    return 1 <= mm <= _MAX_M and mm * g <= _MAX_MG
+
+
 def _round4(n):
     return -(-n // 4) * 4
 
@@ -257,24 +274,31 @@ class _FusedGatAttention(torch.autograd.Function):
             # e.g. the linear mapping's einsum output: one explicit copy
             # to pixel-major, which the kernels take
             x = x.contiguous()
-        s = x.shape[2]
-        if x.device.type == "cpu":
+        _, _, s, mm, g = x.shape
+        cpu = x.device.type == "cpu"
+        if cpu:
             w1, w2 = _group_rows(a, s)
             out, att0, att, pos = reference_impl(
                 _rows(x), w1, w2, adj_norm[:, None], alpha, s)
             out = _elements(out, x)
-            ctx.save_for_backward(x, a, adj_norm, att0, att, pos, out)
         else:
             out, att0, att, pos = _launch_fwd(x, a, adj_norm, alpha)
-            ctx.save_for_backward(x, a, adj_norm, att0, att, pos)
+        # the plain backward reads the output; the kernel does not
+        plain_bwd = cpu or not bwd_takes(mm, g)
+        ctx.save_for_backward(x, a, adj_norm, att0, att, pos,
+                              *((out,) if plain_bwd else ()))
         ctx.alpha = alpha
         ctx.mark_non_differentiable(att0, att, pos)
         return out, att0, att, pos
 
     @staticmethod
     def backward(ctx, g, *_residual_grads):
+        global bwd_plain_count
         x, a, adj_norm, att0, att, pos, *out = ctx.saved_tensors
-        if g.device.type == "cpu":
+        if out:
+            if g.device.type != "cpu":
+                _check((("g", g),), x.device)
+                bwd_plain_count += 1
             d_m, d_a, d_adj = reference_backward(
                 _rows(x), a, adj_norm, _rows(out[0]), att0, att, pos,
                 _rows(g), ctx.alpha, x.shape[2])
@@ -298,18 +322,17 @@ def _launch_fwd(x, a, adj_norm, alpha):
     global launch_count
     nh, b, s, mm, g = x.shape
     _check((("m", x), ("a", a), ("adj_norm", adj_norm)), x.device)
-    if not 1 <= mm <= _MAX_M:
-        raise ValueError(f"the kernel takes 1 <= M <= {_MAX_M}, got M={mm}")
     att0, att, pos = (x.new_empty((nh, b, mm, mm)) for _ in range(3))
     if x.numel() == 0:
         # no element (a data-parallel rank without rows): nothing to launch
         return torch.empty_like(x), att0, att, pos
-    plan = _cluster_plan(nh, b, s, mm * g)
+    # past the instanced M, the one-block kernel's run-time-M form
+    plan = _cluster_plan(nh, b, s, mm * g) if mm <= _MAX_M else None
     lib = _lib()
     with torch.cuda.device(x.device):
         if plan is None:
-            # no cluster holds an element: the one-block kernel, on
-            # (NH, B, M, P) contiguous
+            # no cluster holds an element (or M is past the instances): the
+            # one-block kernel, on (NH, B, M, P) contiguous
             m = _rows(x).contiguous()
             out = torch.empty_like(m)
             rc = lib.gat_attention_fwd(

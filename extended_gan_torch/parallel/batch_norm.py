@@ -23,7 +23,8 @@ with no rows joins them with a count of 0. ``torch.nn.SyncBatchNorm``
 refuses CPU tensors, which the tests need.
 
 :func:`attach_data_axis` turns every ``nn.BatchNorm2d`` of a model into a
-:class:`BatchNorm2d` that reads the axis (the same object, parameters and
+:class:`BatchNorm2d` (every ``nn.BatchNorm1d`` into a :class:`BatchNorm1d`)
+that reads the axis (the same object, parameters and
 buffers, so a state_dict is unchanged) and gives the model's
 ``PerVertexBatchNorm2d`` layers, its subclasses of :class:`BatchNorm2d`
 (the packed generator's ``_PackedBN``) and every other layer that declares
@@ -143,9 +144,10 @@ def batch_norm(x, running_mean, running_var, weight, bias, training,
                                      running_var, momentum, eps, axis)
 
 
-class BatchNorm2d(nn.BatchNorm2d):
-    """``nn.BatchNorm2d`` whose train-mode statistics run over ``axis``
-    (``nn.BatchNorm2d``'s own forward on an axis of one)."""
+class _AxisBatchNorm:
+    """The forward of :class:`BatchNorm2d` and :class:`BatchNorm1d`:
+    train-mode statistics over ``axis``, torch's own forward on an axis of
+    one."""
 
     axis: DataAxis | None = None
 
@@ -169,6 +171,16 @@ class BatchNorm2d(nn.BatchNorm2d):
                           self.bias, training, factor, self.eps, self.axis)
 
 
+class BatchNorm2d(_AxisBatchNorm, nn.BatchNorm2d):
+    """``nn.BatchNorm2d`` whose train-mode statistics run over ``axis``
+    (``nn.BatchNorm2d``'s own forward on an axis of one)."""
+
+
+class BatchNorm1d(_AxisBatchNorm, nn.BatchNorm1d):
+    """``nn.BatchNorm1d`` (the vanilla GAN's generator) whose train-mode
+    statistics run over ``axis``."""
+
+
 def join_data_axis(axis: DataAxis, *models: nn.Module):
     """On an axis of more than one rank: each of ``models`` reads ``axis``
     (:func:`attach_data_axis`) and starts from rank 0's parameters and
@@ -180,13 +192,17 @@ def join_data_axis(axis: DataAxis, *models: nn.Module):
 
 
 def attach_data_axis(model: nn.Module, axis: DataAxis) -> nn.Module:
-    """Every ``nn.BatchNorm2d`` of ``model`` reads ``axis`` from now on (as
-    a :class:`BatchNorm2d`, in place), and so does every layer that takes
+    """Every ``nn.BatchNorm2d`` and ``nn.BatchNorm1d`` of ``model`` reads
+    ``axis`` from now on (as a :class:`BatchNorm2d` or :class:`BatchNorm1d`,
+    in place), and so does every layer that takes
     an ``axis`` attribute (``PerVertexBatchNorm2d``); returns ``model``."""
     for m in model.modules():
         if type(m) is nn.BatchNorm2d:
             m.__class__ = BatchNorm2d
-        elif isinstance(m, nn.BatchNorm2d) and not hasattr(type(m), "axis"):
+        elif type(m) is nn.BatchNorm1d:
+            m.__class__ = BatchNorm1d
+        elif isinstance(m, (nn.BatchNorm1d, nn.BatchNorm2d)) \
+                and not hasattr(type(m), "axis"):
             raise TypeError(f"{type(m).__name__} subclasses nn.BatchNorm2d, "
                             "whose forward would normalise with this rank's "
                             "rows alone: make it subclass parallel."

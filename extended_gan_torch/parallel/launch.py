@@ -1,5 +1,6 @@
 """Data-axis ranks started by a CLI: ``--data-axis N`` without a launcher
-environment runs the CLI again in N processes, one rank each (a process
+environment (unset: every visible card, :func:`default_data_axis`) runs
+the CLI again in N processes, one rank each (a process
 group that meets through a file in a temporary directory, so no port is
 taken), and waits for them. Each NCCL rank sets what capturing its
 collectives into CUDA graphs needs before its group starts
@@ -49,14 +50,28 @@ def _rank_main(entry, argv, rank, size, init_method, backend):
         dist.destroy_process_group()
 
 
+def default_data_axis(device=None) -> int:
+    """An unset ``--data-axis``: every visible card, as JAX's
+    ``MeshContext.create(data=None)`` is every device; 1 on the CPU or on
+    one named card (``cuda:1``), and on a machine without a card."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type != "cuda" or dev.index is not None \
+            or not torch.cuda.is_available():
+        return 1
+    return torch.cuda.device_count()
+
+
 def start_ranks(entry: str, argv, *, data_axis: int | None,
                 multihost: bool, device=None) -> bool:
     """A CLI's data axis: under a launcher environment (or with
     ``multihost``, which raises without one) this process joins the
     launcher's group and the CLI goes on as its rank (False); a
-    ``data_axis`` > 1 without one runs the CLI in that many processes
-    (:func:`spawn_ranks`) and returns True once they have exited 0, and
-    the CLI returns; otherwise nothing (False)."""
+    ``data_axis`` > 1 without one (None: :func:`default_data_axis`) runs
+    the CLI in that many processes (:func:`spawn_ranks`) and returns True
+    once they have exited 0, and the CLI returns; otherwise nothing
+    (False)."""
+    if data_axis is None and not dist.is_initialized():
+        data_axis = default_data_axis(device)
     if multihost or _multihost_env_configured():
         # --multihost is explicit intent: failures raise
         initialize_distributed(require=multihost, device=device)

@@ -236,6 +236,20 @@ class DataAxis:
         slots[self.rank] = row
         return self.all_reduce(slots)
 
+    def sizes(self, n: int) -> list[int]:
+        """Every rank's ``n`` (a count of rows or tokens), in rank order.
+        Inside a CUDA graph's capture, where no value can reach the host,
+        every rank's is taken as this one's: the graph paths feed every
+        rank an equal share (a padded group, a resident batch that divides
+        by the axis)."""
+        if not self.parallel:
+            return [n]
+        if self.device.type == "cuda" and \
+                torch.cuda.is_current_stream_capturing():
+            return [n] * self.size
+        t = torch.tensor([n], dtype=torch.float64, device=self.device)
+        return [int(v) for v in self.gather_rows(t).flatten().tolist()]
+
     def all_reduce_grads(self, params, extra: torch.Tensor) -> torch.Tensor:
         """Sums the gradients of ``params`` (those that have one: the same
         on every rank, which run the same graph) and ``extra`` over the
@@ -279,10 +293,15 @@ class DataAxis:
         returns how many tensors were compared (0 on an axis of one)."""
         if not self.parallel:
             return 0
+        from .expert import expert_shards
+
+        shards = {p: owner for m in modules
+                  for p, owner in expert_shards(m).items()}
+        self._check_shards(shards)
         tensors = [t for m in modules for t in itertools.chain(
-            m.parameters(), m.buffers())] + [
-            v for opt in optimizers for st in opt.state.values()
-            for v in st.values() if torch.is_tensor(v)]
+            m.parameters(), m.buffers()) if t not in shards] + [
+            v for opt in optimizers for p, st in opt.state.items()
+            if p not in shards for v in st.values() if torch.is_tensor(v)]
         ints = {1: torch.uint8, 2: torch.int16, 4: torch.int32,
                 8: torch.int64}
         sums = []
@@ -298,14 +317,40 @@ class DataAxis:
                 "of the train state are not the same on every rank")
         return len(tensors)
 
+    def _check_shards(self, shards: dict):
+        """Raises unless every rank holds expert shards of the same sizes,
+        each rank its own slice of the experts (``parallel/expert.py``):
+        their values differ by rank."""
+        if not shards:
+            return
+        rows = torch.tensor([[p.numel(), p.shape[0], *m.experts,
+                              m.num_experts] for p, (m, _) in shards.items()],
+                            dtype=torch.float64, device=self.device)
+        for r, got in enumerate(self.gather_rows(rows).tolist()):
+            for numel, lead, lo, hi, e in got:
+                per = e // self.size
+                if (lead, lo, hi) != (per, r * per, (r + 1) * per):
+                    raise RuntimeError(
+                        f"the data axis's expert shards are not in place: "
+                        f"rank {r} holds experts {lo:.0f}..{hi:.0f} of "
+                        f"{e:.0f} ({lead:.0f} rows)")
+            if [row[0] for row in got] != rows[:, 0].tolist():
+                raise RuntimeError("the data axis's ranks hold expert "
+                                   "shards of different sizes")
+
     def broadcast_module(self, module: torch.nn.Module):
-        """Rank 0's parameters and buffers on every rank, as DDP starts."""
+        """Rank 0's parameters and buffers on every rank, as DDP starts;
+        an expert shard (``parallel/expert.py``) stays this rank's."""
         if self.group is None:
             return
+        from .expert import expert_shards
+
+        shards = expert_shards(module)
         src = dist.get_global_rank(self.group, 0)
         with torch.no_grad():
             for t in itertools.chain(module.parameters(), module.buffers()):
-                dist.broadcast(t, src=src, group=self.group)
+                if t not in shards:
+                    dist.broadcast(t, src=src, group=self.group)
 
 
 def local_batch_size(global_batch: int, axis: DataAxis) -> int:

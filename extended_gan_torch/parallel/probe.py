@@ -16,7 +16,12 @@ graphs. The workloads:
   archive of 64 + 2 files of 96 frames of 20x20x6;
 - ``dcgan``: the published DCGAN (nc 4, ndf 64, 64x64, dropout 0.01)
   through ``python -m extended_gan_torch.dcgan`` on a frame archive of
-  4,096 + 512 frames.
+  4,096 + 512 frames;
+- ``moe``: the ``unet`` workload with its Switch-MoE bottleneck of 8
+  experts (``--moe-experts 8``): on N cards each rank holds 8/N experts
+  and their Adam moments (expert parallelism, ``parallel/expert.py``),
+  and the CLI's ``[expert parallel]`` line, each card's expert bytes,
+  joins the JSON line.
 
 Prints the cards' names and power limits, then one JSON line a run: the
 ms a train step of each epoch (the epoch's wall to the fetch of its
@@ -48,7 +53,6 @@ JSON line a workload.
 from __future__ import annotations
 
 import argparse
-import itertools
 import json
 import os
 import subprocess
@@ -68,6 +72,7 @@ SEED = 369
 BATCH = 32
 CHECK_GROUPS = 3
 CHECK_LR = 0.01
+MOE_EXPERTS = 8
 
 
 def _unet(tmp):
@@ -90,6 +95,11 @@ def _unet(tmp):
     return argv, ("train_loss", "val_loss"), steps, "--output-path"
 
 
+def _moe(tmp):
+    argv, keys, steps, out_flag = _unet(tmp)
+    return argv + ["--moe-experts", str(MOE_EXPERTS)], keys, steps, out_flag
+
+
 def _dcgan(tmp):
     data = os.path.join(tmp, "frames")
     make_h5_dataset(data, frames_train=4096, frames_test=512, h=64, w=64)
@@ -105,7 +115,14 @@ def _dcgan(tmp):
     return argv, ("train_mse", "pred_mse"), steps, "--out-dir"
 
 
-WORKLOADS = {"unet": _unet, "dcgan": _dcgan}
+WORKLOADS = {"unet": _unet, "dcgan": _dcgan, "moe": _moe}
+
+
+def _expert_line(stdout: str):
+    """The conv-GAT CLI's ``[expert parallel]`` line (rank 0's experts and
+    their bytes), or None."""
+    return next((ln for ln in stdout.splitlines()
+                 if ln.startswith("[expert parallel]")), None)
 
 
 def replay_stats(trace_path: str, k: int) -> dict:
@@ -156,27 +173,31 @@ def check_run(workload: str, k: int, axis: DataAxis,
     from ..models.registry import build_model
     from ..train import dcgan_trainer, gat_trainer
     from ..train.dcgan_driver import DEFAULT_PARAMS, build_dcgan
+    from .expert import full_state_dict, shard_tree_moe_ep
 
     torch.backends.cuda.matmul.allow_tf32 = False
     dev = axis.device
     rng = np.random.default_rng(SEED)
-    if workload == "unet":
+    gat = workload in ("unet", "moe")
+    if gat:
         shape = (BATCH, 20, 20, 4, 6)
         nets = (build_model("unet", image_width=20, image_height=20,
                             n_vertices=6, mapping_type="linear", device=dev,
                             generator=torch.Generator().manual_seed(0),
-                            use_pallas=dtype == torch.float32),)
+                            use_pallas=dtype == torch.float32,
+                            moe_experts=MOE_EXPERTS * (workload == "moe")),)
     else:
         shape = (BATCH, 4, 64, 64)
         nets, _ = build_dcgan(DEFAULT_PARAMS, seed=0, device=dev,
                               dropout=0.0)
     nets = tuple(net.to(dtype) for net in nets)
     join_data_axis(axis, *nets)
+    shard_tree_moe_ep(nets[0], axis)
     opts = tuple(torch.optim.SGD(net.parameters(), lr=CHECK_LR)
                  for net in nets)
     batches = [tuple(rng.random(shape, np.float32) for _ in range(2))
                for _ in range(CHECK_GROUPS * k)]
-    if workload == "unet":
+    if gat:
         mega = gat_trainer.make_gat_megastep(nets[0], opts[0], axis=axis)
         feed = (staged for *_, staged in gat_trainer.gat_megafeed(
             batches, dev, k, batch_size=BATCH, axis=axis))
@@ -190,8 +211,9 @@ def check_run(workload: str, k: int, axis: DataAxis,
         for staged in feed:
             out = mega(*(t.to(dtype) for t in staged))
             logs.append({n: v.detach().cpu() for n, v in out.items()})
+    # every expert (gathered from their ranks), then the buffers
     state = [t.detach().cpu().clone() for net in nets
-             for t in itertools.chain(net.parameters(), net.buffers())]
+             for t in full_state_dict(net, axis).values()]
     return {"state": state, "logs": logs,
             "in_sync": axis.check_in_sync(nets, opts)}
 
@@ -279,7 +301,8 @@ def main(argv=None):
                     traces = sorted(os.listdir(os.path.join(out, "trace")))
                     print(json.dumps({
                         "workload": workload, "cards": axis,
-                        "megastep": args.megastep, "trace": [
+                        "megastep": args.megastep,
+                        "experts": _expert_line(res.stdout), "trace": [
                             replay_stats(os.path.join(out, "trace", t),
                                          args.megastep)
                             for t in traces]}), flush=True)
@@ -316,6 +339,7 @@ def main(argv=None):
                     "dispatches": h["profiled_steps"],
                     **{k: h[k] for k in loss_keys},
                     "launches_rank0": launches,
+                    "experts": _expert_line(res.stdout),
                     "in_sync": in_sync}), flush=True)
     return 0
 

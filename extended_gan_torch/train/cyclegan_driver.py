@@ -163,7 +163,10 @@ def train(*, data_location: str | None = None, epochs: int = 10,
           data_axis: int | None = None, **options):
     """Train on ``device`` (default: the CUDA card, ``cuda:{LOCAL_RANK}``
     on a data axis over NCCL). Takes the JAX driver's keyword arguments.
-    Returns ``((G_xy, G_yx, D_x, D_y), history)``."""
+    Returns ``((G_xy, G_yx, D_x, D_y), history)``.
+    ``data_axis=None`` is every rank of the process group that is up, and
+    one device without one: this call starts no process (the CLIs start
+    every visible card's rank for an unset ``--data-axis``)."""
     refuse_unported(options, _NOT_PORTED)
     axis = data_axis_for(data_axis, device,
                          resident_batch=train_batch_size if resident else None)

@@ -172,7 +172,10 @@ def train(*, data_location: str | None = None, epochs: int | None = None,
           data_axis: int | None = None, **options):
     """Train on ``device`` (default: the CUDA card, ``cuda:{LOCAL_RANK}``
     on a data axis over NCCL). Takes the JAX driver's keyword arguments.
-    Returns ``((G, FD, TD), history)``."""
+    Returns ``((G, FD, TD), history)``.
+    ``data_axis=None`` is every rank of the process group that is up, and
+    one device without one: this call starts no process (the CLIs start
+    every visible card's rank for an unset ``--data-axis``)."""
     refuse_unported(options, _NOT_PORTED)
     params = {**DEFAULT_PARAMS, **(params or {})}
     if epochs is not None:

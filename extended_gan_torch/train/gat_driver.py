@@ -72,13 +72,16 @@ too: each rank's K steps are one CUDA graph with the steps' NCCL
 collectives captured inside it (``train/megastep.py``); the streamed
 groups are padded to a multiple of the axis and each rank takes its
 even share, and a resident train batch must divide by the axis, as in
-JAX (``:494-497``). ``None`` and 1 are one device without a group: the
-path above, unchanged. The JAX driver's ``None`` is every device; the
-port keeps one card until the data axis covers the MoE (JAX shards the
-experts over the data axis, ``:421-432``), which it refuses, with
-tensor, sequence, FSDP and pipeline parallelism: a config that sets one
-of them to anything but its default raises, naming the ROADMAP item that
-ports it.
+JAX (``:494-497``). Without a group, ``None`` and 1 are one device: the
+path above, unchanged; under a group ``None`` is every rank of it (the
+CLIs start every visible card's rank for an unset ``--data-axis``, as
+the JAX driver's ``None`` is every device). With ``moe_experts`` the
+Switch-MoE routes over the global batch and, where the axis divides E,
+each rank keeps E/D experts and their Adam moments (expert parallelism,
+``parallel/expert.py``; JAX ``:421-432``); ``model.pt`` and checkpoints
+hold all E. Tensor, sequence, FSDP and pipeline parallelism are not
+ported: a config that sets one of them to anything but its default
+raises, naming the ROADMAP item that ports it.
 """
 
 from __future__ import annotations
@@ -89,7 +92,6 @@ import math
 import os
 
 import torch
-import torch.distributed as dist
 
 from ..core.precision import resolve_dtype
 from ..core.prng import KeySeq
@@ -104,8 +106,13 @@ from ..data.resident import (
 from ..data.streaming import get_loaders
 from ..data.synthetic import ensure_synthetic_kmni
 from ..models.registry import build_model
-from ..ops import launch_counts
+from ..ops import launch_counts, plain_routes
 from ..parallel import data_axis_for, join_data_axis
+from ..parallel.expert import (
+    expert_shards,
+    full_state_dict,
+    shard_tree_moe_ep,
+)
 from ..utils.history import plot_history, save_history_json, update_history
 from ..utils.profiling import epoch_profiler, timed
 from ..utils.viz import visualize_gat_predictions
@@ -140,7 +147,8 @@ _NOT_PORTED = {
 
 def train_single_epoch(*, epoch, model, train_steps, evaluate, scheduler,
                        history, output_path, keys=None, shutdown=None,
-                       start_batch=0, init_running=(0.0, 0), profiler=None):
+                       start_batch=0, init_running=(0.0, 0), profiler=None,
+                       model_state=None):
     """One epoch of the reference's loop: ``train_steps`` yields
     (running_nd, samples, loader batches consumed, train steps) a train
     step or a group of them, or (None, 0, 1, 0) for a skipped batch
@@ -154,7 +162,10 @@ def train_single_epoch(*, epoch, model, train_steps, evaluate, scheduler,
     partial running-loss numerator and the samples so far, from
     ``init_running`` on (JAX ``gat_driver.py:47-210``). With a
     ``profiler`` (``utils/profiling.EpochProfiler``) the epoch is timed up
-    to the fetch of its losses, and its stats join ``history``."""
+    to the fetch of its losses, and its stats join ``history``.
+    ``model_state()`` gives what ``model.pt`` holds (default: the model's
+    state_dict); when it is given, it runs at every best epoch whether or
+    not this process writes (a data axis's gather of expert shards)."""
     print(f"\nEpoch: {epoch}")
     print(f"LR: {current_lr(scheduler.optimizer)}")
     if profiler is not None:
@@ -192,13 +203,15 @@ def train_single_epoch(*, epoch, model, train_steps, evaluate, scheduler,
     scheduler_step(scheduler, result["val_loss"])
     print(json.dumps(result, indent=4))
     update_history(history, result)
+    best = len(history["val_loss"]) == 1 or \
+        result["val_loss"] < min(history["val_loss"][:-1])
+    state = model_state() if best and model_state is not None else None
     if output_path:
         os.makedirs(output_path, exist_ok=True)
         save_history_json(history, output_path)
-        if len(history["val_loss"]) == 1 or \
-                result["val_loss"] < min(history["val_loss"][:-1]):
+        if best:
             print("Saving model.")
-            torch.save(model.state_dict(),
+            torch.save(model.state_dict() if state is None else state,
                        os.path.join(output_path, "model.pt"))
     return result, None
 
@@ -224,14 +237,11 @@ def train(*, model_type: str = "temporal", optimizer: str = "adam",
     every field of an experiment config among them; ``plot`` is accepted
     and ignored, as in JAX. ``use_pallas=None`` runs the fused kernels
     exactly when the model sits on the card. Returns ``(model,
-    history)``."""
+    history)``.
+    ``data_axis=None`` is every rank of the process group that is up, and
+    one device without one: this call starts no process (the CLIs start
+    every visible card's rank for an unset ``--data-axis``)."""
     refuse_unported(options, _NOT_PORTED)
-    ranks = data_axis or (dist.get_world_size() if dist.is_initialized()
-                          else 1)
-    if moe_experts and ranks > 1:
-        raise NotImplementedError(
-            f"data_axis={ranks} with moe_experts is not ported yet (ROADMAP "
-            "queue 1 item 9): JAX shards the experts over the data axis")
     axis = data_axis_for(data_axis, device,
                          resident_batch=train_batch_size if resident else None)
     if conv_impl == "auto":
@@ -272,13 +282,27 @@ def train(*, model_type: str = "temporal", optimizer: str = "adam",
                         generator=torch.Generator().manual_seed(seed),
                         dtype=resolve_dtype(precision), conv_impl=conv_impl,
                         moe_experts=moe_experts)
+    n_params = param_count(model)
     join_data_axis(axis, model)
+    # EP before the optimizer: each rank keeps its E/D experts, so Adam's
+    # moments are sliced too (JAX ``gat_driver.py:421-432``)
+    shard_tree_moe_ep(model, axis)
+    shards = expert_shards(model)
+    ep = bool(shards)
+    # the MoE routes over the axis, sharded or not: its forward's
+    # collectives need every rank, the figure's included
+    routed = bool(moe_experts) and axis.parallel
+    if ep:
+        nbytes = sum(p.numel() * p.element_size() for p in shards)
+        print(f"[expert parallel] {moe_experts} experts over {axis.size} "
+              f"ranks: {moe_experts // axis.size} on this rank, {nbytes} "
+              f"bytes of their weights ({3 * nbytes} with Adam's moments)")
     keys = KeySeq(seed)
     opt = make_optimizer(optimizer, model.parameters(), learning_rate,
                          weight_decay=weight_decay, capturable=graphs)
     scheduler = make_scheduler(opt, reduce_lr_on_plateau=reduce_lr_on_plateau,
                                lr_step=lr_step, gamma=gamma)
-    print(f"Number of parameters: {param_count(model)}")
+    print(f"Number of parameters: {n_params}")
     print(f"Using mapping: {model.mapping_type}")
     profiler = epoch_profiler(profile, profile_trace_dir)
     aux_w = moe_aux_weight if moe_experts else 0.0
@@ -340,7 +364,7 @@ def train(*, model_type: str = "temporal", optimizer: str = "adam",
             steps_ = gat_step_logs(batches, step, dev, axis=axis)
         return steps_, lambda: test(eval_step, val_loader, dev, axis=axis)
 
-    state = NetState(model, opt, scheduler)
+    state = NetState(model, opt, scheduler, axis=axis if ep else None)
 
     def snapshot(epoch, mid):
         best = getattr(scheduler, "best", math.inf)
@@ -377,10 +401,20 @@ def train(*, model_type: str = "temporal", optimizer: str = "adam",
         print(f"Test loss (without any training): {result['val_loss']:.6f}")
         update_history(history, result)
         print(json.dumps(result, indent=4))
-    # rank 0 alone writes the run's files; every rank restored above
+    # rank 0 alone writes the run's files; every rank restored above. With
+    # expert shards every rank takes part in what is written (the gather of
+    # the experts, the figure's forward)
     writes = output_path if axis.is_main else ""
+    checkpoints = ckpt_mgr is not None
     if not axis.is_main:
         ckpt_mgr = None
+
+    def save(step_id, epoch, mid):
+        snap = snapshot(epoch, mid)
+        if ckpt_mgr is not None:
+            ckpt_mgr.save(step_id, snap)
+
+    model_state = (lambda: full_state_dict(model, axis)) if ep else None
     with GracefulShutdown() as local_shutdown:
         shutdown = any_rank_shutdown(local_shutdown, axis)
         for epoch in range(start_epoch, epochs + 1):
@@ -392,12 +426,13 @@ def train(*, model_type: str = "temporal", optimizer: str = "adam",
                 output_path=writes, keys=keys, shutdown=shutdown,
                 start_batch=skip,
                 init_running=(float(mid["loss"]), int(mid["total"]))
-                if skip else (0.0, 0), profiler=profiler)
+                if skip else (0.0, 0), profiler=profiler,
+                model_state=model_state)
             if mid_out is not None:
                 # step-granular preemption: a snapshot inside the epoch
-                if ckpt_mgr is not None:
-                    ckpt_mgr.save(ckpt_step(epoch, int(mid_out["batch"])),
-                                  snapshot(epoch, mid_out))
+                if checkpoints:
+                    save(ckpt_step(epoch, int(mid_out["batch"])), epoch,
+                         mid_out)
                     print(f"[preempt] stopped resumably mid-epoch {epoch} "
                           f"({int(mid_out['batch'])} batches in)")
                 elif axis.is_main:
@@ -407,24 +442,27 @@ def train(*, model_type: str = "temporal", optimizer: str = "adam",
                           "lost")
                 break
             mid = empty_gat_mid()
-            if writes:
+            if writes or (routed and output_path):
                 _, viz_loader, _ = loader_factory(2, 2)
+                # a routed MoE's ranks run the figure's forward on their
+                # rows together; the writing rank draws
                 visualize_gat_predictions(
-                    lambda xb: predict_batch(model, xb, dev), viz_loader,
-                    epoch=epoch, path=writes,
+                    lambda xb: predict_batch(model, xb, dev,
+                                             axis=axis if routed else None),
+                    viz_loader, epoch=epoch, path=writes, draw=bool(writes),
                     power=float(getattr(viz_loader, "power", 1.0)))
+            if writes:
                 plot_history(history, title="Training History", save=True,
                              filename=os.path.join(writes,
                                                    f"history_{epoch}.png"))
             # read once: a SIGTERM between "save?" and "stop?" must not
             # stop without the snapshot
             preempted = shutdown.requested
-            if ckpt_mgr is not None and (
+            if checkpoints and (
                     not checkpoint_every or epoch % checkpoint_every == 0
                     or epoch == epochs or preempted):
                 # an epoch-boundary snapshot is the start of epoch + 1
-                ckpt_mgr.save(ckpt_step(epoch + 1, 0),
-                              snapshot(epoch, empty_gat_mid()))
+                save(ckpt_step(epoch + 1, 0), epoch, empty_gat_mid())
             if preempted:
                 print(f"[preempt] stopped after epoch {epoch}"
                       + ("" if ckpt_mgr is not None or not axis.is_main else
@@ -432,6 +470,9 @@ def train(*, model_type: str = "temporal", optimizer: str = "adam",
                          "(set CHECKPOINT_EVERY / checkpoint_every)"))
                 break
     report_in_sync(axis, [model], [opt])
+    routes = {n: c for n, c in plain_routes().items() if c}
+    if routes:
+        print(json.dumps({"plain_routes": routes}))
     print(json.dumps({"kernel_launches": launch_counts()}))
     return model, history
 

@@ -52,6 +52,7 @@ from torch.utils.checkpoint import checkpoint
 from ..core.device import to_device
 from ..data.streaming import Prefetcher
 from ..models.moe import moe_layers, sow_moe
+from ..parallel.expert import replicated_parameters
 from ..parallel.mesh import DataAxis, pad_to_batch_multiple
 from .losses import CRITERIA
 from .megastep import Megastep
@@ -94,8 +95,9 @@ def make_gat_train_step(model, optimizer, *, criterion: str = "mse",
     Each rank's loss divides by the global valid count, and the gradients
     and the loss are summed over the ranks in one all-reduce before the
     optimizer step: JAX's psum of the global-mean loss's gradient, exact
-    for a ragged batch. The returned loss and ``running_nd`` are the
-    global ones."""
+    for a ragged batch. Expert shards (``parallel/expert.py``) are left
+    out of that sum: their exchange's backward already summed them. The
+    returned loss and ``running_nd`` are the global ones."""
     if criterion not in CRITERIA:
         raise ValueError(
             f"unsupported criterion {criterion!r}; choose 'mse' or 'l1'")
@@ -103,7 +105,9 @@ def make_gat_train_step(model, optimizer, *, criterion: str = "mse",
     forward = remat_forward(model) if remat else model
     moe = moe_layers(model) if moe_aux_weight else []
     dp = axis is not None and axis.parallel
-    params = list(model.parameters())
+    # an expert shard's gradient is complete after the backward (its
+    # exchange's backward sums the ranks' parts): it stays out of the sum
+    params = replicated_parameters(model)
 
     def step(x, y, mask):
         model.train()
@@ -200,14 +204,23 @@ def make_gat_eval_step(model):
     return eval_step
 
 
-def predict_batch(model, x, device):
+def predict_batch(model, x, device, *, axis: DataAxis | None = None):
     """The model's eval-mode prediction of the numpy batch ``x`` on
     ``device``, as numpy (the figures' ``predict_fn``; JAX
-    ``gat_driver.py:720``)."""
+    ``gat_driver.py:720``). With a data ``axis`` of more than one rank
+    (every rank calls it with the same ``x``), each rank predicts its rows
+    and every rank returns the whole batch's prediction."""
     model.eval()
+    x = np.asarray(x, np.float32)
     with torch.no_grad():
-        return model(to_device(np.asarray(x, np.float32), device)) \
-            .float().cpu().numpy()
+        if axis is None or not axis.parallel:
+            return model(to_device(x, device)).float().cpu().numpy()
+        n, rows = len(x), axis.rows(len(x))
+        y = model(to_device(x[rows], device)).float()
+        # every rank's rows, each padded to the first rank's count
+        per = -(-n // axis.size)
+        y = torch.cat([y, y.new_zeros((per - len(y),) + y.shape[1:])])
+        return axis.gather_rows(y).flatten(0, 1)[:n].cpu().numpy()
 
 
 def to_device_batch(x, y, device):

@@ -48,7 +48,7 @@ On the card (:class:`Megastep`):
   capture does once and a replay never: the runner takes back what the
   capture counted and adds it again at every replay
   (``ops.add_launches``), so ``ops.launch_counts()`` stays the number of
-  launches the card ran.
+  launches the card ran; ``ops.plain_routes()`` the same.
 """
 
 from __future__ import annotations
@@ -150,7 +150,7 @@ class Megastep:
         graph = torch.cuda.CUDAGraph(keep_graph=self.keep_graphs)
         for gen in self.generators:
             graph.register_generator_state(gen)
-        before = ops.launch_counts()
+        before = ops.counters()
         # thread_local: the feed's thread pins and copies the next group
         # while this one is captured, which global mode would refuse
         with torch.cuda.graph(graph, pool=self._pool, stream=self._stream,
@@ -158,7 +158,7 @@ class Megastep:
             outputs = self.eager(*static)
         if self._pool is None:
             self._pool = graph.pool()
-        after = ops.launch_counts()
+        after = ops.counters()
         launches = {name: n - before[name] for name, n in after.items()
                     if n != before[name]}
         ops.add_launches(launches, -1)  # recorded, not launched

@@ -28,12 +28,20 @@ class NetState:
     model: torch.nn.Module
     optimizer: torch.optim.Optimizer
     scheduler: Any = None
+    # a data axis whose ranks hold expert shards (``parallel/expert.py``):
+    # the tree then holds all E experts and their moments, gathered (every
+    # rank calls state_dict), and a load takes this rank's slice
+    axis: Any = None
 
     def state_dict(self) -> dict:
         tree = {"model": self.model.state_dict(),
                 "optimizer": self.optimizer.state_dict()}
         if self.scheduler is not None:
             tree["scheduler"] = self.scheduler.state_dict()
+        if self.axis is not None:
+            from ..parallel.expert import full_state
+
+            tree = full_state(tree, self.model, self.optimizer, self.axis)
         return tree
 
     def load_state_dict(self, tree: dict):
@@ -42,6 +50,10 @@ class NetState:
         checkpoint resumes under CUDA graphs and the reverse), and Adam's
         step count goes where that optimizer keeps it: on the card when
         capturable, else on the CPU."""
+        if self.axis is not None:
+            from ..parallel.expert import local_state
+
+            tree = local_state(tree, self.model, self.optimizer)
         self.model.load_state_dict(tree["model"])
         load_optimizer_state(self.optimizer, tree["optimizer"])
         if self.scheduler is not None and "scheduler" in tree:

@@ -121,16 +121,19 @@ def draw_gat_predictions(panels, *, epoch: int = 1, path: str = ""):
 def visualize_gat_predictions(predict_fn, loader, *, epoch: int = 1,
                               path: str = "",
                               raininess_threshold: float = 0.5,
-                              power: float = 1.0):
+                              power: float = 1.0, draw: bool = True):
     """Finds the first sample with raininess >= threshold and saves its x,
     y and pred rows by 4 frame columns of vertex 1 as
     ``<path>/pred_{epoch}.png`` (the reference's ``utils.py:74-98``).
     ``predict_fn(x_batch) -> preds`` over (B, H, W, T, V) arrays. Returns
     the path, or None when no sample qualifies (with JAX's line) or
-    matplotlib is missing."""
+    matplotlib is missing. ``draw=False`` runs ``predict_fn`` alone (a
+    data-parallel rank that joins the forward but writes nothing)."""
     panels = gat_prediction_panels(predict_fn, loader,
                                    raininess_threshold=raininess_threshold,
                                    power=power)
+    if not draw:
+        return None
     if panels is None:
         print("Raininess threshold too strict, hasn't found anything")
         return None

@@ -12,6 +12,17 @@ forward of 25 fixed latents is written to ``<out_dir>/<batches>.png`` as a
 5x5 grid, min-max normalised over the grid. The JAX script draws the grid
 with matplotlib; the port writes the same pixels as an 8-bit grayscale PNG
 with the standard library (no figure around them, no gaps between tiles).
+
+The data axis (JAX's script runs on an all-devices mesh,
+``gan_examples/vanilla_gan.py:100, 140-144``): ``--data-axis N`` trains
+each batch over N ranks (NCCL, one process a card; gloo processes with
+``--device cpu``), and unset it is every visible card (one under
+``--device cpu``); under torchrun each process is one rank, and
+``--multihost`` makes that explicit. Every rank draws the same batches,
+a ragged batch is cut to a multiple of N (a batch cut to nothing is
+skipped), each rank takes its contiguous rows, the generator's BatchNorm
+runs over the global batch (``parallel/batch_norm.py``), G's and D's
+gradients are summed over the ranks, and rank 0 writes the grids.
 """
 
 from __future__ import annotations
@@ -64,6 +75,15 @@ def parse_args(argv=None):
     parser.add_argument("--device", default=None,
                         help="default: the CUDA card; 'cpu' to train on the "
                              "CPU")
+    parser.add_argument("--data-axis", type=int, default=None,
+                        help="N: data parallelism over N ranks, one card "
+                             "each (gloo processes with --device cpu); "
+                             "default every visible card, one with --device "
+                             "cpu")
+    parser.add_argument("--multihost", action="store_true",
+                        help="join the process group the launcher's "
+                             "environment describes (torchrun); raises "
+                             "without one")
     return parser.parse_args(argv)
 
 
@@ -105,29 +125,40 @@ def save_image_grid(imgs: np.ndarray, path: str, nrow: int = 5):
 
 def main(argv=None):
     opt = parse_args(argv)
-    print(opt)
 
-    from ..core.device import resolve_device
     from ..core.precision import resolve_dtype
     from ..core.prng import KeySeq
     from ..data.mnist import iterate_batches, load_images
     from ..models.vanilla_gan import MLPDiscriminator, MLPGenerator
+    from ..parallel import data_axis_for, join_data_axis
+    from ..parallel.launch import start_ranks
     from ..train.adversarial import make_sampler, make_vanilla_gan_step
+
+    if start_ranks("extended_gan_torch.vanilla_gan.__main__:main", argv,
+                   data_axis=opt.data_axis, multihost=opt.multihost,
+                   device=opt.device):
+        return None
+    print(opt)
 
     if opt.channels != 1:
         # the image sources are single-channel, as in the JAX script (the
         # reference takes --channels and fails the same way)
         raise SystemExit("--channels must be 1: the digit sources are "
                          "single-channel")
-    dev = resolve_device(opt.device)
+    axis = data_axis_for(opt.data_axis, opt.device)
+    dev = axis.device
     print(f"Using device: {dev}")
-    os.makedirs(opt.out_dir, exist_ok=True)
+    if axis.parallel:
+        print(f"Using data axis: {axis.size} ranks (rank {axis.rank})")
+    if axis.is_main:
+        os.makedirs(opt.out_dir, exist_ok=True)
     img_shape = (opt.channels, opt.img_size, opt.img_size)
     dtype = resolve_dtype(opt.precision)
     init = torch.Generator().manual_seed(opt.seed)
     g = MLPGenerator(img_shape, opt.latent_dim, generator=init,
                      dtype=dtype).to(dev)
     d = MLPDiscriminator(img_shape, generator=init, dtype=dtype).to(dev)
+    join_data_axis(axis, g, d)
     g_opt, d_opt = (torch.optim.Adam(n.parameters(), lr=opt.lr,
                                      betas=(opt.b1, opt.b2), eps=1e-8)
                     for n in (g, d))
@@ -135,7 +166,7 @@ def main(argv=None):
     step = make_vanilla_gan_step(g, d, g_opt, d_opt,
                                  latent_dim=opt.latent_dim,
                                  fused_prop=opt.fused_prop,
-                                 generator=z_stream)
+                                 generator=z_stream, axis=axis)
     sample = make_sampler(g)
     fixed_z = torch.randn(25, opt.latent_dim, device=dev, generator=z_stream)
 
@@ -146,13 +177,18 @@ def main(argv=None):
     for epoch in range(opt.n_epochs):
         for i, imgs in enumerate(iterate_batches(x_all, opt.batch_size,
                                                  rng=np_rng)):
-            real = torch.from_numpy(np.ascontiguousarray(imgs)).to(dev)
-            losses = step(real)
+            if len(imgs) % axis.size:
+                imgs = imgs[:len(imgs) // axis.size * axis.size]
+                if not len(imgs):
+                    continue
+            real = torch.from_numpy(np.ascontiguousarray(
+                axis.shard(imgs))).to(dev)
+            losses = step(real, n=len(imgs))
             if batches_done % opt.log_every == 0:
                 print("[Epoch %d/%d] [Batch %d/%d] [D loss: %f] [G loss: %f]"
                       % (epoch, opt.n_epochs, i, n_batches,
                          float(losses["d_loss"]), float(losses["g_loss"])))
-            if batches_done % opt.sample_interval == 0:
+            if batches_done % opt.sample_interval == 0 and axis.is_main:
                 save_image_grid(sample(fixed_z).cpu().numpy(),
                                 os.path.join(opt.out_dir,
                                              f"{batches_done}.png"))

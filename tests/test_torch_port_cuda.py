@@ -327,6 +327,92 @@ def test_k3_refuses_what_it_cannot_take(cuda_device):
         k3.fused_dsconv(x.double(), dw, dwb, pw, pwb)
 
 
+def _counts():
+    from extended_gan_torch import ops
+
+    return {**{f"{n} kernel": c for n, c in ops.launch_counts().items()},
+            **{f"{n} plain": c for n, c in ops.plain_routes().items()}}
+
+
+def _delta(before):
+    return {n: c - before[n] for n, c in _counts().items() if c != before[n]}
+
+
+# (N, H, W, C, kpl, Cout) past each K3 limit: the backward's rows, the
+# forward's stages (the forward reads its taps unstaged, the backward takes
+# the rows), the backward's kpl; the routes
+ROUTED_K3 = [((2, 8, 288, 64, 2, 16), ("kernel", "plain")),
+             ((1, 4, 336, 4, 2, 8), ("kernel", "kernel")),
+             ((2, 6, 6, 2, 33, 8), ("kernel", "plain"))]
+
+
+@pytest.mark.parametrize("shape,routes", ROUTED_K3)
+def test_k3_routes_shapes_past_each_limit_to_the_plain_version(
+        cuda_device, shape, routes):
+    """Each call goes where the shape rule says, counted (the forward
+    always to its kernel, staged or not); the plain routes give the plain
+    version's values bit for bit, the kernels its values within their
+    tolerance."""
+    n, h, w, c, kpl, cout = shape
+    assert routes == (
+        "kernel", "kernel" if k3.bwd_takes(n, h, w, c, c * kpl) else "plain")
+    gen = torch.Generator().manual_seed(sum(shape))
+    inputs = [(torch.rand(s, generator=gen) - 0.5).to(cuda_device)
+              for s in ((n, h, w, c), (3, 3, c * kpl), (c * kpl,),
+                        (c * kpl, cout), (cout,))]
+    g = torch.randn((n, h, w, cout), generator=gen).to(cuda_device)
+    leaves = [t.clone().requires_grad_(True) for t in inputs]
+    before = _counts()
+    out = k3.fused_dsconv(*leaves)
+    out.backward(g)
+    torch.cuda.synchronize()
+    assert _delta(before) == {f"dsconv_fwd {routes[0]}": 1,
+                              f"dsconv_bwd {routes[1]}": 1}
+    want = k3.reference_dsc(*inputs)
+    grads = k3.reference_dsc_backward(*inputs[:4], g)
+    got = [out.detach()] + [t.grad for t in leaves]
+    for i, (a, b) in enumerate(zip(got, [want, *grads])):
+        if routes[min(i, 1)] == "plain":
+            assert torch.equal(a, b), i
+        torch.testing.assert_close(a, b, rtol=1e-4,
+                                   atol=1e-4 * float(b.abs().max()))
+
+
+# (NH, B, M, G, S) past each K1 limit, and the routes: M past the
+# instances (the forward's run-time-M kernel), M * G past the backward's
+ROUTED_K1 = [((2, 3, 9, 6, 64), ("kernel", "plain")),
+             ((2, 3, 8, 17, 16), ("kernel", "plain"))]
+
+
+@pytest.mark.parametrize("shape,routes", ROUTED_K1)
+def test_k1_routes_shapes_past_each_limit_to_the_plain_version(
+        cuda_device, shape, routes):
+    nh, b, mm, g, s = shape
+    assert routes == ("kernel", "kernel" if k1.bwd_takes(mm, g) else "plain")
+    gen = torch.Generator().manual_seed(mm * g)
+    m = (torch.rand((nh, b, mm, g * s), generator=gen) - 0.5).to(cuda_device)
+    a = (torch.rand((nh, 2 * g), generator=gen) - 0.5).to(cuda_device)
+    adj = torch.softmax(torch.rand((nh, mm, mm), generator=gen), -1).to(
+        cuda_device)
+    cot = torch.randn(m.shape, generator=gen).to(cuda_device)
+    leaves = [t.clone().requires_grad_(True) for t in (m, a, adj)]
+    before = _counts()
+    out = k1.fused_gat_attention(*leaves, 0.2, s)[0]
+    out.backward(cot)
+    torch.cuda.synchronize()
+    assert _delta(before) == {f"gat_attention_fwd {routes[0]}": 1,
+                              f"gat_attention_bwd {routes[1]}": 1}
+    # the plain versions, on the card
+    plain = [t.clone().requires_grad_(True) for t in (m, a, adj)]
+    w1, w2 = k1._group_rows(plain[1], s)
+    want = k1.reference_impl(plain[0], w1, w2, plain[2][:, None], 0.2, s)[0]
+    want.backward(cot)
+    for x, y in zip([out.detach()] + [t.grad for t in leaves],
+                    [want.detach()] + [t.grad for t in plain]):
+        torch.testing.assert_close(x, y, rtol=1e-4,
+                                   atol=1e-4 * float(y.abs().max()))
+
+
 def test_unet_forward_launches_k3_18_times_and_matches_plain(cuda_device):
     kw = dict(image_width=20, image_height=20, n_vertices=6,
               mapping_type="linear", device=cuda_device)

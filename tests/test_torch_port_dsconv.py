@@ -220,16 +220,18 @@ def test_probe_times_the_unet_dscs_and_needs_a_card():
 
 @pytest.mark.parametrize("w, raises", [(190, False), (400, True)])
 def test_kernels_refuse_images_too_wide_for_their_stage(w, raises):
-    """Both kernels stage 2W + 2 rows of halo in shared memory: the wrappers
-    raise, before any launch, for rows too wide for it."""
+    """Both kernels stage 2W + 2 rows of halo in shared memory: the
+    backward's plan raises, before any launch, for rows too wide for it;
+    the forward takes them and reads their taps from device memory."""
     x = torch.zeros(1, 2, w, 64)
     dw, dwb = torch.zeros(3, 3, 64), torch.zeros(64)
     pw, pwb = torch.zeros(64, 8), torch.zeros(8)
+    k3.fwd_args(x, dw, dwb, pw, pwb)
+    staged = 2 * (128 + 2 * w + 2) * 32 * 4 <= k3._FWD_SMEM
+    assert k3.fwd_stages(w) is staged
+    assert staged is not raises
     if raises:
         with pytest.raises(ValueError, match="too wide"):
             k3._bwd_plan(1, 2, w, 64, 64)
-        with pytest.raises(ValueError, match="too wide"):
-            k3._launch(x, dw, dwb, pw, pwb)
     else:
         k3._bwd_plan(1, 2, w, 64, 64)
-        assert 2 * (128 + 2 * w + 2) * 32 * 4 <= k3._FWD_SMEM

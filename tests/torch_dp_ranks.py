@@ -382,6 +382,275 @@ def graph_runs(axis: DataAxis, payload: dict) -> dict:
     return out
 
 
+# ----------------------------------------------------- expert parallelism
+# the narrow MoE UNet of test_torch_port_moe.py: base 8 at 32x32, E = 4,
+# capacity factor 0.5 (tokens overflow), T = 4, V = 3
+MOE_HW, MOE_V, MOE_E, MOE_CF, MOE_AUX_W = 32, 3, 4, 0.5, 0.01
+EP_FAULTS = ("local", "reduced", "aux_every_rank")
+
+
+def make_moe_model(per_vertex: bool, dtype=torch.float32):
+    """The narrow MoE UNet on the CPU (the default path or
+    ``per_vertex_bn``)."""
+    import functools
+
+    from extended_gan_torch.models import unet_model as um
+
+    real = um.SmaAt_UNet
+    um.SmaAt_UNet = functools.partial(SmaAt_UNet, base=8,
+                                      moe_capacity_factor=MOE_CF)
+    try:
+        model = um.UnetModel(MOE_HW, MOE_HW, MOE_V, time_steps=T,
+                             moe_experts=MOE_E, per_vertex_bn=per_vertex)
+    finally:
+        um.SmaAt_UNet = real
+    return model.to(dtype)
+
+
+def _local_routing(moe_layer, tokens, axis, dtype=torch.float32):
+    """A planted fault: each rank routes its own tokens with its shard's
+    capacity (JAX's explicit EP program, per group), its aux the ranks'
+    mean."""
+    from extended_gan_torch.models.moe import expert_capacity
+    from extended_gan_torch.parallel.expert import make_moe_ep_apply
+
+    cap = expert_capacity(tokens.shape[1], moe_layer.num_experts,
+                          moe_layer.capacity_factor)
+    apply = make_moe_ep_apply(axis, n_experts=moe_layer.num_experts,
+                              capacity=cap, dtype=dtype)
+    params = {k: getattr(moe_layer, k)
+              for k in ("router", "w1", "b1", "w2", "b2")}
+    outs, auxes = zip(*(apply(params, t) for t in tokens))
+    load = tokens.new_zeros((tokens.shape[0], moe_layer.num_experts))
+    return torch.stack(outs), torch.stack(auxes), load
+
+
+@contextlib.contextmanager
+def ep_fault(fault: str | None):
+    """Within: one of EP_FAULTS planted (or none): ``"local"`` routing on
+    each rank's tokens with a per-rank capacity, ``"reduced"`` the expert
+    shards' gradients also summed in the trainer's all-reduce,
+    ``"aux_every_rank"`` every rank's loss carrying the global aux through
+    a differentiable all-reduce (so the sum over the ranks counts it, and
+    its gradient, D times)."""
+    from extended_gan_torch.parallel import expert
+
+    real_apply = expert.moe_apply_global
+    real_params = gat_trainer.replicated_parameters
+    if fault == "local":
+        expert.moe_apply_global = _local_routing
+    elif fault == "reduced":
+        gat_trainer.replicated_parameters = lambda m: list(m.parameters())
+    elif fault == "aux_every_rank":
+        def global_aux(moe_layer, tokens, axis, dtype=torch.float32):
+            out, aux, load = real_apply(moe_layer, tokens, axis, dtype)
+            total = axis.all_reduce(aux.detach().clone())
+            # an all-reduce's backward sums the D ranks' cotangents
+            d = axis.size
+            return out, d * aux + (total - d * aux).detach(), load
+        expert.moe_apply_global = global_aux
+    try:
+        yield
+    finally:
+        expert.moe_apply_global = real_apply
+        gat_trainer.replicated_parameters = real_params
+
+
+def ep_step(case: dict, axis: DataAxis | None) -> dict:
+    """One SGD step (lr 0: the gradients) of the narrow MoE UNet from
+    ``case["state"]`` on ``axis``'s rows of the global ``x``, ``y`` (all
+    of them without an axis), in ``case["dtype"]``, its experts sharded
+    over the axis, with ``case["fault"]`` planted (``case["remat"]``: the
+    forward recomputed in the backward, the exchange with it): the loss
+    and every gradient, the expert shards' gathered (all E), as
+    float64."""
+    from extended_gan_torch.parallel.expert import (
+        gather_experts,
+        shard_tree_moe_ep,
+    )
+
+    dtype = case.get("dtype", torch.float32)
+    model = make_moe_model(case["per_vertex"], dtype)
+    model.load_state_dict(case["state"])
+    x, y = case["x"], case["y"]
+    if axis is not None:
+        join_data_axis(axis, model)
+        shard_tree_moe_ep(model, axis)
+        rows = axis.rows(len(x))
+        x, y = x[rows], y[rows]
+    opt = torch.optim.SGD(model.parameters(), lr=0.0)
+    with ep_fault(case.get("fault")):
+        step = gat_trainer.make_gat_train_step(
+            model, opt, axis=axis, moe_aux_weight=MOE_AUX_W,
+            remat=case.get("remat", False))
+        loss, _ = step(*(torch.from_numpy(np.asarray(a)).to(dtype)
+                         for a in (x, y, np.ones(len(x)))))
+    grads = {n: p.grad for n, p in model.named_parameters()}
+    if axis is not None:
+        grads = gather_experts(grads, model, axis)
+    return {"loss": loss.item(),
+            "grads": {k: g.detach().double().numpy().copy()
+                      for k, g in grads.items()}}
+
+
+def ep_megastep(case: dict, axis: DataAxis | None) -> dict:
+    """``case["k"]`` SGD steps (lr 0.01, float64) of the narrow MoE UNet
+    as one megastep group (eager on the CPU) on ``axis``'s rows of the
+    global batches ``case["xs"]``, ``case["ys"]``: the state after it,
+    all E experts."""
+    from extended_gan_torch.parallel.expert import (
+        full_state_dict,
+        shard_tree_moe_ep,
+    )
+
+    model = make_moe_model(case["per_vertex"], torch.float64)
+    model.load_state_dict(case["state"])
+    xs, ys = (torch.from_numpy(case[k]).double() for k in ("xs", "ys"))
+    masks = torch.ones(xs.shape[:2], dtype=torch.float64)
+    if axis is not None:
+        join_data_axis(axis, model)
+        shard_tree_moe_ep(model, axis)
+        xs, ys, masks = (axis.shard(t, 1) for t in (xs, ys, masks))
+    opt = torch.optim.SGD(model.parameters(), lr=0.01)
+    mega = gat_trainer.make_gat_megastep(model, opt, axis=axis,
+                                         moe_aux_weight=MOE_AUX_W)
+    logs = mega(xs, ys, masks)
+    state = full_state_dict(model, axis) if axis is not None \
+        else model.state_dict()
+    return {"loss": logs["loss"].item(),
+            "state": {k: v.detach().double().numpy().copy()
+                      for k, v in state.items()}}
+
+
+def ep_apply(payload: dict, axis: DataAxis) -> dict:
+    """The explicit EP program (``make_moe_ep_apply``) on this rank's rows
+    of ``payload``'s tokens, each rank's E/D experts, per-shard capacity
+    N/D: every rank's output rows (rank order) and the aux; the bytes of
+    a SwitchMoE's leaves and Adam moments on this rank after sharding and
+    one step; what E = 6 over the axis raises."""
+    from extended_gan_torch.models.moe import SwitchMoE
+    from extended_gan_torch.parallel.expert import (
+        EXPERT_LEAVES,
+        make_moe_ep_apply,
+        shard_moe_params_ep,
+        shard_tree_moe_ep,
+    )
+
+    params = {k: torch.from_numpy(v) for k, v in payload["params"].items()}
+    tokens = torch.from_numpy(payload["tokens"])
+    e, n = params["w1"].shape[0], len(tokens)
+    apply = make_moe_ep_apply(axis, n_experts=e, capacity=n // axis.size)
+    out, aux = apply(shard_moe_params_ep(params, axis, e),
+                     axis.shard(tokens))
+    moe_layer = SwitchMoE(tokens.shape[1], e)
+    moe_layer.axis = axis
+    holder = torch.nn.ModuleDict({"moe": moe_layer})
+    shard_tree_moe_ep(holder, axis)
+    opt = torch.optim.Adam(holder.parameters(), lr=1e-3)
+    with torch.no_grad():
+        y = moe_layer(axis.shard(torch.from_numpy(payload["x"])))
+    for p in holder.parameters():
+        p.grad = torch.ones_like(p)
+    opt.step()
+    nbytes = {k: getattr(moe_layer, k).numel() * 4
+              for k in EXPERT_LEAVES + ("router",)}
+    moments = {k: sum(v.numel() * 4 for v in opt.state[getattr(
+        moe_layer, k)].values() if v.dim()) for k in nbytes}
+    try:
+        make_moe_ep_apply(axis, n_experts=6, capacity=4)
+        raised = ""
+    except ValueError as err:
+        raised = str(err)
+    return {"out": _f32(axis.gather_rows(out.detach()).flatten(0, 1)),
+            "aux": float(aux), "bytes": nbytes, "moments": moments,
+            "forward": tuple(y.shape), "raised": raised}
+
+
+def ep_cases(axis: DataAxis, payload: dict) -> dict:
+    """Everything the expert-parallel tests run on ``axis``:
+    :func:`ep_apply` where the payload has ``"apply"``, then
+    :func:`ep_step` of each case and :func:`ep_megastep` of each
+    megastep case."""
+    out = {}
+    if "apply" in payload:
+        out["apply"] = ep_apply(payload["apply"], axis)
+    out.update({name: ep_step(case, axis)
+                for name, case in payload.get("steps", {}).items()})
+    out.update({name: ep_megastep(case, axis)
+                for name, case in payload.get("megasteps", {}).items()})
+    return out
+
+
+def ep_driver(axis: DataAxis, payload: dict) -> dict:
+    """The conv-GAT driver with ``moe_experts`` on this process group (the
+    CPU), checkpoints on, into ``payload["out"]``: ``"whole"`` trains
+    ``epochs`` epochs; ``"cut"`` trains one and then resumes it to
+    ``epochs`` (a second ``train`` with ``resume=True``). Returns this
+    rank's expert leaves' and Adam moments' sizes after each run, and its
+    replicated loss history."""
+    from extended_gan_torch.models.moe import moe_layers
+    from extended_gan_torch.train.gat_driver import train
+
+    kw = dict(payload["kw"], device="cpu", checkpoint_every=1)
+    out, sizes, hist = payload["out"], {}, {}
+    for name, runs in (("whole", [kw["epochs"]]),
+                       ("cut", [1, kw["epochs"]])):
+        for i, epochs in enumerate(runs):
+            model, history = train(**{**kw, "epochs": epochs},
+                                   output_path=os.path.join(out, name),
+                                   resume=i > 0)
+        (layer,) = moe_layers(model)
+        sizes[name] = {"w1": tuple(layer.w1.shape),
+                       "experts": layer.experts}
+        hist[name] = history
+    return {"sizes": sizes, "history": hist}
+
+
+def vanilla_steps(axis: DataAxis | None, payload: dict) -> dict:
+    """``payload["steps"]`` SGD steps (lr ``payload["lr"]``) of the vanilla
+    GAN's step (``fused_prop`` as the payload says) from its ``states``,
+    in ``payload["dtype"]``, on ``axis``'s rows of each global batch (all
+    of them without an axis), z drawn from one generator seeded alike on
+    every rank: each step's losses and G's and D's state after them."""
+    from extended_gan_torch.models.vanilla_gan import (
+        MLPDiscriminator,
+        MLPGenerator,
+    )
+    from extended_gan_torch.train.adversarial import make_vanilla_gan_step
+
+    dtype = payload.get("dtype", torch.float32)
+    shape = payload["img_shape"]
+    g = MLPGenerator(shape, payload["latent"])
+    d = MLPDiscriminator(shape)
+    for net, state in zip((g, d), payload["states"]):
+        net.load_state_dict(state)
+        net.to(dtype)
+    if axis is not None:
+        join_data_axis(axis, g, d)
+    opts = [torch.optim.SGD(n.parameters(), lr=payload["lr"]) for n in (g, d)]
+    z_stream = torch.Generator().manual_seed(3)
+    step = make_vanilla_gan_step(g, d, *opts, latent_dim=payload["latent"],
+                                 fused_prop=payload["fused_prop"],
+                                 generator=z_stream, axis=axis)
+    logs = []
+    for real in payload["batches"]:
+        real = torch.from_numpy(real).to(dtype)
+        n = len(real)
+        if axis is not None:
+            real = axis.shard(real)
+        out = step(real, n=n) if axis is not None else step(real)
+        logs.append({k: v.item() for k, v in out.items()})
+    return {"logs": logs,
+            "state": [{k: _f32(v) for k, v in n.state_dict().items()}
+                      for n in (g, d)]}
+
+
+def vanilla_cases(axis: DataAxis, payload: dict) -> dict:
+    """:func:`vanilla_steps` of every case of the payload."""
+    return {name: vanilla_steps(axis, case)
+            for name, case in payload.items()}
+
+
 def _rank(fn_name, rank, size, store, payload_path, out_dir):
     torch.set_num_threads(1)
     dist.init_process_group("gloo", init_method=f"file://{store}",
@@ -398,6 +667,13 @@ def _rank(fn_name, rank, size, store, payload_path, out_dir):
 def run(fn_name: str, size: int, tmp, payload: dict, timeout: float = 300):
     """Every rank's result of ``fn_name(axis, payload)``, in rank order;
     raises unless every rank exits 0 within ``timeout`` seconds."""
+    return start(fn_name, size, tmp, payload)(timeout)
+
+
+def start(fn_name: str, size: int, tmp, payload: dict):
+    """:func:`run` with the ranks started and not waited for: returns
+    ``finish(timeout=300)``, which waits and returns every rank's
+    result."""
     tmp = str(tmp)
     payload_path = os.path.join(tmp, "payload.pt")
     torch.save(payload, payload_path)
@@ -407,6 +683,11 @@ def run(fn_name: str, size: int, tmp, payload: dict, timeout: float = 300):
         for r in range(size)]
     for p in procs:
         p.start()
+    return lambda timeout=300: _finish(procs, tmp, timeout)
+
+
+def _finish(procs, tmp, timeout):
+    size = len(procs)
     for p in procs:
         p.join(timeout)
     alive = [p for p in procs if p.is_alive()]
