@@ -252,7 +252,17 @@ Phases, each fatal on failure (non-zero exit, no result line):
              dcgan and cycle_gan CLIs with ``--megastep 8 --resident`` as
              an NCCL world of one (``--gan-dp-cli-child``) against the
              plain CLI; graphs over gloo on the card raise, naming NCCL.
-21. report - the total time, the ``kernels`` JSON line, the card's name and
+21. fsdp    - FSDP / ZeRO-3 over the data axis (``parallel/fsdp.py``):
+             two gloo ranks on the one card (``--fsdp-child``), every leaf
+             of at least 4096 elements and its Adam moments cut in two:
+             the published DCGAN (3 Adam steps, default body) and
+             final_smaatunet's model (3, K3 18 + 18 a step a rank), 16
+             rows each of batches of 32, against the same ranks without
+             FSDP (bit for bit) and one process in float64 (the
+             data_parallel and gan_data_parallel phases' references); each
+             rank's parameter and moment bytes against JAX's rule at D = 2;
+             D's weights left stale after its step planted, missing by 10x.
+22. report - the total time, the ``kernels`` JSON line, the card's name and
              power limit, and the last line ``{"ok": true, "device":
              {...}}``.
 """
@@ -2556,6 +2566,38 @@ def _reset_launches():
     from extended_gan_torch import ops
 
     ops.add_launches(ops.launch_counts(), -1)
+
+
+def _full_weights(nets, opts):
+    """The nets' parameters, then their optimizers' state tensors, in the
+    order ``parameters()`` and ``opt.state`` give them; an FSDP block
+    (``parallel/fsdp.py``) and its moments gathered into the full leaf, so
+    a run with FSDP and one without give the same list (a collective under
+    FSDP: every rank calls it)."""
+    import torch
+
+    from extended_gan_torch.parallel import fsdp
+
+    leaves = {p: leaf for net in nets
+              for p, leaf in fsdp.fsdp_shards(net).items()}
+    out = [fsdp.gather_full(p, leaves[p]) if p in leaves else p
+           for net in nets for p in net.parameters()]
+    return out + [fsdp.gather_full(v, leaves[p])
+                  if p in leaves and v.dim() else v
+                  for opt in opts for p, st in opt.state.items()
+                  for v in st.values() if torch.is_tensor(v)]
+
+
+_REFS = {}
+
+
+def _cached(fn, *args, **kwargs):
+    """``fn(*args, **kwargs)``, run once a process: the one-process
+    references that two phases hold their ranks to."""
+    key = (fn.__name__, args, tuple(sorted(kwargs.items())))
+    if key not in _REFS:
+        _REFS[key] = fn(*args, **kwargs)
+    return _REFS[key]
 
 
 def _train_state(modules, opts):
@@ -4987,8 +5029,8 @@ def _moe_step_make(*, dense=False):
 
 def _moe_resume(tmp, knmi, stop_after=8):
     """The MoE UNet through the conv-GAT driver (the KNMI archive
-    ``knmi``, 20x20, b=32, 2 epochs of 6 batches, checkpoints on): four
-    uninterrupted runs here (the three twins' gaps to the first give the
+    ``knmi``, 20x20, b=32, 2 epochs of 6 batches, checkpoints on): three
+    uninterrupted runs here (the two twins' gaps to the first give the
     run-to-run floor), the
     cut run in a :class:`_Child` that gets a real SIGTERM once it has
     printed ``stop_after`` steps (the driver then finishes the step it is
@@ -5010,7 +5052,7 @@ def _moe_resume(tmp, knmi, stop_after=8):
               preprocessed_folder=knmi, downsample_size=(20, 20),
               train_batch_size=32, epochs=2, max_batches=6,
               checkpoint_every=10, moe_experts=MOE_E)
-    twins = ("twin", "twin2", "twin3")
+    twins = ("twin", "twin2")
     outs = {k: os.path.join(tmp, "moe_" + k)
             for k in ("ref", *twins, "run", "fault")}
     child = _Child("moe resume", {
@@ -5306,8 +5348,8 @@ def phase_moe(tmp, batch=32):
           f"bytes, signal to exit {resume['signal_to_exit_ms']:.1f} ms) and "
           f"resumed here: against the uninterrupted run {v['gap']:.3e} "
           f"(bitwise: {'yes' if v['bitwise'] else 'no'}), {v['worst']:.3f} "
-          f"of its bound (run-to-run floor {v['floor']:.3e}, the widest of "
-          f"3 twins); a skipped optimizer step at {fault['worst']:.2f} x "
+          f"of its bound (run-to-run floor {v['floor']:.3e}, the wider of "
+          f"2 twins); a skipped optimizer step at {fault['worst']:.2f} x "
           f"its bound (gap {fault['gap']:.3e}); "
           f"{time.perf_counter() - t0:.1f} s")
 
@@ -6147,7 +6189,7 @@ DP_MODELS = {"final_smaatunet": ("unet", "linear", 20),
 
 
 def _dp_run(name, device, axis=None, *, fault=False, permute=False,
-            float64=False, moe=0, ep_fault=None, perturb=False):
+            float64=False, moe=0, ep_fault=None, perturb=False, fsdp=None):
     """DP_STEPS Adam steps of ``name``'s model from seed 0 on DP_STEPS
     global batches of 32 (this rank's rows on ``axis``; ``permute``: each
     batch's rows in another order; ``fault``: each rank's BatchNorm with
@@ -6165,7 +6207,10 @@ def _dp_run(name, device, axis=None, *, fault=False, permute=False,
     that keeps the rows' order, which the routing's queues follow);
     ``ep_fault="reduced"``: the expert shards' gradients also summed in
     the flat all-reduce (a planted fault); the state then also holds the
-    ``"first gradients"``, every gradient of the first step."""
+    ``"first gradients"``, every gradient of the first step. ``fsdp``: the
+    model's leaves of at least that many elements and their moments
+    sharded over ``axis`` (``parallel/fsdp.py``); the weights hold the
+    full leaves, and the clock this rank's ``"bytes"``."""
     import numpy as np
     import torch
 
@@ -6173,6 +6218,7 @@ def _dp_run(name, device, axis=None, *, fault=False, permute=False,
     from extended_gan_torch.models.moe import moe_layers
     from extended_gan_torch.models.registry import build_model
     from extended_gan_torch.parallel import attach_data_axis
+    from extended_gan_torch.parallel import fsdp as fsdp_
     from extended_gan_torch.parallel.expert import (
         full_state,
         gather_experts,
@@ -6202,6 +6248,8 @@ def _dp_run(name, device, axis=None, *, fault=False, permute=False,
         attach_data_axis(model, axis)
         axis.broadcast_module(model)
         shard_tree_moe_ep(model, axis)
+        if fsdp is not None:
+            fsdp_.shard_module_fsdp(model, axis, fsdp)
         if fault:
             for bn in batchnorms(model):
                 bn.axis = None
@@ -6217,6 +6265,7 @@ def _dp_run(name, device, axis=None, *, fault=False, permute=False,
         axis.all_reduce = timed_all_reduce
     opt = make_optimizer("adam", model.parameters(), 1e-3,
                          weight_decay=0.01)
+    fsdp_.refresh_after(opt, model)
     replicated = gat_trainer.replicated_parameters
     if ep_fault == "reduced":
         gat_trainer.replicated_parameters = lambda m: list(m.parameters())
@@ -6263,9 +6312,8 @@ def _dp_run(name, device, axis=None, *, fault=False, permute=False,
                                    for g in grads.values()]
             per_step.append({n: c - before[n] for n, c in
                              ops.launch_counts().items() if c != before[n]})
-    weights = list(model.parameters()) + [
-        v for st in opt.state.values() for v in st.values()
-        if torch.is_tensor(v)]
+    weights = _full_weights([model], [opt])
+    clock["bytes"] = fsdp_.persistent_bytes(model, opt)
     if moe:
         # all E experts and their moments, gathered from their ranks
         tree = {"model": dict(model.named_parameters()),
@@ -6285,7 +6333,7 @@ def _dp_run(name, device, axis=None, *, fault=False, permute=False,
         state["first gradients"] = first_grads
     return (state,
             per_step, {"step_ms": step_ms, "collective_ms": collective_ms,
-                       "loads": clock["loads"]})
+                       "loads": clock["loads"], "bytes": clock["bytes"]})
 
 
 def dp_child(spec_json):
@@ -6415,9 +6463,9 @@ def phase_data_parallel(tmp):
     # float32 twin
     refs = {}
     for name in DP_MODELS:
-        want = _dp_run(name, dev, float64=True)[0]
-        one, per_step, one_clock = _dp_run(name, dev)
-        twin = _dp_run(name, dev, permute=True)[0]
+        want = _cached(_dp_run, name, dev, float64=True)[0]
+        one, per_step, one_clock = _cached(_dp_run, name, dev)
+        twin = _cached(_dp_run, name, dev, permute=True)[0]
         refs[name] = (want, {g: widest(drift(t[g], want[g])
                                        for t in (one, twin))
                              for g in want}, per_step, one_clock)
@@ -6618,7 +6666,7 @@ def _bn_layer_verdict(got, want, shifted, plain):
 
 
 def _gan_dp_run(kind, device, axis=None, *, fault=None, float64=False,
-                perturb=False):
+                perturb=False, fsdp=None):
     """GAN_DP_STEPS[kind] Adam steps of the published ``kind`` ("dcgan": nc
     4, ndf 64, 64x64, default body; "cyclegan": nc 4, ndf 64) from seed 0,
     dropout 0.01 from a generator on the card seeded 0, on global batches
@@ -6627,7 +6675,12 @@ def _gan_dp_run(kind, device, axis=None, *, fault=None, float64=False,
     deterministic: ``{"weights": parameters and Adam's moments after the
     last step, "statistics": the buffers after it and the losses, "first
     step": the buffers and the losses after the first step}`` on the CPU,
-    and the ms of each step (host clock, synchronised)."""
+    and the ms of each step (host clock, synchronised). ``fsdp``: every
+    net's leaves of at least that many elements and their moments sharded
+    over ``axis`` (``parallel/fsdp.py``; the weights hold the full leaves),
+    and a third result, this rank's persistent bytes of each net;
+    ``fault="stale_d"`` under it: FD's and TD's working weights not
+    gathered after their optimizer's step (a planted fault)."""
     import numpy as np
     import torch
 
@@ -6640,20 +6693,35 @@ def _gan_dp_run(kind, device, axis=None, *, fault=None, float64=False,
         build_dcgan,
     )
 
+    from extended_gan_torch.parallel import fsdp as fsdp_
+
+    def place(nets):
+        if fsdp is not None:
+            join_data_axis(axis, *nets)
+            fsdp_.place_nets(axis, nets, True, fsdp)
+
     keys = KeySeq(0, device=device)
     if kind == "dcgan":
         nets, opts = build_dcgan(DEFAULT_PARAMS, seed=0, device=device,
-                                 keys=keys)
+                                 keys=keys, place=place)
         loss_keys = ("errFD", "errTD", "errG")
     else:
-        nets, opts = build_cyclegan(seed=0, device=device, keys=keys)
+        nets, opts = build_cyclegan(seed=0, device=device, keys=keys,
+                                    place=place)
         loss_keys = cyclegan_trainer.LOSS_KEYS
+    for net, opt in zip(nets, opts):
+        fsdp_.refresh_after(opt, net)
     dtype = torch.float64 if float64 else torch.float32
     for net in nets:
         net.to(dtype)
     if axis is not None:
-        join_data_axis(axis, *nets)
-        if fault:
+        if fsdp is None:
+            join_data_axis(axis, *nets)
+        if fault == "stale_d":
+            for net in nets[1:]:
+                for hook in fsdp_.fsdp_net(net).hooks:
+                    hook.remove()
+        elif fault:
             _plant_gan_fault(fault, nets, axis)
     if kind == "dcgan":
         step = dcgan_trainer.make_dcgan_train_step(*nets, *opts, axis=axis)
@@ -6686,13 +6754,15 @@ def _gan_dp_run(kind, device, axis=None, *, fault=None, float64=False,
                     (b for n in nets for b in n.buffers()), [losses[0]])]
     if axis is not None:
         axis.__dict__.pop("all_reduce_grads", None)
-    weights = [p for n in nets for p in n.parameters()] + [
-        v for opt in opts for st in opt.state.values() for v in st.values()
-        if torch.is_tensor(v)]
+    weights = _full_weights(nets, opts)
     stats = [b for n in nets for b in n.buffers()] + [torch.stack(losses)]
-    return ({"weights": [t.detach().cpu().clone() for t in weights],
+    state = {"weights": [t.detach().cpu().clone() for t in weights],
              "statistics": [t.detach().cpu().clone() for t in stats],
-             "first step": first}, step_ms)
+             "first step": first}
+    if fsdp is None:
+        return state, step_ms
+    return state, step_ms, [fsdp_.persistent_bytes(net, opt)
+                            for net, opt in zip(nets, opts)]
 
 
 def gan_dp_child(spec_json):
@@ -6855,9 +6925,9 @@ def phase_gan_data_parallel(tmp):
     # the float32 twin on a perturbed input
     refs = {}
     for kind in GAN_DP_STEPS:
-        want = _gan_dp_run(kind, dev, float64=True)[0]
-        one, one_ms = _gan_dp_run(kind, dev)
-        twin = _gan_dp_run(kind, dev, perturb=True)[0]
+        want = _cached(_gan_dp_run, kind, dev, float64=True)[0]
+        one, one_ms = _cached(_gan_dp_run, kind, dev)
+        twin = _cached(_gan_dp_run, kind, dev, perturb=True)[0]
         refs[kind] = (want, {g: widest(drift(t[g], want[g])
                                        for t in (one, twin))
                              for g in want}, one_ms)
@@ -7216,6 +7286,173 @@ ROUTE_UNETS = (288, 336)  # published UNet, one window of 6 vertices
 ROUTE_TIMING = dict(groups=8, warmup=3, per_group=5)  # the forwards' times
 
 
+# the fsdp phase: JAX's per-rank elements at D = 2, min_size 4096 (its
+# rule on the CPU: tests/test_torch_port_fsdp.py), each x 4 bytes for the
+# parameters and x 12 with Adam's two moments
+FSDP_MIN = 4096
+FSDP_ELEMENTS = {"dcgan": (9_144, 1_384_192, 1_386_240),
+                 "final_smaatunet": (2_037_284,)}
+FSDP_FULL = {"dcgan": (13_240, 2_766_592, 2_770_688),
+             "final_smaatunet": (4_032_548,)}
+
+
+def fsdp_child(spec_json):
+    """One gloo rank of :func:`phase_fsdp` on ``cuda:0``: the DCGAN's steps
+    with FSDP, without it and with the stale-D fault, then
+    final_smaatunet's with and without FSDP (this rank's kernel launches
+    counted over its FSDP steps alone), saved to ``<out>.<rank>``."""
+    import torch
+    import torch.distributed as dist
+
+    from extended_gan_torch import ops
+    from extended_gan_torch.parallel import DataAxis
+
+    spec = json.loads(spec_json)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dist.init_process_group("gloo", init_method="file://" + spec["store"],
+                            rank=spec["rank"], world_size=spec["size"])
+    try:
+        axis = DataAxis(torch.device("cuda", 0), dist.group.WORLD)
+        dev = axis.device
+        out = {"dcgan fsdp": _gan_dp_run("dcgan", dev, axis, fsdp=FSDP_MIN),
+               "dcgan": _gan_dp_run("dcgan", dev, axis),
+               "dcgan stale_d": _gan_dp_run("dcgan", dev, axis,
+                                            fsdp=FSDP_MIN, fault="stale_d")}
+        _reset_launches()  # this rank's FSDP path
+        out["final_smaatunet fsdp"] = _dp_run("final_smaatunet", dev, axis,
+                                              fsdp=FSDP_MIN)
+        out["launches"] = ops.launch_counts()
+        out["final_smaatunet"] = _dp_run("final_smaatunet", dev, axis)
+        torch.save(out, f"{spec['out']}.{spec['rank']}")
+    finally:
+        dist.destroy_process_group()
+    return 0
+
+
+def phase_fsdp(tmp):
+    """FSDP / ZeRO-3 over the data axis (``parallel/fsdp.py``) on the one
+    card: two ranks over gloo, both on ``cuda:0`` (``chip_smoke.py
+    --fsdp-child``; NCCL takes one rank a card), each with 16 rows of every
+    global batch of 32, every leaf of at least FSDP_MIN elements and its
+    Adam moments cut in two:
+
+    - the published DCGAN (ndf 64, default body, dropout 0.01,
+      GAN_DP_STEPS Adam steps) and final_smaatunet's model (DP_STEPS Adam
+      steps, K3 18 + 18 a step on each rank): against the same ranks'
+      data axis without FSDP (bit for bit at two ranks: one addition a
+      sum, whichever collective makes it; Adam acts elementwise) and
+      against one process in float64 by ``utils/compare.py``, within 10x
+      the widest distance from it of the one-process float32 run and its
+      twin (the references of the data_parallel and gan_data_parallel
+      phases, computed once);
+    - each rank's parameters and Adam's moments in bytes: 12 x JAX's
+      per-rank elements at D = 2 (FSDP_ELEMENTS), against 12 x the full
+      count without FSDP;
+    - FD's and TD's working weights left unrefreshed after their step
+      (stage 5 then trains G against the discriminators before it) must
+      miss the bound by more than 10x."""
+    import torch
+
+    from extended_gan_torch.utils.compare import (
+        drift,
+        held_to_reference,
+        widest,
+    )
+
+    t_phase = time.perf_counter()
+    card = card_line()
+    dev = torch.device("cuda")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    out = os.path.join(tmp, "fsdp")
+    ranks = [_spawn("--fsdp-child", dict(rank=r, size=2, out=out,
+                                         store=os.path.join(tmp, "store")))
+             for r in range(2)]
+    refs = {}
+    for name, run, twin_kw in (("dcgan", _gan_dp_run, dict(perturb=True)),
+                               ("final_smaatunet", _dp_run,
+                                dict(permute=True))):
+        want = _cached(run, name, dev, float64=True)[0]
+        one = _cached(run, name, dev)[0]
+        twin = _cached(run, name, dev, **twin_kw)[0]
+        refs[name] = (want, {g: widest(drift(t[g], want[g])
+                                       for t in (one, twin))
+                             for g in want})
+
+    def held(got, name):
+        want, floors = refs[name]
+        return {g: held_to_reference(got[g], want[g], floors[g])
+                for g in want}
+
+    for r, p in enumerate(ranks):
+        _finished(p, f"fsdp rank {r}")
+    got = [torch.load(f"{out}.{r}", weights_only=False) for r in range(2)]
+    verdicts, against_dp, nbytes = {}, {}, {}
+    for name in FSDP_ELEMENTS:
+        fs0, fs1 = got[0][f"{name} fsdp"][0], got[1][f"{name} fsdp"][0]
+        check(all(torch.equal(a, b) for g in fs0
+                  for a, b in zip(fs0[g], fs1[g])),
+              f"fsdp {name}: the two ranks' states differ")
+        verdicts[name] = held(fs0, name)
+        check(all(v["ok"] for v in verdicts[name].values()),
+              f"fsdp {name}: two FSDP ranks against one process in "
+              f"float64 {verdicts[name]}")
+        dp = got[0][name][0]
+        against_dp[name] = all(held_to_reference(fs0[g], dp[g])["bitwise"]
+                               for g in fs0)
+        if name == "dcgan":
+            per_rank = [got[r][f"{name} fsdp"][2] for r in range(2)]
+        else:
+            per_rank = [[got[r][f"{name} fsdp"][2]["bytes"]]
+                        for r in range(2)]
+        for r, nets in enumerate(per_rank):
+            for b, elements in zip(nets, FSDP_ELEMENTS[name]):
+                check(b["params"] + b["moments"] == 12 * elements,
+                      f"fsdp {name} rank {r}: {b} bytes, expected "
+                      f"{12 * elements} (JAX's {elements} elements at D = 2)")
+        nbytes[name] = [b["params"] + b["moments"] for b in per_rank[0]]
+    fault = held(got[0]["dcgan stale_d"][0], "dcgan")
+    fault_x = max(v["worst"] for v in fault.values())
+    check(fault_x > 10.0, f"fsdp: stale D misses the bound by only "
+          f"{fault_x:.2f}x: {fault}")
+    launches = [got[r]["launches"] for r in range(2)]
+    for r, counts in enumerate(launches):
+        for kernel in ("dsconv_fwd", "dsconv_bwd"):
+            check(counts.get(kernel) == 18 * DP_STEPS,
+                  f"fsdp final_smaatunet rank {r}: {kernel} launched "
+                  f"{counts.get(kernel)}, expected 18 x {DP_STEPS}")
+    ms = {name: statistics.mean(got[0][f"{name} fsdp"][1][1:]
+                                if name == "dcgan" else
+                                got[0][f"{name} fsdp"][2]["step_ms"][1:])
+          for name in FSDP_ELEMENTS}
+    dp_ms = {name: statistics.mean(got[0][name][1][1:] if name == "dcgan"
+                                   else got[0][name][2]["step_ms"][1:])
+             for name in FSDP_ELEMENTS}
+    seconds = time.perf_counter() - t_phase
+    print(f"[fsdp] two gloo ranks on cuda:0, 16 rows each of batches of 32, "
+          f"leaves of at least {FSDP_MIN} elements cut in two, against one "
+          f"process in float64: "
+          + "; ".join(f"{n} {g} gap {v['gap']:.3e}, {v['worst']:.3f} of its "
+                      f"bound (floor {v['floor']:.3e})"
+                      for n, vs in verdicts.items() for g, v in vs.items())
+          + "; against the data axis without FSDP: "
+          + "; ".join(f"{n} {'bit for bit' if b else 'not bit for bit'}"
+                      for n, b in against_dp.items())
+          + "; rank 0's parameters and Adam moments: "
+          + "; ".join(f"{n} {b} bytes against {[12 * e for e in FSDP_FULL[n]]}"
+                      for n, b in nbytes.items())
+          + f"; stale D (no gather after D's step) at {fault_x:.1f}x the "
+          f"bound; K3 a rank {launches[0]}; ms a step (host clock, "
+          f"synchronised, past the first, two ranks sharing the card): "
+          + "; ".join(f"{n} FSDP {ms[n]:.3f}, data axis {dp_ms[n]:.3f}"
+                      for n in ms)
+          + f"; phase {seconds:.1f} s; {card}")
+    return dict(verdicts=verdicts, against_dp=against_dp, bytes=nbytes,
+                fault=fault_x, ms=ms, dp_ms=dp_ms, seconds=seconds,
+                launches={f"fsdp: final_smaatunet FSDP {DP_STEPS} Adam "
+                          f"steps, gloo rank {r} of 2": c
+                          for r, c in enumerate(launches)})
+
+
 def _route_counts():
     from extended_gan_torch import ops
 
@@ -7419,6 +7656,8 @@ def main() -> int:
         return gan_dp_cli_child(sys.argv[2])
     if sys.argv[1:2] == ["--ep-child"]:
         return ep_child(sys.argv[2])
+    if sys.argv[1:2] == ["--fsdp-child"]:
+        return fsdp_child(sys.argv[2])
     t0 = time.perf_counter()
     try:
         build_logs = phase_build()
@@ -7472,7 +7711,8 @@ def main() -> int:
         for name, phase in (("figures", phase_figures),
                             ("data_parallel", phase_data_parallel),
                             ("gan_data_parallel", phase_gan_data_parallel),
-                            ("expert_parallel", phase_expert_parallel)):
+                            ("expert_parallel", phase_expert_parallel),
+                            ("fsdp", phase_fsdp)):
             tmp = tempfile.mkdtemp(prefix=f"smoke_{name}_")
             try:
                 slice19[name] = phase(tmp)
@@ -7739,6 +7979,13 @@ def main() -> int:
                 "cli_launches"].items():
             by_path[f"gan_data_parallel: {name} --megastep 8 --resident, "
                     "NCCL world of one"] = counts.get(k["name"], 0)
+        k["launches_by_path"].update(by_path)
+        k["launches"] += sum(by_path.values())
+    # the fsdp phase: each gloo rank's final_smaatunet FSDP steps (K3 18 +
+    # 18 a step)
+    for k in kernels:
+        by_path = {path: counts.get(k["name"], 0) for path, counts in
+                   slice19["fsdp"]["launches"].items()}
         k["launches_by_path"].update(by_path)
         k["launches"] += sum(by_path.values())
     # the expert_parallel phase (each gloo rank's MoE UNet steps, K3 18 +

@@ -5,8 +5,10 @@
 
 The flags and defaults are ``python -m cycle_gan``'s, plus ``--device``
 (the CUDA card by default, ``cpu`` on request). The JAX options that are
-not ported yet (the model axis, FSDP, SP) are taken and refused by the
-driver unless they are off. ``--data-axis N`` trains each global batch
+not ported yet (the model axis, SP) are taken and refused by the driver
+unless they are off. ``--fsdp`` shards every leaf of the four nets of at
+least ``--fsdp-min-size`` elements and its Adam moments over the data
+axis (FSDP / ZeRO-3). ``--data-axis N`` trains each global batch
 over N ranks: without a launcher environment the CLI starts N processes
 itself, one a card over NCCL (N gloo processes with ``--device cpu``);
 under torchrun each process is one rank, and ``--multihost`` makes that
@@ -70,8 +72,13 @@ def main(argv=None):
                              "yet, refused unless 1")
     parser.add_argument("--tp-min-channels", type=int, default=256)
     parser.add_argument("--fsdp", action="store_true",
-                        help="not ported yet: refused")
-    parser.add_argument("--fsdp-min-size", type=int, default=4096)
+                        help="ZeRO-shard params + Adam moments over the "
+                             "data axis (one all-gather of each net's "
+                             "shards after its optimizer step, one "
+                             "reduce-scatter of its gradients)")
+    parser.add_argument("--fsdp-min-size", type=int, default=4096,
+                        help="leaves under this many elements stay "
+                             "replicated under --fsdp")
     parser.add_argument("--spatial", action="store_true",
                         help="not ported yet: refused")
     parser.add_argument("--megastep", type=int, default=0,

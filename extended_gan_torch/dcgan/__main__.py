@@ -3,7 +3,9 @@
   python -m extended_gan_torch.dcgan --epochs 1 --synthetic --out-dir /tmp/run
 
 The flags mirror ``python -m dcgan``'s; those of its options that are not
-ported yet (the model axis, FSDP, SP) are absent. ``--data-axis N`` trains
+ported yet (the model axis, SP) are absent. ``--fsdp`` shards every leaf
+of G, FD and TD of at least ``--fsdp-min-size`` elements and its Adam
+moments over the data axis (FSDP / ZeRO-3). ``--data-axis N`` trains
 each global batch over N ranks: without a launcher environment the CLI
 starts N processes itself, one a card over NCCL (N gloo processes with
 ``--device cpu``); under torchrun each process is one rank, and
@@ -95,6 +97,14 @@ def main(argv=None):
                              "each (gloo processes with --device cpu); "
                              "default every visible card, one with --device "
                              "cpu")
+    parser.add_argument("--fsdp", action="store_true",
+                        help="ZeRO-shard params + Adam moments over the "
+                             "data axis (one all-gather of each net's "
+                             "shards after its optimizer step, one "
+                             "reduce-scatter of its gradients)")
+    parser.add_argument("--fsdp-min-size", type=int, default=4096,
+                        help="leaves under this many elements stay "
+                             "replicated under --fsdp")
     parser.add_argument("--multihost", action="store_true",
                         help="join the process group the launcher's "
                              "environment describes (torchrun); raises "
@@ -119,7 +129,8 @@ def main(argv=None):
         params=({"save_epoch": args.save_epoch}
                 if args.save_epoch is not None else None),
         profile=args.profile, profile_trace_dir=args.profile_trace_dir,
-        data_axis=args.data_axis, device=args.device)
+        data_axis=args.data_axis, fsdp=args.fsdp,
+        fsdp_min_size=args.fsdp_min_size, device=args.device)
 
 
 if __name__ == "__main__":

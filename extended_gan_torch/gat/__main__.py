@@ -9,8 +9,10 @@
       --mapping-type conv --dataset synthetic --output-path /tmp/run
 
 The actions and flags mirror ``python -m convolutional_gat``; the flags of
-its options that are not ported yet (the model axis, FSDP, spatial and
-pipeline parallelism) are absent. ``--data-axis N`` (config key
+its options that are not ported yet (the model axis, spatial and pipeline
+parallelism) are absent. ``--fsdp`` (config key FSDP) shards every leaf of
+at least ``--fsdp-min-size`` elements (config key FSDP_MIN_SIZE, default
+4096) and its Adam moments over the data axis (FSDP / ZeRO-3). ``--data-axis N`` (config key
 DATA_AXIS) trains each global batch over N ranks: without a launcher
 environment the CLI starts N processes itself, one a card over NCCL (N
 gloo processes with ``--device cpu``), and passes a SIGTERM on to them;
@@ -112,6 +114,13 @@ def main(argv=None):
                              "each (gloo processes with --device cpu); "
                              "default every visible card, one with --device "
                              "cpu (config key DATA_AXIS)")
+    parser.add_argument("--fsdp", action="store_true",
+                        help="ZeRO-shard params + optimizer moments over "
+                             "the data axis (config key FSDP)")
+    parser.add_argument("--fsdp-min-size", type=int, default=None,
+                        help="smallest leaf (elements) --fsdp shards; "
+                             "smaller leaves stay replicated (config key "
+                             "FSDP_MIN_SIZE, default 4096)")
     parser.add_argument("--multihost", action="store_true",
                         help="join the process group the launcher's "
                              "environment describes (torchrun); raises "
@@ -144,6 +153,7 @@ def main(argv=None):
             moe_experts=args.moe_experts,
             moe_aux_weight=0.01 if args.moe_aux_weight is None
             else args.moe_aux_weight, data_axis=args.data_axis,
+            fsdp=args.fsdp, fsdp_min_size=args.fsdp_min_size or 4096,
             device=args.device)
     return generate_experiment(
         args.exp_folder_name, output_path=args.output_path,
@@ -155,7 +165,8 @@ def main(argv=None):
         profile=args.profile or None,
         profile_trace_dir=args.profile_trace_dir or None,
         conv_impl=args.conv_impl, moe_experts=args.moe_experts or None,
-        moe_aux_weight=args.moe_aux_weight, data_axis=args.data_axis)
+        moe_aux_weight=args.moe_aux_weight, data_axis=args.data_axis,
+        fsdp=args.fsdp or None, fsdp_min_size=args.fsdp_min_size)
 
 
 if __name__ == "__main__":

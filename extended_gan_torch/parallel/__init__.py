@@ -1,7 +1,7 @@
 """Parallelism (port of ``extended_gan_tpu/parallel``): the data axis, its
-cross-rank BatchNorm and expert parallelism over it (``expert.py``).
-Tensor, sequence, FSDP and pipeline parallelism are not ported yet
-(ROADMAP queue 1 item 9)."""
+cross-rank BatchNorm, expert parallelism over it (``expert.py``) and FSDP
+/ ZeRO-3 over it (``fsdp.py``). Tensor, sequence and pipeline parallelism
+are not ported yet (ROADMAP queue 1 item 9)."""
 
 from .batch_norm import BatchNorm2d, attach_data_axis, join_data_axis
 from .mesh import (

@@ -53,26 +53,13 @@ from ..models.moe import (
     moe_layers,
     route_top1,
 )
-from .mesh import DataAxis
+from .mesh import DataAxis, _all_gather, _reduce_scatter
 
 # the SwitchMoE leaves with a leading expert axis
 EXPERT_LEAVES = ("w1", "b1", "w2", "b2")
 
 
 # ------------------------------------------------------------ collectives
-def _all_gather(out, t, group):
-    # torch >= 2.13 names them ``*_single``; older releases ``*_tensor``
-    gather = getattr(dist, "all_gather_single", None) \
-        or dist.all_gather_into_tensor
-    gather(out, t, group=group)
-
-
-def _reduce_scatter(out, t, group):
-    scatter = getattr(dist, "reduce_scatter_single", None) \
-        or dist.reduce_scatter_tensor
-    scatter(out, t, group=group)
-
-
 class _AllToAll(torch.autograd.Function):
     """Chunk r of dim 0 goes to rank r; rank r's chunks arrive in rank
     order. Its backward is the same exchange of the gradient."""

@@ -134,6 +134,22 @@ def rank_device(local_rank: int) -> torch.device:
     return torch.device("cuda", local_rank)
 
 
+def _all_gather(out, t, group):
+    """Every rank's ``t`` into ``out``, in rank order (expert parallelism's
+    exchange, FSDP's gather of the shards)."""
+    # torch >= 2.13 names them ``*_single``; older releases ``*_tensor``
+    gather = getattr(dist, "all_gather_single", None) \
+        or dist.all_gather_into_tensor
+    gather(out, t, group=group)
+
+
+def _reduce_scatter(out, t, group):
+    """The sum over the ranks of ``t``, rank r keeping chunk r in ``out``."""
+    scatter = getattr(dist, "reduce_scatter_single", None) \
+        or dist.reduce_scatter_tensor
+    scatter(out, t, group=group)
+
+
 @dataclasses.dataclass
 class DataAxis:
     """The data axis seen from one rank. ``group`` None is the axis of
@@ -294,12 +310,19 @@ class DataAxis:
         if not self.parallel:
             return 0
         from .expert import expert_shards
+        from .fsdp import fsdp_shards, working_weights
 
         shards = {p: owner for m in modules
                   for p, owner in expert_shards(m).items()}
         self._check_shards(shards)
+        leaves = {p: leaf for m in modules
+                  for p, leaf in fsdp_shards(m).items()}
+        self._check_fsdp_shards(leaves)
+        shards.update(leaves)
+        # an FSDP net's working weights are the same on every rank
         tensors = [t for m in modules for t in itertools.chain(
-            m.parameters(), m.buffers()) if t not in shards] + [
+            m.parameters(), m.buffers(), working_weights(m))
+            if t not in shards] + [
             v for opt in optimizers for p, st in opt.state.items()
             if p not in shards for v in st.values() if torch.is_tensor(v)]
         ints = {1: torch.uint8, 2: torch.int16, 4: torch.int32,
@@ -338,14 +361,36 @@ class DataAxis:
                 raise RuntimeError("the data axis's ranks hold expert "
                                    "shards of different sizes")
 
+    def _check_fsdp_shards(self, leaves: dict):
+        """Raises unless every rank holds FSDP shards (``parallel/fsdp.py``)
+        of the same sizes, each rank its own block of each leaf: their
+        values differ by rank."""
+        if not leaves:
+            return
+        rows = torch.tensor([[leaf.numel, leaf.dim, leaf.per, leaf.block]
+                             for leaf in leaves.values()],
+                            dtype=torch.float64, device=self.device)
+        for r, got in enumerate(self.gather_rows(rows).tolist()):
+            for (numel, dim, per, block), leaf in zip(got, leaves.values()):
+                if (numel, dim, per, block) != (leaf.numel, leaf.dim,
+                                                leaf.per, leaf.block_of(r)):
+                    raise RuntimeError(
+                        f"the data axis's FSDP shards are not in place: rank "
+                        f"{r} holds block {block:.0f} of {leaf.name} "
+                        f"(dim {dim:.0f}, {numel:.0f} elements), where "
+                        f"block {leaf.block_of(r)} of dim {leaf.dim} "
+                        f"({leaf.numel} elements) belongs")
+
     def broadcast_module(self, module: torch.nn.Module):
         """Rank 0's parameters and buffers on every rank, as DDP starts;
-        an expert shard (``parallel/expert.py``) stays this rank's."""
+        an expert shard (``parallel/expert.py``) or an FSDP shard
+        (``parallel/fsdp.py``) stays this rank's."""
         if self.group is None:
             return
         from .expert import expert_shards
+        from .fsdp import fsdp_shards
 
-        shards = expert_shards(module)
+        shards = {**expert_shards(module), **fsdp_shards(module)}
         src = dist.get_global_rank(self.group, 0)
         with torch.no_grad():
             for t in itertools.chain(module.parameters(), module.buffers()):

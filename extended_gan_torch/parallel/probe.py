@@ -48,6 +48,15 @@ in float32 and in float64 (the plain versions). The N cards' final state
 must lie within 10x the one card's float32-to-float64 distance of the one
 card's float32 state (``utils/compare.py``), every rank's the same; one
 JSON line a workload.
+
+``--fsdp`` (``--fsdp-min-size``, default 4096) runs the N-card side under
+FSDP / ZeRO-3 (``parallel/fsdp.py``): the timing runs pass the CLIs
+``--fsdp`` and their JSON lines carry rank 0's ``[fsdp]`` lines (each
+net's blocks on that rank); ``--trace`` runs N cards twice, with and
+without it; ``--check`` holds the FSDP ranks to one card as above and
+adds rank 0's persistent bytes of each net (parameters, blocks included,
+and the optimizer's state) and its peak memory, beside those of the same
+N-card run without FSDP.
 """
 
 from __future__ import annotations
@@ -118,6 +127,11 @@ def _dcgan(tmp):
 WORKLOADS = {"unet": _unet, "dcgan": _dcgan, "moe": _moe}
 
 
+def _fsdp_lines(stdout: str):
+    """The training CLI's ``[fsdp]`` lines (rank 0's blocks of each net)."""
+    return [ln for ln in stdout.splitlines() if ln.startswith("[fsdp]")]
+
+
 def _expert_line(stdout: str):
     """The conv-GAT CLI's ``[expert parallel]`` line (rank 0's experts and
     their bytes), or None."""
@@ -163,19 +177,28 @@ def replay_stats(trace_path: str, k: int) -> dict:
 
 
 def check_run(workload: str, k: int, axis: DataAxis,
-              dtype: torch.dtype = torch.float32) -> dict:
+              dtype: torch.dtype = torch.float32,
+              fsdp_min: int | None = None) -> dict:
     """``--check``'s run of ``workload`` on ``axis`` (this rank's rows of
-    every global batch) in ``dtype``: the train state after it (parameters
-    and buffers, on the CPU), each group's logs, and how many tensors the
-    ranks found equal (0 on one card)."""
+    every global batch) in ``dtype``, FSDP at ``fsdp_min`` (None: off):
+    the train state after it (parameters and buffers, full leaves, on the
+    CPU), each group's logs, how many tensors the ranks found equal (0 on
+    one card), this rank's persistent bytes of each net and its peak
+    memory."""
     import numpy as np
 
     from ..models.registry import build_model
     from ..train import dcgan_trainer, gat_trainer
     from ..train.dcgan_driver import DEFAULT_PARAMS, build_dcgan
+    from . import fsdp
     from .expert import full_state_dict, shard_tree_moe_ep
 
     torch.backends.cuda.matmul.allow_tf32 = False
+    card = axis.device.type == "cuda"
+    if card:
+        # the device's allocator starts with its first tensor
+        torch.empty(1, device=axis.device)
+        torch.cuda.reset_peak_memory_stats(axis.device)
     dev = axis.device
     rng = np.random.default_rng(SEED)
     gat = workload in ("unet", "moe")
@@ -193,8 +216,13 @@ def check_run(workload: str, k: int, axis: DataAxis,
     nets = tuple(net.to(dtype) for net in nets)
     join_data_axis(axis, *nets)
     shard_tree_moe_ep(nets[0], axis)
+    if fsdp_min is not None:
+        for net in nets:
+            fsdp.shard_module_fsdp(net, axis, fsdp_min)
     opts = tuple(torch.optim.SGD(net.parameters(), lr=CHECK_LR)
                  for net in nets)
+    for net, opt in zip(nets, opts):
+        fsdp.refresh_after(opt, net)
     batches = [tuple(rng.random(shape, np.float32) for _ in range(2))
                for _ in range(CHECK_GROUPS * k)]
     if gat:
@@ -211,31 +239,52 @@ def check_run(workload: str, k: int, axis: DataAxis,
         for staged in feed:
             out = mega(*(t.to(dtype) for t in staged))
             logs.append({n: v.detach().cpu() for n, v in out.items()})
-    # every expert (gathered from their ranks), then the buffers
+    # every expert and FSDP block (gathered from their ranks), then the
+    # buffers
     state = [t.detach().cpu().clone() for net in nets
-             for t in full_state_dict(net, axis).values()]
+             for t in fsdp.full_state_dict(
+                 net, full_state_dict(net, axis)).values()]
     return {"state": state, "logs": logs,
-            "in_sync": axis.check_in_sync(nets, opts)}
+            "in_sync": axis.check_in_sync(nets, opts),
+            "bytes": [fsdp.persistent_bytes(net, opt)
+                      for net, opt in zip(nets, opts)],
+            "peak_bytes": torch.cuda.max_memory_allocated(axis.device)
+            if card else None}
 
 
 def check_rank(argv):
     """One rank of ``--check`` (``spawn_ranks``'s entry): ``argv`` is the
     workload, K and the file rank 0 saves its :func:`check_run` to."""
-    workload, k, out = argv
+    workload, k, out, fsdp_min = argv
     axis = DataAxis(torch.device("cuda", torch.cuda.current_device()),
                     dist.group.WORLD)
-    res = check_run(workload, int(k), axis)
+    res = check_run(workload, int(k), axis, fsdp_min=None
+                    if fsdp_min == "off" else int(fsdp_min))
     if axis.is_main:
         torch.save(res, out)
 
 
-def _check(workload: str, k: int, cards: int, tmp: str) -> dict:
-    """``--check`` of one workload: the JSON line's fields."""
+def _check(workload: str, k: int, cards: int, tmp: str,
+           fsdp_min: int | None = None) -> dict:
+    """``--check`` of one workload (FSDP at ``fsdp_min``, None: off): the
+    JSON line's fields."""
     from ..utils.compare import drift, held_to_reference
 
-    out = os.path.join(tmp, f"{workload}_check.pt")
-    spawn_ranks(f"{__name__}:check_rank", [workload, str(k), out], cards)
-    many = torch.load(out, weights_only=False)
+    def ranks(fsdp_min):
+        out = os.path.join(tmp, f"{workload}_check.pt")
+        spawn_ranks(f"{__name__}:check_rank", [
+            workload, str(k), out,
+            "off" if fsdp_min is None else str(fsdp_min)], cards)
+        return torch.load(out, weights_only=False)
+
+    many = ranks(fsdp_min)
+    memory = {}
+    if fsdp_min is not None:
+        plain = ranks(None)
+        memory = {"fsdp_min_size": fsdp_min, "bytes_rank0": many["bytes"],
+                  "peak_bytes_rank0": many["peak_bytes"],
+                  "plain_bytes_rank0": plain["bytes"],
+                  "plain_peak_bytes_rank0": plain["peak_bytes"]}
     one = DataAxis(torch.device("cuda", 0))
     f32 = check_run(workload, k, one)
     f64 = check_run(workload, k, one, torch.float64)
@@ -247,7 +296,8 @@ def _check(workload: str, k: int, cards: int, tmp: str) -> dict:
             "floor": floor["whole"], "in_sync": many["in_sync"],
             "last_logs": {n: v.tolist() for n, v in many["logs"][-1].items()},
             "one_card_last_logs": {n: v.tolist()
-                                   for n, v in f32["logs"][-1].items()}}
+                                   for n, v in f32["logs"][-1].items()},
+            **memory}
 
 
 def main(argv=None):
@@ -267,7 +317,12 @@ def main(argv=None):
     parser.add_argument("--check", action="store_true",
                         help="hold N cards' replays to one card's "
                              "arithmetic, deterministic SGD")
+    parser.add_argument("--fsdp", action="store_true",
+                        help="the N-card runs under FSDP / ZeRO-3")
+    parser.add_argument("--fsdp-min-size", type=int, default=4096)
     args = parser.parse_args(argv)
+    fsdp_min = args.fsdp_min_size if args.fsdp else None
+    fsdp_argv = ["--fsdp", "--fsdp-min-size", str(args.fsdp_min_size)]
     if (args.trace or args.check) and args.megastep < 2:
         parser.error("--trace and --check run graph replays: give "
                      "--megastep K")
@@ -278,21 +333,27 @@ def main(argv=None):
     with tempfile.TemporaryDirectory(prefix="dp_probe_") as tmp:
         for workload in args.workload:
             if args.check:
-                res = _check(workload, args.megastep, args.cards, tmp)
+                res = _check(workload, args.megastep, args.cards, tmp,
+                             fsdp_min)
                 print(json.dumps(res), flush=True)
                 if not res["ok"] or (args.cards > 1 and not res["in_sync"]):
                     return 1
                 continue
             cmd, loss_keys, steps, out_flag = WORKLOADS[workload](tmp)
             if args.trace:
-                for axis in (1, args.cards):
-                    out = os.path.join(tmp, f"{workload}_trace{axis}")
+                runs = [(1, False), (args.cards, False)]
+                if args.fsdp:
+                    runs.append((args.cards, True))
+                for axis, sharded in runs:
+                    out = os.path.join(tmp, f"{workload}_trace{axis}"
+                                       + "_fsdp" * sharded)
                     res = subprocess.run(cmd + [
                         "--epochs", "1", "--max-batches",
                         str(4 * args.megastep), out_flag, out,
                         "--data-axis", str(axis), "--megastep",
                         str(args.megastep), "--profile-trace-dir",
-                        os.path.join(out, "trace")],
+                        os.path.join(out, "trace")]
+                        + fsdp_argv * sharded,
                         capture_output=True, text=True)
                     if res.returncode:
                         sys.stderr.write(res.stdout[-3000:]
@@ -301,7 +362,8 @@ def main(argv=None):
                     traces = sorted(os.listdir(os.path.join(out, "trace")))
                     print(json.dumps({
                         "workload": workload, "cards": axis,
-                        "megastep": args.megastep,
+                        "megastep": args.megastep, "fsdp": sharded,
+                        "fsdp_lines": _fsdp_lines(res.stdout),
                         "experts": _expert_line(res.stdout), "trace": [
                             replay_stats(os.path.join(out, "trace", t),
                                          args.megastep)
@@ -315,6 +377,8 @@ def main(argv=None):
                              "--data-axis", str(axis)]
                 if args.megastep > 1:
                     run += ["--megastep", str(args.megastep)]
+                if args.fsdp and axis > 1:
+                    run += fsdp_argv
                 res = subprocess.run(run, capture_output=True, text=True)
                 if res.returncode:
                     sys.stderr.write(res.stdout[-3000:] + res.stderr[-3000:])
@@ -340,6 +404,8 @@ def main(argv=None):
                     **{k: h[k] for k in loss_keys},
                     "launches_rank0": launches,
                     "experts": _expert_line(res.stdout),
+                    "fsdp": args.fsdp and axis > 1,
+                    "fsdp_lines": _fsdp_lines(res.stdout),
                     "in_sync": in_sync}), flush=True)
     return 0
 

@@ -194,6 +194,15 @@ class CheckpointManager:
         return _cast_like(template, restored)
 
 
+class SnapshotOnly:
+    """The checkpoint manager of a rank that builds every snapshot (the
+    gather of FSDP shards, ``parallel/fsdp.py``, is a collective) and
+    writes none: rank 0 writes."""
+
+    def save(self, step: int, state: Any):
+        pass
+
+
 def gan_restore_template(mgr: CheckpointManager, states, key_state):
     """Restore template of a GAN checkpoint directory, matching the schema
     version it was written with (v3 adds ``mid``)."""
@@ -299,7 +308,8 @@ def run_gan_epochs(epoch_feed, train_epoch, *, shutdown, ckpt_mgr, snapshot,
             if ckpt_mgr is not None:
                 ckpt_mgr.save(ckpt_step(epoch, int(mid_out["batch"])),
                               snapshot(epoch, mid_out))
-                history.to_json(hist_path)
+                if hist_path:
+                    history.to_json(hist_path)
                 print(f"[preempt] stopped resumably mid-epoch {epoch} "
                       f"({int(mid_out['batch'])} batches in)")
             else:
@@ -320,7 +330,8 @@ def run_gan_epochs(epoch_feed, train_epoch, *, shutdown, ckpt_mgr, snapshot,
             # an epoch-boundary snapshot is the start of epoch + 1
             ckpt_mgr.save(ckpt_step(epoch + 1, 0),
                           snapshot(epoch, empty_mid()))
-            history.to_json(hist_path)
+            if hist_path:
+                history.to_json(hist_path)
         if preempted:
             print(f"[preempt] stopped after epoch {epoch}"
                   + ("" if ckpt_mgr is not None else

@@ -57,7 +57,16 @@ alone writes; ``megastep`` and ``resident`` run under the axis with the
 NCCL collectives inside each rank's CUDA graphs, and a resident train
 batch must divide by the axis (JAX ``:165-169``).
 
-The JAX driver's tensor/sequence/FSDP parallelism is not ported yet: a
+``fsdp`` (FSDP / ZeRO-3, ``parallel/fsdp.py``; JAX ``:199-222``) cuts
+every leaf of the four nets of at least ``fsdp_min_size`` elements into
+one block a rank, with its Adam moments; each optimizer's step gathers
+its net's blocks into the working weights the forwards read, and the
+gradients go to the blocks by a reduce-scatter. The checkpoints hold full
+leaves, so runs with and without it resume each other; every rank builds
+each snapshot and rank 0 writes it. On an axis of one it prints JAX's
+line and shards nothing.
+
+The JAX driver's tensor and sequence parallelism is not ported yet: a
 keyword that sets one of them raises, naming the ROADMAP item that ports
 it.
 """
@@ -86,10 +95,12 @@ from ..data.streaming import get_coastal_loaders
 from ..data.synthetic import ensure_synthetic_coastal
 from ..models.dcgan import FrameDiscriminator, Generator
 from ..parallel import data_axis_for, join_data_axis
+from ..parallel import fsdp as fsdp_
 from ..utils.history import TrainingHistory
 from ..utils.profiling import epoch_profiler, timed
 from .checkpoint import (
     CYCLEGAN_NETS,
+    SnapshotOnly,
     gan_net_states,
     gan_states,
     run_gan_epochs,
@@ -116,8 +127,7 @@ train_single_epoch = functools.partial(gan_epoch, keys=TRAIN_SUMS)
 # keywords of JAX driver options the port does not have yet: (the value
 # that means "off", the ROADMAP queue 1 item)
 _NOT_PORTED = {
-    "model_axis": (1, 9), "tp_min_channels": (256, 9),
-    "fsdp": (False, 9), "fsdp_min_size": (4096, 9), "spatial": (False, 9),
+    "model_axis": (1, 9), "tp_min_channels": (256, 9), "spatial": (False, 9),
 }
 
 
@@ -125,7 +135,7 @@ def build_cyclegan(*, nc: int = 4, ndf: int = 64, lr: float = 2e-4,
                    beta1: float = 0.5, precision: str = "f32",
                    seed: int = 369, device=None, dropout: float = 0.01,
                    capturable: bool = False, keys=None,
-                   packed_g: bool = False):
+                   packed_g: bool = False, place=None):
     """``((G_xy, G_yx, D_x, D_y), (their Adam optimizers))`` on ``device``
     (default: the CUDA card), computing in ``precision``'s dtype, the
     weights drawn in that order from a generator seeded ``seed``, the
@@ -133,7 +143,9 @@ def build_cyclegan(*, nc: int = 4, ndf: int = 64, lr: float = 2e-4,
     the device; default: one seeded ``seed``). ``capturable``: Adam keeps
     its step count on the card, for CUDA graphs. ``packed_g``: both
     generators in the 2x2 space-to-depth layout (JAX
-    ``cyclegan_driver.py:47-51``)."""
+    ``cyclegan_driver.py:47-51``). ``place(nets)`` runs before the
+    optimizers are built (the data axis's broadcast and FSDP, which cuts
+    Adam's moments with the weights)."""
     dev = resolve_device(device)
     init = torch.Generator().manual_seed(seed)
     drop = (keys or KeySeq(seed, device=dev)).generator
@@ -144,6 +156,8 @@ def build_cyclegan(*, nc: int = 4, ndf: int = 64, lr: float = 2e-4,
         FrameDiscriminator(nc, ndf, generator=init, dtype=dtype)
         for _ in range(2))
     nets = tuple(net.to(dev) for net in nets)
+    if place is not None:
+        place(nets)
     opts = tuple(torch.optim.Adam(net.parameters(), lr=lr,
                                   betas=(beta1, 0.999), eps=1e-8,
                                   capturable=capturable)
@@ -160,7 +174,8 @@ def train(*, data_location: str | None = None, epochs: int = 10,
           save_epoch: int = 0, resume: bool = False, megastep: int = 0,
           resident: bool = False, packed_g: bool | None = None,
           profile: bool = False, profile_trace_dir: str = "", device=None,
-          data_axis: int | None = None, **options):
+          data_axis: int | None = None, fsdp: bool = False,
+          fsdp_min_size: int = fsdp_.DEFAULT_MIN_SIZE, **options):
     """Train on ``device`` (default: the CUDA card, ``cuda:{LOCAL_RANK}``
     on a data axis over NCCL). Takes the JAX driver's keyword arguments.
     Returns ``((G_xy, G_yx, D_x, D_y), history)``.
@@ -185,10 +200,18 @@ def train(*, data_location: str | None = None, epochs: int = 10,
     if packed_g:
         print("[packed-g] generators in 2x2 space-to-depth layout")
     keys = KeySeq(seed, device=dev)  # the channel dropout's stream
+    sharded = fsdp and axis.parallel
+
+    def place(nets):
+        # broadcast, then FSDP, then the optimizers (JAX ``:199-222``)
+        join_data_axis(axis, *nets)
+        fsdp_.place_nets(axis, nets, fsdp, fsdp_min_size)
+
     nets, opts = build_cyclegan(nc=nc, ndf=ndf, lr=lr, precision=precision,
                                 seed=seed, device=dev, capturable=graphs,
-                                keys=keys, packed_g=packed_g)
-    join_data_axis(axis, *nets)
+                                keys=keys, packed_g=packed_g, place=place)
+    for net, opt in zip(nets, opts):
+        fsdp_.refresh_after(opt, net)
     profiler = epoch_profiler(profile, profile_trace_dir)
     step = timed(make_cyclegan_train_step(*nets, *opts,
                                           cycle_lambda=cycle_lambda,
@@ -272,6 +295,10 @@ def train(*, data_location: str | None = None, epochs: int = 10,
         states=gan_net_states(nets, opts, CYCLEGAN_NETS), keys=keys,
         history=TrainingHistory())
     hist_path = os.path.join(out_dir, "history.json") if out_dir else None
+    if not axis.is_main:
+        # rank 0 writes; under FSDP every rank takes part in the snapshot
+        ckpt_mgr = SnapshotOnly() if sharded and out_dir and (
+            resume or save_epoch) else None
 
     def snapshot(epoch, mid_tree):
         return {"states": gan_states(nets, opts, CYCLEGAN_NETS),
@@ -280,9 +307,10 @@ def train(*, data_location: str | None = None, epochs: int = 10,
     with GracefulShutdown() as local_shutdown:
         run_gan_epochs(epoch_feed, train_single_epoch,
                        shutdown=any_rank_shutdown(local_shutdown, axis),
-                       ckpt_mgr=ckpt_mgr if axis.is_main else None,
-                       snapshot=snapshot, history=history,
-                       hist_path=hist_path, start_epoch=start_epoch,
+                       ckpt_mgr=ckpt_mgr, snapshot=snapshot,
+                       history=history,
+                       hist_path=hist_path if axis.is_main else None,
+                       start_epoch=start_epoch,
                        epochs=epochs, save_epoch=save_epoch, mid=mid,
                        profiler=profiler)
     report_in_sync(axis, nets, opts)

@@ -43,6 +43,7 @@ import math
 
 import torch
 
+from ..parallel.fsdp import reduce_grads, working
 from ..utils.metrics import IncrementalTuple
 from .dcgan_trainer import dcgan_feed, draw_batch, fetch_nd
 from .losses import bce, l1
@@ -77,9 +78,12 @@ def make_cyclegan_train_step(g_xy, g_yx, d_x, d_y, g_xy_opt, g_yx_opt,
     by the global count, the four generator forwards draw the global
     batch's dropout masks, the generators' gradients are summed over the
     ranks in one all-reduce before their Adam steps, the discriminators'
-    in another before theirs, and the logs are the global ones."""
-    g_params = [list(g_xy.parameters()), list(g_yx.parameters())]
-    d_params = list(d_x.parameters()) + list(d_y.parameters())
+    in another before theirs, and the logs are the global ones. Under FSDP
+    (``parallel/fsdp.py``) the nets' sharded leaves are read through their
+    working weights and reduce-scattered in the same two places."""
+    # the tensors the forwards read: an FSDP shard's working weight
+    g_params = [working(g_xy.parameters()), working(g_yx.parameters())]
+    d_params = working(list(d_x.parameters()) + list(d_y.parameters()))
     g_bns = batchnorms(g_xy, g_yx)
     dp = axis is not None and axis.parallel
 
@@ -113,7 +117,7 @@ def make_cyclegan_train_step(g_xy, g_yx, d_x, d_y, g_xy_opt, g_yx_opt,
             p.grad = grad
         g_logs = torch.stack([g_loss, adv, cyc]).detach()
         if dp:
-            g_logs = axis.all_reduce_grads(g_params[0] + g_params[1], g_logs)
+            g_logs = reduce_grads(axis, g_params[0] + g_params[1], g_logs)
         g_xy_opt.step()
         g_yx_opt.step()
         # 4-5) the discriminators, on the detached fakes
@@ -132,7 +136,7 @@ def make_cyclegan_train_step(g_xy, g_yx, d_x, d_y, g_xy_opt, g_yx_opt,
                 torch.stack([d_x_loss, d_y_loss]),
                 _mse_nd(fake_y, y, _ones_like_rows(y, mask))])
         if dp:
-            d_logs = axis.all_reduce_grads(d_params, d_logs)
+            d_logs = reduce_grads(axis, d_params, d_logs)
         d_x_opt.step()
         d_y_opt.step()
         return {"g_loss": g_logs[0], "adv_loss": g_logs[1],

@@ -60,7 +60,17 @@ collectives inside each rank's CUDA graphs; a resident train batch must
 divide by the axis, as in JAX (``:216-220``). ``None`` and 1 are one
 device without a group.
 
-The JAX driver's tensor/sequence/FSDP parallelism is not ported yet: a
+``fsdp`` (FSDP / ZeRO-3, ``parallel/fsdp.py``; JAX ``:155-180``) cuts
+every leaf of G, FD and TD of at least ``fsdp_min_size`` elements into one
+block a rank, with its Adam moments; each optimizer's step gathers its
+net's blocks into the working weights the forwards read (so stage 5 of
+the default body reads the updated discriminators), and the gradients go
+to the blocks by a reduce-scatter. The checkpoints hold full leaves, so
+runs with and without it resume each other; every rank builds each
+snapshot and rank 0 writes it. On an axis of one it prints JAX's line and
+shards nothing.
+
+The JAX driver's tensor and sequence parallelism is not ported yet: a
 keyword that sets one of them raises, naming the ROADMAP item that ports
 it.
 """
@@ -88,9 +98,11 @@ from ..data.streaming import get_h5_loaders
 from ..data.synthetic import ensure_synthetic_h5
 from ..models.dcgan import FrameDiscriminator, Generator, TemporalDiscriminator
 from ..parallel import data_axis_for, join_data_axis
+from ..parallel import fsdp as fsdp_
 from ..utils.history import TrainingHistory
 from ..utils.profiling import epoch_profiler, timed
 from .checkpoint import (
+    SnapshotOnly,
     gan_net_states,
     gan_states,
     run_gan_epochs,
@@ -126,21 +138,22 @@ DEFAULT_DATA = "/mnt/tmp/multi_channel_train_test"
 # keywords of JAX driver options the port does not have yet: (the value
 # that means "off", the ROADMAP queue 1 item)
 _NOT_PORTED = {
-    "model_axis": (1, 9), "tp_min_channels": (256, 9),
-    "fsdp": (False, 9), "fsdp_min_size": (4096, 9), "spatial": (False, 9),
+    "model_axis": (1, 9), "tp_min_channels": (256, 9), "spatial": (False, 9),
 }
 
 
 def build_dcgan(params: dict, *, seed: int, device=None, dropout=0.01,
                 capturable=False, precision: str = "f32", keys=None,
-                packed_g: bool = False):
+                packed_g: bool = False, place=None):
     """``((G, FD, TD), (their Adam optimizers))`` on ``device`` (default:
     the CUDA card), computing in ``precision``'s dtype, the weights drawn
     from a generator seeded ``seed``, the channel dropout from ``keys`` (a
     ``core.prng.KeySeq`` on the device; default: one seeded ``seed``).
     ``capturable``: Adam keeps its step count on the card, for CUDA
     graphs. ``packed_g``: G in the 2x2 space-to-depth layout, with the
-    same weights and state_dict (JAX ``dcgan_driver.py:50-76``)."""
+    same weights and state_dict (JAX ``dcgan_driver.py:50-76``).
+    ``place(nets)`` runs before the optimizers are built (the data axis's
+    broadcast and FSDP, which cuts Adam's moments with the weights)."""
     dev = resolve_device(device)
     init = torch.Generator().manual_seed(seed)
     drop = (keys or KeySeq(seed, device=dev)).generator
@@ -154,6 +167,8 @@ def build_dcgan(params: dict, *, seed: int, device=None, dropout=0.01,
                               dropout_generator=drop, dtype=dtype),
     )
     nets = tuple(net.to(dev) for net in nets)
+    if place is not None:
+        place(nets)
     opts = tuple(torch.optim.Adam(net.parameters(), lr=params["lr"],
                                   betas=(params["beta1"], 0.999), eps=1e-8,
                                   capturable=capturable)
@@ -169,7 +184,8 @@ def train(*, data_location: str | None = None, epochs: int | None = None,
           resident: bool = False, fused_disc: bool = False,
           fused_prop: bool = False, packed_g: bool | None = None,
           profile: bool = False, profile_trace_dir: str = "", device=None,
-          data_axis: int | None = None, **options):
+          data_axis: int | None = None, fsdp: bool = False,
+          fsdp_min_size: int = fsdp_.DEFAULT_MIN_SIZE, **options):
     """Train on ``device`` (default: the CUDA card, ``cuda:{LOCAL_RANK}``
     on a data axis over NCCL). Takes the JAX driver's keyword arguments.
     Returns ``((G, FD, TD), history)``.
@@ -199,10 +215,18 @@ def train(*, data_location: str | None = None, epochs: int | None = None,
     if packed_g:
         print("[packed-g] generator in 2x2 space-to-depth layout")
     keys = KeySeq(seed, device=dev)  # the channel dropout's stream
+    sharded = fsdp and axis.parallel
+
+    def place(nets):
+        # broadcast, then FSDP, then the optimizers (JAX ``:155-180``)
+        join_data_axis(axis, *nets)
+        fsdp_.place_nets(axis, nets, fsdp, fsdp_min_size)
+
     nets, opts = build_dcgan(params, seed=seed, device=dev,
                              capturable=graphs, precision=precision,
-                             keys=keys, packed_g=packed_g)
-    join_data_axis(axis, *nets)
+                             keys=keys, packed_g=packed_g, place=place)
+    for net, opt in zip(nets, opts):
+        fsdp_.refresh_after(opt, net)
     if fused_disc:
         print("[fused-disc] doubled-batch discriminator passes "
               "(mixed real+fake BN statistics)")
@@ -297,6 +321,10 @@ def train(*, data_location: str | None = None, epochs: int | None = None,
         states=gan_net_states(nets, opts), keys=keys,
         history=TrainingHistory())
     hist_path = os.path.join(out_dir, "history.json") if out_dir else None
+    if not axis.is_main:
+        # rank 0 writes; under FSDP every rank takes part in the snapshot
+        ckpt_mgr = SnapshotOnly() if sharded and out_dir and (
+            resume or save_epoch) else None
 
     def snapshot(epoch, mid_tree):
         return {"states": gan_states(nets, opts), "epoch": epoch,
@@ -305,9 +333,10 @@ def train(*, data_location: str | None = None, epochs: int | None = None,
     with GracefulShutdown() as local_shutdown:
         run_gan_epochs(epoch_feed, train_single_epoch,
                        shutdown=any_rank_shutdown(local_shutdown, axis),
-                       ckpt_mgr=ckpt_mgr if axis.is_main else None,
-                       snapshot=snapshot, history=history,
-                       hist_path=hist_path, start_epoch=start_epoch,
+                       ckpt_mgr=ckpt_mgr, snapshot=snapshot,
+                       history=history,
+                       hist_path=hist_path if axis.is_main else None,
+                       start_epoch=start_epoch,
                        epochs=params["nepochs"], save_epoch=save_epoch,
                        mid=mid, profiler=profiler)
     report_in_sync(axis, nets, opts)

@@ -50,6 +50,7 @@ from ..utils.metrics import (
     masked_rounded_match_nd,
 )
 from ..utils.viz import visualize_predictions
+from ..parallel.fsdp import reduce_grads, working
 from .gat_trainer import pad_batch
 from .losses import bce
 from .megastep import Megastep
@@ -122,9 +123,14 @@ def make_dcgan_train_step(g, fd, td, g_opt, fd_opt, td_opt, *,
     ranks in one flat all-reduce before ``fd_opt`` and ``td_opt`` step
     (stage 4) and G's in another before ``g_opt`` steps (under FusedProp
     both in one, after the second pull). The logs are the global ones: the
-    losses and the train sums ride along in those all-reduces."""
-    g_params = list(g.parameters())
-    d_params = list(fd.parameters()) + list(td.parameters())
+    losses and the train sums ride along in those all-reduces. Nets with
+    FSDP shards (``parallel/fsdp.py``) are read through their working
+    weights, whose gradients are reduce-scattered to the shards in the
+    same places; each optimizer's step re-gathers its net, so stage 5 reads
+    the updated discriminators."""
+    # the tensors the forwards read: an FSDP shard's working weight
+    g_params = working(g.parameters())
+    d_params = working(list(fd.parameters()) + list(td.parameters()))
     dp = axis is not None and axis.parallel
 
     def doubled(x, y, fake, n):
@@ -196,7 +202,7 @@ def make_dcgan_train_step(g, fd, td, g_opt, fd_opt, td_opt, *,
                                   train_sums(fake, y, m, p_rf, p_ff, p_rt,
                                              p_ft)])
             if dp:
-                sums = axis.all_reduce_grads(d_params + g_params, sums)
+                sums = reduce_grads(axis, d_params + g_params, sums)
             fd_opt.step()
             td_opt.step()
         else:
@@ -205,7 +211,7 @@ def make_dcgan_train_step(g, fd, td, g_opt, fd_opt, td_opt, *,
             else:
                 d_fake.backward()
             if dp:
-                err_d = axis.all_reduce_grads(d_params, err_d)
+                err_d = reduce_grads(axis, d_params, err_d)
             # 4)
             fd_opt.step()
             td_opt.step()
@@ -220,7 +226,7 @@ def make_dcgan_train_step(g, fd, td, g_opt, fd_opt, td_opt, *,
                                   train_sums(fake, y, m, p_rf, p_ff, p_rt,
                                              p_ft)])
             if dp:
-                sums = axis.all_reduce_grads(g_params, sums)
+                sums = reduce_grads(axis, g_params, sums)
             sums = torch.cat([err_d, sums])
         # 6)
         g_opt.step()

@@ -79,9 +79,16 @@ the JAX driver's ``None`` is every device). With ``moe_experts`` the
 Switch-MoE routes over the global batch and, where the axis divides E,
 each rank keeps E/D experts and their Adam moments (expert parallelism,
 ``parallel/expert.py``; JAX ``:421-432``); ``model.pt`` and checkpoints
-hold all E. Tensor, sequence, FSDP and pipeline parallelism are not
-ported: a config that sets one of them to anything but its default
-raises, naming the ROADMAP item that ports it.
+hold all E. ``fsdp`` (FSDP / ZeRO-3, ``parallel/fsdp.py``; JAX
+``:434-444``) cuts every leaf of at least ``fsdp_min_size`` elements, but
+the expert shards, into one block a rank, with its Adam moments; the
+optimizer's step gathers the blocks into the working weights the forward
+reads, and the gradients go to the blocks by a reduce-scatter.
+``model.pt`` and checkpoints hold full leaves, so runs with and without
+it resume each other. On an axis of one it prints JAX's line and shards
+nothing. Tensor, sequence and pipeline parallelism are not ported: a
+config that sets one of them to anything but its default raises, naming
+the ROADMAP item that ports it.
 """
 
 from __future__ import annotations
@@ -108,6 +115,7 @@ from ..data.synthetic import ensure_synthetic_kmni
 from ..models.registry import build_model
 from ..ops import launch_counts, plain_routes
 from ..parallel import data_axis_for, join_data_axis
+from ..parallel import fsdp as fsdp_
 from ..parallel.expert import (
     expert_shards,
     full_state_dict,
@@ -139,8 +147,7 @@ from .unported import refuse_unported
 # experiment-config keys and keywords of JAX driver options the port does
 # not have yet: (the value that means "off", the ROADMAP queue 1 item)
 _NOT_PORTED = {
-    "model_axis": (1, 9), "tp_min_channels": (256, 9),
-    "fsdp": (False, 9), "fsdp_min_size": (4096, 9), "spatial": (False, 9),
+    "model_axis": (1, 9), "tp_min_channels": (256, 9), "spatial": (False, 9),
     "pipeline_stages": (0, 9), "pp_microbatches": (0, 9),
 }
 
@@ -231,7 +238,8 @@ def train(*, model_type: str = "temporal", optimizer: str = "adam",
           shuffle_mode: str = "batch", conv_impl: str = "auto",
           profile: bool = False, profile_trace_dir: str = "", device=None,
           moe_experts: int = 0, moe_aux_weight: float = 0.01,
-          data_axis: int | None = None, **options):
+          data_axis: int | None = None, fsdp: bool = False,
+          fsdp_min_size: int = fsdp_.DEFAULT_MIN_SIZE, **options):
     """Train on ``device`` (default: the CUDA card, ``cuda:{LOCAL_RANK}``
     on a data axis over NCCL). Takes the JAX driver's keyword arguments,
     every field of an experiment config among them; ``plot`` is accepted
@@ -297,9 +305,18 @@ def train(*, model_type: str = "temporal", optimizer: str = "adam",
         print(f"[expert parallel] {moe_experts} experts over {axis.size} "
               f"ranks: {moe_experts // axis.size} on this rank, {nbytes} "
               f"bytes of their weights ({3 * nbytes} with Adam's moments)")
+    # FSDP after EP (its rule leaves the expert shards whole) and before
+    # the optimizer, so Adam's moments are cut too (JAX ``:434-444``)
+    sharded = fsdp and axis.parallel
+    if sharded:
+        fsdp_.shard_module_fsdp(model, axis, fsdp_min_size)
+        print(fsdp_.describe(model, axis))
+    elif fsdp:
+        print(fsdp_.AXIS_OF_ONE)
     keys = KeySeq(seed)
     opt = make_optimizer(optimizer, model.parameters(), learning_rate,
                          weight_decay=weight_decay, capturable=graphs)
+    fsdp_.refresh_after(opt, model)
     scheduler = make_scheduler(opt, reduce_lr_on_plateau=reduce_lr_on_plateau,
                                lr_step=lr_step, gamma=gamma)
     print(f"Number of parameters: {n_params}")
@@ -414,7 +431,11 @@ def train(*, model_type: str = "temporal", optimizer: str = "adam",
         if ckpt_mgr is not None:
             ckpt_mgr.save(step_id, snap)
 
-    model_state = (lambda: full_state_dict(model, axis)) if ep else None
+    model_state = None
+    if ep or sharded:
+        # full leaves: the expert shards' and FSDP's gathered
+        model_state = lambda: fsdp_.full_state_dict(  # noqa: E731
+            model, full_state_dict(model, axis) if ep else None)
     with GracefulShutdown() as local_shutdown:
         shutdown = any_rank_shutdown(local_shutdown, axis)
         for epoch in range(start_epoch, epochs + 1):

@@ -53,6 +53,7 @@ from ..core.device import to_device
 from ..data.streaming import Prefetcher
 from ..models.moe import moe_layers, sow_moe
 from ..parallel.expert import replicated_parameters
+from ..parallel.fsdp import reduce_grads, working
 from ..parallel.mesh import DataAxis, pad_to_batch_multiple
 from .losses import CRITERIA
 from .megastep import Megastep
@@ -97,7 +98,10 @@ def make_gat_train_step(model, optimizer, *, criterion: str = "mse",
     optimizer step: JAX's psum of the global-mean loss's gradient, exact
     for a ragged batch. Expert shards (``parallel/expert.py``) are left
     out of that sum: their exchange's backward already summed them. The
-    returned loss and ``running_nd`` are the global ones."""
+    gradients of FSDP's working weights (``parallel/fsdp.py``) go to their
+    shards by a reduce-scatter instead, and the optimizer's step gathers
+    the shards back. The returned loss and ``running_nd`` are the global
+    ones."""
     if criterion not in CRITERIA:
         raise ValueError(
             f"unsupported criterion {criterion!r}; choose 'mse' or 'l1'")
@@ -106,8 +110,9 @@ def make_gat_train_step(model, optimizer, *, criterion: str = "mse",
     moe = moe_layers(model) if moe_aux_weight else []
     dp = axis is not None and axis.parallel
     # an expert shard's gradient is complete after the backward (its
-    # exchange's backward sums the ranks' parts): it stays out of the sum
-    params = replicated_parameters(model)
+    # exchange's backward sums the ranks' parts): it stays out of the sum;
+    # an FSDP shard's is its working weight's, reduce-scattered
+    params = working(replicated_parameters(model))
 
     def step(x, y, mask):
         model.train()
@@ -129,8 +134,8 @@ def make_gat_train_step(model, optimizer, *, criterion: str = "mse",
         loss.backward()
         loss, err = loss.detach(), err.detach()
         if dp:
-            loss, err = axis.all_reduce_grads(
-                params, torch.stack([loss, err])).unbind()
+            loss, err = reduce_grads(
+                axis, params, torch.stack([loss, err])).unbind()
         optimizer.step()
         # running_loss contribution: sum(err) / per_sample
         return loss, torch.stack([err * count, count])

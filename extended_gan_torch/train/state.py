@@ -30,7 +30,9 @@ class NetState:
     scheduler: Any = None
     # a data axis whose ranks hold expert shards (``parallel/expert.py``):
     # the tree then holds all E experts and their moments, gathered (every
-    # rank calls state_dict), and a load takes this rank's slice
+    # rank calls state_dict), and a load takes this rank's slice. A model
+    # with FSDP shards (``parallel/fsdp.py``) is gathered and cut the same
+    # way, whatever ``axis`` says
     axis: Any = None
 
     def state_dict(self) -> dict:
@@ -42,7 +44,9 @@ class NetState:
             from ..parallel.expert import full_state
 
             tree = full_state(tree, self.model, self.optimizer, self.axis)
-        return tree
+        from ..parallel import fsdp
+
+        return fsdp.full_state(tree, self.model, self.optimizer)
 
     def load_state_dict(self, tree: dict):
         """Loads a checkpoint's tree into the running objects. The running
@@ -54,10 +58,16 @@ class NetState:
             from ..parallel.expert import local_state
 
             tree = local_state(tree, self.model, self.optimizer)
+        from ..parallel import fsdp
+
+        tree = fsdp.local_state(tree, self.model, self.optimizer)
         self.model.load_state_dict(tree["model"])
         load_optimizer_state(self.optimizer, tree["optimizer"])
         if self.scheduler is not None and "scheduler" in tree:
             self.scheduler.load_state_dict(tree["scheduler"])
+        net = fsdp.fsdp_net(self.model)
+        if net is not None:
+            net.gather()
 
 
 def load_optimizer_state(opt: torch.optim.Optimizer, saved: dict):

@@ -1,5 +1,8 @@
-"""Streaming metrics as (numerator, denominator) pairs (port of the parts of
-``extended_gan_tpu/utils/metrics.py`` that the DCGAN path uses).
+"""Streaming metrics as (numerator, denominator) pairs (port of
+``extended_gan_tpu/utils/metrics.py``: the parts the DCGAN path uses, and
+the conv-GAT helpers :func:`thresholded_metrics`, :func:`get_metrics`,
+:func:`nowcast_scores`, :func:`accuracy_criterion` and
+:func:`denormalize`).
 
 The reference's quirks, which its published numbers depend on, are kept:
 
@@ -136,3 +139,65 @@ class MetricsManager:
     def results(self) -> dict[str, float]:
         return {f"{self.prefix}_{k}": v.item()
                 for k, v in self.metrics.items()}
+
+
+# --------------------------------------------------------------------------
+# Thresholded frame metrics (conv-GAT flavour; JAX ``metrics.py:211-288``).
+# --------------------------------------------------------------------------
+def _binary(y, y_hat, threshold):
+    y, y_hat = torch.as_tensor(y), torch.as_tensor(y_hat)
+    return y >= threshold, y_hat >= threshold
+
+
+def thresholded_metrics(y, y_hat, threshold) -> torch.Tensor:
+    """(3,) float32 ``[acc, prec, rec]`` after binarising both at
+    ``threshold`` (``>=``, the conv-GAT polarity): accuracy divides by the
+    element count of one sample, precision and recall are scaled by the
+    batch length; precision and recall are NaN where undefined (the caller
+    zeroes them)."""
+    yb, pb = _binary(y, y_hat, threshold)
+    n = float(yb.shape[0])
+    acc = (yb == pb).sum().float() / yb[0].numel()
+    tp = (pb & yb).sum().float()
+    fp = (pb & ~yb).sum().float()
+    fn = (~pb & yb).sum().float()
+    return torch.stack([acc, tp / (tp + fp) * n, tp / (tp + fn) * n])
+
+
+def get_metrics(y, y_hat, threshold):
+    """``(acc, prec, rec)`` of :func:`thresholded_metrics` on the host."""
+    out = thresholded_metrics(y, y_hat, threshold).cpu().numpy()
+    return out[0], out[1], out[2]
+
+
+def nowcast_scores(y, y_hat, threshold, *, mask=None) -> dict:
+    """Nowcasting skill scores on thresholded rain masks: ``f1`` (2PR / (P
+    + R)), ``csi`` (TP / (TP + FN + FP)) and ``far`` (FP / (TP + FP)), each
+    a float32 scalar tensor, NaN where undefined; a sample whose ``mask``
+    entry is 0 counts for nothing."""
+    yb, pb = _binary(y, y_hat, threshold)
+    if mask is None:
+        m = torch.ones(yb.shape, dtype=torch.float32, device=yb.device)
+    else:
+        m = torch.as_tensor(mask).float().reshape(
+            (-1,) + (1,) * (yb.dim() - 1)).expand(yb.shape)
+    tp = (pb & yb).float().mul(m).sum()
+    fp = (pb & ~yb).float().mul(m).sum()
+    fn = (~pb & yb).float().mul(m).sum()
+    precision, recall = tp / (tp + fp), tp / (tp + fn)
+    return {"f1": 2 * precision * recall / (precision + recall),
+            "csi": tp / (tp + fn + fp), "far": fp / (tp + fp)}
+
+
+def accuracy_criterion(a, b) -> IncrementalTuple:
+    """The DCGAN reference's ``accuracy_criterion``: predictions that round
+    to the target, over the batch size."""
+    nd = rounded_match_nd(torch.as_tensor(a), torch.as_tensor(b))
+    return IncrementalTuple(nd.cpu().numpy())
+
+
+def denormalize(x, mean, var):
+    """``x * var(var) + mean(mean)``, the variance the population's (JAX's
+    ``jnp.var``)."""
+    var, mean = torch.as_tensor(var), torch.as_tensor(mean)
+    return torch.as_tensor(x) * var.var(correction=0) + mean.mean()

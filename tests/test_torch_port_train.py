@@ -310,10 +310,23 @@ GAT_UNPORTED = [
     ("fsdp", True, 9), ("fsdp_min_size", 1, 9), ("spatial", True, 9),
     ("pipeline_stages", 2, 9), ("pp_microbatches", 2, 9),
 ]
+# item 9's options that are ported now (FSDP): taken, not refused
+GAT_PORTED = {"fsdp", "fsdp_min_size"}
 
 
 @pytest.mark.parametrize("key,value,item", GAT_UNPORTED)
-def test_unported_driver_options_name_their_item(key, value, item):
+def test_unported_driver_options_name_their_item(key, value, item,
+                                                 monkeypatch):
+    """The options item 9 has not ported raise, naming it; FSDP's are
+    taken (past the option checks: the data axis's)."""
+    if key in GAT_PORTED:
+        def stopped(*args, **kwargs):
+            raise RuntimeError("past the option checks")
+
+        monkeypatch.setattr(gat_driver, "data_axis_for", stopped)
+        with pytest.raises(RuntimeError, match="past the option checks"):
+            train(dataset="synthetic", device="cpu", **{key: value})
+        return
     with pytest.raises(NotImplementedError, match=rf"queue 1 item {item}\)"):
         train(dataset="synthetic", device="cpu", **{key: value})
 
@@ -322,8 +335,8 @@ def test_unported_driver_options_at_their_off_values_train():
     """The JAX driver's keywords at their off values, the one of the four
     that once got a TypeError that is still refused among them, train as if
     they were not given."""
-    assert sorted(k for k, _, _ in GAT_UNPORTED) == \
-        sorted(gat_driver._NOT_PORTED)
+    assert sorted(k for k, _, _ in GAT_UNPORTED if k not in GAT_PORTED) \
+        == sorted(gat_driver._NOT_PORTED)
     offs = {k: off for k, (off, _) in gat_driver._NOT_PORTED.items()}
     assert offs["tp_min_channels"] == 256
     model, history = train(model_type="temporal", mapping_type="conv",

@@ -706,3 +706,212 @@ def batch(n: int, seed: int) -> tuple[np.ndarray, np.ndarray]:
     rng = np.random.default_rng(seed)
     return (rng.random((n, HW, HW, T, V), np.float32),
             rng.random((n, HW, HW, T, V), np.float32))
+
+
+# ------------------------------------------------------------------ FSDP
+def fsdp_placed(nets, axis, min_size):
+    """``nets`` sharded over ``axis`` by FSDP at ``min_size`` (None: left
+    replicated); returns the placements."""
+    from extended_gan_torch.parallel import fsdp
+
+    if axis is None or min_size is None:
+        return []
+    return [fsdp.shard_module_fsdp(net, axis, min_size) for net in nets]
+
+
+def _full_trees(nets):
+    """Each net's parameters and running statistics, full leaves (FSDP's
+    blocks gathered: every rank calls it), as float64."""
+    from extended_gan_torch.parallel import fsdp
+
+    out = []
+    for net in nets:
+        state = fsdp.full_state_dict(net)
+        out.append({k: v.detach().double().numpy().copy()
+                    for k, v in state.items()
+                    if not k.endswith("num_batches_tracked")})
+    return out
+
+
+def fsdp_gan_run(case: dict, axis: DataAxis | None,
+                 dtype: torch.dtype = torch.float32) -> dict:
+    """``case["steps"]`` steps of the narrow nets of ``case["kind"]`` from
+    ``case["states"]`` on ``axis``'s rows of the global ``x``, ``y`` (all
+    of them without an axis), in ``dtype``, FSDP at ``case["fsdp"]`` (a
+    min_size; None: the data axis alone), with ``case["opt"]``: ``"sgd"``
+    (lr GAN_SGD_LR) or ``"adam"`` (the drivers' lr 2e-4, betas (0.5,
+    0.999)). ``case["fault"] == "stale_d"``: FD's and TD's gathers after
+    their optimizer's step removed (G then trains against the
+    discriminators before their update). Returns the last step's logs, the
+    nets' full state after the steps and each rank's persistent bytes."""
+    from extended_gan_torch.parallel import fsdp
+
+    kind = case["kind"]
+    nets = gan_nets(kind, case["states"], dropout=case["dropout"],
+                    dtype=dtype)
+    x, y = (torch.from_numpy(np.asarray(a)).to(dtype)
+            for a in (case["x"], case["y"]))
+    n = len(x)
+    if axis is not None:
+        join_data_axis(axis, *nets)
+        x, y = axis.shard(x), axis.shard(y)
+    fsdp_placed(nets, axis, case.get("fsdp"))
+    if case.get("opt", "sgd") == "adam":
+        opts = tuple(torch.optim.Adam(net.parameters(), lr=2e-4,
+                                      betas=(0.5, 0.999), eps=1e-8)
+                     for net in nets)
+    else:
+        opts = tuple(torch.optim.SGD(net.parameters(), lr=GAN_SGD_LR)
+                     for net in nets)
+    for net, opt in zip(nets, opts):
+        fsdp.refresh_after(opt, net)
+    if case.get("fault") == "stale_d":
+        for net in nets[1:]:
+            for hook in fsdp.fsdp_net(net).hooks:
+                hook.remove()
+    if kind == "dcgan":
+        step = dcgan_trainer.make_dcgan_train_step(
+            *nets, *opts, axis=axis, **case.get("body", {}))
+    else:
+        step = cyclegan_trainer.make_cyclegan_train_step(
+            *nets, *opts, cycle_lambda=CYCLE_LAMBDA, axis=axis)
+    for _ in range(case.get("steps", 1)):
+        logs = step(x, y) if axis is None else step(x, y, None, n)
+    return {"logs": {k: _f32(logs[k]).astype(np.float64)
+                     for k in GAN_LOGS[kind]},
+            "state": _full_trees(nets),
+            "bytes": [fsdp.persistent_bytes(net, opt)
+                      for net, opt in zip(nets, opts)],
+            "in_sync": 0 if axis is None else axis.check_in_sync(nets, opts)}
+
+
+def fsdp_model_run(case: dict, axis: DataAxis | None,
+                   dtype: torch.dtype = torch.float32) -> dict:
+    """``case["steps"]`` Adam steps (the conv-GAT optimizer: lr 1e-3, L2
+    decay 0.01) of the narrow model ``case["kind"]`` (``"unet"``, ``"gat"``,
+    ``"k2"``: GAT3D with K2's fused mapping, or ``"moe"``: the narrow MoE
+    UNet, its experts sharded by EP) from ``case["state"]`` on ``axis``'s
+    rows of the global ``x``, ``y``, in ``dtype``, FSDP at
+    ``case["fsdp"]`` (None: off); ``case["remat"]``: the forward
+    recomputed in the backward. Returns the losses and the full state."""
+    from extended_gan_torch.models.gat.gat3d import Model
+    from extended_gan_torch.parallel import fsdp
+    from extended_gan_torch.parallel.expert import (
+        full_state_dict,
+        shard_tree_moe_ep,
+    )
+    from extended_gan_torch.train.optim import make_optimizer
+
+    kind = case["kind"]
+    if kind == "moe":
+        model = make_moe_model(False, dtype)
+    elif kind == "k2":
+        model = Model(HW, HW, V, attention_type="temporal",
+                      mapping_type="conv", use_pallas=True,
+                      use_pallas_mapping=True).to(dtype)
+    else:
+        model = make_model(kind).to(dtype)
+    model.load_state_dict(case["state"])
+    x, y = case["x"], case["y"]
+    if axis is not None:
+        join_data_axis(axis, model)
+        shard_tree_moe_ep(model, axis)
+        rows = axis.rows(len(x))
+        x, y = x[rows], y[rows]
+    fsdp_placed([model], axis, case.get("fsdp"))
+    opt = make_optimizer("adam", model.parameters(), 1e-3, weight_decay=0.01)
+    fsdp.refresh_after(opt, model)
+    step = gat_trainer.make_gat_train_step(
+        model, opt, axis=axis, remat=case.get("remat", False),
+        moe_aux_weight=MOE_AUX_W if kind == "moe" else 0.0)
+    batch = [torch.from_numpy(np.asarray(a)).to(dtype)
+             for a in (x, y, np.ones(len(x)))]
+    losses = [step(*batch)[0].item() for _ in range(case.get("steps", 2))]
+    state = model.state_dict()
+    if axis is not None:
+        state = fsdp.full_state_dict(model, full_state_dict(model, axis))
+    return {"losses": losses,
+            "state": {k: v.detach().double().numpy().copy()
+                      for k, v in state.items()
+                      if not k.endswith("num_batches_tracked")},
+            "sharded": len(fsdp.fsdp_shards(model)),
+            "in_sync": 0 if axis is None else axis.check_in_sync([model],
+                                                                 [opt])}
+
+
+def fsdp_resume(axis: DataAxis, payload: dict) -> dict:
+    """The DCGAN driver on this process group (the CPU) into
+    ``payload["out"]``, checkpoints every epoch: ``"whole"`` trains 2
+    epochs with FSDP; ``"cut"`` trains 1 with FSDP and resumes to 2 with
+    it; ``"cut_plain"`` resumes the FSDP run's first epoch without FSDP;
+    ``"plain_cut"`` trains 1 without and resumes to 2 with FSDP. Returns
+    each run's nets' full state after it, the checkpoint's leaves' shapes
+    and this rank's shard sizes."""
+    from extended_gan_torch.parallel import fsdp
+    from extended_gan_torch.train.dcgan_driver import train
+
+    import shutil
+
+    kw = dict(payload["kw"], device="cpu", data_axis=axis.size,
+              synthetic=True, fsdp_min_size=1)
+    out, res = payload["out"], {}
+
+    def run(name, epochs, on, resume=False):
+        nets, _ = train(**kw, epochs=epochs, fsdp=on, resume=resume,
+                        out_dir=os.path.join(out, name))
+        res[name] = {"state": _full_trees(nets),
+                     "shards": [sorted(tuple(p.shape) for p in
+                                       fsdp.fsdp_shards(net))
+                                for net in nets]}
+
+    run("whole", 2, True)
+    run("cut", 1, True)
+    run("plain_cut", 1, False)
+    if axis.is_main:  # the FSDP run's first epoch, resumed without it
+        shutil.copytree(os.path.join(out, "cut"),
+                        os.path.join(out, "cut_plain"))
+    axis.all_reduce(torch.zeros(1))  # the copy is in place
+    run("cut", 2, True, resume=True)
+    run("cut_plain", 2, False, resume=True)
+    run("plain_cut", 2, True, resume=True)
+    return res
+
+
+def fsdp_per_vertex_bn(case: dict, axis: DataAxis) -> dict:
+    """``PerVertexBatchNorm2d`` (C 4, V 3) in train mode on this rank's
+    samples of ``case["x"]`` (b-major rows), FSDP at ``case["fsdp"]``
+    (None: off; at 1 its (C,) weight and bias are cut in two), its output
+    pulled back along ``case["dy"]``, the gradients summed over the ranks
+    and one SGD step: every rank's output rows and the full state."""
+    from extended_gan_torch.models.unet_model import PerVertexBatchNorm2d
+    from extended_gan_torch.parallel import fsdp
+
+    bn = PerVertexBatchNorm2d(4, 3)
+    bn.load_state_dict(case["state"])
+    bn.axis = axis
+    fsdp_placed([bn], axis, case.get("fsdp"))
+    opt = torch.optim.SGD(bn.parameters(), lr=0.1)
+    fsdp.refresh_after(opt, bn)
+    x, dy = (axis.shard(torch.from_numpy(case[k])) for k in ("x", "dy"))
+    y = bn(x)
+    y.backward(dy)
+    fsdp.reduce_grads(axis, fsdp.working(bn.parameters()), torch.zeros(1))
+    opt.step()
+    return {"y": _f32(axis.gather_rows(y.detach()).flatten(0, 1)),
+            "state": _full_trees([bn])}
+
+
+def fsdp_cases(axis: DataAxis, payload: dict) -> dict:
+    """Everything the FSDP rank tests run on ``axis``: :func:`fsdp_gan_run`
+    of each ``"gan"`` case, :func:`fsdp_model_run` of each ``"model"``
+    case, :func:`fsdp_per_vertex_bn` of each ``"bn"`` case, then
+    :func:`fsdp_resume` where the payload has ``"resume"``."""
+    out = {name: fsdp_gan_run(case, axis)
+           for name, case in payload.get("gan", {}).items()}
+    out.update({name: fsdp_model_run(case, axis)
+                for name, case in payload.get("model", {}).items()})
+    out.update({name: fsdp_per_vertex_bn(case, axis)
+                for name, case in payload.get("bn", {}).items()})
+    if "resume" in payload:
+        out["resume"] = fsdp_resume(axis, payload["resume"])
+    return out
