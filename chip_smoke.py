@@ -2571,20 +2571,27 @@ def _reset_launches():
 def _full_weights(nets, opts):
     """The nets' parameters, then their optimizers' state tensors, in the
     order ``parameters()`` and ``opt.state`` give them; an FSDP block
-    (``parallel/fsdp.py``) and its moments gathered into the full leaf, so
-    a run with FSDP and one without give the same list (a collective under
-    FSDP: every rank calls it)."""
+    (``parallel/fsdp.py``) and its moments gathered into the full leaf, and
+    then a tensor parallelism block (``parallel/tensor.py``), so a run with
+    either and one without give the same list (a collective under them:
+    every rank calls it)."""
     import torch
 
-    from extended_gan_torch.parallel import fsdp
+    from extended_gan_torch.parallel import fsdp, tensor
 
     leaves = {p: leaf for net in nets
               for p, leaf in fsdp.fsdp_shards(net).items()}
-    out = [fsdp.gather_full(p, leaves[p]) if p in leaves else p
-           for net in nets for p in net.parameters()]
-    return out + [fsdp.gather_full(v, leaves[p])
-                  if p in leaves and v.dim() else v
-                  for opt in opts for p, st in opt.state.items()
+    cut = {id(leaf.registered): leaf for net in nets
+           if tensor.tp_net(net) is not None
+           for leaf in tensor.tp_net(net).leaves}
+
+    def full(t, p):
+        if p in leaves and t.dim():
+            t = fsdp.gather_full(t, leaves[p])
+        return cut[id(p)].gather(t) if id(p) in cut and t.dim() else t
+
+    out = [full(p, p) for net in nets for p in net.parameters()]
+    return out + [full(v, p) for opt in opts for p, st in opt.state.items()
                   for v in st.values() if torch.is_tensor(v)]
 
 
@@ -6189,7 +6196,8 @@ DP_MODELS = {"final_smaatunet": ("unet", "linear", 20),
 
 
 def _dp_run(name, device, axis=None, *, fault=False, permute=False,
-            float64=False, moe=0, ep_fault=None, perturb=False, fsdp=None):
+            float64=False, moe=0, ep_fault=None, perturb=False, fsdp=None,
+            tp=None, tp_fault=False, grads=False):
     """DP_STEPS Adam steps of ``name``'s model from seed 0 on DP_STEPS
     global batches of 32 (this rank's rows on ``axis``; ``permute``: each
     batch's rows in another order; ``fault``: each rank's BatchNorm with
@@ -6210,7 +6218,13 @@ def _dp_run(name, device, axis=None, *, fault=False, permute=False,
     ``"first gradients"``, every gradient of the first step. ``fsdp``: the
     model's leaves of at least that many elements and their moments
     sharded over ``axis`` (``parallel/fsdp.py``); the weights hold the
-    full leaves, and the clock this rank's ``"bytes"``."""
+    full leaves, and the clock this rank's ``"bytes"``. ``tp``: the
+    model's conv kernels of at least that many output channels cut over
+    ``axis.model`` (``parallel/tensor.py``; K3 on each rank's output
+    channels), the weights full leaves; ``tp_fault``: the depthwise-
+    separable convs' all-reduce of gd over the model axis dropped (a
+    planted fault). ``grads``: the state holds the ``"first gradients"``
+    as under ``moe``, TP's blocks gathered."""
     import numpy as np
     import torch
 
@@ -6219,6 +6233,7 @@ def _dp_run(name, device, axis=None, *, fault=False, permute=False,
     from extended_gan_torch.models.registry import build_model
     from extended_gan_torch.parallel import attach_data_axis
     from extended_gan_torch.parallel import fsdp as fsdp_
+    from extended_gan_torch.parallel import tensor
     from extended_gan_torch.parallel.expert import (
         full_state,
         gather_experts,
@@ -6244,9 +6259,14 @@ def _dp_run(name, device, axis=None, *, fault=False, permute=False,
         layer.register_forward_hook(
             lambda mod, args, out: clock["loads"].append(
                 mod.sown[-1][1].detach().cpu()))
+    reduce_gd = tensor._reduce_gd
     if axis is not None:
         attach_data_axis(model, axis)
         axis.broadcast_module(model)
+        if tp is not None:
+            tensor.shard_module_tp(model, axis, tp)
+            if tp_fault:
+                tensor._reduce_gd = lambda gd, group: gd
         shard_tree_moe_ep(model, axis)
         if fsdp is not None:
             fsdp_.shard_module_fsdp(model, axis, fsdp)
@@ -6302,14 +6322,16 @@ def _dp_run(name, device, axis=None, *, fault=False, permute=False,
             if len(losses) == 1:  # before Adam's steps amplify roundoff
                 first = [t.detach().cpu().clone()
                          for t in itertools.chain(model.buffers(), [loss])]
-                if moe:
-                    # every gradient, the experts' gathered from their
-                    # ranks (Adam's update hides a gradient's scale)
-                    grads = {n: p.grad for n, p in model.named_parameters()}
+                if moe or grads:
+                    # every gradient, the experts' and TP's blocks
+                    # gathered from their ranks (Adam's update hides a
+                    # gradient's scale)
+                    named = {n: p.grad for n, p in model.named_parameters()}
                     if axis is not None:
-                        grads = gather_experts(grads, model, axis)
+                        named = tensor.full_state_dict(model, gather_experts(
+                            named, model, axis))
                     first_grads = [g.detach().cpu().clone()
-                                   for g in grads.values()]
+                                   for g in named.values()]
             per_step.append({n: c - before[n] for n, c in
                              ops.launch_counts().items() if c != before[n]})
     weights = _full_weights([model], [opt])
@@ -6324,12 +6346,13 @@ def _dp_run(name, device, axis=None, *, fault=False, permute=False,
             v for st in tree["optimizer"]["state"].values()
             for v in st.values() if torch.is_tensor(v) and v.dim()]
     stats = list(model.buffers()) + [torch.stack(losses)]
+    tensor._reduce_gd = reduce_gd
     if axis is not None:
         axis.all_reduce = all_reduce
     state = {"weights": [t.detach().cpu().clone() for t in weights],
              "statistics": [t.detach().cpu().clone() for t in stats],
              "first step": first}
-    if moe:
+    if moe or grads:
         state["first gradients"] = first_grads
     return (state,
             per_step, {"step_ms": step_ms, "collective_ms": collective_ms,
@@ -6666,7 +6689,7 @@ def _bn_layer_verdict(got, want, shifted, plain):
 
 
 def _gan_dp_run(kind, device, axis=None, *, fault=None, float64=False,
-                perturb=False, fsdp=None):
+                perturb=False, fsdp=None, tp=None, tp_fault=False):
     """GAN_DP_STEPS[kind] Adam steps of the published ``kind`` ("dcgan": nc
     4, ndf 64, 64x64, default body; "cyclegan": nc 4, ndf 64) from seed 0,
     dropout 0.01 from a generator on the card seeded 0, on global batches
@@ -6680,7 +6703,12 @@ def _gan_dp_run(kind, device, axis=None, *, fault=None, float64=False,
     over ``axis`` (``parallel/fsdp.py``; the weights hold the full leaves),
     and a third result, this rank's persistent bytes of each net;
     ``fault="stale_d"`` under it: FD's and TD's working weights not
-    gathered after their optimizer's step (a planted fault)."""
+    gathered after their optimizer's step (a planted fault). ``tp``: the
+    discriminators' conv kernels of at least that many output channels
+    cut over ``axis.model`` (``parallel/tensor.py``), the weights full
+    leaves and the third result as under ``fsdp``; ``tp_fault``: the cut
+    convs' all-reduce of dx over the model axis dropped (a planted
+    fault)."""
     import numpy as np
     import torch
 
@@ -6694,10 +6722,14 @@ def _gan_dp_run(kind, device, axis=None, *, fault=None, float64=False,
     )
 
     from extended_gan_torch.parallel import fsdp as fsdp_
+    from extended_gan_torch.parallel import tensor
 
     def place(nets):
-        if fsdp is not None:
+        if fsdp is not None or tp is not None:
             join_data_axis(axis, *nets)
+        if tp is not None:
+            tensor.place_nets(axis, nets[1 if kind == "dcgan" else 2:], tp)
+        if fsdp is not None:
             fsdp_.place_nets(axis, nets, True, fsdp)
 
     keys = KeySeq(0, device=device)
@@ -6715,7 +6747,7 @@ def _gan_dp_run(kind, device, axis=None, *, fault=None, float64=False,
     for net in nets:
         net.to(dtype)
     if axis is not None:
-        if fsdp is None:
+        if fsdp is None and tp is None:
             join_data_axis(axis, *nets)
         if fault == "stale_d":
             for net in nets[1:]:
@@ -6728,6 +6760,9 @@ def _gan_dp_run(kind, device, axis=None, *, fault=None, float64=False,
     else:
         step = cyclegan_trainer.make_cyclegan_train_step(*nets, *opts,
                                                          axis=axis)
+    reduce_dx = tensor._reduce_dx
+    if tp_fault:
+        tensor._reduce_dx = lambda dx, group: dx
     rng = np.random.default_rng(GAN_DP_SEED)
     noise = np.random.default_rng(99)
     losses, step_ms, first = [], [], None
@@ -6752,6 +6787,7 @@ def _gan_dp_run(kind, device, axis=None, *, fault=None, float64=False,
             if first is None:  # before Adam's steps amplify roundoff
                 first = [t.detach().cpu().clone() for t in itertools.chain(
                     (b for n in nets for b in n.buffers()), [losses[0]])]
+    tensor._reduce_dx = reduce_dx
     if axis is not None:
         axis.__dict__.pop("all_reduce_grads", None)
     weights = _full_weights(nets, opts)
@@ -6759,7 +6795,7 @@ def _gan_dp_run(kind, device, axis=None, *, fault=None, float64=False,
     state = {"weights": [t.detach().cpu().clone() for t in weights],
              "statistics": [t.detach().cpu().clone() for t in stats],
              "first step": first}
-    if fsdp is None:
+    if fsdp is None and tp is None:
         return state, step_ms
     return state, step_ms, [fsdp_.persistent_bytes(net, opt)
                             for net, opt in zip(nets, opts)]
@@ -7453,6 +7489,236 @@ def phase_fsdp(tmp):
                           for r, c in enumerate(launches)})
 
 
+# the tp phase: a model axis of 2 (data 1), JAX's default rule (leaves of
+# at least 256 output channels cut); each rank's parameters (JAX's rule on
+# the CPU: tests/test_torch_port_tp.py), x 4 bytes and x 12 with Adam's
+# two moments
+TP_MIN = 256
+TP_ELEMENTS = {"dcgan": (13_240, 1_455_872, 1_459_968),
+               "final_smaatunet": (2_184_228,)}
+
+
+def tp_child(spec_json):
+    """One gloo rank of :func:`phase_tp` on ``cuda:0``, model index
+    ``rank`` of a model axis of 2: the DCGAN's steps with FD's and TD's
+    wide convs cut, final_smaatunet's with its 23 wide leaves cut (this
+    rank's kernel launches counted over those steps alone), and
+    final_smaatunet's with the gd all-reduce dropped and the DCGAN's with
+    the dx all-reduce dropped, saved to ``<out>.<rank>``."""
+    import torch
+    import torch.distributed as dist
+
+    from extended_gan_torch import ops
+    from extended_gan_torch.parallel import data_axis_for
+
+    spec = json.loads(spec_json)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dist.init_process_group("gloo", init_method="file://" + spec["store"],
+                            rank=spec["rank"], world_size=spec["size"])
+    try:
+        axis = data_axis_for(1, torch.device("cuda", 0),
+                             model_axis=spec["size"])
+        dev = axis.device
+        out = {"dcgan": _gan_dp_run("dcgan", dev, axis, tp=TP_MIN)}
+        _reset_launches()  # this rank's TP path
+        out["final_smaatunet"] = _dp_run("final_smaatunet", dev, axis,
+                                         tp=TP_MIN, grads=True)
+        out["launches"] = ops.launch_counts()
+        out["gd dropped"] = _dp_run("final_smaatunet", dev, axis, tp=TP_MIN,
+                                    tp_fault=True, grads=True)
+        out["dx dropped"] = _gan_dp_run("dcgan", dev, axis, tp=TP_MIN,
+                                        tp_fault=True)
+        torch.save(out, f"{spec['out']}.{spec['rank']}")
+    finally:
+        dist.destroy_process_group()
+    return 0
+
+
+def _k3_blocks():
+    """K3's forward at each rank's output channels of the final_smaatunet
+    shapes whose pointwise leaf a model axis of 2 cuts (Cout >= TP_MIN):
+    each block against ``reference_dsc`` on the same block, within the
+    dsconv phase's limit, and the two blocks side by side against the
+    whole layer's; returns (shapes held, worst abs err, worst err / limit,
+    the largest shape's block ms and its whole layer's ms)."""
+    import math
+
+    import torch
+
+    from extended_gan_torch.models.smaat_unet import dsc_shapes
+    from extended_gan_torch.ops import dsconv as k3
+
+    held, worst, ratio, ms = 0, 0.0, 0.0, None
+    shapes = dsc_shapes()
+    for i, shape in enumerate(shapes):
+        n, h, w, c, ck, cout = shape
+        if cout < TP_MIN:
+            continue
+        x, dw, dwb, pw, pwb = dsc_inputs(shape, i)
+        per = cout // 2
+        with torch.no_grad():
+            whole = k3.reference_dsc(x, dw, dwb, pw, pwb)
+            blocks = []
+            for r in range(2):
+                own = slice(r * per, (r + 1) * per)
+                args = (x, dw, dwb, pw[:, own].contiguous(),
+                        pwb[own].contiguous())
+                got = k3._launch(*args)[0]
+                want = k3.reference_dsc(*args)
+                scale = k3.reference_dsc(*(t.abs() for t in args))
+                tol = DSC_TOL_UNITS * math.sqrt(9 + ck) * scale
+                err = (got - want).abs()
+                check(bool((err <= tol).all()),
+                      f"tp: K3 on rank {r}'s {per} output channels of "
+                      f"{shape} disagrees with reference_dsc: max abs err "
+                      f"{err.max().item():.3e}")
+                worst = max(worst, err.max().item())
+                ratio = max(ratio, (err / tol).max().item())
+                blocks.append(got)
+            side = torch.cat(blocks, -1)
+            tol = DSC_TOL_UNITS * math.sqrt(9 + ck) * k3.reference_dsc(
+                *(t.abs() for t in (x, dw, dwb, pw, pwb)))
+            check(bool(((side - whole).abs() <= tol).all()),
+                  f"tp: K3's two blocks of {shape} side by side disagree "
+                  "with the whole layer")
+        if ms is None or shape[0] * shape[1] * shape[2] * ck * cout > ms[0]:
+            block = (x, dw, dwb, pw[:, :per].contiguous(),
+                     pwb[:per].contiguous())
+            ms = (shape[0] * shape[1] * shape[2] * ck * cout, shape,
+                  time_ms(lambda: k3._launch(*block)),
+                  time_ms(lambda: k3._launch(x, dw, dwb, pw, pwb)))
+        held += 1
+    return held, worst, ratio, ms[1:]
+
+
+def phase_tp(tmp):
+    """Tensor parallelism over a model axis (``parallel/tensor.py``) on the
+    one card: two ranks over gloo, both on ``cuda:0`` (``chip_smoke.py
+    --tp-child``; NCCL takes one rank a card), a model axis of 2 and a data
+    axis of 1, each rank with every row of every global batch of 32 and
+    its block of output channels of every conv kernel JAX's rule cuts
+    (TP_MIN channels and more):
+
+    - the published DCGAN (ndf 64, default body, dropout 0.01,
+      GAN_DP_STEPS Adam steps; FD's and TD's Conv_2 and Conv_3 cut) and
+      final_smaatunet's model (DP_STEPS Adam steps; 23 depthwise-separable
+      leaves cut, K3 18 + 18 a step on each rank, its forward on the
+      rank's output channels): against one process in float64 by
+      ``utils/compare.py``, within 10x the widest distance from it of the
+      one-process float32 run and its twin (the data-parallel phases'
+      references, computed once);
+    - each rank's parameters and Adam's moments in bytes: 12 x JAX's
+      per-rank elements at M = 2 (TP_ELEMENTS);
+    - final_smaatunet with the all-reduce of gd over the model axis
+      dropped, and the DCGAN with its cut convs' all-reduce of dx
+      dropped, must each miss the bound by more than 10x (the UNet's on
+      its first step's gradients, which its references hold too);
+    - K3's forward at each rank's block of the cut shapes against its
+      plain twin (:func:`_k3_blocks`)."""
+    import torch
+
+    from extended_gan_torch.utils.compare import (
+        drift,
+        held_to_reference,
+        widest,
+    )
+
+    t_phase = time.perf_counter()
+    card = card_line()
+    dev = torch.device("cuda")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    out = os.path.join(tmp, "tp")
+    ranks = [_spawn("--tp-child", dict(rank=r, size=2, out=out,
+                                       store=os.path.join(tmp, "store")))
+             for r in range(2)]
+    blocks = _k3_blocks()
+    refs = {}
+    # final_smaatunet's references also hold the first step's gradients,
+    # where the gd fault shows (Adam's steps hide a gradient's scale)
+    for name, run, kw, twin_kw in (
+            ("dcgan", _gan_dp_run, {}, dict(perturb=True)),
+            ("final_smaatunet", _dp_run, dict(grads=True),
+             dict(permute=True))):
+        want = _cached(run, name, dev, float64=True, **kw)[0]
+        one = _cached(run, name, dev, **kw)[0]
+        twin = _cached(run, name, dev, **kw, **twin_kw)[0]
+        refs[name] = (want, {g: widest(drift(t[g], want[g])
+                                       for t in (one, twin))
+                             for g in want})
+
+    def held(got, name):
+        want, floors = refs[name]
+        return {g: held_to_reference(got[g], want[g], floors[g])
+                for g in want}
+
+    for r, p in enumerate(ranks):
+        _finished(p, f"tp rank {r}")
+    got = [torch.load(f"{out}.{r}", weights_only=False) for r in range(2)]
+    verdicts, nbytes = {}, {}
+    for name in TP_ELEMENTS:
+        s0, s1 = got[0][name][0], got[1][name][0]
+        check(all(torch.equal(a, b) for g in s0 for a, b in zip(s0[g], s1[g])),
+              f"tp {name}: the two ranks' full states differ")
+        verdicts[name] = held(s0, name)
+        check(all(v["ok"] for v in verdicts[name].values()),
+              f"tp {name}: two model ranks against one process in float64 "
+              f"{verdicts[name]}")
+        per_rank = [got[r][name][2] if name == "dcgan"
+                    else [got[r][name][2]["bytes"]] for r in range(2)]
+        for r, nets in enumerate(per_rank):
+            for b, elements in zip(nets, TP_ELEMENTS[name]):
+                check(b["params"] + b["moments"] == 12 * elements,
+                      f"tp {name} rank {r}: {b} bytes, expected "
+                      f"{12 * elements} (JAX's {elements} elements at M = 2)")
+        nbytes[name] = [b["params"] + b["moments"] for b in per_rank[0]]
+    faults = {}
+    for name, model in (("gd dropped", "final_smaatunet"),
+                        ("dx dropped", "dcgan")):
+        fault = held(got[0][name][0], model)
+        faults[name] = max(v["worst"] for v in fault.values())
+        check(faults[name] > 10.0, f"tp {model}: the {name.split()[0]} "
+              f"all-reduce dropped misses the bound by only "
+              f"{faults[name]:.2f}x: {fault}")
+    launches = [got[r]["launches"] for r in range(2)]
+    for r, counts in enumerate(launches):
+        for kernel in ("dsconv_fwd", "dsconv_bwd"):
+            check(counts.get(kernel) == 18 * DP_STEPS,
+                  f"tp final_smaatunet rank {r}: {kernel} launched "
+                  f"{counts.get(kernel)}, expected 18 x {DP_STEPS}")
+    ms = {"dcgan": statistics.mean(got[0]["dcgan"][1][1:]),
+          "final_smaatunet": statistics.mean(
+              got[0]["final_smaatunet"][2]["step_ms"][1:])}
+    n_blocks, k3_err, k3_ratio, (shape, block_ms, whole_ms) = blocks
+    seconds = time.perf_counter() - t_phase
+    print(f"[tp] two gloo ranks on cuda:0 as a model axis of 2, every row of "
+          f"batches of 32, conv kernels of at least {TP_MIN} output channels "
+          f"cut, against one process in float64: "
+          + "; ".join(f"{n} {g} gap {v['gap']:.3e}, {v['worst']:.3f} of its "
+                      f"bound (floor {v['floor']:.3e})"
+                      for n, vs in verdicts.items() for g, v in vs.items())
+          + "; rank 0's parameters and Adam moments: "
+          + "; ".join(f"{n} {b} bytes against "
+                      f"{[12 * e for e in FSDP_FULL[n]]}"
+                      for n, b in nbytes.items())
+          + "; " + ", ".join(f"{n} at {x:.1f}x the bound"
+                             for n, x in faults.items())
+          + f"; K3 a rank {launches[0]}; K3 forward on each rank's output "
+          f"channels at {n_blocks} shapes within {k3_ratio:.3f} of its limit (max abs "
+          f"err {k3_err:.3e}), {shape} one block {block_ms:.4f} ms against "
+          f"{whole_ms:.4f} ms whole; ms a step (host clock, synchronised, "
+          f"past the first, two ranks sharing the card): "
+          + "; ".join(f"{n} {v:.3f}" for n, v in ms.items())
+          + f"; phase {seconds:.1f} s; {card}")
+    return dict(verdicts=verdicts, bytes=nbytes, faults=faults, ms=ms,
+                k3_blocks=dict(shapes=n_blocks, max_abs_err=k3_err,
+                               of_limit=k3_ratio, shape=shape,
+                               block_ms=block_ms, whole_ms=whole_ms),
+                seconds=seconds,
+                launches={f"tp: final_smaatunet TP {DP_STEPS} Adam steps, "
+                          f"gloo rank {r} of a model axis of 2": c
+                          for r, c in enumerate(launches)})
+
+
 def _route_counts():
     from extended_gan_torch import ops
 
@@ -7658,6 +7924,8 @@ def main() -> int:
         return ep_child(sys.argv[2])
     if sys.argv[1:2] == ["--fsdp-child"]:
         return fsdp_child(sys.argv[2])
+    if sys.argv[1:2] == ["--tp-child"]:
+        return tp_child(sys.argv[2])
     t0 = time.perf_counter()
     try:
         build_logs = phase_build()
@@ -7712,7 +7980,7 @@ def main() -> int:
                             ("data_parallel", phase_data_parallel),
                             ("gan_data_parallel", phase_gan_data_parallel),
                             ("expert_parallel", phase_expert_parallel),
-                            ("fsdp", phase_fsdp)):
+                            ("fsdp", phase_fsdp), ("tp", phase_tp)):
             tmp = tempfile.mkdtemp(prefix=f"smoke_{name}_")
             try:
                 slice19[name] = phase(tmp)
@@ -7865,6 +8133,9 @@ def main() -> int:
         "cudnn_pair_ms": dsc_main["cudnn_pair_ms"],
         "cudnn_pair_tf32_ms": dsc_main["cudnn_pair_tf32_ms"],
         "total_18_ms": sum(r["kernel_ms"] for r in dsc_rows[:18]),
+        # one model rank's half of the output channels under TP (the tp
+        # phase), against the plain version on the same block
+        "tp_block": slice19["tp"]["k3_blocks"],
         "shape": "N=%d %dx%d C=%d CK=%d Cout=%d (final_smaatunet b=32, "
                  "up4 dsc0)" % dsc_main["shape"],
     }, {
@@ -7981,11 +8252,12 @@ def main() -> int:
                     "NCCL world of one"] = counts.get(k["name"], 0)
         k["launches_by_path"].update(by_path)
         k["launches"] += sum(by_path.values())
-    # the fsdp phase: each gloo rank's final_smaatunet FSDP steps (K3 18 +
-    # 18 a step)
+    # the fsdp and tp phases: each gloo rank's final_smaatunet FSDP steps
+    # and TP steps (K3 18 + 18 a step; under TP its forward on the rank's
+    # output channels)
     for k in kernels:
-        by_path = {path: counts.get(k["name"], 0) for path, counts in
-                   slice19["fsdp"]["launches"].items()}
+        by_path = {path: counts.get(k["name"], 0) for phase in ("fsdp", "tp")
+                   for path, counts in slice19[phase]["launches"].items()}
         k["launches_by_path"].update(by_path)
         k["launches"] += sum(by_path.values())
     # the expert_parallel phase (each gloo rank's MoE UNet steps, K3 18 +

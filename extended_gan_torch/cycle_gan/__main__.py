@@ -4,9 +4,12 @@
       --out-dir /tmp/run
 
 The flags and defaults are ``python -m cycle_gan``'s, plus ``--device``
-(the CUDA card by default, ``cpu`` on request). The JAX options that are
-not ported yet (the model axis, SP) are taken and refused by the driver
-unless they are off. ``--fsdp`` shards every leaf of the four nets of at
+(the CUDA card by default, ``cpu`` on request). The JAX option that is
+not ported yet (SP, ``--spatial``) is taken and refused by the driver
+unless it is off. ``--model-axis M`` adds a model axis (the CLI starts D
+x M ranks, D the data axis) over which tensor parallelism cuts D_x's and
+D_y's conv kernels of at least ``--tp-min-channels`` (default 256)
+output channels by output channel. ``--fsdp`` shards every leaf of the four nets of at
 least ``--fsdp-min-size`` elements and its Adam moments over the data
 axis (FSDP / ZeRO-3). ``--data-axis N`` trains each global batch
 over N ranks: without a launcher environment the CLI starts N processes
@@ -68,9 +71,12 @@ def main(argv=None):
                              "default every visible card, one with --device "
                              "cpu")
     parser.add_argument("--model-axis", type=int, default=1,
-                        help="mesh tensor-parallel axis size: not ported "
-                             "yet, refused unless 1")
-    parser.add_argument("--tp-min-channels", type=int, default=256)
+                        help="mesh tensor-parallel axis size: the "
+                             "discriminators' wide convs cut by output "
+                             "channel over M ranks")
+    parser.add_argument("--tp-min-channels", type=int, default=256,
+                        help="conv kernels with at least this many output "
+                             "channels are cut under --model-axis")
     parser.add_argument("--fsdp", action="store_true",
                         help="ZeRO-shard params + Adam moments over the "
                              "data axis (one all-gather of each net's "
@@ -108,7 +114,7 @@ def main(argv=None):
     args = parser.parse_args(argv)
     if start_ranks("extended_gan_torch.cycle_gan.__main__:main", argv,
                    data_axis=args.data_axis, multihost=args.multihost,
-                   device=args.device):
+                   device=args.device, model_axis=args.model_axis):
         return None
     return train(
         data_location=args.data_location, epochs=args.epochs,

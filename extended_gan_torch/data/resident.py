@@ -423,7 +423,7 @@ def make_dcgan_resident_eval(g, fd, td, store: ResidentVideos, *,
 
 def draw_first_eval_batch(eval_step, store: ResidentVideos, *,
                           in_seq_len: int, out_seq_len: int,
-                          batch_size: int, epoch: int, img_path: str):
+                          batch_size: int, epoch: int, img_path: str | None):
     """The resident eval's figure: the first eval batch of at most 8
     windows gathered on the device, ``eval_step(x, y, mask) -> (fake,
     logs)`` on it, and its real rows drawn (``dcgan_trainer.draw_batch``;
@@ -434,6 +434,8 @@ def draw_first_eval_batch(eval_step, store: ResidentVideos, *,
     x = wins[:, :in_seq_len].contiguous()
     y = wins[:, in_seq_len:].contiguous()
     fake, _ = eval_step(x, y, mask)
+    if img_path is None:  # a rank that runs the forward and draws nothing
+        return
     n = int((st0 >= 0).sum())
     draw_batch(x[:n], y[:n], fake[:n], epoch, img_path)
 

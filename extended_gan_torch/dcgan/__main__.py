@@ -2,8 +2,11 @@
 
   python -m extended_gan_torch.dcgan --epochs 1 --synthetic --out-dir /tmp/run
 
-The flags mirror ``python -m dcgan``'s; those of its options that are not
-ported yet (the model axis, SP) are absent. ``--fsdp`` shards every leaf
+The flags mirror ``python -m dcgan``'s; that of its option that is not
+ported yet (SP) is absent. ``--model-axis M`` adds a model axis (the CLI
+starts D x M ranks, D the data axis) over which tensor parallelism cuts
+FD's and TD's conv kernels of at least ``--tp-min-channels`` (default 256)
+output channels by output channel. ``--fsdp`` shards every leaf
 of G, FD and TD of at least ``--fsdp-min-size`` elements and its Adam
 moments over the data axis (FSDP / ZeRO-3). ``--data-axis N`` trains
 each global batch over N ranks: without a launcher environment the CLI
@@ -97,6 +100,12 @@ def main(argv=None):
                              "each (gloo processes with --device cpu); "
                              "default every visible card, one with --device "
                              "cpu")
+    parser.add_argument("--model-axis", type=int, default=1,
+                        help="mesh tensor-parallel axis size: FD's and TD's "
+                             "wide convs cut by output channel over M ranks")
+    parser.add_argument("--tp-min-channels", type=int, default=256,
+                        help="conv kernels with at least this many output "
+                             "channels are cut under --model-axis")
     parser.add_argument("--fsdp", action="store_true",
                         help="ZeRO-shard params + Adam moments over the "
                              "data axis (one all-gather of each net's "
@@ -115,7 +124,7 @@ def main(argv=None):
     args = parser.parse_args(argv)
     if start_ranks("extended_gan_torch.dcgan.__main__:main", argv,
                    data_axis=args.data_axis, multihost=args.multihost,
-                   device=args.device):
+                   device=args.device, model_axis=args.model_axis):
         return None
     return train(
         data_location=args.data_location, epochs=args.epochs,
@@ -130,7 +139,8 @@ def main(argv=None):
                 if args.save_epoch is not None else None),
         profile=args.profile, profile_trace_dir=args.profile_trace_dir,
         data_axis=args.data_axis, fsdp=args.fsdp,
-        fsdp_min_size=args.fsdp_min_size, device=args.device)
+        fsdp_min_size=args.fsdp_min_size, model_axis=args.model_axis,
+        tp_min_channels=args.tp_min_channels, device=args.device)
 
 
 if __name__ == "__main__":

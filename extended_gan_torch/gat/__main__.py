@@ -9,8 +9,13 @@
       --mapping-type conv --dataset synthetic --output-path /tmp/run
 
 The actions and flags mirror ``python -m convolutional_gat``; the flags of
-its options that are not ported yet (the model axis, spatial and pipeline
-parallelism) are absent. ``--fsdp`` (config key FSDP) shards every leaf of
+its options that are not ported yet (spatial and pipeline parallelism)
+are absent. ``--model-axis M`` (config key MODEL_AXIS) adds a model axis:
+the CLI starts D x M ranks (D the data axis), and tensor parallelism cuts
+the model's conv kernels of at least ``--tp-min-channels`` (default 256;
+the JAX driver's keyword, which no config key sets) output channels by
+output channel over the M ranks of each data row; with
+``generate_experiment`` an unset flag is the config's MODEL_AXIS. ``--fsdp`` (config key FSDP) shards every leaf of
 at least ``--fsdp-min-size`` elements (config key FSDP_MIN_SIZE, default
 4096) and its Adam moments over the data axis (FSDP / ZeRO-3). ``--data-axis N`` (config key
 DATA_AXIS) trains each global batch over N ranks: without a launcher
@@ -45,7 +50,7 @@ import argparse
 
 from ..parallel.launch import start_ranks
 from ..train.gat_driver import train
-from .generate_experiment import generate_experiment
+from .generate_experiment import experiment_model_axis, generate_experiment
 
 
 def main(argv=None):
@@ -121,6 +126,13 @@ def main(argv=None):
                         help="smallest leaf (elements) --fsdp shards; "
                              "smaller leaves stay replicated (config key "
                              "FSDP_MIN_SIZE, default 4096)")
+    parser.add_argument("--model-axis", type=int, default=None,
+                        help="M: tensor parallelism over M ranks of each "
+                             "data row (config key MODEL_AXIS, default 1)")
+    parser.add_argument("--tp-min-channels", type=int, default=None,
+                        help="conv kernels with at least this many output "
+                             "channels are cut under --model-axis (default "
+                             "256)")
     parser.add_argument("--multihost", action="store_true",
                         help="join the process group the launcher's "
                              "environment describes (torchrun); raises "
@@ -131,9 +143,13 @@ def main(argv=None):
     args = parser.parse_args(argv)
     if args.action == "generate_experiment" and not args.exp_folder_name:
         parser.error("generate_experiment needs --exp_folder_name")
+    model_axis = args.model_axis
+    if model_axis is None and args.action == "generate_experiment":
+        # the config's, so that the CLI starts the mesh's ranks
+        model_axis = experiment_model_axis(args.exp_folder_name)
     if start_ranks("extended_gan_torch.gat.__main__:main", argv,
                    data_axis=args.data_axis, multihost=args.multihost,
-                   device=args.device):
+                   device=args.device, model_axis=model_axis or 1):
         return None
     if args.action == "train":
         return train(
@@ -154,7 +170,8 @@ def main(argv=None):
             moe_aux_weight=0.01 if args.moe_aux_weight is None
             else args.moe_aux_weight, data_axis=args.data_axis,
             fsdp=args.fsdp, fsdp_min_size=args.fsdp_min_size or 4096,
-            device=args.device)
+            model_axis=args.model_axis or 1,
+            tp_min_channels=args.tp_min_channels or 256, device=args.device)
     return generate_experiment(
         args.exp_folder_name, output_path=args.output_path,
         device=args.device, train_batch_size=args.train_batch_size,
@@ -166,7 +183,8 @@ def main(argv=None):
         profile_trace_dir=args.profile_trace_dir or None,
         conv_impl=args.conv_impl, moe_experts=args.moe_experts or None,
         moe_aux_weight=args.moe_aux_weight, data_axis=args.data_axis,
-        fsdp=args.fsdp or None, fsdp_min_size=args.fsdp_min_size)
+        fsdp=args.fsdp or None, fsdp_min_size=args.fsdp_min_size,
+        model_axis=args.model_axis, tp_min_channels=args.tp_min_channels)
 
 
 if __name__ == "__main__":

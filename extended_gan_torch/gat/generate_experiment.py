@@ -33,3 +33,9 @@ def generate_experiment(exp_folder_name: str, *, output_path: str = "",
                 setattr(cfg, k, v)
     dump_config(cfg)  # the settings the run actually uses
     return train(**kwargs, device=device)
+
+
+def experiment_model_axis(exp_folder_name: str) -> int:
+    """The experiment config's MODEL_AXIS (1 when it sets none)."""
+    cfg = load_experiment_config(str(EXPERIMENTS / exp_folder_name))
+    return int(cfg.to_dict().get("model_axis") or 1)

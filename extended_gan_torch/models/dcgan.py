@@ -78,10 +78,12 @@ ACTIVATIONS = {
 
 
 def _conv_in(conv, x, dtype):
-    """``conv(x)`` with the input and the weights in ``dtype``."""
+    """``conv(x)`` with the input and the weights in ``dtype``, through the
+    conv's own ``_conv_forward`` (tensor parallelism gives a cut conv its
+    column-parallel one: ``parallel/tensor.py``)."""
     bias = cast_to(conv.bias, dtype) if conv.bias is not None else None
-    return F.conv2d(cast_to(x, dtype), cast_to(conv.weight, dtype), bias,
-                    conv.stride, conv.padding)
+    return conv._conv_forward(cast_to(x, dtype), cast_to(conv.weight, dtype),
+                              bias)
 
 
 def _conv(chin, chout, k, stride, padding, bias, generator):

@@ -41,7 +41,9 @@ expert parallelism uses):
 - :func:`full_state` and :func:`local_state`: checkpoints and ``model.pt``
   hold full leaves (the shards and their moments gathered), and a rank
   loading a tree takes its blocks, so a run with FSDP resumes one without
-  it and the reverse.
+  it and the reverse. Under tensor parallelism (``parallel/tensor.py``)
+  a cut leaf's FSDP block lies within the rank's TP block: its gather
+  gives the TP block, which ``tensor.full_state`` gathers next.
 
 Deviations from JAX: explicit collectives where JAX has GSPMD derive them;
 and the working weights live for the whole run, one static buffer a leaf
@@ -108,14 +110,21 @@ def fsdp_spec(module: nn.Module, name: str, param: torch.Tensor, dp: int,
     than ``min_size`` elements, no axis divisible by ``dp``), else the
     port's counterpart of the axis JAX shards (the largest divisible one,
     the first such in JAX's order on a tie). The expert shards, which JAX
-    skips as already sharded, are left out by :func:`shard_module_fsdp`."""
+    skips as already sharded, are left out by :func:`shard_module_fsdp`.
+    A tensor parallelism block keeps its cut dim, as JAX keeps a leaf's
+    ``model`` axis (``_fsdp_spec``), so the data cut falls within the
+    rank's block, and its size is judged as the whole leaf's."""
     shape = tuple(param.shape)
-    if not shape or param.numel() < min_size:
+    # a tensor parallelism block (``parallel/tensor.py``): JAX keeps its
+    # ``model`` axis and judges the leaf by its global size
+    tp = getattr(param, "_tp_leaf", None)
+    numel = param.numel() * (tp.ranks if tp is not None else 1)
+    if not shape or numel < min_size:
         return None
     order, flipped = _jax_axis_order(module, name, param)
     best = None
     for d in order:
-        if shape[d] == 0 or shape[d] % dp:
+        if shape[d] == 0 or shape[d] % dp or (tp is not None and d == tp.dim):
             continue
         if best is None or shape[d] > shape[best]:
             best = d

@@ -1,6 +1,7 @@
-"""Data-axis ranks started by a CLI: ``--data-axis N`` without a launcher
-environment (unset: every visible card, :func:`default_data_axis`) runs
-the CLI again in N processes, one rank each (a process
+"""Mesh ranks started by a CLI: ``--data-axis N`` (and ``--model-axis
+M``) without a launcher environment (unset: every visible card over M,
+:func:`default_data_axis`) runs the CLI again in N x M processes, one rank
+each (a process
 group that meets through a file in a temporary directory, so no port is
 taken), and waits for them. Each NCCL rank sets what capturing its
 collectives into CUDA graphs needs before its group starts
@@ -50,50 +51,56 @@ def _rank_main(entry, argv, rank, size, init_method, backend):
         dist.destroy_process_group()
 
 
-def default_data_axis(device=None) -> int:
-    """An unset ``--data-axis``: every visible card, as JAX's
-    ``MeshContext.create(data=None)`` is every device; 1 on the CPU or on
-    one named card (``cuda:1``), and on a machine without a card."""
+def default_data_axis(device=None, model_axis: int = 1) -> int:
+    """An unset ``--data-axis``: every visible card over the model axis,
+    as JAX's ``MeshContext.create(data=None, model=M)`` is every device
+    over M (at least 1); 1 on the CPU or on one named card (``cuda:1``),
+    and on a machine without a card."""
     dev = torch.device("cuda" if device is None else device)
     if dev.type != "cuda" or dev.index is not None \
             or not torch.cuda.is_available():
         return 1
-    return torch.cuda.device_count()
+    return max(1, torch.cuda.device_count() // max(1, model_axis))
 
 
 def start_ranks(entry: str, argv, *, data_axis: int | None,
-                multihost: bool, device=None) -> bool:
-    """A CLI's data axis: under a launcher environment (or with
-    ``multihost``, which raises without one) this process joins the
-    launcher's group and the CLI goes on as its rank (False); a
-    ``data_axis`` > 1 without one (None: :func:`default_data_axis`) runs
+                multihost: bool, device=None, model_axis: int = 1) -> bool:
+    """A CLI's mesh: under a launcher environment (or with ``multihost``,
+    which raises without one) this process joins the launcher's group and
+    the CLI goes on as its rank (False); a ``data_axis`` x ``model_axis``
+    > 1 without one (``data_axis`` None: :func:`default_data_axis`) runs
     the CLI in that many processes (:func:`spawn_ranks`) and returns True
     once they have exited 0, and the CLI returns; otherwise nothing
     (False)."""
+    model_axis = model_axis or 1
     if data_axis is None and not dist.is_initialized():
-        data_axis = default_data_axis(device)
+        data_axis = default_data_axis(device, model_axis)
+    size = (data_axis or 1) * model_axis
     if multihost or _multihost_env_configured():
         # --multihost is explicit intent: failures raise
         initialize_distributed(require=multihost, device=device)
-    elif (data_axis or 1) > 1 and not dist.is_initialized():
-        spawn_ranks(entry, sys.argv[1:] if argv is None else argv,
-                    data_axis, device)
+    elif size > 1 and not dist.is_initialized():
+        label = ({"label": f"--data-axis {data_axis} --model-axis "
+                           f"{model_axis}"} if model_axis > 1 else {})
+        spawn_ranks(entry, sys.argv[1:] if argv is None else argv, size,
+                    device, **label)
         return True
     return False
 
 
-def spawn_ranks(entry: str, argv, size: int, device=None):
+def spawn_ranks(entry: str, argv, size: int, device=None, label=None):
     """Runs the CLI ``entry`` (``"module:function"``, called with
-    ``argv``) in ``size`` processes, one rank each of a process group that
-    meets through a file: NCCL, one card a rank, or gloo with
-    ``device="cpu"``. A SIGTERM to this process goes on to every rank;
-    raises unless every rank exits 0."""
+    ``argv``) in ``size`` processes (the mesh's D x M ranks), one rank each
+    of a process group that meets through a file: NCCL, one card a rank,
+    or gloo with ``device="cpu"``. A SIGTERM to this process goes on to
+    every rank; raises unless every rank exits 0. ``label`` names the
+    flags in the error when the cards are too few."""
     cpu = device is not None and torch.device(device).type == "cpu"
     if not cpu:
         have = torch.cuda.device_count() if torch.cuda.is_available() else 0
         if have < size:
-            raise ValueError(f"--data-axis {size} needs {size} cards, "
-                             f"have {have}")
+            raise ValueError(f"{label or f'--data-axis {size}'} needs "
+                             f"{size} cards, have {have}")
     store = tempfile.mkdtemp(prefix="egt_rendezvous_")
     ctx = multiprocessing.get_context("spawn")
     procs = [ctx.Process(target=_rank_main, args=(

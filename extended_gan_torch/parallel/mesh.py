@@ -16,11 +16,21 @@ cards, gloo on the CPU) and does the same by hand:
   batch that every rank makes alike (the channel dropout's masks) and
   the collectives the trainer needs; :func:`pad_to_batch_multiple` pads
   a batch as JAX's does (``:297-321``);
-- :func:`data_axis_for` resolves a driver's ``data_axis`` against the
-  group (the JAX mesh's "needs K devices, have n", ``:108-112``).
+- :class:`ModelAxis` is the model axis of a (data, model) mesh seen from
+  one rank: the ranks that share its data index, over which tensor
+  parallelism (``parallel/tensor.py``) cuts its leaves and runs its
+  collectives;
+- :func:`data_axis_for` resolves a driver's ``data_axis`` and
+  ``model_axis`` against the group (the JAX mesh's "needs K devices, have
+  n", ``:108-112``). The world is D x M ranks laid out as JAX's
+  ``MeshContext.create(data, model)`` lays out its devices
+  (``reshape(data, model)``, ``:96-116``): rank r sits at data index
+  r // M and model index r % M. The data axis is then the ranks that share
+  a model index: they see different rows of each batch, and the model
+  ranks of one data row see the same rows and draw the same masks.
 
-Without a group the axis has size 1 and every collective is the identity:
-the single-card path runs unchanged.
+Without a group both axes have size 1 and every collective is the
+identity: the single-card path runs unchanged.
 """
 
 from __future__ import annotations
@@ -150,6 +160,57 @@ def _reduce_scatter(out, t, group):
     scatter(out, t, group=group)
 
 
+def _size(group) -> int:
+    return 1 if group is None else dist.get_world_size(group)
+
+
+def _rank(group) -> int:
+    return 0 if group is None else dist.get_rank(group)
+
+
+def _gather_rows(row: torch.Tensor, group) -> torch.Tensor:
+    """(size, *row.shape): every rank of ``group``'s ``row`` in rank order,
+    the same on every rank (an all-reduce of one slot a rank: adding zeros
+    is exact, and each rank combines the slots in the same order)."""
+    slots = row.new_zeros((_size(group),) + tuple(row.shape))
+    slots[_rank(group)] = row
+    if group is not None:
+        dist.all_reduce(slots, group=group)
+    return slots
+
+
+def _check_nccl(group, what: str):
+    """Raises unless ``group``'s collectives can be captured into a CUDA
+    graph (NCCL's run on the card, gloo's on the host)."""
+    if group is not None and dist.get_backend(group) != "nccl":
+        raise RuntimeError(
+            f"--megastep and --resident on the card capture the {what}'s "
+            f"collectives into CUDA graphs, which needs NCCL; "
+            f"this process group runs {dist.get_backend(group)}, "
+            "whose collectives run on the host (start one rank a card "
+            "over NCCL: --data-axis N without --device cpu, or torchrun)")
+
+
+@dataclasses.dataclass
+class ModelAxis:
+    """The model axis seen from one rank: the ranks that share its data
+    index. ``group`` None is the axis of one."""
+
+    group: dist.ProcessGroup | None = None
+
+    @property
+    def size(self) -> int:
+        return _size(self.group)
+
+    @property
+    def rank(self) -> int:
+        return _rank(self.group)
+
+    @property
+    def parallel(self) -> bool:
+        return self.size > 1
+
+
 @dataclasses.dataclass
 class DataAxis:
     """The data axis seen from one rank. ``group`` None is the axis of
@@ -157,6 +218,8 @@ class DataAxis:
 
     device: torch.device
     group: dist.ProcessGroup | None = None
+    # this rank's model axis (tensor parallelism, ``parallel/tensor.py``)
+    model: ModelAxis = dataclasses.field(default_factory=ModelAxis)
     # (rows of the global batch a draw covers, this rank's slices of
     # them), set by :meth:`global_batch` around a train step
     _draw: tuple | None = dataclasses.field(default=None, init=False,
@@ -164,20 +227,33 @@ class DataAxis:
 
     @property
     def size(self) -> int:
-        return 1 if self.group is None else dist.get_world_size(self.group)
+        return _size(self.group)
 
     @property
     def rank(self) -> int:
-        return 0 if self.group is None else dist.get_rank(self.group)
+        return _rank(self.group)
 
     @property
     def parallel(self) -> bool:
         return self.size > 1
 
     @property
+    def distributed(self) -> bool:
+        """Whether more than one rank runs: a data axis or a model axis
+        of more than one."""
+        return self.parallel or self.model.parallel
+
+    @property
+    def world(self):
+        """The group of every rank of the mesh (None on a mesh of one)."""
+        if not self.model.parallel:
+            return self.group
+        return dist.group.WORLD
+
+    @property
     def is_main(self) -> bool:
-        """Rank 0 writes the run's files."""
-        return self.rank == 0
+        """Rank 0 of both axes writes the run's files."""
+        return self.rank == 0 and self.model.rank == 0
 
     # ------------------------------------------------------------ batches
     def rows(self, n: int) -> slice:
@@ -248,9 +324,7 @@ class DataAxis:
         """(size, *row.shape): every rank's ``row`` in rank order, the same
         on every rank (an all-reduce of one slot a rank: adding zeros is
         exact, and each rank combines the slots in the same order)."""
-        slots = row.new_zeros((self.size,) + tuple(row.shape))
-        slots[self.rank] = row
-        return self.all_reduce(slots)
+        return _gather_rows(row, self.group)
 
     def sizes(self, n: int) -> list[int]:
         """Every rank's ``n`` (a count of rows or tokens), in rank order.
@@ -283,34 +357,35 @@ class DataAxis:
         return flat[at:].view_as(extra).to(extra.dtype)
 
     def check_capturable(self):
-        """Raises unless this axis's collectives can be captured into a
-        CUDA graph: gloo's run on the host, so a data axis over gloo on the
-        card cannot run ``--megastep`` or ``--resident``. NCCL's run on the
-        card, and an axis of one has none."""
-        if self.parallel and dist.get_backend(self.group) != "nccl":
-            raise RuntimeError(
-                f"--megastep and --resident on the card capture the data "
-                f"axis's collectives into CUDA graphs, which needs NCCL; "
-                f"this process group runs {dist.get_backend(self.group)}, "
-                "whose collectives run on the host (start one rank a card "
-                "over NCCL: --data-axis N without --device cpu, or torchrun)")
+        """Raises unless this axis's collectives, and its model axis's, can
+        be captured into a CUDA graph: gloo's run on the host, so an axis
+        over gloo on the card cannot run ``--megastep`` or ``--resident``.
+        NCCL's run on the card, and an axis of one has none."""
+        _check_nccl(self.group, "data axis")
+        _check_nccl(self.model.group, "model axis")
 
     def any(self, flag: bool) -> bool:
-        """Whether ``flag`` is set on any rank."""
-        if self.group is None:
+        """Whether ``flag`` is set on any rank of the mesh."""
+        world = self.world
+        if world is None:
             return bool(flag)
         t = torch.tensor([float(flag)], device=self.device)
-        return bool(self.all_reduce(t).item() > 0)
+        dist.all_reduce(t, group=world)
+        return bool(t.item() > 0)
 
     def check_in_sync(self, modules=(), optimizers=()) -> int:
         """Raises unless every rank holds the same parameters, buffers and
         optimizer state, bit for bit (two integer checksums of each
-        tensor's bits, compared across the ranks in one all-reduce);
-        returns how many tensors were compared (0 on an axis of one)."""
-        if not self.parallel:
+        tensor's bits, compared across the ranks in one all-reduce): the
+        replicated ones across every rank of the mesh, a tensor
+        parallelism block (``parallel/tensor.py``) and its moments across
+        the data axis only (the model ranks hold different blocks);
+        returns how many tensors were compared (0 on a mesh of one)."""
+        if not self.distributed:
             return 0
         from .expert import expert_shards
         from .fsdp import fsdp_shards, working_weights
+        from .tensor import tp_blocks
 
         shards = {p: owner for m in modules
                   for p, owner in expert_shards(m).items()}
@@ -325,6 +400,22 @@ class DataAxis:
             if t not in shards] + [
             v for opt in optimizers for p, st in opt.state.items()
             if p not in shards for v in st.values() if torch.is_tensor(v)]
+        blocks = {b for m in modules for b in tp_blocks(m)}
+        local = {v for opt in optimizers for p, st in opt.state.items()
+                 if p in blocks for v in st.values() if torch.is_tensor(v)}
+        local.update(blocks)
+        for group, ts, where in (
+                (self.world, [t for t in tensors if t not in local],
+                 "every rank"),
+                (self.group, [t for t in tensors if t in local],
+                 "every rank of the data axis")):
+            if ts and group is not None:
+                self._compare(ts, group, where)
+        return len(tensors)
+
+    def _compare(self, tensors, group, where):
+        """Raises unless every rank of ``group`` holds ``tensors`` bit for
+        bit."""
         ints = {1: torch.uint8, 2: torch.int16, 4: torch.int32,
                 8: torch.int64}
         sums = []
@@ -333,12 +424,11 @@ class DataAxis:
                 ints[t.element_size()]).to(torch.int64)
             weight = torch.arange(bits.numel(), device=self.device) % 1021 + 1
             sums.append(torch.stack([bits.sum(), (bits * weight).sum()]))
-        slots = self.gather_rows(torch.stack(sums))
+        slots = _gather_rows(torch.stack(sums), group)
         if not all(torch.equal(slots[0], s) for s in slots[1:]):
             raise RuntimeError(
                 f"the data axis's ranks diverged: {len(tensors)} tensors "
-                "of the train state are not the same on every rank")
-        return len(tensors)
+                f"of the train state are not the same on {where}")
 
     def _check_shards(self, shards: dict):
         """Raises unless every rank holds expert shards of the same sizes,
@@ -427,39 +517,72 @@ def pad_to_batch_multiple(*arrays: np.ndarray, batch_size: int):
     return (*padded, mask)
 
 
+_MESHES: dict = {}
+
+
+def _mesh_groups(d: int, m: int) -> tuple:
+    """(the data groups by model index, the model groups by data index) of
+    a D x M world: every rank makes every group, in one order (what
+    ``dist.new_group`` asks), once a process group."""
+    world = dist.distributed_c10d._get_default_group()
+    held = _MESHES.get((d, m))
+    if held is None or held[0] is not world:
+        data = [dist.new_group([i * m + j for i in range(d)])
+                for j in range(m)]
+        model = [dist.new_group([i * m + j for j in range(m)])
+                 for i in range(d)]
+        _MESHES[d, m] = held = (world, data, model)
+    return held[1:]
+
+
 def data_axis_for(data_axis: int | None, device=None, *,
+                  model_axis: int = 1,
                   resident_batch: int | None = None) -> DataAxis:
-    """The driver's ``data_axis`` against the process group: with a group
-    up, ``None`` is every rank of it and any other size must equal it;
-    without one, ``None`` and 1 are the axis of one and a larger size
-    raises (the CLI starts the processes, or torchrun does). Under NCCL a
-    rank's device is ``cuda:{LOCAL_RANK}``; ``device`` overrides it (the
-    gloo ranks of a test, or two ranks sharing one card).
-    ``resident_batch``: a resident train batch, which must divide by the
-    axis (resident programs shard it; JAX's drivers check the same)."""
+    """The driver's ``data_axis`` and ``model_axis`` against the process
+    group: with a group up, D x M must be its size (``None``: the size over
+    M); without one, D x M must be 1 (the CLI starts the processes, or
+    torchrun does). Rank r sits at data index r // M and model index r % M
+    (JAX ``mesh.py:96-116``); the returned axis is this rank's data axis,
+    its ``model`` the model axis. Under NCCL a rank's device is
+    ``cuda:{LOCAL_RANK}``; ``device`` overrides it (the gloo ranks of a
+    test, or two ranks sharing one card). ``resident_batch``: a resident
+    train batch, which must divide by the data axis (resident programs
+    shard it; JAX's drivers check the same)."""
     if data_axis is not None and data_axis < 1:
         raise ValueError(f"data_axis must be >= 1, got {data_axis}")
-    ranks = data_axis or (dist.get_world_size() if dist.is_initialized()
-                          else 1)
+    model_axis = model_axis or 1
+    if model_axis < 1:
+        raise ValueError(f"model_axis must be >= 1, got {model_axis}")
+    world = dist.get_world_size() if dist.is_initialized() else 1
+    ranks = data_axis or max(1, world // model_axis)
     if resident_batch is not None and resident_batch % ranks:
         raise ValueError(
             f"train_batch_size {resident_batch} not divisible by the data "
             f"axis {ranks} (resident programs shard the batch over it)")
+    need = ranks * model_axis
     if not dist.is_initialized():
-        if (data_axis or 1) > 1:
+        if need > 1:
+            named = (f"data_axis={data_axis}" if model_axis == 1 else
+                     f"data_axis={ranks} x model_axis={model_axis}")
             raise RuntimeError(
-                f"data_axis={data_axis} needs {data_axis} processes in a "
-                "process group: `python -m extended_gan_torch.gat ... "
-                f"--data-axis {data_axis}` starts them, or run under "
-                "torchrun with --multihost")
+                f"{named} needs {need} processes in a process group: "
+                f"`python -m extended_gan_torch.gat ... --data-axis {ranks}"
+                + (f" --model-axis {model_axis}" if model_axis > 1 else "")
+                + "` starts them, or run under torchrun with --multihost")
         return DataAxis(resolve_device(device))
-    world = dist.get_world_size()
-    if data_axis is not None and data_axis != world:
-        raise ValueError(f"data_axis={data_axis}, but the process group has "
-                         f"{world} ranks")
+    if need != world:
+        raise ValueError(
+            f"data_axis={data_axis}" + (f" x model_axis={model_axis}"
+                                        if model_axis > 1 else "")
+            + f", but the process group has {world} ranks")
     if device is None and dist.get_backend() == "nccl":
         dev = rank_device(int(os.environ.get("LOCAL_RANK",
                                              dist.get_rank())))
     else:
         dev = resolve_device(device)
-    return DataAxis(dev, dist.group.WORLD if world > 1 else None)
+    if model_axis == 1:
+        return DataAxis(dev, dist.group.WORLD if world > 1 else None)
+    data, model = _mesh_groups(ranks, model_axis)
+    d, m = divmod(dist.get_rank(), model_axis)
+    return DataAxis(dev, data[m] if ranks > 1 else None,
+                    ModelAxis(model[d]))

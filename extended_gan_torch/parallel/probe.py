@@ -2,7 +2,7 @@
 
   python -m extended_gan_torch.parallel.probe [--cards 4] [--turns 2]
       [--megastep K] [--workload unet dcgan] [--epochs 2] [--trace]
-      [--check]
+      [--check] [--fsdp] [--model-axis M [M ...]]
 
 Makes a synthetic archive for each workload, then trains it for
 ``--epochs`` epochs with ``--profile`` at the global batch 32, in turns:
@@ -57,6 +57,19 @@ without it; ``--check`` holds the FSDP ranks to one card as above and
 adds rank 0's persistent bytes of each net (parameters, blocks included,
 and the optimizer's state) and its peak memory, beside those of the same
 N-card run without FSDP.
+
+``--model-axis M`` (one or more sizes that divide ``--cards``) adds
+tensor parallelism (``parallel/tensor.py``): the N cards form a mesh of
+N / M data ranks x M model ranks, and the conv-GAT model's (all of it)
+or the DCGAN's discriminators' conv kernels of at least 256 output
+channels are cut by output channel over the model axis. The timing runs
+give the N-card CLIs ``--data-axis N/M --model-axis M`` and carry rank
+0's ``[tp]`` lines; ``--trace`` adds, after the data axis's N cards, a
+traced run at each M (and each with ``--fsdp`` when it is given) in
+place of the one-card one; ``--check`` holds each M's mesh (and, with
+``--fsdp``, the same mesh under FSDP too) to the one card's arithmetic,
+the one-card references computed once a workload, and adds rank 0's
+persistent bytes of each net and its peak memory.
 """
 
 from __future__ import annotations
@@ -69,13 +82,13 @@ import sys
 import tempfile
 
 import torch
-import torch.distributed as dist
 
 from ..data.streaming import get_h5_loaders, get_loaders
 from ..data.synthetic import make_h5_dataset, make_kmni_dataset
 from .batch_norm import join_data_axis
 from .launch import spawn_ranks
-from .mesh import DataAxis
+from .mesh import DataAxis, data_axis_for
+from .tensor import DEFAULT_MIN_CHANNELS as TP_MIN
 
 SEED = 369
 BATCH = 32
@@ -127,9 +140,10 @@ def _dcgan(tmp):
 WORKLOADS = {"unet": _unet, "dcgan": _dcgan, "moe": _moe}
 
 
-def _fsdp_lines(stdout: str):
-    """The training CLI's ``[fsdp]`` lines (rank 0's blocks of each net)."""
-    return [ln for ln in stdout.splitlines() if ln.startswith("[fsdp]")]
+def _lines(stdout: str, tag: str):
+    """The training CLI's lines that start with ``tag`` (``[fsdp]``,
+    ``[tp]``: rank 0's blocks of each net)."""
+    return [ln for ln in stdout.splitlines() if ln.startswith(tag)]
 
 
 def _expert_line(stdout: str):
@@ -178,10 +192,12 @@ def replay_stats(trace_path: str, k: int) -> dict:
 
 def check_run(workload: str, k: int, axis: DataAxis,
               dtype: torch.dtype = torch.float32,
-              fsdp_min: int | None = None) -> dict:
+              fsdp_min: int | None = None,
+              tp_min: int = TP_MIN) -> dict:
     """``--check``'s run of ``workload`` on ``axis`` (this rank's rows of
-    every global batch) in ``dtype``, FSDP at ``fsdp_min`` (None: off):
-    the train state after it (parameters and buffers, full leaves, on the
+    every global batch) in ``dtype``, FSDP at ``fsdp_min`` (None: off),
+    tensor parallelism over ``axis.model`` at ``tp_min`` channels: the
+    train state after it (parameters and buffers, full leaves, on the
     CPU), each group's logs, how many tensors the ranks found equal (0 on
     one card), this rank's persistent bytes of each net and its peak
     memory."""
@@ -190,7 +206,7 @@ def check_run(workload: str, k: int, axis: DataAxis,
     from ..models.registry import build_model
     from ..train import dcgan_trainer, gat_trainer
     from ..train.dcgan_driver import DEFAULT_PARAMS, build_dcgan
-    from . import fsdp
+    from . import fsdp, tensor
     from .expert import full_state_dict, shard_tree_moe_ep
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -215,6 +231,10 @@ def check_run(workload: str, k: int, axis: DataAxis,
                               dropout=0.0)
     nets = tuple(net.to(dtype) for net in nets)
     join_data_axis(axis, *nets)
+    # TP (the whole conv-GAT model, the DCGAN's discriminators), then EP,
+    # then FSDP, as the drivers place them
+    for net in nets if gat else nets[1:]:
+        tensor.shard_module_tp(net, axis, tp_min)
     shard_tree_moe_ep(nets[0], axis)
     if fsdp_min is not None:
         for net in nets:
@@ -242,8 +262,8 @@ def check_run(workload: str, k: int, axis: DataAxis,
     # every expert and FSDP block (gathered from their ranks), then the
     # buffers
     state = [t.detach().cpu().clone() for net in nets
-             for t in fsdp.full_state_dict(
-                 net, full_state_dict(net, axis)).values()]
+             for t in tensor.full_state_dict(net, fsdp.full_state_dict(
+                 net, full_state_dict(net, axis))).values()]
     return {"state": state, "logs": logs,
             "in_sync": axis.check_in_sync(nets, opts),
             "bytes": [fsdp.persistent_bytes(net, opt)
@@ -254,44 +274,72 @@ def check_run(workload: str, k: int, axis: DataAxis,
 
 def check_rank(argv):
     """One rank of ``--check`` (``spawn_ranks``'s entry): ``argv`` is the
-    workload, K and the file rank 0 saves its :func:`check_run` to."""
-    workload, k, out, fsdp_min = argv
-    axis = DataAxis(torch.device("cuda", torch.cuda.current_device()),
-                    dist.group.WORLD)
+    workload, K, the file rank 0 saves its :func:`check_run` to, FSDP's
+    min_size (or "off") and the model axis's size."""
+    workload, k, out, fsdp_min, model_axis = argv
+    axis = data_axis_for(None, torch.device("cuda",
+                                            torch.cuda.current_device()),
+                         model_axis=int(model_axis))
     res = check_run(workload, int(k), axis, fsdp_min=None
                     if fsdp_min == "off" else int(fsdp_min))
     if axis.is_main:
         torch.save(res, out)
 
 
+_ONE_CARD: dict = {}
+
+
+def _one_card(workload: str, k: int) -> tuple:
+    """The one card's float32 run of ``workload`` and its distance from
+    float64 (``--check``'s reference), once a workload."""
+    from ..utils.compare import drift
+
+    if (workload, k) not in _ONE_CARD:
+        one = DataAxis(torch.device("cuda", 0))
+        f32 = check_run(workload, k, one)
+        f64 = check_run(workload, k, one, torch.float64)
+        _ONE_CARD[workload, k] = f32, drift(f32["state"], f64["state"])
+    return _ONE_CARD[workload, k]
+
+
 def _check(workload: str, k: int, cards: int, tmp: str,
-           fsdp_min: int | None = None) -> dict:
-    """``--check`` of one workload (FSDP at ``fsdp_min``, None: off): the
-    JSON line's fields."""
-    from ..utils.compare import drift, held_to_reference
+           fsdp_min: int | None = None, model_axis: int = 1) -> dict:
+    """``--check`` of one workload on a mesh of ``cards`` / ``model_axis``
+    data ranks x ``model_axis`` model ranks (FSDP at ``fsdp_min``, None:
+    off): the JSON line's fields. With FSDP the same mesh without it is
+    held to the bound too, beside its bytes and peak memory."""
+    from ..utils.compare import held_to_reference
 
     def ranks(fsdp_min):
         out = os.path.join(tmp, f"{workload}_check.pt")
         spawn_ranks(f"{__name__}:check_rank", [
             workload, str(k), out,
-            "off" if fsdp_min is None else str(fsdp_min)], cards)
+            "off" if fsdp_min is None else str(fsdp_min), str(model_axis)],
+            cards)
         return torch.load(out, weights_only=False)
 
+    f32, floor = _one_card(workload, k)
     many = ranks(fsdp_min)
+    verdict = held_to_reference(many["state"], f32["state"], floor)
     memory = {}
     if fsdp_min is not None:
         plain = ranks(None)
+        plain_verdict = held_to_reference(plain["state"], f32["state"],
+                                          floor)
         memory = {"fsdp_min_size": fsdp_min, "bytes_rank0": many["bytes"],
                   "peak_bytes_rank0": many["peak_bytes"],
                   "plain_bytes_rank0": plain["bytes"],
-                  "plain_peak_bytes_rank0": plain["peak_bytes"]}
-    one = DataAxis(torch.device("cuda", 0))
-    f32 = check_run(workload, k, one)
-    f64 = check_run(workload, k, one, torch.float64)
-    floor = drift(f32["state"], f64["state"])
-    verdict = held_to_reference(many["state"], f32["state"], floor)
+                  "plain_peak_bytes_rank0": plain["peak_bytes"],
+                  "plain_ok": plain_verdict["ok"],
+                  "plain_of_bound": plain_verdict["worst"],
+                  "plain_in_sync": plain["in_sync"]}
+    elif model_axis > 1:
+        memory = {"bytes_rank0": many["bytes"],
+                  "peak_bytes_rank0": many["peak_bytes"]}
     return {"workload": workload, "cards": cards, "megastep": k,
-            "groups": CHECK_GROUPS, "ok": verdict["ok"],
+            "data_axis": cards // model_axis, "model_axis": model_axis,
+            "groups": CHECK_GROUPS, "ok": verdict["ok"]
+            and memory.get("plain_ok", True),
             "of_bound": verdict["worst"], "gap": verdict["gap"],
             "floor": floor["whole"], "in_sync": many["in_sync"],
             "last_logs": {n: v.tolist() for n, v in many["logs"][-1].items()},
@@ -320,7 +368,14 @@ def main(argv=None):
     parser.add_argument("--fsdp", action="store_true",
                         help="the N-card runs under FSDP / ZeRO-3")
     parser.add_argument("--fsdp-min-size", type=int, default=4096)
+    parser.add_argument("--model-axis", type=int, nargs="+", default=[1],
+                        help="M: the N cards as N/M data x M model ranks, "
+                             "tensor parallelism over M (several: each in "
+                             "turn)")
     args = parser.parse_args(argv)
+    if any(args.cards % m for m in args.model_axis):
+        parser.error(f"--model-axis {args.model_axis} must divide --cards "
+                     f"{args.cards}")
     fsdp_min = args.fsdp_min_size if args.fsdp else None
     fsdp_argv = ["--fsdp", "--fsdp-min-size", str(args.fsdp_min_size)]
     if (args.trace or args.check) and args.megastep < 2:
@@ -333,27 +388,36 @@ def main(argv=None):
     with tempfile.TemporaryDirectory(prefix="dp_probe_") as tmp:
         for workload in args.workload:
             if args.check:
-                res = _check(workload, args.megastep, args.cards, tmp,
-                             fsdp_min)
-                print(json.dumps(res), flush=True)
-                if not res["ok"] or (args.cards > 1 and not res["in_sync"]):
-                    return 1
+                for m in args.model_axis:
+                    res = _check(workload, args.megastep, args.cards, tmp,
+                                 fsdp_min, m)
+                    print(json.dumps(res), flush=True)
+                    if not res["ok"] or (args.cards > 1
+                                         and not res["in_sync"]):
+                        return 1
                 continue
             cmd, loss_keys, steps, out_flag = WORKLOADS[workload](tmp)
             if args.trace:
-                runs = [(1, False), (args.cards, False)]
-                if args.fsdp:
-                    runs.append((args.cards, True))
-                for axis, sharded in runs:
-                    out = os.path.join(tmp, f"{workload}_trace{axis}"
+                # (cards, model axis, FSDP)
+                tp = [m for m in args.model_axis if m > 1]
+                runs = [(1, 1, False)] if not tp else []
+                runs.append((args.cards, 1, False))
+                if args.fsdp and not tp:
+                    runs.append((args.cards, 1, True))
+                for m in tp:
+                    runs += [(args.cards, m, False)] + (
+                        [(args.cards, m, True)] if args.fsdp else [])
+                for axis, m, sharded in runs:
+                    out = os.path.join(tmp, f"{workload}_trace{axis}_{m}"
                                        + "_fsdp" * sharded)
                     res = subprocess.run(cmd + [
                         "--epochs", "1", "--max-batches",
                         str(4 * args.megastep), out_flag, out,
-                        "--data-axis", str(axis), "--megastep",
+                        "--data-axis", str(axis // m), "--megastep",
                         str(args.megastep), "--profile-trace-dir",
                         os.path.join(out, "trace")]
-                        + fsdp_argv * sharded,
+                        + fsdp_argv * sharded
+                        + ["--model-axis", str(m)] * (m > 1),
                         capture_output=True, text=True)
                     if res.returncode:
                         sys.stderr.write(res.stdout[-3000:]
@@ -362,8 +426,10 @@ def main(argv=None):
                     traces = sorted(os.listdir(os.path.join(out, "trace")))
                     print(json.dumps({
                         "workload": workload, "cards": axis,
+                        "model_axis": m,
                         "megastep": args.megastep, "fsdp": sharded,
-                        "fsdp_lines": _fsdp_lines(res.stdout),
+                        "fsdp_lines": _lines(res.stdout, "[fsdp]"),
+                        "tp_lines": _lines(res.stdout, "[tp]"),
                         "experts": _expert_line(res.stdout), "trace": [
                             replay_stats(os.path.join(out, "trace", t),
                                          args.megastep)
@@ -371,14 +437,18 @@ def main(argv=None):
                 continue
             n_steps = [steps(e) for e in range(1, args.epochs + 1)]
             order = [1, args.cards, args.cards, 1] * args.turns
+            m = args.model_axis[0]
             for i, axis in enumerate(order[:2 * args.turns]):
                 out = os.path.join(tmp, f"{workload}{i}")
                 run = cmd + ["--epochs", str(args.epochs), out_flag, out,
-                             "--data-axis", str(axis)]
+                             "--data-axis", str(axis // m if axis > 1
+                                                else 1)]
                 if args.megastep > 1:
                     run += ["--megastep", str(args.megastep)]
                 if args.fsdp and axis > 1:
                     run += fsdp_argv
+                if m > 1 and axis > 1:
+                    run += ["--model-axis", str(m)]
                 res = subprocess.run(run, capture_output=True, text=True)
                 if res.returncode:
                     sys.stderr.write(res.stdout[-3000:] + res.stderr[-3000:])
@@ -405,7 +475,9 @@ def main(argv=None):
                     "launches_rank0": launches,
                     "experts": _expert_line(res.stdout),
                     "fsdp": args.fsdp and axis > 1,
-                    "fsdp_lines": _fsdp_lines(res.stdout),
+                    "fsdp_lines": _lines(res.stdout, "[fsdp]"),
+                    "model_axis": m if axis > 1 else 1,
+                    "tp_lines": _lines(res.stdout, "[tp]"),
                     "in_sync": in_sync}), flush=True)
     return 0
 

@@ -66,9 +66,16 @@ leaves, so runs with and without it resume each other; every rank builds
 each snapshot and rank 0 writes it. On an axis of one it prints JAX's
 line and shards nothing.
 
-The JAX driver's tensor and sequence parallelism is not ported yet: a
-keyword that sets one of them raises, naming the ROADMAP item that ports
-it.
+``model_axis`` M > 1 adds a model axis: the process group's D x M ranks
+form JAX's (data, model) mesh (rank r at data index r // M, model index
+r % M; the data axis is the ranks that share a model index), and tensor
+parallelism (``parallel/tensor.py``) cuts D_x and D_y's conv kernels of at
+least ``tp_min_channels`` output channels that M divides, with their Adam
+moments, into one block of output channels a model rank, before FSDP;
+the cut convs compute their own channels and gather the rest over the
+model axis. The checkpoints hold full leaves. The JAX driver's sequence
+parallelism is not ported yet: ``spatial`` raises, naming the ROADMAP
+item that ports it.
 """
 
 from __future__ import annotations
@@ -96,6 +103,7 @@ from ..data.synthetic import ensure_synthetic_coastal
 from ..models.dcgan import FrameDiscriminator, Generator
 from ..parallel import data_axis_for, join_data_axis
 from ..parallel import fsdp as fsdp_
+from ..parallel import tensor as tensor_
 from ..utils.history import TrainingHistory
 from ..utils.profiling import epoch_profiler, timed
 from .checkpoint import (
@@ -126,9 +134,7 @@ train_single_epoch = functools.partial(gan_epoch, keys=TRAIN_SUMS)
 
 # keywords of JAX driver options the port does not have yet: (the value
 # that means "off", the ROADMAP queue 1 item)
-_NOT_PORTED = {
-    "model_axis": (1, 9), "tp_min_channels": (256, 9), "spatial": (False, 9),
-}
+_NOT_PORTED = {"spatial": (False, 9)}
 
 
 def build_cyclegan(*, nc: int = 4, ndf: int = 64, lr: float = 2e-4,
@@ -175,7 +181,8 @@ def train(*, data_location: str | None = None, epochs: int = 10,
           resident: bool = False, packed_g: bool | None = None,
           profile: bool = False, profile_trace_dir: str = "", device=None,
           data_axis: int | None = None, fsdp: bool = False,
-          fsdp_min_size: int = fsdp_.DEFAULT_MIN_SIZE, **options):
+          fsdp_min_size: int = fsdp_.DEFAULT_MIN_SIZE, model_axis: int = 1,
+          tp_min_channels: int = tensor_.DEFAULT_MIN_CHANNELS, **options):
     """Train on ``device`` (default: the CUDA card, ``cuda:{LOCAL_RANK}``
     on a data axis over NCCL). Takes the JAX driver's keyword arguments.
     Returns ``((G_xy, G_yx, D_x, D_y), history)``.
@@ -183,13 +190,15 @@ def train(*, data_location: str | None = None, epochs: int = 10,
     one device without one: this call starts no process (the CLIs start
     every visible card's rank for an unset ``--data-axis``)."""
     refuse_unported(options, _NOT_PORTED)
-    axis = data_axis_for(data_axis, device,
+    axis = data_axis_for(data_axis, device, model_axis=model_axis,
                          resident_batch=train_batch_size if resident else None)
     dev = axis.device
     graphs = dev.type == "cuda" and (megastep > 1 or resident)
     print(f"Using device: {dev}")
     if axis.parallel:
         print(f"Using data axis: {axis.size} ranks (rank {axis.rank})")
+    if axis.model.parallel:
+        print(f"mesh: data={axis.size} model={axis.model.size}")
     data_location = data_location or DEFAULT_DATA
     if synthetic or not os.path.isdir(data_location):
         print(f"[cycle_gan] data not found at {data_location}; using "
@@ -205,6 +214,8 @@ def train(*, data_location: str | None = None, epochs: int = 10,
     def place(nets):
         # broadcast, then FSDP, then the optimizers (JAX ``:199-222``)
         join_data_axis(axis, *nets)
+        # TP on the discriminators before FSDP (JAX ``:199-215``)
+        tensor_.place_nets(axis, nets[2:], tp_min_channels)
         fsdp_.place_nets(axis, nets, fsdp, fsdp_min_size)
 
     nets, opts = build_cyclegan(nc=nc, ndf=ndf, lr=lr, precision=precision,
@@ -296,8 +307,10 @@ def train(*, data_location: str | None = None, epochs: int = 10,
         history=TrainingHistory())
     hist_path = os.path.join(out_dir, "history.json") if out_dir else None
     if not axis.is_main:
-        # rank 0 writes; under FSDP every rank takes part in the snapshot
-        ckpt_mgr = SnapshotOnly() if sharded and out_dir and (
+        # rank 0 writes; under FSDP or TP every rank takes part in the
+        # snapshot (its gathers are collectives)
+        collective = sharded or any(tensor_.tp_net(n) for n in nets)
+        ckpt_mgr = SnapshotOnly() if collective and out_dir and (
             resume or save_epoch) else None
 
     def snapshot(epoch, mid_tree):

@@ -70,9 +70,16 @@ runs with and without it resume each other; every rank builds each
 snapshot and rank 0 writes it. On an axis of one it prints JAX's line and
 shards nothing.
 
-The JAX driver's tensor and sequence parallelism is not ported yet: a
-keyword that sets one of them raises, naming the ROADMAP item that ports
-it.
+``model_axis`` M > 1 adds a model axis: the process group's D x M ranks
+form JAX's (data, model) mesh (rank r at data index r // M, model index
+r % M; the data axis is the ranks that share a model index), and tensor
+parallelism (``parallel/tensor.py``) cuts FD and TD's conv kernels of at
+least ``tp_min_channels`` output channels that M divides, with their Adam
+moments, into one block of output channels a model rank, before FSDP;
+the cut convs compute their own channels and gather the rest over the
+model axis. The checkpoints hold full leaves. The JAX driver's sequence
+parallelism is not ported yet: ``spatial`` raises, naming the ROADMAP
+item that ports it.
 """
 
 from __future__ import annotations
@@ -99,6 +106,7 @@ from ..data.synthetic import ensure_synthetic_h5
 from ..models.dcgan import FrameDiscriminator, Generator, TemporalDiscriminator
 from ..parallel import data_axis_for, join_data_axis
 from ..parallel import fsdp as fsdp_
+from ..parallel import tensor as tensor_
 from ..utils.history import TrainingHistory
 from ..utils.profiling import epoch_profiler, timed
 from .checkpoint import (
@@ -137,9 +145,7 @@ DEFAULT_DATA = "/mnt/tmp/multi_channel_train_test"
 
 # keywords of JAX driver options the port does not have yet: (the value
 # that means "off", the ROADMAP queue 1 item)
-_NOT_PORTED = {
-    "model_axis": (1, 9), "tp_min_channels": (256, 9), "spatial": (False, 9),
-}
+_NOT_PORTED = {"spatial": (False, 9)}
 
 
 def build_dcgan(params: dict, *, seed: int, device=None, dropout=0.01,
@@ -185,7 +191,8 @@ def train(*, data_location: str | None = None, epochs: int | None = None,
           fused_prop: bool = False, packed_g: bool | None = None,
           profile: bool = False, profile_trace_dir: str = "", device=None,
           data_axis: int | None = None, fsdp: bool = False,
-          fsdp_min_size: int = fsdp_.DEFAULT_MIN_SIZE, **options):
+          fsdp_min_size: int = fsdp_.DEFAULT_MIN_SIZE, model_axis: int = 1,
+          tp_min_channels: int = tensor_.DEFAULT_MIN_CHANNELS, **options):
     """Train on ``device`` (default: the CUDA card, ``cuda:{LOCAL_RANK}``
     on a data axis over NCCL). Takes the JAX driver's keyword arguments.
     Returns ``((G, FD, TD), history)``.
@@ -196,13 +203,15 @@ def train(*, data_location: str | None = None, epochs: int | None = None,
     params = {**DEFAULT_PARAMS, **(params or {})}
     if epochs is not None:
         params["nepochs"] = epochs
-    axis = data_axis_for(data_axis, device,
+    axis = data_axis_for(data_axis, device, model_axis=model_axis,
                          resident_batch=train_batch_size if resident else None)
     dev = axis.device
     graphs = dev.type == "cuda" and (megastep > 1 or resident)
     print(f"Using device: {dev}")
     if axis.parallel:
         print(f"Using data axis: {axis.size} ranks (rank {axis.rank})")
+    if axis.model.parallel:
+        print(f"mesh: data={axis.size} model={axis.model.size}")
     data_location = data_location or DEFAULT_DATA
     if synthetic or not os.path.isdir(data_location):
         print(f"[dcgan] data not found at {data_location}; using the "
@@ -220,6 +229,8 @@ def train(*, data_location: str | None = None, epochs: int | None = None,
     def place(nets):
         # broadcast, then FSDP, then the optimizers (JAX ``:155-180``)
         join_data_axis(axis, *nets)
+        # TP on the discriminators before FSDP (JAX ``:155-171``)
+        tensor_.place_nets(axis, nets[1:], tp_min_channels)
         fsdp_.place_nets(axis, nets, fsdp, fsdp_min_size)
 
     nets, opts = build_dcgan(params, seed=seed, device=dev,
@@ -227,6 +238,7 @@ def train(*, data_location: str | None = None, epochs: int | None = None,
                              keys=keys, packed_g=packed_g, place=place)
     for net, opt in zip(nets, opts):
         fsdp_.refresh_after(opt, net)
+    tp_cut = any(tensor_.tp_net(net) for net in nets)
     if fused_disc:
         print("[fused-disc] doubled-batch discriminator passes "
               "(mixed real+fake BN statistics)")
@@ -282,7 +294,9 @@ def train(*, data_location: str | None = None, epochs: int | None = None,
                                               k=resident_k,
                                               batch_size=test_batch_size,
                                               axis=axis)
-                if img_path is not None:
+                if img_path is not None or tp_cut:
+                    # cut discriminators: every rank runs the batch's
+                    # forward, rank 0 draws
                     draw_first_eval_batch(
                         eval_step, test_store, in_seq_len=params["nc"],
                         out_seq_len=params["nc"], batch_size=test_batch_size,
@@ -322,8 +336,9 @@ def train(*, data_location: str | None = None, epochs: int | None = None,
         history=TrainingHistory())
     hist_path = os.path.join(out_dir, "history.json") if out_dir else None
     if not axis.is_main:
-        # rank 0 writes; under FSDP every rank takes part in the snapshot
-        ckpt_mgr = SnapshotOnly() if sharded and out_dir and (
+        # rank 0 writes; under FSDP or TP every rank takes part in the
+        # snapshot (its gathers are collectives)
+        ckpt_mgr = SnapshotOnly() if (sharded or tp_cut) and out_dir and (
             resume or save_epoch) else None
 
     def snapshot(epoch, mid_tree):

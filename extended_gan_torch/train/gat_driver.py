@@ -86,9 +86,21 @@ optimizer's step gathers the blocks into the working weights the forward
 reads, and the gradients go to the blocks by a reduce-scatter.
 ``model.pt`` and checkpoints hold full leaves, so runs with and without
 it resume each other. On an axis of one it prints JAX's line and shards
-nothing. Tensor, sequence and pipeline parallelism are not ported: a
-config that sets one of them to anything but its default raises, naming
-the ROADMAP item that ports it.
+nothing.
+
+``model_axis`` M > 1 (config key MODEL_AXIS) adds a model axis: the
+process group's D x M ranks form JAX's (data, model) mesh, rank r at data
+index r // M and model index r % M, and the data axis is the ranks that
+share a model index. Tensor parallelism (``parallel/tensor.py``; JAX
+``:412-420``) cuts every conv kernel of the model whose flax output axis
+has at least ``tp_min_channels`` channels and divides by M, with its Adam
+moments, into one block of output channels a model rank, before expert
+parallelism and FSDP: the cut layers compute their own channels
+(final_smaatunet's depthwise-separable convs run K3 on theirs) and gather
+the rest over the model axis. ``model.pt`` and checkpoints hold full
+leaves. Sequence and pipeline parallelism are not ported: a config that
+sets one of them to anything but its default raises, naming the ROADMAP
+item that ports it.
 """
 
 from __future__ import annotations
@@ -116,6 +128,7 @@ from ..models.registry import build_model
 from ..ops import launch_counts, plain_routes
 from ..parallel import data_axis_for, join_data_axis
 from ..parallel import fsdp as fsdp_
+from ..parallel import tensor as tensor_
 from ..parallel.expert import (
     expert_shards,
     full_state_dict,
@@ -147,8 +160,8 @@ from .unported import refuse_unported
 # experiment-config keys and keywords of JAX driver options the port does
 # not have yet: (the value that means "off", the ROADMAP queue 1 item)
 _NOT_PORTED = {
-    "model_axis": (1, 9), "tp_min_channels": (256, 9), "spatial": (False, 9),
-    "pipeline_stages": (0, 9), "pp_microbatches": (0, 9),
+    "spatial": (False, 9), "pipeline_stages": (0, 9),
+    "pp_microbatches": (0, 9),
 }
 
 
@@ -239,7 +252,8 @@ def train(*, model_type: str = "temporal", optimizer: str = "adam",
           profile: bool = False, profile_trace_dir: str = "", device=None,
           moe_experts: int = 0, moe_aux_weight: float = 0.01,
           data_axis: int | None = None, fsdp: bool = False,
-          fsdp_min_size: int = fsdp_.DEFAULT_MIN_SIZE, **options):
+          fsdp_min_size: int = fsdp_.DEFAULT_MIN_SIZE, model_axis: int = 1,
+          tp_min_channels: int = tensor_.DEFAULT_MIN_CHANNELS, **options):
     """Train on ``device`` (default: the CUDA card, ``cuda:{LOCAL_RANK}``
     on a data axis over NCCL). Takes the JAX driver's keyword arguments,
     every field of an experiment config among them; ``plot`` is accepted
@@ -250,7 +264,7 @@ def train(*, model_type: str = "temporal", optimizer: str = "adam",
     one device without one: this call starts no process (the CLIs start
     every visible card's rank for an unset ``--data-axis``)."""
     refuse_unported(options, _NOT_PORTED)
-    axis = data_axis_for(data_axis, device,
+    axis = data_axis_for(data_axis, device, model_axis=model_axis,
                          resident_batch=train_batch_size if resident else None)
     if conv_impl == "auto":
         # chanfirst becomes the pick only after an A/B on the card shows a
@@ -265,6 +279,8 @@ def train(*, model_type: str = "temporal", optimizer: str = "adam",
     print(f"Using device: {dev}")
     if axis.parallel:
         print(f"Using data axis: {axis.size} ranks (rank {axis.rank})")
+    if axis.model.parallel:
+        print(f"Using mesh: data={axis.size} model={axis.model.size}")
     if dataset == "kmni" and not os.path.isdir(
             os.path.join(preprocessed_folder, "train")):
         print(f"[conv_gat] dataset not found at {preprocessed_folder!r}; "
@@ -292,6 +308,11 @@ def train(*, model_type: str = "temporal", optimizer: str = "adam",
                         moe_experts=moe_experts)
     n_params = param_count(model)
     join_data_axis(axis, model)
+    # TP first: its blocks' Adam moments are cut too, and EP and FSDP
+    # place what it leaves (JAX ``gat_driver.py:412-440``)
+    tp = tensor_.shard_module_tp(model, axis, tp_min_channels) is not None
+    if axis.model.parallel:
+        print(tensor_.describe(model, axis))
     # EP before the optimizer: each rank keeps its E/D experts, so Adam's
     # moments are sliced too (JAX ``gat_driver.py:421-432``)
     shard_tree_moe_ep(model, axis)
@@ -432,10 +453,11 @@ def train(*, model_type: str = "temporal", optimizer: str = "adam",
             ckpt_mgr.save(step_id, snap)
 
     model_state = None
-    if ep or sharded:
-        # full leaves: the expert shards' and FSDP's gathered
-        model_state = lambda: fsdp_.full_state_dict(  # noqa: E731
-            model, full_state_dict(model, axis) if ep else None)
+    if ep or sharded or tp:
+        # full leaves: the expert shards', FSDP's, then TP's gathered
+        model_state = lambda: tensor_.full_state_dict(  # noqa: E731
+            model, fsdp_.full_state_dict(
+                model, full_state_dict(model, axis) if ep else None))
     with GracefulShutdown() as local_shutdown:
         shutdown = any_rank_shutdown(local_shutdown, axis)
         for epoch in range(start_epoch, epochs + 1):
@@ -463,10 +485,11 @@ def train(*, model_type: str = "temporal", optimizer: str = "adam",
                           "lost")
                 break
             mid = empty_gat_mid()
-            if writes or (routed and output_path):
+            if writes or ((routed or tp) and output_path):
                 _, viz_loader, _ = loader_factory(2, 2)
                 # a routed MoE's ranks run the figure's forward on their
-                # rows together; the writing rank draws
+                # rows together, a TP model's every rank the whole forward;
+                # the writing rank draws
                 visualize_gat_predictions(
                     lambda xb: predict_batch(model, xb, dev,
                                              axis=axis if routed else None),

@@ -70,4 +70,4 @@ class AnyRankShutdown:
 def any_rank_shutdown(shutdown: GracefulShutdown, axis):
     """``shutdown`` seen by every rank of ``axis`` (:class:`AnyRankShutdown`);
     ``shutdown`` itself on an axis of one."""
-    return AnyRankShutdown(shutdown, axis) if axis.parallel else shutdown
+    return AnyRankShutdown(shutdown, axis) if axis.distributed else shutdown

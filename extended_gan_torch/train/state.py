@@ -31,8 +31,9 @@ class NetState:
     # a data axis whose ranks hold expert shards (``parallel/expert.py``):
     # the tree then holds all E experts and their moments, gathered (every
     # rank calls state_dict), and a load takes this rank's slice. A model
-    # with FSDP shards (``parallel/fsdp.py``) is gathered and cut the same
-    # way, whatever ``axis`` says
+    # with FSDP shards (``parallel/fsdp.py``) or tensor parallelism blocks
+    # (``parallel/tensor.py``) is gathered and cut the same way, whatever
+    # ``axis`` says: FSDP's blocks gathered first, then TP's
     axis: Any = None
 
     def state_dict(self) -> dict:
@@ -44,9 +45,10 @@ class NetState:
             from ..parallel.expert import full_state
 
             tree = full_state(tree, self.model, self.optimizer, self.axis)
-        from ..parallel import fsdp
+        from ..parallel import fsdp, tensor
 
-        return fsdp.full_state(tree, self.model, self.optimizer)
+        tree = fsdp.full_state(tree, self.model, self.optimizer)
+        return tensor.full_state(tree, self.model, self.optimizer)
 
     def load_state_dict(self, tree: dict):
         """Loads a checkpoint's tree into the running objects. The running
@@ -58,8 +60,9 @@ class NetState:
             from ..parallel.expert import local_state
 
             tree = local_state(tree, self.model, self.optimizer)
-        from ..parallel import fsdp
+        from ..parallel import fsdp, tensor
 
+        tree = tensor.local_state(tree, self.model, self.optimizer)
         tree = fsdp.local_state(tree, self.model, self.optimizer)
         self.model.load_state_dict(tree["model"])
         load_optimizer_state(self.optimizer, tree["optimizer"])
@@ -81,12 +84,15 @@ def load_optimizer_state(opt: torch.optim.Optimizer, saved: dict):
 
 
 def report_in_sync(axis, modules, optimizers):
-    """On a data axis of more than one rank: raises unless every rank ends
-    with the same train state, bit for bit (``DataAxis.check_in_sync``),
-    and prints how much was compared."""
-    if axis.parallel:
+    """On a mesh of more than one rank: raises unless every rank ends
+    with the same train state, bit for bit (``DataAxis.check_in_sync``;
+    a tensor parallelism block across the data axis), and prints how much
+    was compared."""
+    if axis.distributed:
         n = axis.check_in_sync(modules, optimizers)
-        print(f"[data axis] {axis.size} ranks in sync: {n} tensors of the "
+        ranks = (f"{axis.size} x {axis.model.size} (data x model)"
+                 if axis.model.parallel else f"{axis.size}")
+        print(f"[data axis] {ranks} ranks in sync: {n} tensors of the "
               "train state bit for bit")
 
 

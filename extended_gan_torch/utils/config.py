@@ -5,7 +5,8 @@ same experiment ``config.py`` files (a directory with a ``config.py`` of
 UPPER_CASE literals), parsed declaratively with ``ast.literal_eval`` and
 validated into :class:`ExperimentConfig`. The fields are the JAX package's,
 so one experiment directory drives both packages; fields the port does not
-act on yet (mesh axes, megastep, ...) are parsed and ignored.
+act on yet (spatial, the pipeline stages) are parsed and refused by the
+driver unless off.
 """
 
 from __future__ import annotations

@@ -364,16 +364,16 @@ def test_a_preempted_run_resumes_bit_for_bit(tmp_path, monkeypatch, coastal,
     assert_dcgan_runs_equal(ref, run)
 
 
-# item 9's options that are ported now (FSDP): taken, not refused
-PORTED = {"fsdp", "fsdp_min_size"}
+# item 9's options that are ported now (FSDP, TP): taken, not refused
+PORTED = {"fsdp", "fsdp_min_size", "model_axis", "tp_min_channels"}
 
 
 @pytest.mark.parametrize("key,value,item", [
     ("model_axis", 2, 9), ("tp_min_channels", 8, 9),
     ("fsdp", True, 9), ("fsdp_min_size", 1, 9), ("spatial", True, 9)])
 def test_unported_keywords_are_refused(key, value, item, monkeypatch):
-    """The options item 9 has not ported raise, naming it; FSDP's are
-    taken (past the option checks: the data axis's)."""
+    """The options item 9 has not ported raise, naming it; FSDP's and
+    TP's are taken (past the option checks: the data axis's)."""
     if key in PORTED:
         stop = RuntimeError("past the option checks")
 

@@ -154,9 +154,14 @@ def test_a_data_axis_without_its_processes_raises(no_launcher):
                                     dict(spatial=True),
                                     dict(pipeline_stages=2)])
 def test_the_data_axis_refuses_what_item_9_ports(option, no_launcher):
-    """TP, SP and PP wait for item 9; FSDP is ported and, like the MoE's
-    expert parallelism (the next test), gets past the option checks to
-    the process group's."""
+    """SP and PP wait for item 9; FSDP and TP are ported and, like the
+    MoE's expert parallelism (the next test), get past the option checks
+    to the process group's (a model axis of 2 on a data axis of 2: four
+    processes)."""
+    if "model_axis" in option:
+        with pytest.raises(RuntimeError, match="needs 4 processes"):
+            train(dataset="synthetic", device="cpu", data_axis=2, **option)
+        return
     if "fsdp" in option:
         with pytest.raises(RuntimeError, match="needs 2 processes"):
             train(dataset="synthetic", device="cpu", data_axis=2, **option)

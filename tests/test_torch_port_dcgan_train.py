@@ -214,15 +214,15 @@ UNPORTED = [
     ("model_axis", 2, 9), ("tp_min_channels", 64, 9),
     ("fsdp", True, 9), ("fsdp_min_size", 1, 9), ("spatial", True, 9),
 ]
-# item 9's options that are ported now (FSDP): taken, not refused
-PORTED = {"fsdp", "fsdp_min_size"}
+# item 9's options that are ported now (FSDP, TP): taken, not refused
+PORTED = {"fsdp", "fsdp_min_size", "model_axis", "tp_min_channels"}
 
 
 @pytest.mark.parametrize("key,value,item", UNPORTED)
 def test_unported_keywords_raise_naming_their_item(key, value, item,
                                                    monkeypatch):
-    """The options item 9 has not ported raise, naming it; FSDP's are
-    taken (past the option checks: the data axis's)."""
+    """The options item 9 has not ported raise, naming it; FSDP's and
+    TP's are taken (past the option checks: the data axis's)."""
     if key in PORTED:
         def stopped(*args, **kwargs):
             raise RuntimeError("past the option checks")

@@ -310,15 +310,15 @@ GAT_UNPORTED = [
     ("fsdp", True, 9), ("fsdp_min_size", 1, 9), ("spatial", True, 9),
     ("pipeline_stages", 2, 9), ("pp_microbatches", 2, 9),
 ]
-# item 9's options that are ported now (FSDP): taken, not refused
-GAT_PORTED = {"fsdp", "fsdp_min_size"}
+# item 9's options that are ported now (FSDP, TP): taken, not refused
+GAT_PORTED = {"fsdp", "fsdp_min_size", "model_axis", "tp_min_channels"}
 
 
 @pytest.mark.parametrize("key,value,item", GAT_UNPORTED)
 def test_unported_driver_options_name_their_item(key, value, item,
                                                  monkeypatch):
-    """The options item 9 has not ported raise, naming it; FSDP's are
-    taken (past the option checks: the data axis's)."""
+    """The options item 9 has not ported raise, naming it; FSDP's and
+    TP's are taken (past the option checks: the data axis's)."""
     if key in GAT_PORTED:
         def stopped(*args, **kwargs):
             raise RuntimeError("past the option checks")
@@ -338,7 +338,13 @@ def test_unported_driver_options_at_their_off_values_train():
     assert sorted(k for k, _, _ in GAT_UNPORTED if k not in GAT_PORTED) \
         == sorted(gat_driver._NOT_PORTED)
     offs = {k: off for k, (off, _) in gat_driver._NOT_PORTED.items()}
-    assert offs["tp_min_channels"] == 256
+    # TP's off values are the driver's defaults now, JAX's
+    import inspect
+
+    params = inspect.signature(train).parameters
+    assert params["tp_min_channels"].default == 256
+    assert params["model_axis"].default == 1
+    offs.update(model_axis=1, tp_min_channels=256)
     model, history = train(model_type="temporal", mapping_type="conv",
                            dataset="synthetic", downsample_size=(20, 20),
                            epochs=1, max_batches=1, device="cpu", **offs)

@@ -83,6 +83,7 @@ def one_step(case: dict, axis: DataAxis | None,
         if case.get("fault"):
             for bn in batchnorms(model):
                 bn.axis = None
+        fsdp_placed([model], axis, None, case.get("tp"))
     opt = torch.optim.SGD(model.parameters(), lr=SGD_LR)
     step = gat_trainer.make_gat_train_step(model, opt, axis=axis)
     x, y = case["x"], case["y"]
@@ -95,9 +96,19 @@ def one_step(case: dict, axis: DataAxis | None,
     def f32(t):
         return t.detach().float().numpy().copy()
 
+    grads = tp_full(model, {n: p.grad for n, p in model.named_parameters()})
     return {"loss": loss.item(), "nd": f32(nd),
-            "grads": {n: f32(p.grad) for n, p in model.named_parameters()},
-            "state": {k: f32(v) for k, v in model.state_dict().items()}}
+            "grads": {n: f32(g) for n, g in grads.items()},
+            "state": {k: f32(v) for k, v in tp_full(
+                model, model.state_dict()).items()}}
+
+
+def tp_full(model, tensors: dict) -> dict:
+    """``tensors`` keyed by ``model``'s state_dict names, each tensor
+    parallelism block gathered into its full leaf (every rank calls it)."""
+    from extended_gan_torch.parallel import tensor
+
+    return tensor.full_state_dict(model, tensors)
 
 
 def steps(axis: DataAxis, payload: dict) -> dict:
@@ -215,6 +226,8 @@ def gan_step(case: dict, axis: DataAxis | None,
         if case.get("fault"):
             undo = plant_fault(case["fault"], nets, axis)
         x, y = axis.shard(x), axis.shard(y)
+        fsdp_placed(nets[1 if kind == "dcgan" else 2:], axis, None,
+                    case.get("tp"))
     opts = tuple(torch.optim.SGD(net.parameters(), lr=GAN_SGD_LR)
                  for net in nets)
     if kind == "dcgan":
@@ -227,10 +240,11 @@ def gan_step(case: dict, axis: DataAxis | None,
     if undo is not None:
         undo()
     return {"logs": {k: _f32(logs[k]) for k in GAN_LOGS[kind]},
-            "params": [{k: _f32(p) for k, p in net.named_parameters()}
-                       for net in nets],
-            "grads": [{k: _f32(p.grad) for k, p in net.named_parameters()}
-                      for net in nets],
+            "params": [{k: _f32(p) for k, p in tp_full(
+                net, dict(net.named_parameters())).items()} for net in nets],
+            "grads": [{k: _f32(p) for k, p in tp_full(net, {
+                k: p.grad for k, p in net.named_parameters()}).items()}
+                for net in nets],
             "stats": [{k: _f32(v) for k, v in net.state_dict().items()
                        if k.endswith(("running_mean", "running_var"))}
                       for net in nets]}
@@ -657,7 +671,13 @@ def _rank(fn_name, rank, size, store, payload_path, out_dir):
                             rank=rank, world_size=size)
     try:
         payload = torch.load(payload_path, weights_only=False)
-        axis = DataAxis(torch.device("cpu"), dist.group.WORLD)
+        if "mesh" in payload:  # (data, model): the ranks of both axes
+            from extended_gan_torch.parallel import data_axis_for
+
+            d, m = payload["mesh"]
+            axis = data_axis_for(d, "cpu", model_axis=m)
+        else:
+            axis = DataAxis(torch.device("cpu"), dist.group.WORLD)
         out = globals()[fn_name](axis, payload)
         torch.save(out, os.path.join(out_dir, f"rank{rank}.pt"))
     finally:
@@ -709,24 +729,31 @@ def batch(n: int, seed: int) -> tuple[np.ndarray, np.ndarray]:
 
 
 # ------------------------------------------------------------------ FSDP
-def fsdp_placed(nets, axis, min_size):
-    """``nets`` sharded over ``axis`` by FSDP at ``min_size`` (None: left
-    replicated); returns the placements."""
-    from extended_gan_torch.parallel import fsdp
+def fsdp_placed(nets, axis, min_size, tp=None):
+    """``nets`` cut over ``axis``'s model axis by tensor parallelism at
+    ``tp`` channels (None: not cut), then sharded over ``axis`` by FSDP at
+    ``min_size`` (None: left replicated); returns the FSDP placements."""
+    from extended_gan_torch.parallel import fsdp, tensor
 
-    if axis is None or min_size is None:
+    if axis is None:
+        return []
+    if tp is not None:
+        for net in nets:
+            tensor.shard_module_tp(net, axis, tp)
+    if min_size is None:
         return []
     return [fsdp.shard_module_fsdp(net, axis, min_size) for net in nets]
 
 
 def _full_trees(nets):
     """Each net's parameters and running statistics, full leaves (FSDP's
-    blocks gathered: every rank calls it), as float64."""
-    from extended_gan_torch.parallel import fsdp
+    blocks gathered, then tensor parallelism's: every rank calls it), as
+    float64."""
+    from extended_gan_torch.parallel import fsdp, tensor
 
     out = []
     for net in nets:
-        state = fsdp.full_state_dict(net)
+        state = tensor.full_state_dict(net, fsdp.full_state_dict(net))
         out.append({k: v.detach().double().numpy().copy()
                     for k, v in state.items()
                     if not k.endswith("num_batches_tracked")})
@@ -755,7 +782,11 @@ def fsdp_gan_run(case: dict, axis: DataAxis | None,
     if axis is not None:
         join_data_axis(axis, *nets)
         x, y = axis.shard(x), axis.shard(y)
+    # TP on the discriminators, as the drivers cut them
+    fsdp_placed(nets[1 if kind == "dcgan" else 2:], axis, None,
+                case.get("tp"))
     fsdp_placed(nets, axis, case.get("fsdp"))
+    undo = tp_fault(case.get("tp_fault"))
     if case.get("opt", "sgd") == "adam":
         opts = tuple(torch.optim.Adam(net.parameters(), lr=2e-4,
                                       betas=(0.5, 0.999), eps=1e-8)
@@ -777,12 +808,15 @@ def fsdp_gan_run(case: dict, axis: DataAxis | None,
             *nets, *opts, cycle_lambda=CYCLE_LAMBDA, axis=axis)
     for _ in range(case.get("steps", 1)):
         logs = step(x, y) if axis is None else step(x, y, None, n)
+    undo()
     return {"logs": {k: _f32(logs[k]).astype(np.float64)
                      for k in GAN_LOGS[kind]},
             "state": _full_trees(nets),
             "bytes": [fsdp.persistent_bytes(net, opt)
                       for net, opt in zip(nets, opts)],
-            "in_sync": 0 if axis is None else axis.check_in_sync(nets, opts)}
+            # a planted fault of tensor parallelism lets the ranks diverge
+            "in_sync": 0 if axis is None or case.get("tp_fault")
+            else axis.check_in_sync(nets, opts)}
 
 
 def fsdp_model_run(case: dict, axis: DataAxis | None,
@@ -815,10 +849,13 @@ def fsdp_model_run(case: dict, axis: DataAxis | None,
     x, y = case["x"], case["y"]
     if axis is not None:
         join_data_axis(axis, model)
+        # TP, then EP, then FSDP, as the conv-GAT driver places them
+        fsdp_placed([model], axis, None, case.get("tp"))
         shard_tree_moe_ep(model, axis)
         rows = axis.rows(len(x))
         x, y = x[rows], y[rows]
     fsdp_placed([model], axis, case.get("fsdp"))
+    undo = tp_fault(case.get("tp_fault"))
     opt = make_optimizer("adam", model.parameters(), 1e-3, weight_decay=0.01)
     fsdp.refresh_after(opt, model)
     step = gat_trainer.make_gat_train_step(
@@ -827,16 +864,39 @@ def fsdp_model_run(case: dict, axis: DataAxis | None,
     batch = [torch.from_numpy(np.asarray(a)).to(dtype)
              for a in (x, y, np.ones(len(x)))]
     losses = [step(*batch)[0].item() for _ in range(case.get("steps", 2))]
+    undo()
     state = model.state_dict()
     if axis is not None:
-        state = fsdp.full_state_dict(model, full_state_dict(model, axis))
+        from extended_gan_torch.parallel import tensor
+
+        state = tensor.full_state_dict(model, fsdp.full_state_dict(
+            model, full_state_dict(model, axis)))
     return {"losses": losses,
             "state": {k: v.detach().double().numpy().copy()
                       for k, v in state.items()
                       if not k.endswith("num_batches_tracked")},
             "sharded": len(fsdp.fsdp_shards(model)),
-            "in_sync": 0 if axis is None else axis.check_in_sync([model],
-                                                                 [opt])}
+            "bytes": fsdp.persistent_bytes(model, opt),
+            "in_sync": 0 if axis is None or case.get("tp_fault")
+            else axis.check_in_sync([model], [opt])}
+
+
+def tp_fault(fault: str | None):
+    """Tensor parallelism's planted faults: ``"gd"`` the depthwise-separable
+    conv's all-reduce of gd over the model axis dropped, ``"dx"`` a cut
+    conv's all-reduce of dx dropped. Returns the call that takes it out."""
+    from extended_gan_torch.parallel import tensor
+
+    saved = tensor._reduce_gd, tensor._reduce_dx
+    if fault == "gd":
+        tensor._reduce_gd = lambda t, group: t
+    elif fault == "dx":
+        tensor._reduce_dx = lambda t, group: t
+
+    def undo():
+        tensor._reduce_gd, tensor._reduce_dx = saved
+
+    return undo
 
 
 def fsdp_resume(axis: DataAxis, payload: dict) -> dict:
@@ -899,6 +959,69 @@ def fsdp_per_vertex_bn(case: dict, axis: DataAxis) -> dict:
     opt.step()
     return {"y": _f32(axis.gather_rows(y.detach()).flatten(0, 1)),
             "state": _full_trees([bn])}
+
+
+def tp_resume(axis: DataAxis, payload: dict) -> dict:
+    """The DCGAN driver on this (data, model) mesh (the CPU) into
+    ``payload["out"]``, checkpoints every epoch, tensor parallelism at
+    ``payload["tp"]`` channels or off (``tp_min_channels`` above every
+    width: the same mesh, no leaf cut). ``"cut"`` trains 1 epoch with TP,
+    ``"plain"`` 1 without; ``"cut_plain"`` loads TP's checkpoint without TP
+    and ``"plain_cut"`` the plain one with TP (a resume past the last
+    epoch: the state as loaded); then ``"cut"`` resumes to 2 epochs with
+    TP beside ``"whole"``, 2 epochs with TP in one run, and ``"cut_plain"``
+    and ``"plain_cut"`` resume to 2 epochs crossing. Returns each run's
+    nets' full state (``"<name> loaded"`` for the loads) and this rank's
+    block shapes."""
+    import shutil
+
+    from extended_gan_torch.parallel import tensor
+    from extended_gan_torch.train.dcgan_driver import train
+
+    d, m = axis.size, axis.model.size
+    kw = dict(payload["kw"], device="cpu", data_axis=d, model_axis=m,
+              synthetic=True)
+    out, res = payload["out"], {}
+
+    def run(name, epochs, on, resume=False, label=None):
+        nets, _ = train(**kw, epochs=epochs, resume=resume,
+                        tp_min_channels=payload["tp"] if on else 1 << 30,
+                        out_dir=os.path.join(out, name))
+        res[label or name] = {
+            "state": _full_trees(nets),
+            "blocks": [sorted(tuple(p.shape) for p in tensor.tp_blocks(net))
+                       for net in nets]}
+
+    run("cut", 1, True, label="cut 1")
+    run("plain", 1, False)
+    if axis.is_main:
+        shutil.copytree(os.path.join(out, "cut"),
+                        os.path.join(out, "cut_plain"))
+        shutil.copytree(os.path.join(out, "plain"),
+                        os.path.join(out, "plain_cut"))
+    dist.barrier()  # the copies are in place
+    run("cut_plain", 1, False, resume=True, label="cut_plain loaded")
+    run("plain_cut", 1, True, resume=True, label="plain_cut loaded")
+    run("whole", 2, True)
+    run("cut", 2, True, resume=True)
+    run("cut_plain", 2, False, resume=True)
+    run("plain_cut", 2, True, resume=True)
+    return res
+
+
+def tp_cases(axis: DataAxis, payload: dict) -> dict:
+    """Everything the tensor parallelism rank tests run on ``axis``:
+    :func:`fsdp_cases` of the payload, :func:`gan_step` of each
+    ``"gan_sgd"`` case, :func:`one_step` of each ``"sgd"`` case, then
+    :func:`tp_resume` where the payload has ``"tp_resume"``."""
+    out = fsdp_cases(axis, payload)
+    out.update({name: gan_step(case, axis)
+                for name, case in payload.get("gan_sgd", {}).items()})
+    out.update({name: one_step(case, axis)
+                for name, case in payload.get("sgd", {}).items()})
+    if "tp_resume" in payload:
+        out["tp_resume"] = tp_resume(axis, payload["tp_resume"])
+    return out
 
 
 def fsdp_cases(axis: DataAxis, payload: dict) -> dict:
